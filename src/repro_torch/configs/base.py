@@ -1,0 +1,84 @@
+"""Model configuration of the port: its own copy of the reference's
+``ModelConfig`` and ``reduced`` (``src/repro/configs/base.py``).
+
+The fields are the reference's, one for one, so a configuration can be
+compared field by field with its JAX twin. The port runs dense
+transformers only; the MoE / SSM / encoder sub-configs of the reference are
+kept as opaque optional fields and ``reduced`` refuses configs that set
+them until the slices that port those families.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str              # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0          # 0 => d_model // n_heads
+    norm: str = "rmsnorm"    # rmsnorm | layernorm
+    act: str = "swiglu"      # swiglu | gelu
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    tie_embeddings: bool = False
+    block_pattern: Tuple[str, ...] = ("dense",)
+    window: int = 0
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    encoder: Optional[Any] = None
+    n_aux_tokens: int = 0
+    long_context_window: int = 8192
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    fsdp: bool = False
+    seq_parallel_residual: bool = False
+    remat: bool = True
+    optimizer: str = "adamw"
+    attn_chunk: int = 1024
+    bottleneck_ratio: int = 4
+    quant_bits: int = 8
+    kv_quant_bits: int = 0
+    use_pallas_ssd: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    def block_types(self) -> Tuple[str, ...]:
+        """Block type of each of the n_layers layers."""
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
+            vocab: int = 512) -> ModelConfig:
+    """Reduced variant of the same family for CPU tests, as the reference's
+    ``reduced``: at most 4 heads (so qwen3-1.7b loses its GQA), f32."""
+    if cfg.moe is not None or cfg.ssm is not None or cfg.encoder is not None:
+        raise NotImplementedError(
+            "MoE, SSM and encoder configs come with the model-zoo slice")
+    d_model = min(d_model, 512)
+    n_heads = max(2, min(cfg.n_heads, 4))
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    return cfg.replace(
+        n_layers=max(n_layers, len(cfg.block_pattern)), d_model=d_model,
+        n_heads=n_heads, n_kv_heads=n_kv, d_head=d_model // n_heads,
+        d_ff=2 * d_model, vocab_size=vocab, param_dtype="float32",
+        compute_dtype="float32", fsdp=False, attn_chunk=64,
+        window=min(cfg.window, 64) if cfg.window else 0,
+        long_context_window=128,
+        n_aux_tokens=16 if cfg.n_aux_tokens else 0)

@@ -1,0 +1,34 @@
+"""Wireless uplink model (paper §3.3, Eq. 5) of ``src/repro/env/channel.py``.
+
+Channel gain g_n = d_n^-l (path-loss exponent l = 3); the uplink rate of UE
+n under interference from the other offloading UEs on its slot is
+``r_n = omega * log2(1 + p_n g_n / (sigma + sum_{i != n, same slot} p_i g_i))``.
+With ``route`` the slots are (server, channel) pairs of an edge pool and
+omega/sigma are (E, C); without it they are the (C,) channels of one server.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def channel_gain(d, pathloss=3.0):
+    return torch.pow(torch.clamp(d, min=1.0), -pathloss)
+
+
+def uplink_rates(p, c, g, transmitting, *, omega, sigma, route=None):
+    """p, g: (N,) watts / gains; c: (N,) int channel ids; transmitting:
+    (N,) bool. Returns (N,) bits/s."""
+    pg = p * g * transmitting
+    if route is None:
+        slot, n_slots = c, omega.shape[0]
+        om, sg = omega[c], sigma[c]
+    else:
+        n_ch = omega.shape[1]
+        slot, n_slots = route * n_ch + c, omega.numel()
+        om, sg = omega[route, c], sigma[route, c]
+    onehot = F.one_hot(slot.long(), n_slots).to(pg.dtype)       # (N, E*C)
+    per_slot = onehot.T @ pg                                    # total power
+    interference = per_slot[slot.long()] - pg                   # exclude self
+    sinr = (p * g) / (sg + interference)
+    return om * torch.log2(1.0 + sinr)

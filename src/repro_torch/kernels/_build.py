@@ -1,0 +1,143 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The ``csrc/*.cu`` sources have a plain C interface. At first use they are
+compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all run
+at once, then one link) into a single shared library under
+``build/repro_torch/`` at the root of the checkout, named by a hash of the
+sources and flags, and loaded with ``ctypes``. Nothing here runs at import
+time, so the CPU tests can import every module.
+
+``LAUNCHES`` counts, per kernel, the launches made by the wrappers; a
+wrapper adds one where it launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+# No --use_fast_math: the kernels' roundings must match the plain versions.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-Xcompiler", "-fPIC")
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_c = ctypes.c_void_p
+_SIGNATURES = {
+    # name: argtypes; every entry point returns cudaGetLastError() as int
+    "repro_quantize": [_c, _c, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_float, _c],
+    "repro_dequantize": [_c, _c, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_float, ctypes.c_float, _c],
+    "repro_bottleneck_encode": [_c, _c, _c, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_float, ctypes.c_float, _c],
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME/bin`` (``$CUDA_PATH``, then
+    the toolkit's default prefix, when that is unset); raises if none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or DEFAULT_CUDA_HOME
+    if (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def compile_commands(nvcc: str, objdir: Path, out: Path):
+    """(per-source compile commands, link command)."""
+    objs = [objdir / (src.stem + ".o") for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(SOURCES, objs)]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            *map(str, objs), "-o", str(out)]
+    return compiles, link
+
+
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+
+
+def build() -> Path:
+    """Compile the library if this exact source set has not been built."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        compiles, link = compile_commands(nvcc, tmp, tmp / out.name)
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            for fut in [pool.submit(_run, c) for c in compiles]:
+                fut.result()
+        _run(link)
+        os.replace(tmp / out.name, out)   # atomic: concurrent builds agree
+    return out
+
+
+def library():
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one card."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on one device "
+                             f"(CPU tensors take the plain version), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")

@@ -1,0 +1,172 @@
+"""Collaborative split serving of a transformer, ported from the single-UE
+split forward of ``examples/collaborative_serve.py``.
+
+The UE runs the embedding and layers ``0..split``, then compresses the
+boundary hidden state with the fused ``bottleneck_encode`` kernel (the AE
+encoder matmul with the Eq. 1 quantize as its epilogue). The codes cross a
+simulated uplink (``env/channel.py``). The edge dequantizes them with the
+``dequantize`` kernel (Eq. 2), decodes with the AE decoder and finishes
+layers ``split..n_layers``, the final norm and the tied head.
+
+The quirks of the reference are kept as they are: the quantization range is
+taken from the UE-side hidden state x, not from z = x W_enc (so codes
+clip); x and W_enc go to the bottleneck in f32; x_hat is cast back to x's
+dtype.
+
+  python -m repro_torch.launch.collab_serve            # qwen3-1.7b, 28 layers
+  python -m repro_torch.launch.collab_serve --requests 8 --seq 512
+
+Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch twins of
+the kernels instead.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch import full_precision_matmuls, resolve_device
+from repro_torch.configs import get_config
+from repro_torch.core.compressor import pca_init_autoencoder
+from repro_torch.env.channel import channel_gain, uplink_rates
+from repro_torch.kernels import ops
+from repro_torch.models.model import default_positions, init_params, layer_plan
+
+
+@dataclass
+class Boundary:
+    """What the UE sends: the codes and the range to dequantize them."""
+    codes: torch.Tensor
+    mn: float
+    mx: float
+    dtype: torch.dtype      # the hidden state's dtype, restored at the edge
+
+
+def boundary_hidden(model, tokens, split_layer):
+    """UE-side hidden state after layers 0..split_layer (embedding by
+    lookup, with no cast, as the reference's split forward)."""
+    positions = default_positions(*tokens.shape, tokens.device)
+    return model.run_layers(model.embed_tokens(tokens), 0, split_layer, positions)
+
+
+def ue_side(model, tokens, split_layer, ae, bits=8) -> Boundary:
+    x = boundary_hidden(model, tokens, split_layer)
+    mn, mx = float(x.min()), float(x.max())
+    codes = ops.bottleneck_encode(x.to(torch.float32), ae["enc"].to(torch.float32),
+                                  mn, mx, bits=bits)
+    return Boundary(codes, mn, mx, x.dtype)
+
+
+def edge_side(model, boundary: Boundary, split_layer, ae, bits=8):
+    z = ops.dequantize(boundary.codes, boundary.mn, boundary.mx, bits=bits)
+    x_hat = (z @ ae["dec"]).to(boundary.dtype)
+    b, s, _ = boundary.codes.shape
+    positions = default_positions(b, s, boundary.codes.device)
+    x = model.run_layers(x_hat, split_layer, model.cfg.n_layers, positions)
+    return model.logits(model.ln_f(x))
+
+
+@torch.inference_mode()
+def run_split_forward(model, cfg, tokens, split_layer, ae, bits=8):
+    """UE part -> compress -> (channel) -> decompress -> edge part.
+    Returns (logits, payload_bits)."""
+    pattern, _, _ = layer_plan(cfg)
+    if len(pattern) != 1:
+        raise ValueError("the split forward takes uniform-pattern archs")
+    boundary = ue_side(model, tokens, split_layer, ae, bits)
+    payload_bits = boundary.codes.numel() * bits
+    return edge_side(model, boundary, split_layer, ae, bits), payload_bits
+
+
+@dataclass
+class ServeResult:
+    model: torch.nn.Module
+    ae: dict
+    split: int
+    bits: int
+    requests: list = field(default_factory=list)   # token batches served
+    stats: list = field(default_factory=list)      # one dict per request
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0,
+          log=print) -> ServeResult:
+    """Build ``cfg`` with seeded random weights, split it after half its
+    layers, calibrate a PCA AE (d -> d / bottleneck_ratio) on 8 sequences
+    at the split, and answer ``requests`` requests of (batch, seq) tokens
+    through the split forward with ``quant_bits``-bit codes."""
+    device = resolve_device(device)
+    full_precision_matmuls()
+    split, ratio, bits = cfg.n_layers // 2, cfg.bottleneck_ratio, cfg.quant_bits
+    d = cfg.d_model
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    host = torch.Generator().manual_seed(seed + 9)
+    draw = lambda b: torch.randint(0, cfg.vocab_size, (b, seq), generator=host).to(device)
+
+    # Closed-form optimal linear AE: PCA of the boundary features of a
+    # calibration batch, as the reference example does.
+    feats = boundary_hidden(model, draw(8), split).reshape(-1, d).to(torch.float32)
+    ae = pca_init_autoencoder(feats, d // ratio)
+    _sync(device)
+    log(f"built {cfg.name} ({cfg.n_layers}L d={d}, {cfg.param_dtype}) and "
+        f"calibrated the AE ({d}->{d // ratio}) in {time.perf_counter() - t0:.1f} s")
+
+    # Simulated channel: one UE at 50 m sending at 0.3 W.
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    rate = float(uplink_rates(f32([0.3]), torch.tensor([0]),
+                              channel_gain(f32([50.0])), torch.tensor([True]),
+                              omega=f32([1e6]), sigma=f32([1e-9]))[0])
+
+    out = ServeResult(model, ae, split, bits)
+    for i in range(requests):
+        tokens = draw(batch)
+        ref_top1 = model(tokens).argmax(-1)
+        _sync(device)
+        t1 = time.perf_counter()
+        logits, payload_bits = run_split_forward(model, cfg, tokens, split, ae, bits)
+        _sync(device)
+        ms = 1e3 * (time.perf_counter() - t1)
+        st = {
+            "request": i, "tokens": tokens.numel(), "payload_kbit": payload_bits / 1e3,
+            "rate_R": tokens.numel() * d * 32 / payload_bits,
+            "uplink_mbps": rate / 1e6, "tx_ms": 1e3 * payload_bits / rate,
+            "top1_agree": float((logits.argmax(-1) == ref_top1).float().mean()),
+            "split_forward_ms": ms, "logits_finite": bool(torch.isfinite(logits).all()),
+            "logits_shape": tuple(logits.shape),
+        }
+        out.requests.append(tokens)
+        out.stats.append(st)
+        log(f"request {i}: payload {st['payload_kbit']:.1f} kbit, R={st['rate_R']:.0f}x, "
+            f"uplink {st['uplink_mbps']:.2f} Mb/s -> tx {st['tx_ms']:.1f} ms, "
+            f"top-1 agreement {100 * st['top1_agree']:.1f}%, "
+            f"split forward {ms:.1f} ms")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (raises when there is none)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    res = serve(get_config("qwen3-1.7b"), device=device, requests=args.requests,
+                batch=args.batch, seq=args.seq, seed=args.seed)
+    print("random weights: top-1 agreement is informative only")
+    return res
+
+
+if __name__ == "__main__":
+    main()

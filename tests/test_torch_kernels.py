@@ -1,0 +1,168 @@
+"""Parity of the port's kernel wrappers with the JAX reference kernels.
+
+On the CPU the wrappers run their plain PyTorch twins; the JAX side runs
+the Pallas kernels in interpret mode and the reference oracles. Shapes and
+tolerances are those of tests/test_kernels.py. The kernels themselves are
+held to the twins on the card by tests/test_torch_kernels_card.py and by
+chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build, bottleneck, ops, quant, ref
+
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _both(a, dtype):
+    """The same numpy values as a JAX array and a torch tensor of ``dtype``
+    (both frameworks round f32 -> bf16 to nearest even)."""
+    return jnp.asarray(a).astype(dtype), torch.from_numpy(a).to(TORCH[dtype])
+
+
+def _codes(a):
+    return np.asarray(a).astype(np.int64)
+
+
+@pytest.mark.parametrize("shape", [(17, 130), (256, 512), (3, 5, 384)])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_matches_jax(shape, bits, dtype):
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32) * 3
+    xj, xt = _both(x, dtype)
+    ours = _codes(ops.quantize(xt, -9.0, 9.0, bits=bits))
+    pallas = _codes(jops.quantize(xj, -9.0, 9.0, bits=bits, interpret=True))
+    oracle = _codes(jref.quantize_ref(xj, -9.0, 9.0, bits=bits))
+    assert ours.shape == pallas.shape == shape
+    if dtype == "float32":
+        # the same float32 steps and round-half-even on both sides
+        np.testing.assert_array_equal(ours, pallas)
+        np.testing.assert_array_equal(ours, oracle)
+    else:
+        # the reference's bf16 tolerance: values at .5 boundaries may round
+        # one code apart
+        assert np.abs(ours - pallas).max() <= 1
+        assert np.abs(ours - oracle).max() <= 1
+
+
+@pytest.mark.parametrize("bits", [4, 8, 12])
+def test_dequantize_matches_jax(bits):
+    x = np.random.default_rng(1).standard_normal((64, 257)).astype(np.float32) * 2
+    q = np.asarray(jref.quantize_ref(jnp.asarray(x), -7.0, 7.0, bits=bits))
+    qt = torch.from_numpy(q.astype(np.int32)).to(ref.code_dtype(bits))
+    ours = ops.dequantize(qt, -7.0, 7.0, bits=bits).numpy()
+    pallas = np.asarray(jops.dequantize(jnp.asarray(q), -7.0, 7.0, bits=bits,
+                                        interpret=True))
+    oracle = np.asarray(jref.dequantize_ref(jnp.asarray(q), -7.0, 7.0, bits=bits))
+    # the reference's tolerance: the kernel's association of Eq. 2 differs
+    # from the oracle's by float32 rounding
+    np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours, oracle, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ref.dequantize_ref(qt, -7.0, 7.0, bits=bits).numpy(),
+                               oracle, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_roundtrip_error_bound(out_dtype):
+    """Round-off error is at most half a quantization step (Eq. 1-2), plus
+    the bf16 rounding of the output where it is bf16."""
+    x = np.random.default_rng(2).uniform(-5.0, 5.0, (128, 256)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    for bits in (4, 8):
+        q = ops.quantize(xt, -5.0, 5.0, bits=bits)
+        d = ops.dequantize(q, -5.0, 5.0, bits=bits, out_dtype=out_dtype)
+        assert d.dtype == out_dtype
+        step = 10.0 / ((1 << bits) - 1)
+        slack = 1e-5 if out_dtype == torch.float32 else 5.0 * 2.0 ** -8
+        assert float((d.float() - xt).abs().max()) <= step / 2 + slack
+
+
+@pytest.mark.parametrize("t,d,dp", [(64, 128, 32), (513, 384, 96), (100, 260, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bottleneck_encode_matches_jax(t, d, dp, dtype):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    w = (rng.standard_normal((d, dp)) * 0.05).astype(np.float32)
+    (xj, xt), (wj, wt) = _both(x, dtype), _both(w, dtype)
+    ours = _codes(ops.bottleneck_encode(xt, wt, -4.0, 4.0))
+    pallas = _codes(jops.bottleneck_encode(xj, wj, -4.0, 4.0, interpret=True))
+    oracle = _codes(jref.bottleneck_encode_ref(xj, wj, -4.0, 4.0))
+    assert ours.shape == (t, dp)
+    # the reference's tolerance: f32 sums in another order can put a value
+    # on the other side of a .5 boundary
+    assert np.abs(ours - pallas).max() <= 1
+    assert np.abs(ours - oracle).max() <= 1
+    assert np.abs(_codes(ref.bottleneck_encode_ref(xt, wt, -4.0, 4.0)) - oracle).max() <= 1
+
+
+def test_any_shape_bottleneck_and_uint16_codes():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 16)) * 0.1).astype(np.float32)
+    codes = ops.bottleneck_encode(torch.from_numpy(x), torch.from_numpy(w),
+                                  -2.0, 2.0, bits=12)
+    assert codes.shape == (2, 3, 16) and codes.dtype == torch.uint16
+    oracle = _codes(jref.bottleneck_encode_ref(jnp.asarray(x), jnp.asarray(w),
+                                               -2.0, 2.0, bits=12))
+    assert np.abs(_codes(codes) - oracle).max() <= 1
+    np.testing.assert_array_equal(
+        _codes(ops.quantize(torch.from_numpy(x), -2.0, 2.0, bits=12)),
+        _codes(jref.quantize_ref(jnp.asarray(x), -2.0, 2.0, bits=12)))
+
+
+def test_plain_twins_are_the_cpu_path_and_count_nothing():
+    _build.reset_launches()
+    x = torch.randn(33, 70, generator=torch.Generator().manual_seed(5))
+    w = torch.randn(70, 20, generator=torch.Generator().manual_seed(6)) * 0.1
+    q = quant.quantize_2d(x, -3.0, 3.0)
+    assert torch.equal(q, quant.quantize_plain(x, -3.0, 3.0))
+    assert torch.equal(quant.dequantize_2d(q, -3.0, 3.0),
+                       quant.dequantize_plain(q, -3.0, 3.0))
+    assert torch.equal(bottleneck.bottleneck_encode(x, w, -1.0, 1.0),
+                       bottleneck.bottleneck_encode_plain(x, w, -1.0, 1.0))
+    ops.quantize(x[None], -3.0, 3.0)
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+def test_wrappers_raise_rather_than_fall_back_off_the_cpu():
+    meta = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.quantize_2d(meta, -1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.dequantize_2d(torch.empty(4, 8, dtype=torch.uint8, device="meta"),
+                            -1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        bottleneck.bottleneck_encode(meta, torch.empty(8, 2, device="meta"), -1.0, 1.0)
+    with pytest.raises(ValueError, match="chain"):
+        bottleneck.bottleneck_encode(torch.zeros(4, 8), torch.zeros(7, 2), -1.0, 1.0)
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+def test_build_finds_nvcc_or_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    assert _build.find_nvcc() == str(nvcc)
+
+
+def test_build_commands_target_sm90a_without_fast_math(tmp_path):
+    compiles, link = _build.compile_commands("nvcc", tmp_path, tmp_path / "lib.so")
+    assert len(compiles) == len(_build.SOURCES) == 2
+    for cmd in compiles + [link]:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    assert "-shared" in link
+    lib = _build.library_path()
+    assert lib.parent == _build.BUILD_DIR and lib == _build.library_path()
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")

@@ -1,0 +1,44 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+These tests need an NVIDIA card and import no JAX, so they run on the
+card's machine:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_card.py
+
+Without a card they skip (the kernels have no CPU mode).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import bottleneck, quant
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_kernels_match_plain_twins_on_card(card, dtype, bits):
+    g = torch.Generator(device=card).manual_seed(7)
+    for t, d, dp in [(1024, 2048, 512), (513, 384, 96), (100, 260, 64), (100, 257, 63)]:
+        x = torch.randn(t, d, generator=g, device=card).to(dtype)
+        w = (torch.randn(d, dp, generator=g, device=card) * 0.05).to(dtype)
+        q = quant.quantize_2d(x, -3.0, 3.0, bits=bits)
+        q_plain = quant.quantize_plain(x, -3.0, 3.0, bits=bits)
+        assert torch.equal(q, q_plain)
+        assert torch.equal(quant.dequantize_2d(q, -3.0, 3.0, bits=bits),
+                           quant.dequantize_plain(q, -3.0, 3.0, bits=bits))
+        b = bottleneck.bottleneck_encode(x, w, -4.0, 4.0, bits=bits)
+        b_plain = bottleneck.bottleneck_encode_plain(x, w, -4.0, 4.0, bits=bits)
+        assert (b.int() - b_plain.int()).abs().max().item() <= 1
+    # an x that starts 4 bytes into its buffer takes the element-wise loads
+    buf = torch.randn(96 * 256 + 1, generator=g, device=card).to(dtype)
+    x, w = buf[1:].view(96, 256), torch.randn(256, 64, generator=g, device=card).to(dtype)
+    b = bottleneck.bottleneck_encode(x, w, -4.0, 4.0, bits=bits)
+    b_plain = bottleneck.bottleneck_encode_plain(x, w, -4.0, 4.0, bits=bits)
+    assert (b.int() - b_plain.int()).abs().max().item() <= 1

@@ -1,0 +1,231 @@
+"""Parity of the port's transformer (configs, layers, attention, dense
+block, model, weight carrying) with the JAX reference, in float32 on the
+CPU. Weights come from the reference's ``init_params`` and are carried
+across by ``repro_torch.weights``; activations are made with numpy.
+
+Two configs: ``reduced(qwen3-1.7b)`` (which caps the heads at 4, so
+n_kv_heads == n_heads) and a GQA variant (4 query heads on 2 KV heads) run
+at a sequence longer than ``attn_chunk``, so the reference's chunked online
+softmax takes several chunks where the port takes one.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs.base import reduced as jreduced
+from repro.models import apply_model as japply_model
+from repro.models import attention as jattn
+from repro.models import init_params as jinit_params
+from repro.models import layers as jlayers
+from repro.models.blocks import apply_block as japply_block
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import apply_model, init_params, layer_plan
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models.blocks import make_block
+from repro_torch.weights import from_jax_params
+
+GQA = dict(n_heads=4, n_kv_heads=2, d_head=64)
+
+
+def _cfgs(kind, n_layers=2):
+    j = jreduced(jget_config("qwen3-1.7b"), n_layers=n_layers)
+    t = reduced(get_config("qwen3-1.7b"), n_layers=n_layers)
+    if kind == "gqa":
+        j, t = j.replace(**GQA), t.replace(**GQA)
+    return j, t
+
+
+_CACHE = {}
+
+
+def _setup(kind, n_layers=2):
+    """(jax cfg, port cfg, jax params, port model), built once per kind."""
+    key = (kind, n_layers)
+    if key not in _CACHE:
+        jcfg, cfg = _cfgs(kind, n_layers)
+        params = jinit_params(jcfg, jax.random.PRNGKey(0))
+        tree = jax.tree_util.tree_map(np.asarray, params)
+        _CACHE[key] = (jcfg, cfg, params, from_jax_params(tree, cfg, "cpu"))
+    return _CACHE[key]
+
+
+def _layer0(params):
+    return jax.tree_util.tree_map(lambda a: a[0], params["decoder"]["blocks"][0])
+
+
+def _x(shape, seed=0, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _np(t):
+    return t.detach().numpy()
+
+
+def _positions(b, s):
+    p = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    return jnp.asarray(p), torch.from_numpy(p.copy())
+
+
+def test_configs_match_the_reference_field_for_field():
+    for jc, tc in [(jget_config("qwen3-1.7b"), get_config("qwen3-1.7b")),
+                   _cfgs("reduced"), _cfgs("reduced", 4)]:
+        j, t = dataclasses.asdict(jc), dataclasses.asdict(tc)
+        assert j == t
+        assert jc.head_dim == tc.head_dim and jc.block_types() == tc.block_types()
+    full = get_config("qwen3-1.7b")
+    assert (full.d_model, full.n_heads, full.n_kv_heads, full.head_dim, full.d_ff,
+            full.vocab_size, full.n_layers) == (2048, 16, 8, 128, 6144, 151936, 28)
+    assert layer_plan(full) == (("dense",), 28, ())
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_apply_norm(norm):
+    x = _x((2, 5, 64), 1, 3.0)
+    scale, bias = _x((64,), 2), _x((64,), 3)
+    jcfg = jreduced(jget_config("qwen3-1.7b")).replace(norm=norm)
+    p = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+    want = np.asarray(jlayers.apply_norm(p, jnp.asarray(x), jcfg))
+    got = layers.apply_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                            torch.from_numpy(bias), norm=norm)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-5)
+
+
+def test_rms_head_norm():
+    x, scale = _x((2, 7, 4, 32), 4, 2.0), _x((32,), 5)
+    want = np.asarray(jlayers.rms_head_norm(jnp.asarray(scale), jnp.asarray(x)))
+    got = layers.rms_head_norm(torch.from_numpy(scale), torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+def test_rope_rotates_interleaved_pairs(fraction):
+    x = _x((2, 40, 3, 64), 6)
+    pj, pt = _positions(2, 40)
+    want = np.asarray(jlayers.apply_rope(jnp.asarray(x), pj, 1e6, fraction))
+    got = layers.apply_rope(torch.from_numpy(x), pt, 1e6, fraction)
+    # cos/sin of the same f32 angles from two libms
+    np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_mlp(act):
+    _, cfg = _cfgs("reduced")
+    cfg = cfg.replace(act=act)
+    jcfg = _cfgs("reduced")[0].replace(act=act)
+    d, f = cfg.d_model, cfg.d_ff
+    w = {k: _x(s, i + 10, 0.05) for i, (k, s) in
+         enumerate([("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d))])}
+    x = _x((2, 6, d), 7)
+    want = np.asarray(jlayers.apply_mlp({k: jnp.asarray(v) for k, v in w.items()},
+                                        jnp.asarray(x), jcfg))
+    mlp = layers.MLP(cfg)
+    with torch.no_grad():
+        for k, v in w.items():
+            if getattr(mlp, k) is not None:
+                getattr(mlp, k).copy_(torch.from_numpy(v))
+    np.testing.assert_allclose(_np(mlp(torch.from_numpy(x))), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["reduced", "gqa"])
+def test_qkv_and_self_attention(kind):
+    jcfg, cfg, params, model = _setup(kind)
+    p0, a0 = _layer0(params)["attn"], model.blocks[0].attn
+    b, s = 2, 80                                  # s > attn_chunk (64)
+    x = _x((b, s, cfg.d_model), 8)
+    pj, pt = _positions(b, s)
+    for want, got in zip(jattn._qkv(p0, jnp.asarray(x), jnp.asarray(x), jcfg),
+                         attn.qkv(a0, torch.from_numpy(x), torch.from_numpy(x), cfg)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
+    want, _ = jattn.self_attention(p0, jnp.asarray(x), jcfg, pj)
+    got = a0(torch.from_numpy(x), pt)
+    # one f32 softmax against the reference's two-chunk online softmax
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 24)])
+def test_attention_matches_flash_attention(causal, window):
+    b, s, hq, hkv, dh = 2, 96, 4, 2, 32
+    q, k, v = (_x((b, s, h, dh), 20 + i) for i, h in enumerate((hq, hkv, hkv)))
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    pos[1, -5:] = -1                             # invalid slots in one row
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 q_positions=jnp.asarray(pos),
+                                 k_positions=jnp.asarray(pos), causal=causal,
+                                 window=window, chunk=32)
+    tp = torch.from_numpy(pos)
+    got = attn.attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         q_positions=tp, k_positions=tp, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["reduced", "gqa"])
+def test_dense_block(kind):
+    jcfg, cfg, params, model = _setup(kind)
+    b, s = 2, 80
+    x = _x((b, s, cfg.d_model), 9)
+    pj, pt = _positions(b, s)
+    want, _, _ = japply_block(_layer0(params), jnp.asarray(x), jcfg, "dense",
+                              positions=pj, mode="train")
+    got = model.blocks[0](torch.from_numpy(x), pt)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("kind,s", [("reduced", 24), ("gqa", 80)])
+def test_apply_model(kind, s):
+    jcfg, cfg, params, model = _setup(kind)
+    tokens = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
+    want, _, _ = japply_model(params, jcfg, jnp.asarray(tokens), mode="train")
+    got = apply_model(model, torch.from_numpy(tokens).long())
+    assert got.shape == (2, s, cfg.vocab_size)
+    # f32 through two blocks, the final norm and the tied head
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=1e-4)
+    assert (_np(got).argmax(-1) == np.asarray(want).argmax(-1)).mean() > 0.99
+
+
+def test_from_jax_params_carries_every_parameter():
+    jcfg, cfg, params, model = _setup("gqa")
+    stacked = params["decoder"]["blocks"][0]
+    blk = model.blocks[1]
+    np.testing.assert_array_equal(_np(blk.attn.wk), np.asarray(stacked["attn"]["wk"][1]))
+    np.testing.assert_array_equal(_np(blk.mlp.wg), np.asarray(stacked["mlp"]["wg"][1]))
+    np.testing.assert_array_equal(_np(model.embed), np.asarray(params["embed"]))
+    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(params))
+    assert n_jax == sum(p.numel() for p in model.parameters())
+    # bf16 parameters carry across exactly
+    bcfg = cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    bparams = jinit_params(_cfgs("gqa")[0].replace(param_dtype="bfloat16"),
+                           jax.random.PRNGKey(1))
+    bmodel = from_jax_params(jax.tree_util.tree_map(np.asarray, bparams), bcfg, "cpu")
+    assert bmodel.embed.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(bmodel.embed.float()),
+                                  np.asarray(bparams["embed"]).astype(np.float32))
+
+
+def test_init_params_shapes_and_scales_match_the_reference():
+    jcfg, cfg, params, model = _setup("gqa")
+    ours = init_params(cfg, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
+    assert [p.shape for p in ours.parameters()] == [p.shape for p in model.parameters()]
+    blk = ours.blocks[0]
+    d = cfg.d_model
+    assert abs(float(blk.attn.wq.std()) - d ** -0.5) < 0.05 * d ** -0.5
+    assert abs(float(blk.mlp.wo.std()) - cfg.d_ff ** -0.5) < 0.05 * cfg.d_ff ** -0.5
+    assert abs(float(ours.embed.std()) - 0.02) < 0.002
+    assert torch.all(blk.attn.q_scale == 1) and torch.all(blk.ln1.scale == 1)
+    again = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(again.blocks[1].mlp.wi, ours.blocks[1].mlp.wi)
+
+
+def test_other_block_types_and_modes_name_their_slice():
+    _, cfg = _cfgs("reduced")
+    with pytest.raises(NotImplementedError, match="SSM slice"):
+        make_block(cfg, "mamba2")
+    with pytest.raises(NotImplementedError, match="KV-cache"):
+        apply_model(_setup("reduced")[3], torch.zeros(1, 4, dtype=torch.long),
+                    mode="decode")
