@@ -9,18 +9,23 @@ line:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch twin on the card, at the
-   serving shapes and ragged ones, in float32 and bfloat16, 4 and 8 bits;
-   then the kernel, plain and library times (CUDA events, median of 25)
-   beside the least time the card could take;
-4. small split forward: the split-serving path at a small f32 config on the
-   card (kernels) against the same model on the CPU (plain twins);
-5. serve: qwen3-1.7b at its published widths, 28 layers, bf16, seeded
-   random weights, 4 requests of (4, 256) tokens through the split forward;
-   the launch counts show every request went through bottleneck_encode and
-   dequantize, and one request's boundary codes are held to the oracle;
-6. profile: one request's device time by kernel (informative);
+   serving shapes and ragged ones, in float32 and bfloat16 (4 and 8 bits
+   for the codes); then the kernel, plain and library times (CUDA events,
+   median of 25) beside the least time the card could take;
+4. small split forwards: the split-serving path at small f32 configs of
+   qwen3-1.7b and mamba2-1.3b on the card (kernels) against the same
+   models on the CPU (plain twins);
+5. serve, the main paths: qwen3-1.7b (28 layers, bf16, 4 requests of
+   (4, 256) tokens) and mamba2-1.3b (48 layers, bf16, 4 requests of
+   (2, 1024) tokens) at their published widths with seeded random weights,
+   through the split forward; the launch counts, reset before each and
+   read after it, equal the number the path makes, and one request's
+   boundary codes are held to the oracle;
+6. profile: one request's device time by kernel, for each model
+   (informative);
 7. the kernels as one JSON line, then the result as the last line.
 """
+import collections
 import json
 import statistics
 import subprocess
@@ -39,8 +44,11 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
                    "src/repro/kernels/quant.py:83"),
     "bottleneck_encode": ("src/repro_torch/kernels/csrc/bottleneck.cu",
                           "src/repro/kernels/bottleneck.py:45"),
+    "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_intra.cu",
+                  "src/repro/kernels/ssd_intra.py:49"),
 }
-SERVE = dict(requests=4, batch=4, seq=256)
+SERVE = {"qwen3-1.7b": dict(requests=4, batch=4, seq=256),
+         "mamba2-1.3b": dict(requests=4, batch=2, seq=1024)}
 
 
 class Failed(Exception):
@@ -135,10 +143,80 @@ def phase_kernels(dev, kq, kb, ref):
     return err
 
 
-def phase_timing(dev, kq, kb):
+def ssd_inputs(dev, g, b, nc, q, h, p, n, dtype=torch.float32):
+    """Inputs of ssd_intra as the SSD mixer gives them: dt after softplus,
+    la the cumulative log decay of each chunk."""
+    xh = torch.randn((b, nc, q, h, p), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, nc, q, h), generator=g, device=dev))
+    la = -torch.cumsum(dt * 0.3, dim=2)
+    bm, cm = (torch.randn((b, nc, q, n), generator=g, device=dev).to(dtype) for _ in range(2))
+    return xh, dt, la, bm, cm
+
+
+def phase_ssd_kernel(dev, kssd, kref, serve_shape):
+    """Hold ssd_intra to its plain twin; returns the max abs error. At the
+    reference's shapes (tests/test_ssd_kernel.py) the bound is the
+    reference's elementwise rtol = atol (1e-5 in f32, 5e-2 with bf16
+    inputs); at larger N and Q f32 itself breaks that (max |y| in the
+    hundreds), so there the bound is max|kernel - plain| <= tol * max|plain|."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    shapes = [("reference", (2, 2, 16, 2, 8, 8)), ("reference", (2, 2, 32, 4, 16, 8)),
+              ("reference", (2, 2, 64, 2, 32, 16)), ("reduced Q=16", (2, 3, 16, 16, 32, 16)),
+              ("Q=200", (2, 2, 200, 3, 64, 128)), ("ragged P, N", (1, 2, 100, 2, 130, 24)),
+              ("serving", serve_shape)]
+    for kind, shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 1e-5 if dtype == torch.float32 else 5e-2
+            args = ssd_inputs(dev, g, *shape, dtype=dtype)
+            got = kssd.ssd_intra(*args)
+            want = kssd.ssd_intra_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if kind == "reference":
+                excess = float((err - tol * want.abs()).max())
+                check(excess <= tol, f"ssd_intra {shape} {dtype}: |kernel - plain| exceeds "
+                      f"{tol} + {tol}|plain| by {excess - tol:.3e}")
+                allowed = f"{tol} + {tol}|plain| elementwise"
+            else:
+                bound_err = tol * float(want.abs().max())
+                check(float(err.max()) <= bound_err, f"ssd_intra {shape} {dtype}: max error "
+                      f"{float(err.max()):.3e} > {bound_err:.3e}")
+                allowed = f"{bound_err:.3e} = {tol} max|plain|"
+            worst = max(worst, float(err.max()))
+            print(f"kernels: ssd_intra {kind} (B,NC,Q,H,P,N)={shape} {str(dtype)[6:]}: "
+                  f"max abs err {float(err.max()):.3e}, max |plain| "
+                  f"{float(want.abs().max()):.3e}, allowed {allowed}", flush=True)
+    # the kernel and the twin may sum in the same order, so also hold both
+    # to the same function in float64 at the serving shape
+    args = ssd_inputs(dev, g, *serve_shape)
+    exact = kref.ssd_intra_ref(*(a.double() for a in args))
+    scale = float(exact.abs().max())
+    k64 = float((kssd.ssd_intra(*args).double() - exact).abs().max())
+    p64 = float((kssd.ssd_intra_plain(*args).double() - exact).abs().max())
+    check(k64 <= 1e-5 * scale, f"ssd_intra serving f32: {k64:.3e} from float64 "
+          f"> 1e-5 max|y| = {1e-5 * scale:.3e}")
+    print(f"kernels: ssd_intra serving float32 against float64: kernel max abs err "
+          f"{k64:.3e}, plain {p64:.3e}, max |y| {scale:.3e}, allowed {1e-5 * scale:.3e}",
+          flush=True)
+    return worst
+
+
+def ssd_work(b, nc, q, h, p, n):
+    """(bytes, flops) the least any ssd_intra needs: each input read once,
+    the f32 output written once, and only the causal half of the (i, j)
+    pairs: W x (2 P flops per pair and head), the Gram matrix (2 N per
+    pair), the weights (about 4 per pair and head)."""
+    pairs = b * nc * q * (q + 1) // 2
+    n_bytes = 4 * b * nc * q * h * p * 2 + 4 * b * nc * q * h * 2 + 4 * b * nc * q * n * 2
+    return n_bytes, 2 * p * pairs * h + 2 * n * pairs + 4 * pairs * h
+
+
+def phase_timing(dev, kq, kb, kssd, ssd_shape):
     """Kernel, plain and library times at the serving shapes."""
     g = torch.Generator(device=dev).manual_seed(1)
-    t, d, dp = SERVE["batch"] * SERVE["seq"], 2048, 512
+    serve = SERVE["qwen3-1.7b"]
+    t, d, dp = serve["batch"] * serve["seq"], 2048, 512
     mn, mx, levels = -4.0, 4.0, 255
     z = torch.randn((t, dp), generator=g, device=dev) * 2
     codes = kq.quantize_2d(z, mn, mx)
@@ -168,28 +246,36 @@ def phase_timing(dev, kq, kb):
             library=lambda: torch.clamp(torch.round((x @ w - mn) * scale), 0,
                                         levels).to(torch.uint8),
             bound=bound(4 * t * d + 4 * d * dp + t * dp, 2 * t * d * dp + 5 * t * dp)),
+        # f32 inputs, as the SSD mixer gives them; no single PyTorch call
+        # computes this function, so it has no library yardstick
+        "ssd_intra": dict(
+            kernel=lambda: kssd.ssd_intra(*ssd_args),
+            plain=lambda: kssd.ssd_intra_plain(*ssd_args),
+            library=None,
+            bound=bound(*ssd_work(*ssd_shape))),
     }
+    ssd_args = ssd_inputs(dev, g, *ssd_shape)
     out = {}
     for name, r in rows.items():
         ms = device_ms(r["kernel"])
         plain_ms = device_ms(r["plain"])
-        library_ms = device_ms(r["library"])
+        library_ms = None if r["library"] is None else device_ms(r["library"])
         bound_ms, bound_by = r["bound"]
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
+        lib = "none" if library_ms is None else f"{library_ms:.5f} ms"
         print(f"timing: {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-              f"library {library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+              f"library {lib}, bound {bound_ms:.5f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
     return out
 
 
-def phase_small_split(dev, cs, cfg, init_params, pca):
+def phase_small_split(dev, cs, cfg, seq, init_params, pca):
     """The split forward at a small f32 config: card against CPU."""
-    cfg = cfg.replace(n_heads=4, n_kv_heads=2, d_head=64)
     cpu = torch.device("cpu")
     model_cpu = init_params(cfg, torch.Generator().manual_seed(3), cpu)
     model_dev = init_params(cfg, torch.Generator().manual_seed(3), cpu).to(dev)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 80), generator=torch.Generator().manual_seed(4))
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=torch.Generator().manual_seed(4))
     with torch.inference_mode():
         feats = cs.boundary_hidden(model_cpu, tokens, 2).reshape(-1, cfg.d_model)
         ae = pca(feats, cfg.d_model // 4)
@@ -200,31 +286,47 @@ def phase_small_split(dev, cs, cfg, init_params, pca):
         b_dev = cs.ue_side(model_dev, tokens.to(dev), 2, ae_dev)
     diff = code_diff(b_dev.codes.cpu(), b_cpu.codes)
     err = float((got.cpu() - want).abs().max())
-    check(got_bits == want_bits, f"small split forward: payload {got_bits} != {want_bits}")
-    check(diff <= 1, f"small split forward: codes differ by {diff}")
+    name = f"small split forward ({cfg.name}, {cfg.n_layers}L d={cfg.d_model}, seq {seq})"
+    check(got_bits == want_bits, f"{name}: payload {got_bits} != {want_bits}")
+    check(diff <= 1, f"{name}: codes differ by {diff}")
     # f32 through 4 blocks on two devices, plus at most one code at the boundary
-    check(err <= 2e-3, f"small split forward: logits differ by {err}")
-    print(f"small split forward: card vs CPU payload equal ({got_bits} bits), codes "
-          f"max {diff}, logits max abs diff {err:.3e}", flush=True)
+    check(err <= 2e-3, f"{name}: logits differ by {err}")
+    print(f"{name}: card vs CPU payload equal ({got_bits} bits), codes max {diff}, "
+          f"logits max abs diff {err:.3e} (bound 2e-3)", flush=True)
+
+
+def expected_launches(cfg, split, requests):
+    """The launches ``serve`` makes: the calibration batch runs layers
+    0..split; each request runs the uncompressed forward (all layers) and
+    the split forward (all layers, one encode and one dequantize)."""
+    ssd = lambda lo, hi: sum(bt == "mamba2" for bt in cfg.block_types()[lo:hi])
+    n = cfg.n_layers
+    return {"quantize": 0, "bottleneck_encode": requests, "dequantize": requests,
+            "ssd_intra": ssd(0, split) + requests * (ssd(0, n) + ssd(0, n))}
 
 
 def phase_serve(dev, cs, cfg, build_mod, kref):
+    serve = SERVE[cfg.name]
+    torch.cuda.reset_peak_memory_stats()
     build_mod.reset_launches()
     t0 = time.perf_counter()
-    res = cs.serve(cfg, device=dev, log=lambda s: print(f"serve: {s}", flush=True), **SERVE)
+    res = cs.serve(cfg, device=dev, log=lambda s: print(f"serve: {s}", flush=True), **serve)
     torch.cuda.synchronize()
     launches = dict(build_mod.LAUNCHES)
     wall = time.perf_counter() - t0
-    n = SERVE["requests"]
-    for name in ("bottleneck_encode", "dequantize"):
-        check(launches.get(name, 0) == n,
-              f"serve: {name} launched {launches.get(name, 0)} times for {n} requests")
+    n, split = serve["requests"], cfg.n_layers // 2
+    check(res.split == split, f"serve: split after layer {res.split}, expected {split}")
+    want = expected_launches(cfg, split, n)
+    for name in ROUTES:
+        check(launches.get(name, 0) == want[name],
+              f"serve {cfg.name}: {name} launched {launches.get(name, 0)} times, "
+              f"expected {want[name]} for {n} requests")
     d_prime = cfg.d_model // cfg.bottleneck_ratio
     for st in res.stats:
         check(st["logits_finite"], f"serve: request {st['request']} has non-finite logits")
-        check(st["logits_shape"] == (SERVE["batch"], SERVE["seq"], cfg.vocab_size),
+        check(st["logits_shape"] == (serve["batch"], serve["seq"], cfg.vocab_size),
               f"serve: logits shape {st['logits_shape']}")
-        check(st["payload_kbit"] * 1e3 == SERVE["batch"] * SERVE["seq"] * d_prime * 8,
+        check(st["payload_kbit"] * 1e3 == serve["batch"] * serve["seq"] * d_prime * 8,
               f"serve: payload {st['payload_kbit']} kbit")
     with torch.inference_mode():
         tokens = res.requests[0]
@@ -235,11 +337,19 @@ def phase_serve(dev, cs, cfg, build_mod, kref):
     diff = code_diff(b.codes.reshape(-1, d_prime), oracle)
     share = float((b.codes.reshape(-1, d_prime) != oracle).float().mean())
     check(diff <= 1, f"serve: boundary codes differ from the oracle by {diff}")
-    print(f"serve: {n} requests in {wall:.1f} s (build and calibration included), "
-          f"launches {launches}, boundary codes vs oracle max {diff} "
-          f"({100 * share:.4f}% differ), peak memory "
+    print(f"serve: {cfg.name} ({cfg.n_layers} layers, {cfg.param_dtype}), {n} requests of "
+          f"({serve['batch']}, {serve['seq']}) in {wall:.1f} s (calibration included), "
+          f"launches {launches} as expected, boundary codes vs oracle max {diff} "
+          f"({100 * share:.4f}% differ), logits finite {tuple(res.stats[0]['logits_shape'])}, "
+          f"payload exact, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return launches, res
+
+
+# the CUDA kernels of each port kernel, as the profiler names them
+KERNEL_NAMES = {"ssd_intra": ("gram_kernel", "intra_kernel"),
+                "bottleneck_encode": ("bottleneck_encode_kernel",),
+                "dequantize": ("dequantize_kernel",)}
 
 
 def phase_profile(cs, res):
@@ -248,6 +358,7 @@ def phase_profile(cs, res):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    name = res.model.cfg.name
     args = (res.model, res.model.cfg, res.requests[0], res.split, res.ae, res.bits)
     cs.run_split_forward(*args)
     torch.cuda.synchronize()
@@ -259,12 +370,18 @@ def phase_profile(cs, res):
     total = sum(us(e) for e in kernels)
     wall = statistics.median(st["split_forward_ms"] for st in res.stats)
     if total <= 0:
-        print("profile: the profiler saw no device time", flush=True)
+        print(f"profile: {name}: the profiler saw no device time", flush=True)
         return
-    print(f"profile: one split forward: {total / 1e3:.2f} ms of device time in "
+    print(f"profile: {name}: one split forward: {total / 1e3:.2f} ms of device time in "
           f"{sum(e.count for e in kernels)} kernel launches; median wall time "
           f"{wall:.2f} ms, so the card idles {100 * (1 - total / 1e3 / wall):.0f}% "
           f"of a request", flush=True)
+    for port_name, parts in KERNEL_NAMES.items():
+        mine = [e for e in kernels if any(p in e.key for p in parts)]
+        if mine:
+            t = sum(us(e) for e in mine)
+            print(f"profile:   {port_name}: {t / 1e3:.3f} ms, {100 * t / total:.1f}% of device "
+                  f"time, {sum(e.count for e in mine)} CUDA launches", flush=True)
     for e in sorted(kernels, key=us, reverse=True)[:8]:
         print(f"profile:   {us(e) / 1e3:8.3f} ms {100 * us(e) / total:5.1f}% "
               f"x{e.count:<4d} {e.key[:90]}", flush=True)
@@ -285,10 +402,10 @@ def main():
     from repro_torch import full_precision_matmuls
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.compressor import pca_init_autoencoder
-    from repro_torch.kernels import _build, bottleneck, quant
+    from repro_torch.kernels import _build, bottleneck, quant, ssd_intra
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import collab_serve
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, ssm
 
     full_precision_matmuls()
     dev = torch.device("cuda")
@@ -305,12 +422,28 @@ def main():
     _build.library()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    mamba = get_config("mamba2-1.3b")
+    _, n_heads, head_dim, d_state, _ = ssm.dims(mamba)
+    serve = SERVE[mamba.name]
+    ssd_shape = (serve["batch"], serve["seq"] // mamba.ssm.chunk, mamba.ssm.chunk, n_heads,
+                 head_dim, d_state)
     err = phase_kernels(dev, quant, bottleneck, kref)
-    times = phase_timing(dev, quant, bottleneck)
-    phase_small_split(dev, collab_serve, reduced(get_config("qwen3-1.7b"), n_layers=4),
-                      init_params, pca_init_autoencoder)
-    launches, res = phase_serve(dev, collab_serve, get_config("qwen3-1.7b"), _build, kref)
-    phase_profile(collab_serve, res)
+    err["ssd_intra"] = phase_ssd_kernel(dev, ssd_intra, kref, ssd_shape)
+    times = phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape)
+    qwen_small = reduced(get_config("qwen3-1.7b"), n_layers=4).replace(
+        n_heads=4, n_kv_heads=2, d_head=64)
+    phase_small_split(dev, collab_serve, qwen_small, 80, init_params, pca_init_autoencoder)
+    # seq 40 with chunk 16 leaves a ragged last chunk
+    phase_small_split(dev, collab_serve, reduced(mamba, n_layers=4), 40, init_params,
+                      pca_init_autoencoder)
+
+    launches = collections.Counter()
+    for cfg in (get_config("qwen3-1.7b"), mamba):
+        counts, res = phase_serve(dev, collab_serve, cfg, _build, kref)
+        launches.update(counts)
+        phase_profile(collab_serve, res)
+        del res
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

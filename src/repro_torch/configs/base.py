@@ -3,15 +3,25 @@
 
 The fields are the reference's, one for one, so a configuration can be
 compared field by field with its JAX twin. The port runs dense
-transformers only; the MoE / SSM / encoder sub-configs of the reference are
-kept as opaque optional fields and ``reduced`` refuses configs that set
-them until the slices that port those families.
+transformers and Mamba-2 SSMs; the MoE and encoder sub-configs of the
+reference are kept as opaque optional fields and ``reduced`` refuses
+configs that set them until the slices that port those families.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128       # N
+    d_conv: int = 4
+    expand: int = 2          # d_inner = expand * d_model
+    head_dim: int = 64       # P;  n_heads = d_inner // head_dim
+    chunk: int = 256         # SSD chunk length
+    n_groups: int = 1        # B/C groups
 
 
 @dataclass(frozen=True)
@@ -35,7 +45,7 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ("dense",)
     window: int = 0
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     encoder: Optional[Any] = None
     n_aux_tokens: int = 0
     long_context_window: int = 8192
@@ -49,6 +59,8 @@ class ModelConfig:
     bottleneck_ratio: int = 4
     quant_bits: int = 8
     kv_quant_bits: int = 0
+    # Kept so that configs compare field for field with the reference; in
+    # the port the tensor's device picks the ssd_intra kernel or its twin.
     use_pallas_ssd: bool = False
 
     @property
@@ -67,13 +79,16 @@ class ModelConfig:
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
             vocab: int = 512) -> ModelConfig:
     """Reduced variant of the same family for CPU tests, as the reference's
-    ``reduced``: at most 4 heads (so qwen3-1.7b loses its GQA), f32."""
-    if cfg.moe is not None or cfg.ssm is not None or cfg.encoder is not None:
+    ``reduced``: at most 4 heads (so qwen3-1.7b loses its GQA), f32, and an
+    SSM of d_state 16, head_dim 32, chunk 16."""
+    if cfg.moe is not None or cfg.encoder is not None:
         raise NotImplementedError(
-            "MoE, SSM and encoder configs come with the model-zoo slice")
+            "MoE and encoder configs come with the model-zoo slice")
     d_model = min(d_model, 512)
     n_heads = max(2, min(cfg.n_heads, 4))
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    ssm = (None if cfg.ssm is None else
+           dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16))
     return cfg.replace(
         n_layers=max(n_layers, len(cfg.block_pattern)), d_model=d_model,
         n_heads=n_heads, n_kv_heads=n_kv, d_head=d_model // n_heads,
@@ -81,4 +96,4 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
         compute_dtype="float32", fsdp=False, attn_chunk=64,
         window=min(cfg.window, 64) if cfg.window else 0,
         long_context_window=128,
-        n_aux_tokens=16 if cfg.n_aux_tokens else 0)
+        n_aux_tokens=16 if cfg.n_aux_tokens else 0, ssm=ssm)

@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu")
+SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # No --use_fast_math: the kernels' roundings must match the plain versions.
@@ -44,6 +44,9 @@ _SIGNATURES = {
     "repro_bottleneck_encode": [_c, _c, _c, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_float, ctypes.c_float, _c],
+    "repro_ssd_intra": [_c, _c, _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _c],
 }
 
 _lib = None

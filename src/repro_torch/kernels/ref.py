@@ -29,3 +29,15 @@ def bottleneck_encode_ref(x, w, mn, mx, bits=8):
     """Fused compressor encode: (T, d) @ (d, d') then quantize."""
     z = x.to(torch.float32) @ w.to(torch.float32)
     return quantize_ref(z, mn, mx, bits)
+
+
+def ssd_intra_ref(xh, dt, la, Bm, Cm):
+    """SSD intra-chunk oracle (mirrors models/ssm.ssd_chunked's intra part).
+    xh: (B, NC, Q, H, P); dt, la: (B, NC, Q, H); Bm, Cm: (B, NC, Q, N)."""
+    q = xh.shape[2]
+    seg = la[:, :, :, None, :] - la[:, :, None, :, :]   # (B,NC,i,j,H)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=la.device))
+    seg = torch.where(mask[None, None, :, :, None], seg, -1e30)
+    cb = torch.einsum("bcin,bcjn->bcij", Cm, Bm)
+    w = cb[..., None] * torch.exp(seg) * dt[:, :, None, :, :]
+    return torch.einsum("bcijh,bcjhp->bcihp", w, xh)

@@ -1,5 +1,5 @@
-"""Collaborative split serving of a transformer, ported from the single-UE
-split forward of ``examples/collaborative_serve.py``.
+"""Collaborative split serving of a transformer or a Mamba-2 SSM, ported
+from the single-UE split forward of ``examples/collaborative_serve.py``.
 
 The UE runs the embedding and layers ``0..split``, then compresses the
 boundary hidden state with the fused ``bottleneck_encode`` kernel (the AE
@@ -15,6 +15,7 @@ dtype.
 
   python -m repro_torch.launch.collab_serve            # qwen3-1.7b, 28 layers
   python -m repro_torch.launch.collab_serve --requests 8 --seq 512
+  python -m repro_torch.launch.collab_serve --arch mamba2-1.3b --batch 2 --seq 1024
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch twins of
 the kernels instead.
@@ -28,7 +29,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch import full_precision_matmuls, resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.compressor import pca_init_autoencoder
 from repro_torch.env.channel import channel_gain, uplink_rates
 from repro_torch.kernels import ops
@@ -154,6 +155,7 @@ def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=256)
@@ -162,7 +164,7 @@ def main(argv=None):
                     help="default: the CUDA card (raises when there is none)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    res = serve(get_config("qwen3-1.7b"), device=device, requests=args.requests,
+    res = serve(get_config(args.arch), device=device, requests=args.requests,
                 batch=args.batch, seq=args.seq, seed=args.seed)
     print("random weights: top-1 agreement is informative only")
     return res

@@ -1,15 +1,16 @@
-"""Residual blocks of the port (``src/repro/models/blocks.py``). Only the
-``"dense"`` block (attention + MLP) is ported so far."""
+"""Residual blocks of the port (``src/repro/models/blocks.py``): the
+``"dense"`` block (attention + MLP) and the ``"mamba2"`` block (SSD
+mixer)."""
 from __future__ import annotations
 
 from torch import nn
 
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Norm
+from repro_torch.models.ssm import Mamba
 
 _LATER = {
     "moe": "the MoE slice",
-    "mamba2": "the SSM slice (with the ssd_intra kernel)",
     "rec": "the hybrid (RG-LRU) slice",
     "lattn": "the hybrid (RG-LRU) slice",
     "enc": "the encoder-decoder slice",
@@ -33,9 +34,25 @@ class DenseBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
+class Mamba2Block(nn.Module):
+    """``x + mixer(ln1(x))``; the positions are not used (the SSD mixer is
+    causal by construction)."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.ln1 = Norm(cfg, device=device)
+        self.mixer = Mamba(cfg, device=device)
+
+    def forward(self, x, positions=None):
+        out, _ = self.mixer(self.ln1(x))
+        return x + out
+
+
 def make_block(cfg, btype, *, device=None):
     if btype == "dense":
         return DenseBlock(cfg, device=device)
+    if btype == "mamba2":
+        return Mamba2Block(cfg, device=device)
     if btype in _LATER:
         raise NotImplementedError(
             f"block type {btype!r} is not ported yet; it comes with {_LATER[btype]}")

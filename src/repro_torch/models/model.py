@@ -72,17 +72,18 @@ def apply_model(model, tokens, *, positions=None, mode="train"):
 @torch.no_grad()
 def init_params(cfg, generator, device):
     """A model with the reference's initializers, drawn from ``generator``
-    (which must live on ``device``): normal(0, 1/sqrt(fan_in)) matrices,
-    normal(0, 0.02) embeddings, unit norm and qk-norm scales, zero biases."""
+    (which must live on ``device``): normal(0, 1/sqrt(fan_in)) matrices
+    (the Mamba conv kernels included: fan-in d_conv), normal(0, 0.02)
+    embeddings, unit norm, qk-norm and Mamba ``D`` / ``norm_scale``, zero
+    biases, ``A_log`` and ``dt_bias``."""
     model = Model(cfg, device=device)
-    dt = dtype_of(cfg.param_dtype)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name == "embed":
-            p.copy_(embed_init(generator, p.shape, dt, device))
+            p.copy_(embed_init(generator, p.shape, p.dtype, device))
         elif p.dim() == 2:
-            p.copy_(dense_init(generator, p.shape, dt, device))
-        elif leaf in ("scale", "q_scale", "k_scale"):
+            p.copy_(dense_init(generator, p.shape, p.dtype, device))
+        elif leaf in ("scale", "q_scale", "k_scale", "D", "norm_scale"):
             p.fill_(1.0)
         else:
             p.zero_()

@@ -1,0 +1,155 @@
+"""Mamba-2 SSD (state-space duality) mixer [arXiv:2405.21060], ported from
+``src/repro/models/ssm.py``: the full-sequence forward (chunked SSD, the
+quadratic intra-chunk term through ``ops.ssd_intra`` and a linear
+inter-chunk scan). n_groups is fixed to 1 (B/C shared across heads), as in
+the mamba2-1.3b config. The projections are separate (d_in, d_out)
+matrices applied as ``x @ w``, as in the reference. All recurrence math
+runs in f32. The one-token decode comes with the decode slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dtype_of
+
+
+def dims(cfg):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    return d_inner, n_heads, s.head_dim, s.d_state, s.d_conv
+
+
+def softplus(x):
+    """``log(exp(x) + 1)`` as ``jax.nn.softplus`` computes it (logaddexp,
+    with no threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Mamba(nn.Module):
+    """The mixer's parameters, with the reference's names and layouts;
+    ``A_log``, ``D`` and ``dt_bias`` are float32 whatever ``param_dtype``."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        d = cfg.d_model
+        d_inner, h, _, n, d_conv = dims(cfg)
+        dt = dtype_of(cfg.param_dtype)
+        f32 = torch.float32
+        e = lambda shape, dtype=dt: nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+        self.cfg = cfg
+        self.wz = e((d, d_inner))
+        self.wx = e((d, d_inner))
+        self.wbc = e((d, 2 * n))
+        self.wdt = e((d, h))
+        self.conv_x = e((d_conv, d_inner))
+        self.conv_x_b = e((d_inner,))
+        self.conv_bc = e((d_conv, 2 * n))
+        self.conv_bc_b = e((2 * n,))
+        self.A_log = e((h,), f32)
+        self.D = e((h,), f32)
+        self.dt_bias = e((h,), f32)
+        self.norm_scale = e((d_inner,))
+        self.out_proj = e((d_inner, d))
+
+    def forward(self, x, state=None):
+        return apply_mamba(self, x, self.cfg, state=state)
+
+
+def _conv_seq(w, b, x, init_state=None):
+    """Depthwise causal conv over time. x: (B, L, C). Returns (y, state)."""
+    d_conv = w.shape[0]
+    pad = d_conv - 1
+    if init_state is None:
+        xpad = F.pad(x, (0, 0, pad, 0))
+    else:
+        xpad = torch.cat([init_state.to(x.dtype), x], dim=1)
+    y = sum(xpad[:, i:i + x.shape[1], :] * w[i] for i in range(d_conv))
+    return F.silu(y + b), xpad[:, -pad:, :]
+
+
+def _gated_norm(p, y, z, eps=1e-6):
+    yf = (y * F.silu(z)).to(torch.float32)
+    ms = (yf * yf).mean(-1, keepdim=True)
+    return yf * torch.rsqrt(ms + eps) * p.norm_scale.to(torch.float32)
+
+
+def ssd_chunked(xh, dth, a_log, Bm, Cm, chunk, h0=None):
+    """Chunked SSD.
+
+    xh: (B, L, H, P) inputs; dth: (B, L, H) f32 (post-softplus);
+    a_log: (B, L, H) f32 = -exp(A_log)*dt (log decay per step);
+    Bm, Cm: (B, L, N) f32; h0: (B, H, P, N) initial state or None.
+    The intra-chunk quadratic goes through ``ops.ssd_intra`` (the CUDA
+    kernel on the card, its plain twin on the CPU).
+    Returns y (B, L, H, P) f32, final state (B, H, P, N) f32.
+    """
+    b, l, h, pdim = xh.shape
+    n = Bm.shape[-1]
+    q = min(chunk, l)
+    pad = (-l) % q
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dth = F.pad(dth, (0, 0, 0, pad))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = xh.shape[1] // q
+    xh = xh.reshape(b, nc, q, h, pdim)
+    dth = dth.reshape(b, nc, q, h)
+    a_log = a_log.reshape(b, nc, q, h)
+    Bm = Bm.reshape(b, nc, q, n)
+    Cm = Cm.reshape(b, nc, q, n)
+
+    la = torch.cumsum(a_log, dim=2)                     # (B,nc,Q,H) inclusive
+    y_intra = ops.ssd_intra(xh, dth, la, Bm, Cm)
+
+    # chunk states: contribution of chunk c to the state at its end
+    last = la[:, :, -1:, :]                             # (B,nc,1,H)
+    dec_to_end = torch.exp(last - la)                   # (B,nc,Q,H)
+    st = torch.einsum("bcqh,bcqn,bcqhp->bchpn", dec_to_end * dth, Bm, xh)
+
+    # inter-chunk scan, emitting the state at each chunk's start
+    chunk_decay = torch.exp(la[:, :, -1, :])            # (B,nc,H)
+    hprev = (torch.zeros((b, h, pdim, n), dtype=torch.float32, device=xh.device)
+             if h0 is None else h0)
+    starts = []
+    for c in range(nc):
+        starts.append(hprev)
+        hprev = hprev * chunk_decay[:, c, :, None, None] + st[:, c]
+    hstart = torch.stack(starts, dim=1)                 # (B,nc,H,P,N)
+
+    # inter contribution: y_inter[i] = exp(la_i) * C_i . h_start
+    y_inter = torch.einsum("bcqh,bcqn,bchpn->bcqhp", torch.exp(la), Cm, hstart)
+    y = (y_intra + y_inter).reshape(b, nc * q, h, pdim)[:, :l]
+    return y, hprev
+
+
+def apply_mamba(p, x, cfg, *, state=None):
+    """Full-sequence forward (train/prefill). x: (B, L, d).
+    state: optional {"conv_x","conv_bc","h"} to resume. Returns
+    (out, new_state)."""
+    d_inner, h, pdim, n, _ = dims(cfg)
+    b, l, _ = x.shape
+    z = x @ p.wz
+    xs = x @ p.wx
+    bc = x @ p.wbc
+    dt = x @ p.wdt
+    cx = None if state is None else state["conv_x"]
+    cbc = None if state is None else state["conv_bc"]
+    h0 = None if state is None else state["h"]
+    xs, conv_x_state = _conv_seq(p.conv_x, p.conv_x_b, xs, cx)
+    bc, conv_bc_state = _conv_seq(p.conv_bc, p.conv_bc_b, bc, cbc)
+    Bm, Cm = torch.chunk(bc, 2, dim=-1)
+    xh = xs.reshape(b, l, h, pdim).to(torch.float32)
+    dtf = softplus(dt.to(torch.float32) + p.dt_bias)
+    a_log = -torch.exp(p.A_log) * dtf                   # (B,L,H)
+    y, hlast = ssd_chunked(xh, dtf, a_log, Bm.to(torch.float32),
+                           Cm.to(torch.float32), cfg.ssm.chunk, h0)
+    y = y + p.D[None, None, :, None] * xh
+    y = y.reshape(b, l, d_inner)
+    out = _gated_norm(p, y, z.to(torch.float32)).to(x.dtype) @ p.out_proj
+    return out, {"conv_x": conv_x_state, "conv_bc": conv_bc_state, "h": hlast}

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.blocks import _LATER
 from repro_torch.models.model import Model, layer_plan
 
 
@@ -24,27 +24,37 @@ def _tensor(a, dtype, device):
         device=device, dtype=dtype)
 
 
+_SUBMODULES = {  # uniform pattern: the stacked subtrees of its block
+    ("dense",): ("ln1", "ln2", "attn", "mlp"),
+    ("mamba2",): ("ln1", "mixer"),
+}
+
+
 @torch.no_grad()
 def from_jax_params(tree, cfg, device):
-    """The port's Model holding the reference parameters ``tree``."""
+    """The port's Model holding the reference parameters ``tree``. Each
+    parameter keeps its own dtype (the Mamba ``A_log``, ``D`` and
+    ``dt_bias`` stay float32 in a bfloat16 model)."""
     pattern, _, tail = layer_plan(cfg)
-    if pattern != ("dense",) or tail:
-        raise NotImplementedError("only uniform dense stacks are ported")
+    if pattern not in _SUBMODULES or tail:
+        later = sorted({_LATER[bt] for bt in pattern + tail if bt in _LATER})
+        raise NotImplementedError(
+            f"block pattern {pattern} (tail {tail}) is not carried yet; it comes "
+            f"with {', '.join(later) or 'the model-zoo slice'}")
     model = Model(cfg, device=device)
-    dt = dtype_of(cfg.param_dtype)
-    t = lambda a: _tensor(a, dt, device)
-    model.embed.copy_(t(tree["embed"]))
+    load = lambda param, a: param.copy_(_tensor(a, param.dtype, device))
+    load(model.embed, tree["embed"])
     if model.lm_head is not None:
-        model.lm_head.copy_(t(tree["lm_head"]))
+        load(model.lm_head, tree["lm_head"])
     dec = tree["decoder"]
     stacked = dec["blocks"][0]
     for i, blk in enumerate(model.blocks):
-        for sub, mod in (("ln1", blk.ln1), ("ln2", blk.ln2),
-                         ("attn", blk.attn), ("mlp", blk.mlp)):
+        for sub in _SUBMODULES[pattern]:
+            mod = getattr(blk, sub)
             for name, arr in stacked[sub].items():
-                getattr(mod, name).copy_(t(arr[i]))
+                load(getattr(mod, name), arr[i])
     for name, arr in dec["ln_f"].items():
-        getattr(model.ln_f, name).copy_(t(arr))
+        load(getattr(model.ln_f, name), arr)
     return model
 
 

@@ -36,15 +36,20 @@ def _example():
 
 
 def _cfgs(kind):
-    j = jreduced(jget_config("qwen3-1.7b"), n_layers=4)
-    t = reduced(get_config("qwen3-1.7b"), n_layers=4)
+    arch = "mamba2-1.3b" if kind.startswith("mamba") else "qwen3-1.7b"
+    j = jreduced(jget_config(arch), n_layers=4)
+    t = reduced(get_config(arch), n_layers=4)
+    if kind == "mamba-pallas":     # the reference through its Pallas ssd_intra
+        j, t = j.replace(use_pallas_ssd=True), t.replace(use_pallas_ssd=True)
     if kind == "gqa":
         gqa = dict(n_heads=4, n_kv_heads=2, d_head=64)
         j, t = j.replace(**gqa), t.replace(**gqa)
     return j, t
 
 
-@pytest.mark.parametrize("kind,seq", [("reduced", 16), ("gqa", 80)])
+# mamba at seq 40: chunk 16 leaves a ragged last chunk
+@pytest.mark.parametrize("kind,seq", [("reduced", 16), ("gqa", 80), ("mamba", 40),
+                                      ("mamba-pallas", 40)])
 def test_split_forward_matches_the_reference_example(kind, seq, monkeypatch):
     ex = _example()
     jcfg, cfg = _cfgs(kind)
@@ -93,8 +98,9 @@ def test_split_forward_matches_the_reference_example(kind, seq, monkeypatch):
     assert (got.numpy().argmax(-1) == np.asarray(want).argmax(-1)).mean() > 0.95
 
 
-def test_serve_answers_requests_on_the_cpu_when_asked():
-    _, cfg = _cfgs("gqa")
+@pytest.mark.parametrize("kind", ["gqa", "mamba"])
+def test_serve_answers_requests_on_the_cpu_when_asked(kind):
+    _, cfg = _cfgs(kind)
     lines = []
     res = collab_serve.serve(cfg, device="cpu", requests=2, batch=2, seq=16,
                              log=lines.append)
@@ -113,8 +119,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     _, cfg = _cfgs("reduced")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         collab_serve.serve(cfg, requests=1, batch=1, seq=4)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        collab_serve.main(["--requests", "1"])
+    for argv in (["--requests", "1"], ["--arch", "mamba2-1.3b", "--requests", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            collab_serve.main(argv)
 
 
 def test_split_forward_is_near_lossless_with_an_identity_autoencoder():

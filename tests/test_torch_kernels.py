@@ -13,7 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, bottleneck, ops, quant, ref
+from repro_torch.kernels import _build, bottleneck, ops, quant, ref, ssd_intra
 
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -139,6 +139,14 @@ def test_wrappers_raise_rather_than_fall_back_off_the_cpu():
         bottleneck.bottleneck_encode(meta, torch.empty(8, 2, device="meta"), -1.0, 1.0)
     with pytest.raises(ValueError, match="chain"):
         bottleneck.bottleneck_encode(torch.zeros(4, 8), torch.zeros(7, 2), -1.0, 1.0)
+    xh, dt, bc = (torch.empty(s, device="meta") for s in [(1, 2, 16, 2, 8), (1, 2, 16, 2),
+                                                          (1, 2, 16, 4)])
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_intra.ssd_intra(xh, dt, dt, bc, bc)
+    with pytest.raises(ValueError, match="do not agree"):
+        ssd_intra.ssd_intra(torch.zeros(1, 2, 16, 2, 8), torch.zeros(1, 2, 16, 3),
+                            torch.zeros(1, 2, 16, 3), torch.zeros(1, 2, 16, 4),
+                            torch.zeros(1, 2, 16, 4))
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -158,7 +166,7 @@ def test_build_finds_nvcc_or_raises(monkeypatch, tmp_path):
 
 def test_build_commands_target_sm90a_without_fast_math(tmp_path):
     compiles, link = _build.compile_commands("nvcc", tmp_path, tmp_path / "lib.so")
-    assert len(compiles) == len(_build.SOURCES) == 2
+    assert len(compiles) == len(_build.SOURCES) == 3
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)

@@ -10,7 +10,7 @@ Without a card they skip (the kernels have no CPU mode).
 import pytest
 import torch
 
-from repro_torch.kernels import bottleneck, quant
+from repro_torch.kernels import bottleneck, quant, ssd_intra
 
 
 @pytest.fixture
@@ -42,3 +42,33 @@ def test_kernels_match_plain_twins_on_card(card, dtype, bits):
     b = bottleneck.bottleneck_encode(x, w, -4.0, 4.0, bits=bits)
     b_plain = bottleneck.bottleneck_encode_plain(x, w, -4.0, 4.0, bits=bits)
     assert (b.int() - b_plain.int()).abs().max().item() <= 1
+
+
+def _ssd_inputs(card, g, b, nc, q, h, p, n, dtype):
+    xh = torch.randn(b, nc, q, h, p, generator=g, device=card).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, nc, q, h, generator=g, device=card))
+    la = -torch.cumsum(dt * 0.3, dim=2)
+    bm, cm = (torch.randn(b, nc, q, n, generator=g, device=card).to(dtype) for _ in range(2))
+    return xh, dt, la, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_matches_its_plain_twin_on_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(8)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    # the reference's shapes (tests/test_ssd_kernel.py): elementwise, at the
+    # reference's tolerance
+    for q, h, p, n in [(16, 2, 8, 8), (32, 4, 16, 8), (64, 2, 32, 16)]:
+        args = _ssd_inputs(card, g, 2, 2, q, h, p, n, dtype)
+        torch.testing.assert_close(ssd_intra.ssd_intra(*args), ssd_intra.ssd_intra_plain(*args),
+                                   rtol=tol, atol=tol)
+    # the reduced config's shape, a Q that is no multiple of the 64-row tile,
+    # a ragged P of three tiles with ragged N, and the serving shape: with
+    # N up to 128 f32 itself breaks an elementwise 1e-5 (max |y| in the
+    # hundreds), so the bound is relative to max |plain|
+    for b, nc, q, h, p, n in [(2, 3, 16, 16, 32, 16), (2, 2, 200, 3, 64, 128),
+                              (1, 2, 100, 2, 130, 24), (2, 4, 256, 64, 64, 128)]:
+        args = _ssd_inputs(card, g, b, nc, q, h, p, n, dtype)
+        got, want = ssd_intra.ssd_intra(*args), ssd_intra.ssd_intra_plain(*args)
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())

@@ -224,8 +224,8 @@ def test_init_params_shapes_and_scales_match_the_reference():
 
 def test_other_block_types_and_modes_name_their_slice():
     _, cfg = _cfgs("reduced")
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        make_block(cfg, "mamba2")
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        make_block(cfg, "moe")
     with pytest.raises(NotImplementedError, match="KV-cache"):
         apply_model(_setup("reduced")[3], torch.zeros(1, 4, dtype=torch.long),
                     mode="decode")
