@@ -23,10 +23,19 @@ line:
    boundary codes are held to the oracle;
 6. profile: one request's device time by kernel, for each model
    (informative);
-7. the kernels as one JSON line, then the result as the last line.
+7. scheduling kernels: pair_scorer and flat_trunk against their twins at
+   the reference's shapes and the serving ones (bitwise-equal logits for
+   equal occupancy, bit-equal dequantized trunk weights), then timed;
+8. a small scheduling run (16 UEs, 3 servers, 8 frames, the entity agent
+   through the fused scorer and the int8 trunk), card against CPU;
+9. dispatch serve, the scheduling main path: a 1024-UE fleet over the
+   3-server pool for 64 frames with each agent, its launch counts reset
+   before and read after, then one profiled frame of each agent;
+10. the kernels as one JSON line, then the result as the last line.
 """
 import collections
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,9 +55,15 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
                           "src/repro/kernels/bottleneck.py:45"),
     "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_intra.cu",
                   "src/repro/kernels/ssd_intra.py:49"),
+    "pair_scorer": ("src/repro_torch/kernels/csrc/pair_scorer.cu",
+                    "src/repro/kernels/pair_scorer.py:112"),
+    "flat_trunk": ("src/repro_torch/kernels/csrc/flat_trunk.cu",
+                   "src/repro/kernels/flat_trunk.py:54"),
 }
 SERVE = {"qwen3-1.7b": dict(requests=4, batch=4, seq=256),
          "mamba2-1.3b": dict(requests=4, batch=2, seq=1024)}
+DISPATCH = dict(n_ue=1024, n_servers=3, frames=64, seed=0, bits=8)
+TRUNK_DIMS = (19, 64, 64, 13)    # the flat trunk's published widths
 
 
 class Failed(Exception):
@@ -302,7 +317,8 @@ def expected_launches(cfg, split, requests):
     ssd = lambda lo, hi: sum(bt == "mamba2" for bt in cfg.block_types()[lo:hi])
     n = cfg.n_layers
     return {"quantize": 0, "bottleneck_encode": requests, "dequantize": requests,
-            "ssd_intra": ssd(0, split) + requests * (ssd(0, n) + ssd(0, n))}
+            "ssd_intra": ssd(0, split) + requests * (ssd(0, n) + ssd(0, n)),
+            "pair_scorer": 0, "flat_trunk": 0}
 
 
 def phase_serve(dev, cs, cfg, build_mod, kref):
@@ -349,42 +365,272 @@ def phase_serve(dev, cs, cfg, build_mod, kref):
 # the CUDA kernels of each port kernel, as the profiler names them
 KERNEL_NAMES = {"ssd_intra": ("gram_kernel", "intra_kernel"),
                 "bottleneck_encode": ("bottleneck_encode_kernel",),
-                "dequantize": ("dequantize_kernel",)}
+                "dequantize": ("dequantize_kernel",),
+                "pair_scorer": ("pair_scorer_kernel",),
+                "flat_trunk": ("flat_trunk_kernel",)}
 
 
-def phase_profile(cs, res):
-    """Device time of one request's split forward, by kernel (informative:
-    no check rests on it)."""
+def profile_device(label, fn, wall_ms, unit):
+    """Profile one call of ``fn`` (torch.profiler): device time by kernel,
+    launches and the idle share against ``wall_ms`` (informative: no check
+    rests on it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    name = res.model.cfg.name
-    args = (res.model, res.model.cfg, res.requests[0], res.split, res.ae, res.bits)
-    cs.run_split_forward(*args)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cs.run_split_forward(*args)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     us = lambda e: getattr(e, "self_device_time_total", 0.0)
     total = sum(us(e) for e in kernels)
-    wall = statistics.median(st["split_forward_ms"] for st in res.stats)
     if total <= 0:
-        print(f"profile: {name}: the profiler saw no device time", flush=True)
+        print(f"profile: {label}: the profiler saw no device time", flush=True)
         return
-    print(f"profile: {name}: one split forward: {total / 1e3:.2f} ms of device time in "
+    print(f"profile: {label}: one {unit}: {total / 1e3:.3f} ms of device time in "
           f"{sum(e.count for e in kernels)} kernel launches; median wall time "
-          f"{wall:.2f} ms, so the card idles {100 * (1 - total / 1e3 / wall):.0f}% "
-          f"of a request", flush=True)
+          f"{wall_ms:.3f} ms, so the card idles {100 * (1 - total / 1e3 / wall_ms):.0f}% "
+          f"of a {unit}", flush=True)
     for port_name, parts in KERNEL_NAMES.items():
         mine = [e for e in kernels if any(p in e.key for p in parts)]
         if mine:
             t = sum(us(e) for e in mine)
-            print(f"profile:   {port_name}: {t / 1e3:.3f} ms, {100 * t / total:.1f}% of device "
+            print(f"profile:   {port_name}: {t / 1e3:.4f} ms, {100 * t / total:.1f}% of device "
                   f"time, {sum(e.count for e in mine)} CUDA launches", flush=True)
     for e in sorted(kernels, key=us, reverse=True)[:8]:
-        print(f"profile:   {us(e) / 1e3:8.3f} ms {100 * us(e) / total:5.1f}% "
+        print(f"profile:   {us(e) / 1e3:8.4f} ms {100 * us(e) / total:5.1f}% "
               f"x{e.count:<4d} {e.key[:90]}", flush=True)
+
+
+def phase_profile(cs, res):
+    """Device time of one request's split forward, by kernel."""
+    args = (res.model, res.model.cfg, res.requests[0], res.split, res.ae, res.bits)
+    wall = statistics.median(st["split_forward_ms"] for st in res.stats)
+    profile_device(res.model.cfg.name, lambda: cs.run_split_forward(*args), wall, "request")
+
+
+# ------------------------------------------------------------- scheduling
+def scorer_inputs(dev, g, n, e, dtype=torch.float32):
+    """The pair scorer's inputs at the magnitudes of tests/test_kernels.py:
+    the observation block in ``dtype``, the weights in float32."""
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    obs = [torch.tanh(r(n, 128)), 1 + 99 * u(n), 5e7 + 4.5e8 * u(n), (u(n) < 0.7).float(),
+           0.5 + 1.5 * u(e, 3),
+           torch.tensor([3.0, 0.5, 1e-9, 0.1, 0.5, e * 2.0, 100.0, 1e-12], device=dev)]
+    return [t.to(dtype) for t in obs] + [r(4, 32) * 0.5, torch.zeros(32, device=dev),
+                                         r(163, 48) * 0.1, torch.zeros(48, device=dev),
+                                         r(48, 1) * 0.01, torch.zeros(1, device=dev)]
+
+
+def trunk_inputs(dev, g, kq, bits, dims=TRUNK_DIMS):
+    """A quantized trunk: (codes, mns, mxs, bs), the codes from the quantize
+    kernel."""
+    codes, mns, mxs, bs = [], [], [], []
+    for d_in, d_out in zip(dims, dims[1:]):
+        w = torch.randn((d_in, d_out), generator=g, device=dev) * 0.4
+        mn, mx = float(w.min()), float(w.max())
+        codes.append(kq.quantize_2d(w, mn, mx, bits=bits))
+        mns.append(mn)
+        mxs.append(mx)
+        bs.append(torch.randn((d_out,), generator=g, device=dev) * 0.1)
+    return codes, mns, mxs, bs
+
+
+def phase_dispatch_kernels(dev, kps, kft, kq):
+    """Hold pair_scorer and flat_trunk to their twins (the reference's
+    tolerances: 1e-5 in f32, 5e-2 with bf16 inputs); returns max errors."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    err = {"pair_scorer": 0.0, "flat_trunk": 0.0}
+    for n, e in [(1, 1), (7, 2), (64, 3), (300, 5), (1024, 3)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 1e-5 if dtype == torch.float32 else 5e-2
+            args = scorer_inputs(dev, g, n, e, dtype)
+            (lk, sk), (lp, sp) = kps.pair_scorer(*args), kps.pair_scorer_plain(*args)
+            torch.cuda.synchronize()
+            for got, want, what in ((lk, lp, "logits"), (sk, sp, "server embeddings")):
+                excess = float(((got - want).abs() - tol * want.abs()).max())
+                check(excess <= tol, f"pair_scorer (N,E)=({n},{e}) {dtype} {what}: "
+                      f"|kernel - plain| exceeds {tol} + {tol}|plain| by {excess - tol:.3e}")
+            worst = max(float((lk - lp).abs().max()), float((sk - sp).abs().max()))
+            err["pair_scorer"] = max(err["pair_scorer"], worst)
+            print(f"kernels: pair_scorer (N,E)=({n},{e}) {str(dtype)[6:]}: max abs err "
+                  f"{worst:.3e}, max |logit| {float(lp.abs().max()):.3e}, allowed {tol} + "
+                  f"{tol}|plain| elementwise", flush=True)
+    # the occupancy is the only coupling: equal occupancy, equal bits
+    args = scorer_inputs(dev, g, 1024, 3)
+    a1, a2 = torch.zeros(1024, device=dev), torch.zeros(1024, device=dev)
+    a1[:300], a2[-300:] = 1.0, 1.0
+    l1, _ = kps.pair_scorer(*args[:3], a1, *args[4:])
+    l2, _ = kps.pair_scorer(*args[:3], a2, *args[4:])
+    check(torch.equal(l1, l2), "pair_scorer: equal occupancy gave logits that are not bit-equal")
+    print("kernels: pair_scorer (1024,3): two masks of equal occupancy give bit-equal logits",
+          flush=True)
+    for bits in (4, 8, 12):
+        codes, mns, mxs, bs = trunk_inputs(dev, g, kq, bits)
+        # a one-layer trunk on the identity rows with a zero bias returns
+        # the kernel's dequantized weights exactly (x 1 and + 0 are exact)
+        for c, mn, mx in zip(codes, mns, mxs):
+            eye = torch.eye(c.shape[0], device=dev)
+            w_kernel = kft.flat_trunk(eye, [c], [mn], [mx], [torch.zeros(c.shape[1], device=dev)],
+                                      bits=bits)
+            w_plain = kft.dequantized_weights(c, mn, mx, bits=bits)
+            check(torch.equal(w_kernel, w_plain),
+                  f"flat_trunk {bits}b: dequantized weights not bit-equal to the twin's")
+        for rows in [(1,), (7,), (4, 8), (600,), (1024,), (10240,)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                tol = 1e-5 if dtype == torch.float32 else 5e-2
+                x = torch.randn((*rows, TRUNK_DIMS[0]), generator=g, device=dev).to(dtype)
+                x2 = x.reshape(-1, TRUNK_DIMS[0])
+                got = kft.flat_trunk(x2, codes, mns, mxs, bs, bits=bits)
+                want = kft.flat_trunk_plain(x2, codes, mns, mxs, bs, bits=bits)
+                torch.cuda.synchronize()
+                excess = float(((got - want).abs() - tol * want.abs()).max())
+                check(excess <= tol, f"flat_trunk {rows} {dtype} {bits}b: |kernel - plain| "
+                      f"exceeds {tol} + {tol}|plain| by {excess - tol:.3e}")
+                worst = float((got - want).abs().max())
+                err["flat_trunk"] = max(err["flat_trunk"], worst)
+        print(f"kernels: flat_trunk {bits}b: dequantized weights bit-equal to the twin's; "
+              f"rows 1, 7, 4x8, 600, 1024, 10240 in f32 and bf16 within the reference's "
+              f"tolerance (max abs err so far {err['flat_trunk']:.3e})", flush=True)
+    return err
+
+
+def scorer_work(n, e, d_ue=128, s_dim=32, hid=48):
+    """(bytes, flops) the least any pair scorer needs: each input read once
+    (the UE rows, three per-UE vectors, geometry, constants and weights),
+    the logits and embeddings written once; the ue term of the first layer
+    once per UE, the server rows and their term once, and per pair the edge
+    block, the hidden layer and the logit."""
+    weights = 4 * s_dim + s_dim + (d_ue + s_dim + 3) * hid + 2 * hid + 1
+    n_bytes = 4 * (n * d_ue + 3 * n + 3 * e + 8 + weights + n * e + e * s_dim)
+    flops = (2 * n * d_ue * hid + e * (2 * 4 * s_dim + 2 * s_dim * hid)
+             + n * e * (2 * 3 * hid + 2 * hid))
+    return n_bytes, flops
+
+
+def trunk_work(m, dims=TRUNK_DIMS, code_bytes=1):
+    """(bytes, flops): rows and codes read once, biases, the output written
+    once; 2 M nin nout per layer."""
+    pairs = list(zip(dims, dims[1:]))
+    n_bytes = 4 * m * dims[0] + code_bytes * sum(a * b for a, b in pairs) \
+        + 4 * sum(b for _, b in pairs) + 4 * m * dims[-1]
+    return n_bytes, 2 * m * sum(a * b for a, b in pairs)
+
+
+def phase_dispatch_timing(dev, kps, kft, kq):
+    """Kernel, plain and bound times at the serving shapes (no single
+    PyTorch call computes either function: no library time)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    n, e = DISPATCH["n_ue"], DISPATCH["n_servers"]
+    sargs = scorer_inputs(dev, g, n, e)
+    targs = trunk_inputs(dev, g, kq, DISPATCH["bits"])
+    x = {m: torch.randn((m, TRUNK_DIMS[0]), generator=g, device=dev) for m in (n, 10 * n)}
+    rows = {f"pair_scorer (N,E)=({n},{e})": ("pair_scorer", lambda: kps.pair_scorer(*sargs),
+                                             lambda: kps.pair_scorer_plain(*sargs),
+                                             scorer_work(n, e))}
+    for m in x:
+        rows[f"flat_trunk M={m}"] = ("flat_trunk", lambda m=m: kft.flat_trunk(x[m], *targs),
+                                     lambda m=m: kft.flat_trunk_plain(x[m], *targs),
+                                     trunk_work(m))
+    out = {}
+    for label, (name, kernel, plain, work) in rows.items():
+        ms, plain_ms = device_ms(kernel), device_ms(plain)
+        bound_ms, bound_by = bound(*work)
+        print(f"timing: {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library none, "
+              f"bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound",
+              flush=True)
+        if name not in out:    # the serving shape goes to the JSON line
+            out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                             bound_by=bound_by)
+    return out
+
+
+def scale_last_layers(actor, trunk, factor):
+    """Scale the last layer of every head, the scorer and the trunk, so no
+    two choices nearly tie and card and CPU must pick the same."""
+    with torch.no_grad():
+        for mlp in list(actor.heads.values()) + [actor.scorer, trunk]:
+            mlp.layers[-1].w.mul_(factor)
+            mlp.layers[-1].b.mul_(factor)
+
+
+def phase_small_dispatch(dev, ds, mahppo, quantize_flat_trunk):
+    """The scheduling path at N = 16, E = 3, 8 frames: card against CPU
+    from the same weights and states."""
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        env = ds.dispatch_env(16, 3, d)
+        actor, trunk = ds.init_agents(env, seed=3)
+        scale_last_layers(actor, trunk, 1000.0)
+        agents = {"entity": ({"entity_actor": actor}, True),
+                  "int8 trunk": ({"flat_trunk": quantize_flat_trunk(trunk)}, False)}
+        runs[d.type] = {}
+        for name, (agent, fused) in agents.items():
+            trace = []
+            st = mahppo.evaluate_policy(env, agent, frames=8, fused_scorer=fused, trace=trace)
+            runs[d.type][name] = (st, trace)
+    for name in runs["cpu"]:
+        (st_d, tr_d), (st_c, tr_c) = runs[dev.type][name], runs["cpu"][name]
+        worst, margin = 0.0, float("inf")
+        for fd, fc in zip(tr_d, tr_c):
+            for head, a in fc["actions"].items():
+                got = fd["actions"][head].cpu()
+                if head == "power":
+                    check(torch.allclose(got, a, rtol=1e-5, atol=1e-5), f"{name}: power differs")
+                else:
+                    check(torch.equal(got, a), f"small dispatch {name}: {head} actions differ")
+                    top = torch.topk(fc["dist"][head], 2, dim=-1).values
+                    margin = min(margin, float((top[:, 0] - top[:, 1]).min()))
+            for head, v in fc["dist"].items():
+                pairs = [(fd["dist"][head][k], v[k]) for k in ("mu", "log_std")] \
+                    if isinstance(v, dict) else [(fd["dist"][head], v)]
+                for got, want in pairs:
+                    excess = float(((got.cpu() - want).abs() - 1e-5 * want.abs()).max())
+                    check(excess <= 1e-5, f"small dispatch {name}: {head} differs from the CPU "
+                          f"by more than 1e-5 + 1e-5|cpu|")
+                    worst = max(worst, float((got.cpu() - want).abs().max()))
+        for k, v in st_c.items():
+            check(abs(st_d[k] - v) <= 1e-5 * abs(v), f"small dispatch {name}: {k} "
+                  f"{st_d[k]} on the card, {v} on the CPU")
+        print(f"small dispatch ({name}, N=16, E=3, 8 frames): card vs CPU actions equal "
+              f"(least top-2 margin {margin:.3e}), logits max abs diff {worst:.3e} (bound "
+              f"1e-5 + 1e-5|cpu|), summary within 1e-5 relative: completed "
+              f"{st_d['completed']:.2f}/frame, t_task {st_d['t_task']:.6f} s", flush=True)
+
+
+def phase_dispatch_serve(dev, ds, build_mod):
+    """The scheduling main path at the slice's configuration."""
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = ds.serve_dispatch(device=dev, log=lambda m: print(f"dispatch: {m}", flush=True),
+                            **DISPATCH)
+    torch.cuda.synchronize()
+    launches = dict(build_mod.LAUNCHES)
+    wall = time.perf_counter() - t0
+    frames = DISPATCH["frames"]
+    want = {name: 0 for name in ROUTES}
+    want.update(pair_scorer=frames, flat_trunk=frames, quantize=len(TRUNK_DIMS) - 1)
+    for name in ROUTES:
+        check(launches.get(name, 0) == want[name], f"dispatch: {name} launched "
+              f"{launches.get(name, 0)} times, expected {want[name]}")
+    for name, st in res.stats.items():
+        check(all(math.isfinite(v) for v in st.values()), f"dispatch {name}: {st}")
+        check(st["n_active"] == DISPATCH["n_ue"] and st["done"] == 0.0,
+              f"dispatch {name}: {st['n_active']} active, done {st['done']}")
+        check(st["t_task"] > 0 and st["e_task"] > 0, f"dispatch {name}: {st}")
+    print(f"dispatch: {DISPATCH['n_ue']} UEs x {frames} frames, both agents, in {wall:.1f} s "
+          f"(tables and quantization included), launches {launches} as expected", flush=True)
+    return launches, res
+
+
+def phase_dispatch_profile(mahppo, res):
+    """One profiled frame of each agent."""
+    for name, (agent, fused) in res.agents.items():
+        profile_device(f"dispatch {name}", lambda: mahppo.evaluate_policy(
+            res.env, agent, frames=1, fused_scorer=fused), res.stats[name]["ms_per_frame"],
+            "frame")
 
 
 def main():
@@ -402,10 +648,12 @@ def main():
     from repro_torch import full_precision_matmuls
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.compressor import pca_init_autoencoder
-    from repro_torch.kernels import _build, bottleneck, quant, ssd_intra
+    from repro_torch.kernels import _build, bottleneck, flat_trunk, pair_scorer, quant, ssd_intra
     from repro_torch.kernels import ref as kref
-    from repro_torch.launch import collab_serve
+    from repro_torch.launch import collab_serve, dispatch_serve
     from repro_torch.models import init_params, ssm
+    from repro_torch.rl import mahppo
+    from repro_torch.rl.distill import quantize_flat_trunk
 
     full_precision_matmuls()
     dev = torch.device("cuda")
@@ -430,12 +678,15 @@ def main():
     err = phase_kernels(dev, quant, bottleneck, kref)
     err["ssd_intra"] = phase_ssd_kernel(dev, ssd_intra, kref, ssd_shape)
     times = phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape)
+    err.update(phase_dispatch_kernels(dev, pair_scorer, flat_trunk, quant))
+    times.update(phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant))
     qwen_small = reduced(get_config("qwen3-1.7b"), n_layers=4).replace(
         n_heads=4, n_kv_heads=2, d_head=64)
     phase_small_split(dev, collab_serve, qwen_small, 80, init_params, pca_init_autoencoder)
     # seq 40 with chunk 16 leaves a ragged last chunk
     phase_small_split(dev, collab_serve, reduced(mamba, n_layers=4), 40, init_params,
                       pca_init_autoencoder)
+    phase_small_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk)
 
     launches = collections.Counter()
     for cfg in (get_config("qwen3-1.7b"), mamba):
@@ -444,6 +695,9 @@ def main():
         phase_profile(collab_serve, res)
         del res
         torch.cuda.empty_cache()
+    counts, res = phase_dispatch_serve(dev, dispatch_serve, _build)
+    launches.update(counts)
+    phase_dispatch_profile(mahppo, res)
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

@@ -1,0 +1,182 @@
+"""DNN decoupling: split plans and the per-split overhead tables that define
+the env's action space (paper §3.2-3.4); the port's copy of the analytic
+transformer half of ``src/repro/core/split.py`` (numpy only).
+
+A split decision b in {0, 1, ..., B+1} means:
+  b = 0    offload the raw input
+  b = k    run layers up to candidate point k on the UE, compress the
+           boundary feature with the AE (+ quantization), transmit
+  b = B+1  full local inference
+
+The CNN builders come with the CNN slice and the measured builders with
+the launch slice; this module imports no CNN code.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import overhead as oh
+
+
+@dataclasses.dataclass
+class SplitPlan:
+    name: str
+    points: List[int]            # entry k (1-based) = number of UE-side modules
+    t_local: np.ndarray          # (B+2,) cumulative UE compute latency
+    e_local: np.ndarray
+    t_comp: np.ndarray           # compressor latency at each b
+    e_comp: np.ndarray
+    f_bits: np.ndarray           # offload payload (bits); 0 for b = B+1
+    feasible: np.ndarray         # bool (B+2,)
+    device: Optional[str] = None  # UE device the tables were built for
+
+    @property
+    def n_actions(self):
+        return len(self.f_bits)
+
+
+def _finalize(name, points, rows, device=None):
+    t_l, e_l, t_c, e_c, fb, feas = (np.array([r[i] for r in rows])
+                                    for i in range(6))
+    if t_l[0] != 0.0:
+        raise ValueError(f"{name}: raw offload (b=0) must cost no UE compute")
+    if np.any(np.diff(t_l[1:-1]) < -1e-9):
+        raise ValueError(f"{name}: cumulative t_local must be monotone over "
+                         f"split points, got {t_l[1:-1]}")
+    if fb[-1] != 0.0:
+        raise ValueError(f"{name}: full-local (b=B+1) must offload 0 bits")
+    return SplitPlan(name, points, t_l, e_l, t_c, e_c, fb,
+                     feas.astype(bool), device=device)
+
+
+@dataclasses.dataclass
+class FleetPlan:
+    """Per-UE split tables of a heterogeneous fleet, padded to a shared
+    action space: index 0 = raw offload, 1..B = the UE's split points, then
+    infeasible padding, and the LAST index is always full-local."""
+    names: List[str]
+    profiles: List[oh.DeviceProfile]
+    t_local: np.ndarray          # (N, B_max+2)
+    e_local: np.ndarray
+    t_comp: np.ndarray
+    e_comp: np.ndarray
+    f_bits: np.ndarray
+    feasible: np.ndarray         # (N, B_max+2) bool; False on padding
+    p_compute: np.ndarray        # (N,) W per local compute second
+
+    @property
+    def n_ue(self):
+        return len(self.names)
+
+    @property
+    def n_actions(self):
+        return self.t_local.shape[1]
+
+
+def _pad_row(vals: np.ndarray, width: int, fill=0.0) -> np.ndarray:
+    """Pad a (B+2,) table to (width,) keeping full-local last."""
+    out = np.full((width,), fill, dtype=np.float64)
+    out[: len(vals) - 1] = vals[:-1]
+    out[-1] = vals[-1]
+    return out
+
+
+def build_fleet(plans: Sequence[SplitPlan],
+                profiles: Optional[Sequence[Union[oh.DeviceProfile,
+                                                  oh.DeviceModel]]] = None
+                ) -> FleetPlan:
+    """Stack a mix of SplitPlans into per-UE tables; padded action slots
+    are infeasible and cost nothing."""
+    if not plans:
+        raise ValueError("build_fleet needs at least one SplitPlan")
+    if profiles is None:
+        profiles = [oh.DeviceProfile.from_device(oh.JETSON_NANO)] * len(plans)
+    if len(profiles) != len(plans):
+        raise ValueError(f"{len(plans)} plans but {len(profiles)} profiles")
+    profiles = [p if isinstance(p, oh.DeviceProfile)
+                else oh.DeviceProfile.from_device(p) for p in profiles]
+    for plan, prof in zip(plans, profiles):
+        if plan.device is not None and prof.device.name != plan.device:
+            raise ValueError(
+                f"plan '{plan.name}' has tables built for {plan.device} but "
+                f"its profile is {prof.device.name}; rebuild the split table "
+                f"with ue_dev={prof.device.name}")
+    width = max(p.n_actions for p in plans)
+    stack = {f: np.stack([_pad_row(getattr(p, f), width) for p in plans])
+             for f in ("t_local", "e_local", "t_comp", "e_comp", "f_bits")}
+    feas = np.zeros((len(plans), width), dtype=bool)
+    for i, p in enumerate(plans):
+        feas[i, : p.n_actions - 1] = p.feasible[:-1]
+        feas[i, -1] = p.feasible[-1]
+    return FleetPlan(
+        names=[p.name for p in plans], profiles=list(profiles),
+        feasible=feas,
+        p_compute=np.array([pr.p_compute for pr in profiles]), **stack)
+
+
+def homogeneous_fleet(plan: SplitPlan, n_ue: int,
+                      profile: Optional[Union[oh.DeviceProfile,
+                                              oh.DeviceModel]] = None
+                      ) -> FleetPlan:
+    """N identical plans and devices; the default profile follows the
+    device the plan was built for."""
+    if profile is None:
+        if plan.device is None:
+            dev = oh.JETSON_NANO
+        elif plan.device in oh.UE_TIERS:
+            dev = oh.UE_TIERS[plan.device]
+        else:
+            raise ValueError(
+                f"plan '{plan.name}' was built for '{plan.device}', which is "
+                f"not a known UE tier {sorted(oh.UE_TIERS)}; pass an explicit "
+                f"DeviceProfile")
+        prof = oh.DeviceProfile.from_device(dev)
+    else:
+        prof = profile
+    return build_fleet([plan] * n_ue, [prof] * n_ue)
+
+
+def transformer_split_table(cfg: ModelConfig, *, seq_len=128,
+                            ue_dev=oh.PHONE_NPU, n_points=4,
+                            ae_ratio=None, quant_bits=None,
+                            batch=1) -> SplitPlan:
+    """The split table of a decoder-only stack (dense or mamba2): b = 0
+    ships the token ids, b = k runs layers [0, k) on the UE and ships the
+    AE-compressed boundary sequence (recurrent state does not cross the
+    boundary: edge-side layers rebuild their own), b = B+1 runs the whole
+    model. A split is feasible when the UE-side parameters fit UE memory.
+    The VLM and encoder-decoder extras come with the model-zoo slice."""
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(f"{cfg.family} split tables come with the model-zoo slice")
+    ae_ratio = ae_ratio or cfg.bottleneck_ratio
+    quant_bits = quant_bits or cfg.quant_bits
+    layers = oh.layer_costs(cfg, seq_len)
+    L = len(layers)
+    emb = oh.embed_costs(cfg, seq_len)
+    points = [max(1, round(L * (i + 1) / (n_points + 1)))
+              for i in range(n_points)]
+
+    embed_pb = cfg.vocab_size * cfg.d_model * 2
+    cum_fl = np.cumsum([l["flops"] for l in layers]) * batch
+    cum_pb = np.cumsum([l["param_bytes"] for l in layers])
+
+    rows = [(0.0, 0.0, 0.0, 0.0, seq_len * 32 * batch, True)]
+    d = cfg.d_model
+    dprime = max(1, d // ae_ratio)
+    for k in points:
+        fl = cum_fl[k - 1]
+        t, e = oh.module_time_energy(fl, fl / 4, ue_dev)
+        enc_fl = 2 * seq_len * d * dprime * batch
+        tc, ec = oh.module_time_energy(enc_fl, enc_fl / 4, ue_dev)
+        bits = seq_len * dprime * quant_bits * batch
+        ue_pb = embed_pb + cum_pb[k - 1]
+        rows.append((t, e, tc, ec, bits, ue_pb <= ue_dev.mem_bytes))
+    fl_full = cum_fl[-1] + emb["flops"] * batch
+    t, e = oh.module_time_energy(fl_full, fl_full / 4, ue_dev)
+    total_pb = embed_pb + cum_pb[-1] + (emb["param_bytes"] - embed_pb)
+    rows.append((t, e, 0.0, 0.0, 0.0, total_pb <= ue_dev.mem_bytes))
+    return _finalize(cfg.name, points, rows, device=ue_dev.name)

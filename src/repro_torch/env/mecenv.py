@@ -1,0 +1,481 @@
+"""Multi-agent collaborative-inference MEC environment (paper §3-4), the
+port of ``src/repro/env/mecenv.py``.
+
+State s_t = {k_t, l_t, n_t, d} (remaining tasks, remaining local seconds of
+the in-flight task, its remaining offload bits, UE distances). Actions are
+a dict keyed by the env's :class:`HybridActionSpace`
+(``{"split", "channel", "power"}``, plus ``"route"`` with an edge pool).
+Reward (Eq. 12): ``r_t = -T0 / K_t - beta * E_t / K_t``.
+
+Each frame runs three analytic phases per UE with exact carry-over: resume
+the in-flight task (local seconds, then offload bits at this frame's
+rate), run ``floor(t_rem / t_task)`` whole tasks at the new split, start
+one partial task whose remainder is the next state's ``(l, n)``. A
+transmit remainder below ``TX_EPS_BITS`` counts as sent and is reported in
+``info["eps_bits"]``. With an edge pool each offloaded whole task also
+pays ``t_edge[n, b, e]`` times the number of UEs offloading to server e.
+
+The fleet is static in this port: churn (``churn_rate``/``leave_rate`` >
+0), resampled pool geometry (``pool_ranges``, ``reset(randomize=True)``)
+and the flat ``observe`` of the per-UE actors raise ``NotImplementedError``
+naming the slice that brings them. Tables are float32 where the
+reference casts them. The state carries a ``torch.Generator`` in place of
+the reference's threefry key: eval-mode reset draws nothing, a random
+reset and every step's auto-reset draw from it (the reference draws its
+auto-reset every frame too and keeps it only when the episode ends).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import overhead as oh
+from repro_torch.core.fleets import (BITS_NORM, DIST_NORM, EDGE_SLOW_NORM,
+                                     RATE_NORM, EdgePool, pool_aggregate_features,
+                                     pool_geometry, ue_edge_work, ue_table_features)
+from repro_torch.core.split import FleetPlan, SplitPlan
+from repro_torch.env.channel import channel_gain, uplink_rates
+from repro_torch.rl.actionspace import ContinuousHead, DiscreteHead, HybridActionSpace
+
+_LATER = "comes with the port's dynamic-env slice (churn, pool geometry, flat observe)"
+_CHURN = f"UE churn {_LATER}"
+_GEOMETRY = f"resampled pool geometry {_LATER}"
+_FLAT_OBS = f"the flat observe of the per-UE actors {_LATER}"
+
+
+class EnvParams(NamedTuple):
+    l_new: torch.Tensor      # (N, B_max+2) f32 local+compression seconds per split
+    n_new: torch.Tensor      # (N, B_max+2) f32 offload bits per split
+    feasible: torch.Tensor   # (N, B_max+2) bool; False on padded actions
+    p_compute: torch.Tensor  # (N,) f32 per-UE compute power (W)
+    t0: float                # frame seconds (float32 values, kept as floats)
+    beta: float
+    omega: torch.Tensor      # (C,) single server, (E, C) edge pool
+    sigma: torch.Tensor      # (C,) / (E, C)
+    p_max: float
+    lam_tasks: float         # Poisson mean of K_n
+    d_low: float
+    d_high: float
+    n_ue: int
+    pathloss: float
+    churn_rate: float = 0.0
+    leave_rate: float = 0.0
+    server_dist: Optional[torch.Tensor] = None   # (E,) distance scale per server
+    t_edge: Optional[torch.Tensor] = None        # (N, B_max+2, E) edge seconds
+    pool_geom: Optional[torch.Tensor] = None     # (E, 3) [dist, bw, slowness]
+    omega_cell: Optional[torch.Tensor] = None    # (C,) base channel bandwidth
+    edge_work: Optional[torch.Tensor] = None     # (N, B_max+2) edge-tail FLOPs
+
+
+# per-UE featurized observation layout (observe_per_ue): widths do not
+# depend on N, B_max or E
+OBS_UE_OWN = 5
+OBS_UE_ACT = 1
+OBS_UE_DEVICE = 5
+OBS_UE_POOL = 4
+OBS_UE_FLEET = 4
+OBS_UE_DIM = OBS_UE_OWN + OBS_UE_ACT + OBS_UE_DEVICE + OBS_UE_POOL + OBS_UE_FLEET
+
+# entity-set observation layout (observe_entities)
+OBS_ENT_UE = OBS_UE_OWN + OBS_UE_ACT + OBS_UE_DEVICE + OBS_UE_FLEET
+OBS_ENT_SRV = 4             # dist scale, bw scale, slowness, UEs per slot
+OBS_ENT_EDGE = 3            # distance, clean-rate proxy, edge-service time
+
+# A remaining offload below this many bits counts as sent (absorbs float32
+# residue of n - (n / r) * r); the bits absorbed go to info["eps_bits"].
+TX_EPS_BITS = 1.0
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def per_ue(table, b):
+    """Each UE's own table entry: table (N, B+2), b (N,) -> (N,)."""
+    return torch.gather(table, 1, b.long()[:, None])[:, 0]
+
+
+def _ue_tables(plan, n_ue):
+    """(t_local, feasible, peak_flops) per UE as numpy."""
+    if isinstance(plan, FleetPlan):
+        t_loc = np.asarray(plan.t_local, np.float64)
+        feas = np.asarray(plan.feasible, bool)
+        peaks = np.array([pr.device.peak_flops for pr in plan.profiles])
+    else:
+        t_loc = np.tile(np.asarray(plan.t_local, np.float64)[None], (n_ue, 1))
+        feas = np.tile(np.asarray(plan.feasible, bool)[None], (n_ue, 1))
+        dev = oh.UE_TIERS.get(plan.device, oh.JETSON_NANO) \
+            if plan.device else oh.JETSON_NANO
+        peaks = np.full((n_ue,), dev.peak_flops)
+    return t_loc, feas, peaks
+
+
+def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
+                    n_channels=2, t0=0.5, beta=0.47, p_compute=None,
+                    omega=1e6, sigma=1e-9, p_max=0.5, lam_tasks=200.0,
+                    d_low=1.0, d_high=100.0, pathloss=3.0,
+                    churn_rate=0.0, leave_rate=0.0,
+                    pool: Optional[EdgePool] = None,
+                    pool_ranges=None, device="cpu") -> EnvParams:
+    """A SplitPlan is broadcast to ``n_ue`` identical UEs; a FleetPlan
+    gives per-UE tables and power draws. An EdgePool of more than one
+    server (or one non-default server) gives the routed action space. The
+    tables are built in numpy (float64), cast to float32 as the reference
+    casts them, and put on ``device``."""
+    if churn_rate > 0.0 or leave_rate > 0.0:
+        raise NotImplementedError(_CHURN)
+    if pool_ranges is not None:
+        raise NotImplementedError(_GEOMETRY)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    if isinstance(plan, FleetPlan):
+        n_ue = plan.n_ue
+        l_new = f32(plan.t_local + plan.t_comp)
+        n_new = f32(plan.f_bits)
+        feasible = torch.as_tensor(np.asarray(plan.feasible, bool), device=device)
+        p_vec = f32(plan.p_compute if p_compute is None else np.full((n_ue,), p_compute))
+    else:
+        l_new = f32(np.tile((plan.t_local + plan.t_comp).astype(np.float32)[None], (n_ue, 1)))
+        n_new = f32(np.tile(plan.f_bits.astype(np.float32)[None], (n_ue, 1)))
+        feasible = torch.as_tensor(np.tile(np.asarray(plan.feasible, bool)[None], (n_ue, 1)),
+                                   device=device)
+        p_vec = f32(np.full((n_ue,), 2.1 if p_compute is None else p_compute))
+
+    t_loc, feas_np, peaks = _ue_tables(plan, n_ue)
+    work = ue_edge_work(t_loc, feas_np, peaks)       # (N, B+2) float64
+    if pool is None or pool.is_single_paper_server:
+        omega_t = f32(np.full((n_channels,), np.float32(omega)))
+        sigma_t = f32(np.full((n_channels,), np.float32(sigma)))
+        server_dist = t_edge = None
+    else:
+        bw = np.array([s.bw_scale for s in pool.servers])
+        omega_t = f32(bw[:, None] * np.full((n_channels,), omega))
+        sigma_t = f32(np.full((pool.n_servers, n_channels), np.float32(sigma)))
+        server_dist = f32([s.dist_scale for s in pool.servers])
+        speed = np.array([s.edge_speed for s in pool.servers])
+        t_edge = f32(work[:, :, None] / np.where(speed > 0, speed, np.inf))
+
+    return EnvParams(
+        l_new=l_new, n_new=n_new, feasible=feasible, p_compute=p_vec,
+        t0=_f32(t0), beta=_f32(beta), omega=omega_t, sigma=sigma_t,
+        p_max=_f32(p_max), lam_tasks=_f32(lam_tasks),
+        d_low=_f32(d_low), d_high=_f32(d_high), n_ue=n_ue,
+        pathloss=_f32(pathloss), churn_rate=_f32(churn_rate),
+        leave_rate=_f32(leave_rate), server_dist=server_dist, t_edge=t_edge,
+        pool_geom=f32(pool_geometry(pool)),
+        omega_cell=f32(np.full((n_channels,), np.float32(omega))),
+        edge_work=f32(work))
+
+
+class EnvState(NamedTuple):
+    k: torch.Tensor          # (N,) remaining tasks (incl. in-flight)
+    l: torch.Tensor          # (N,) remaining local seconds of current task
+    n: torch.Tensor          # (N,) remaining offload bits of current task
+    d: torch.Tensor          # (N,) distances
+    t: torch.Tensor          # frame counter (int32)
+    gen: Optional[torch.Generator]   # draws of random and auto resets
+    active: torch.Tensor = None      # (N,) bool membership (all True: static fleet)
+
+
+def _np(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+class MECEnv:
+    """The env as plain functions on tensors, on the device of its params.
+    ``multi_server`` is fixed at construction: one paper-default server
+    runs without the routing machinery."""
+
+    def __init__(self, params: EnvParams):
+        self.params = params
+        self.device = params.l_new.device
+        self.n_actions_b = int(params.l_new.shape[1])
+        self.n_channels = int(params.omega.shape[-1])
+        self.multi_server = params.omega.dim() == 2
+        self.n_servers = int(params.omega.shape[0]) if self.multi_server else 1
+        if params.churn_rate > 0.0 or params.leave_rate > 0.0:
+            raise NotImplementedError(_CHURN)
+        self.ue_feat_dim = OBS_UE_DIM
+        dev = self.device
+        self._ue_static = torch.as_tensor(ue_table_features(
+            _np(params.l_new), _np(params.n_new), _np(params.feasible),
+            _np(params.p_compute), params.t0), device=dev)
+        self._pool_static = torch.as_tensor(pool_aggregate_features(
+            _np(params.server_dist), _np(params.omega), _np(params.t_edge),
+            _np(params.feasible), params.t0), device=dev)
+        self._min_dist_scale = 1.0 if params.server_dist is None \
+            else float(_np(params.server_dist).min())
+        self.entity_dims = {"ue": OBS_ENT_UE, "server": OBS_ENT_SRV,
+                            "edge": OBS_ENT_EDGE}
+        work = _np(params.edge_work).astype(np.float64)
+        offl_feas = _np(params.feasible)[:, :-1]
+        cnt = np.maximum(offl_feas.sum(axis=1), 1)
+        self._ue_work_mean = torch.as_tensor(
+            ((work[:, :-1] * offl_feas).sum(axis=1) / cnt).astype(np.float32), device=dev)
+        # physics constants of the fused pair scorer (layout in
+        # kernels/pair_scorer.py), float32 steps as the reference's jnp ones
+        n_srv = int(params.pool_geom.shape[0])
+        self._scorer_consts = torch.stack([
+            torch.tensor(params.pathloss), torch.tensor(params.p_max),
+            params.sigma.float().cpu().mean(),
+            params.omega_cell.float().cpu().mean() / RATE_NORM,
+            torch.tensor(params.t0), torch.tensor(float(n_srv * self.n_channels)),
+            torch.tensor(DIST_NORM), torch.tensor(1.0 / EDGE_SLOW_NORM),
+        ]).to(torch.float32).to(dev)
+        discrete = [DiscreteHead("split", self.n_actions_b),
+                    DiscreteHead("channel", self.n_channels)]
+        if self.multi_server:
+            discrete.append(DiscreteHead("route", self.n_servers))
+        self.action_space = HybridActionSpace(
+            discrete=tuple(discrete),
+            continuous=(ContinuousHead("power", 1e-4, params.p_max),),
+            masks={"split": params.feasible})
+
+    def reset(self, gen: Optional[torch.Generator] = None, *, eval_mode=False,
+              randomize=False) -> EnvState:
+        """Eval mode: k = lam_tasks and d = 50 m for every UE, nothing
+        drawn. Otherwise k ~ Poisson(lam_tasks), d ~ U(d_low, d_high), from
+        ``gen`` (on the env's device). ``gen`` stays on the state for the
+        auto-resets of ``step``."""
+        if randomize:
+            raise NotImplementedError(_GEOMETRY)
+        p = self.params
+        n, dev = p.n_ue, self.device
+        if eval_mode:
+            k = torch.full((n,), p.lam_tasks, dtype=torch.float32, device=dev)
+            d = torch.full((n,), 50.0, dtype=torch.float32, device=dev)
+        else:
+            if gen is None:
+                raise ValueError("a random reset needs a torch.Generator")
+            k, d = self._draw_tasks(gen)
+        zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+        return EnvState(k=k, l=zeros, n=zeros.clone(), d=d,
+                        t=torch.zeros((), dtype=torch.int32, device=dev), gen=gen,
+                        active=torch.ones((n,), dtype=torch.bool, device=dev))
+
+    def _draw_tasks(self, gen):
+        p = self.params
+        rate = torch.full((p.n_ue,), p.lam_tasks, dtype=torch.float32, device=self.device)
+        k = torch.poisson(rate, generator=gen)
+        u = torch.rand((p.n_ue,), generator=gen, device=self.device)
+        return k, p.d_low + u * (p.d_high - p.d_low)
+
+    def observe(self, s: EnvState):
+        raise NotImplementedError(_FLAT_OBS)
+
+    def _own_fleet(self, s: EnvState, min_dist_scale, n_slots):
+        """The own block (N, 5) and the fleet aggregates (4,) shared by the
+        per-UE and entity observations."""
+        p = self.params
+        act = s.active.to(torch.float32)
+        lam = max(p.lam_tasks, 1.0)
+        own = torch.stack([
+            s.k / lam,
+            s.l / p.t0,
+            s.n / BITS_NORM,
+            s.d / DIST_NORM,
+            s.d * min_dist_scale / DIST_NORM,
+        ], dim=1) * act[:, None]
+        n_act = torch.clamp(act.sum(), min=1.0)
+        per_slot = act.sum() / n_slots
+        fleet = torch.stack([
+            act.sum() / p.n_ue,
+            (s.k * act).sum() / (n_act * lam),
+            (s.d * act).sum() / (n_act * DIST_NORM),
+            per_slot,
+        ])
+        return own, act, fleet, per_slot
+
+    def observe_per_ue(self, s: EnvState):
+        """(N, OBS_UE_DIM) rows for a weight-shared policy: own state (5),
+        activity (1), device descriptor (5), pool aggregate (4), fleet
+        aggregates (4)."""
+        n = self.params.n_ue
+        own, act, fleet, _ = self._own_fleet(s, self._min_dist_scale,
+                                             self.n_servers * self.n_channels)
+        return torch.cat([
+            own, act[:, None], self._ue_static,
+            self._pool_static.broadcast_to((n, OBS_UE_POOL)),
+            fleet.broadcast_to((n, OBS_UE_FLEET)),
+        ], dim=1)
+
+    def _ue_rows(self, s: EnvState, geom):
+        n = self.params.n_ue
+        own, act, fleet, per_slot = self._own_fleet(
+            s, geom[:, 0].min(), geom.shape[0] * self.n_channels)
+        ue = torch.cat([own, act[:, None], self._ue_static,
+                        fleet.broadcast_to((n, OBS_UE_FLEET))], dim=1)
+        return ue, act, per_slot
+
+    def observe_entities(self, s: EnvState):
+        """Entity-set observation {"ue": (N, 15), "server": (E, 4),
+        "edge": (N, E, 3)}: UE rows, server geometry plus occupancy, and
+        UE x server distance, clean-rate proxy and edge seconds."""
+        p = self.params
+        geom = p.pool_geom
+        n_srv = geom.shape[0]
+        ue, _, per_slot = self._ue_rows(s, geom)
+        srv = torch.cat([
+            geom * torch.tensor([1.0, 1.0, 1.0 / EDGE_SLOW_NORM], device=geom.device),
+            per_slot.broadcast_to((n_srv,))[:, None],
+        ], dim=1)
+        dist_ne = s.d[:, None] * geom[None, :, 0]
+        g_ne = channel_gain(dist_ne, p.pathloss)
+        om_mean = geom[:, 1] * p.omega_cell.mean()
+        rate = om_mean[None, :] * torch.log2(1.0 + p.p_max * g_ne / p.sigma.mean()) / RATE_NORM
+        te = self._ue_work_mean[:, None] * geom[None, :, 2] / p.t0
+        edge = torch.stack([dist_ne / DIST_NORM, rate, te], dim=-1)
+        return {"ue": ue, "server": srv, "edge": edge}
+
+    def observe_entities_raw(self, s: EnvState):
+        """Kernel-path variant of ``observe_entities``: the same UE rows,
+        and in place of the (N, E, 3) edge block the raw per-UE vectors,
+        the geometry and the physics constants ``kernels.ops.pair_scorer``
+        takes."""
+        geom = self.params.pool_geom
+        ue, act, _ = self._ue_rows(s, geom)
+        return {"ue": ue, "raw": {
+            "d": s.d, "work": self._ue_work_mean, "active": act,
+            "geom": geom, "consts": self._scorer_consts}}
+
+    def action_masks(self, s: EnvState = None):
+        """{head: (N, n) bool}: the split head's per-UE table feasibility."""
+        return {"split": self.action_space.masks["split"]}
+
+    # ------------------------------------------------------------ physics
+    def _rates(self, d, c, p_tx, route, transmitting):
+        prm = self.params
+        if self.multi_server:
+            g = channel_gain(d * prm.server_dist[route], prm.pathloss)
+            r = uplink_rates(p_tx, c, g, transmitting, omega=prm.omega,
+                             sigma=prm.sigma, route=route)
+        else:
+            g = channel_gain(d, prm.pathloss)
+            r = uplink_rates(p_tx, c, g, transmitting, omega=prm.omega, sigma=prm.sigma)
+        return torch.clamp(r, min=1.0)   # 1 b/s floor
+
+    def _edge_seconds(self, b, route, offloads):
+        """Per-task edge time under processor sharing: t_edge[n, b, e]
+        times the number of UEs offloading to e."""
+        prm = self.params
+        te = prm.t_edge[torch.arange(prm.n_ue, device=b.device), b, route]
+        load = F.one_hot(route, self.n_servers).to(te.dtype).T @ offloads.to(te.dtype)
+        return te * torch.clamp(load[route], min=1.0), load
+
+    def step(self, s: EnvState, actions):
+        """actions: (N,) int per discrete head, (N,) physical watts for
+        "power" (clamped here). Returns (next_state, reward, done, info),
+        all tensors on the env's device."""
+        prm = self.params
+        a = self.action_space.clip(actions)
+        b, c, p_tx = a["split"].long(), a["channel"].long(), a["power"]
+        route = a["route"].long() if self.multi_server else None
+        act = s.active
+        has_work = (s.k > 0) & act
+        l_new = per_ue(prm.l_new, b)
+        n_new = per_ue(prm.n_new, b)
+        offloads = ((s.n > 0) | (n_new > 0)) & has_work
+        r = self._rates(s.d, c, p_tx, route, offloads)
+        hw = has_work.to(torch.float32)
+
+        t_rem = torch.full_like(s.l, prm.t0)
+        energy = torch.zeros_like(s.l)
+        completed = torch.zeros_like(s.l)
+
+        # phase 1: the carried task, resumed where the last frame left it
+        dt_l = torch.minimum(s.l, t_rem) * hw
+        t_rem = t_rem - dt_l
+        energy = energy + dt_l * prm.p_compute
+        l1 = s.l - dt_l
+        tx_time = torch.where(l1 <= 0, torch.minimum(s.n / r, t_rem), 0.0) * hw
+        n1 = s.n - tx_time * r
+        eps_bits = torch.clamp(n1, min=0.0) * (n1 < TX_EPS_BITS)
+        n1 = torch.where(n1 < TX_EPS_BITS, 0.0, n1)
+        t_rem = t_rem - tx_time
+        energy = energy + tx_time * p_tx
+        carried = has_work & (s.l + s.n > 0)
+        done_carry = carried & (l1 <= 0) & (n1 <= 0)
+        carry_open = carried & ~done_carry
+        completed = completed + done_carry
+        k1 = s.k - done_carry.to(torch.float32)
+
+        # phase 2: whole new tasks at the new split b
+        t_task = l_new + n_new / r
+        server_load = None
+        if self.multi_server:
+            te_eff, server_load = self._edge_seconds(b, route, offloads)
+            t_task = t_task + te_eff
+        can = (k1 > 0) & (t_task > 0) & act
+        m = torch.where(can, torch.floor(t_rem / torch.clamp(t_task, min=1e-9)), 0.0)
+        m = torch.minimum(m, k1)
+        completed = completed + m
+        k2 = k1 - m
+        t_rem = t_rem - m * t_task
+        energy = energy + m * (l_new * prm.p_compute + (n_new / r) * p_tx)
+
+        # phase 3: start one partial task (it must have some work)
+        start = (k2 > 0) & (t_rem > 0) & (l_new + n_new > 0) & act
+        st = start.to(torch.float32)
+        dt_l2 = torch.minimum(l_new, t_rem) * st
+        t_rem2 = t_rem - dt_l2
+        energy = energy + dt_l2 * prm.p_compute
+        l2 = torch.where(start, l_new - dt_l2, 0.0)
+        tx2 = torch.where(start & (l2 <= 0), torch.minimum(n_new / r, t_rem2), 0.0)
+        n2 = torch.where(start, n_new - tx2 * r, 0.0)
+        eps_bits = eps_bits + torch.clamp(n2, min=0.0) * st * (n2 < TX_EPS_BITS)
+        n2 = torch.where(n2 < TX_EPS_BITS, 0.0, n2)
+        energy = energy + tx2 * p_tx
+        finished_partial = start & (l2 <= 0) & (n2 <= 0)
+        completed = completed + finished_partial
+        k3 = k2 - finished_partial.to(torch.float32)
+        l2 = torch.where(finished_partial, 0.0, l2)
+        n2 = torch.where(finished_partial, 0.0, n2)
+
+        # the open carry-over's remainder takes precedence (it left t_rem 0)
+        l_nxt = torch.where(carry_open, l1, l2)
+        n_nxt = torch.where(carry_open, n1, n2)
+
+        k_t = completed.sum()
+        e_t = energy.sum()
+        k_div = torch.clamp(k_t, min=1.0)
+        # a tensor numerator: ``scalar / tensor`` would multiply by 1 / k
+        reward = torch.full_like(k_div, -prm.t0) / k_div - prm.beta * e_t / k_div
+
+        done = torch.all(k3 <= 0)
+        # auto-reset on termination, drawn every frame as the reference does
+        fresh_k, fresh_d = self._draw_tasks(s.gen)
+        zeros = torch.zeros_like(k3)
+        nxt = EnvState(
+            k=torch.where(done, fresh_k, k3),
+            l=torch.where(done, zeros, l_nxt),
+            n=torch.where(done, zeros, n_nxt),
+            d=torch.where(done, fresh_d, s.d),
+            t=torch.where(done, torch.zeros_like(s.t), s.t + 1),
+            gen=s.gen,
+            active=torch.where(done, torch.ones_like(act), act))
+        zero = torch.zeros((), dtype=torch.float32, device=k3.device)
+        info = {"completed": k_t, "energy": e_t, "rate_mean": r.mean(),
+                "offloads": offloads.sum(), "n_active": act.sum(),
+                "spawned": zero, "dropped": zero, "eps_bits": eps_bits.sum()}
+        if self.multi_server:
+            info["server_load"] = server_load
+        return nxt, reward, done, info
+
+    def task_overhead(self, s: EnvState, actions):
+        """Realized per-task latency and energy vectors (Eq. 7/8) of each
+        UE under this frame's joint interference and, with a pool, the
+        routed servers' shared compute."""
+        prm = self.params
+        a = self.action_space.clip(actions)
+        b, c, p_tx = a["split"].long(), a["channel"].long(), a["power"]
+        route = a["route"].long() if self.multi_server else None
+        l_b = per_ue(prm.l_new, b)
+        n_b = per_ue(prm.n_new, b)
+        offl = (n_b > 0) & s.active
+        r = self._rates(s.d, c, p_tx, route, offl)
+        te_eff = None
+        if self.multi_server:
+            te_eff, _ = self._edge_seconds(b, route, offl)
+        return oh.task_latency_energy(l_b, n_b, r, prm.p_compute, p_tx, te_eff)

@@ -25,7 +25,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu")
+SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
+           CSRC / "pair_scorer.cu", CSRC / "flat_trunk.cu")
+HEADERS = (CSRC / "quant.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # No --use_fast_math: the kernels' roundings must match the plain versions.
@@ -47,6 +49,13 @@ _SIGNATURES = {
     "repro_ssd_intra": [_c, _c, _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _c],
+    "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 5 + [_c],
+    # the descriptor arrays are host arrays: widths, code and bias pointers,
+    # and each layer's (mn, mx)
+    "repro_flat_trunk": [_c, _c, ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
+                         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float),
+                         ctypes.POINTER(ctypes.c_float), ctypes.c_int, _c],
 }
 
 _lib = None
@@ -72,7 +81,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"

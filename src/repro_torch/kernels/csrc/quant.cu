@@ -12,9 +12,9 @@
 // Numerics match the plain PyTorch twins in kernels/quant.py bit for bit:
 //   * rintf rounds half to even, as jnp.round and torch.round do;
 //   * every step uses an explicitly rounded intrinsic (__fsub_rn, __fmul_rn,
-//     __fadd_rn, __fdiv_rn), so nvcc cannot contract dequantize's
-//     y * step + mn into an FMA, whose single rounding would differ from the
-//     two roundings of the plain version.
+//     __fadd_rn, __fdiv_rn; dequantize's are in quant.cuh), so nvcc cannot
+//     contract y * step + mn into an FMA, whose single rounding would
+//     differ from the two roundings of the plain version.
 //
 // C interface for ctypes: pointers as void*, the CUDA stream as void*, and
 // the return value is cudaGetLastError() after the launch. Nothing is
@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "quant.cuh"
 
 namespace {
 
@@ -53,10 +55,10 @@ __global__ void quantize_kernel(const In* __restrict__ x, Code* __restrict__ y,
 template <typename Code, typename Out>
 __global__ void dequantize_kernel(const Code* __restrict__ y, Out* __restrict__ out,
                                   long long n, float mn, float mx, float levels) {
-  const float step = __fdiv_rn(__fsub_rn(mx, mn), levels);
+  const float step = dequant_step(mn, mx, levels);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    store_f32(out, i, __fadd_rn(__fmul_rn((float)y[i], step), mn));
+    store_f32(out, i, dequant_value((float)y[i], step, mn));
   }
 }
 

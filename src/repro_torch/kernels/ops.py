@@ -1,6 +1,8 @@
 """Any-shape wrappers around the port's kernels, as ``src/repro/kernels/
 ops.py``: flatten the leading dims, call the 2-D wrapper, reshape back
-(``ssd_intra`` takes its 5-D layout as it is, made contiguous).
+(``ssd_intra`` takes its 5-D layout as it is, made contiguous), or unpack
+the reference's parameter and observation dicts (``pair_scorer``,
+``flat_trunk``).
 
 Which implementation runs follows the tensor's device only: the CUDA kernel
 for a CUDA tensor, the plain PyTorch twin for a CPU tensor.
@@ -10,6 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bottleneck as _bn
+from repro_torch.kernels import flat_trunk as _ft
+from repro_torch.kernels import pair_scorer as _ps
 from repro_torch.kernels import quant as _q
 from repro_torch.kernels import ssd_intra as _ssd
 
@@ -38,3 +42,24 @@ def bottleneck_encode(x, w, mn, mx, *, bits=8):
 def ssd_intra(xh, dt, la, Bm, Cm):
     """Mamba-2 SSD intra-chunk contribution (see kernels/ssd_intra.py)."""
     return _ssd.ssd_intra(*(t.contiguous() for t in (xh, dt, la, Bm, Cm)))
+
+
+def flat_trunk(rows, qlayers, *, bits=8):
+    """Fused quantized trunk forward -> (..., W) float32 head columns.
+    rows: (..., F) ``observe_per_ue`` rows; qlayers: the layer list of
+    ``rl.distill.quantize_flat_trunk`` ([{"codes", "mn", "mx", "b"}, ...])."""
+    shape = rows.shape
+    out = _ft.flat_trunk(rows.reshape(-1, shape[-1]),
+                         [l["codes"] for l in qlayers], [l["mn"] for l in qlayers],
+                         [l["mx"] for l in qlayers], [l["b"] for l in qlayers], bits=bits)
+    return out.reshape(shape[:-1] + (out.shape[-1],))
+
+
+def pair_scorer(ue_emb, raw, srv_enc, scorer):
+    """Fused entity route scorer -> (route_logits (N, E), srv_emb (E, S)).
+    raw: the env's kernel-path block (``observe_entities_raw``: "d",
+    "work", "active", "geom", "consts"); srv_enc: {"w", "b"}; scorer: two
+    {"w", "b"} layers."""
+    return _ps.pair_scorer(ue_emb, raw["d"], raw["work"], raw["active"], raw["geom"],
+                           raw["consts"], srv_enc["w"], srv_enc["b"], scorer[0]["w"],
+                           scorer[0]["b"], scorer[1]["w"], scorer[1]["b"])

@@ -41,3 +41,48 @@ def ssd_intra_ref(xh, dt, la, Bm, Cm):
     cb = torch.einsum("bcin,bcjn->bcij", Cm, Bm)
     w = cb[..., None] * torch.exp(seg) * dt[:, :, None, :, :]
     return torch.einsum("bcijh,bcjhp->bcihp", w, xh)
+
+
+def flat_trunk_ref(x, codes, mns, mxs, bs, bits=8):
+    """Oracle of the quantized dispatch trunk: dequantize every layer with
+    ``dequantize_ref`` (float32 range), then the tanh MLP, linear last."""
+    f32 = torch.float32
+    h = x.to(f32)
+    for i in range(len(codes)):
+        w = dequantize_ref(codes[i], torch.tensor(float(mns[i]), dtype=f32),
+                           torch.tensor(float(mxs[i]), dtype=f32), bits).to(h.device)
+        h = h @ w + torch.as_tensor(bs[i], dtype=f32, device=h.device)
+        if i < len(codes) - 1:
+            h = torch.tanh(h)
+    return h
+
+
+def pair_scorer_ref(ue_emb, d, work, active, geom, consts,
+                    w_srv, b_srv, w1, b1, w2, b2):
+    """Oracle of the fused pair scorer, mirroring the default entity path:
+    the (N, E, 3) edge tensor of ``observe_entities``, then the
+    materialized (N, E, d_ue+S+3) pair concat through the scorer MLP.
+    Returns (route_logits (N, E), srv_emb (E, S))."""
+    f = lambda t: t.to(torch.float32)
+    ue_emb, d, work, active, geom, consts = map(f, (ue_emb, d, work, active, geom, consts))
+    w_srv, b_srv, w1, b1, w2, b2 = map(f, (w_srv, b_srv, w1, b1, w2, b2))
+    n, d_ue = ue_emb.shape
+    e = geom.shape[0]
+    per_slot = active.sum() / consts[5]
+    srv_rows = torch.cat([
+        geom * torch.stack([torch.ones_like(consts[7]), torch.ones_like(consts[7]), consts[7]]),
+        per_slot.broadcast_to((e,))[:, None],
+    ], dim=1)
+    srv = torch.tanh(srv_rows @ w_srv + b_srv)
+    dist_ne = d[:, None] * geom[None, :, 0]
+    g_ne = torch.pow(torch.clamp(dist_ne, min=1.0), -consts[0])
+    rate = (geom[:, 1] * consts[3])[None, :] * torch.log2(1.0 + consts[1] * g_ne / consts[2])
+    te = work[:, None] * geom[None, :, 2] / consts[4]
+    edge = torch.stack([dist_ne / consts[6], rate, te], dim=-1)
+    pair = torch.cat([
+        ue_emb[:, None, :].expand(n, e, d_ue),
+        srv[None, :, :].expand(n, e, srv.shape[-1]),
+        edge,
+    ], dim=-1)
+    h = torch.tanh(pair @ w1 + b1)
+    return (h @ w2 + b2)[..., 0], srv

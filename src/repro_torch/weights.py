@@ -7,14 +7,21 @@ port's ``Model``. The reference stacks each block parameter on a leading
 layer axis (``params["decoder"]["blocks"][0][...]`` has shape
 ``(n_layers, ...)``); the port keeps one module per layer, in the same
 (d_in, d_out) layouts, so the stacks are only unstacked.
+
+``entity_actor_from_jax`` and ``flat_trunk_from_jax`` carry the
+scheduler's policy nets (``rl.nets.init_entity_actor``,
+``init_flat_trunk`` and ``rl.distill.quantize_flat_trunk`` outputs) the
+same way, as numpy trees.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import code_dtype
 from repro_torch.models.blocks import _LATER
 from repro_torch.models.model import Model, layer_plan
+from repro_torch.rl.nets import MLP, EntityActor, Linear
 
 
 def _tensor(a, dtype, device):
@@ -61,3 +68,39 @@ def from_jax_params(tree, cfg, device):
 def ae_from_numpy(ae, device):
     """{"enc": (d, d'), "dec": (d', d)} numpy arrays -> float32 tensors."""
     return {k: _tensor(ae[k], torch.float32, device) for k in ("enc", "dec")}
+
+
+def _linear(layer, device):
+    return Linear(_tensor(layer["w"], torch.float32, device),
+                  _tensor(layer["b"], torch.float32, device))
+
+
+def mlp_from_jax(layers, device):
+    """A reference MLP (a list of {"w", "b"} layers, e.g. the entity
+    critic of ``nets.init_entity_critic``) -> an :class:`MLP`."""
+    return MLP([_linear(layer, device) for layer in layers])
+
+
+def entity_actor_from_jax(tree, device):
+    """``nets.init_entity_actor``'s tree ({"ue_enc", "srv_enc", "scorer",
+    "heads"}) -> the port's :class:`EntityActor`."""
+    return EntityActor(
+        mlp_from_jax(tree["ue_enc"], device), _linear(tree["srv_enc"], device),
+        mlp_from_jax(tree["scorer"], device),
+        torch.nn.ModuleDict({name: mlp_from_jax(layers, device)
+                             for name, layers in tree["heads"].items()}))
+
+
+def flat_trunk_from_jax(tree, device):
+    """``{"layers": [...]}`` (the f32 trunk) -> an :class:`MLP`;
+    ``{"qlayers": [...], "bits": n}`` (its quantized form) -> the same dict
+    with codes and biases as tensors and mn / mx as float32 scalars."""
+    if "qlayers" not in tree:
+        return mlp_from_jax(tree["layers"], device)
+    bits = int(tree["bits"])
+    return {"qlayers": [
+        {"codes": torch.from_numpy(np.asarray(layer["codes"]).astype(np.int32)).to(
+            device=device, dtype=code_dtype(bits)),
+         "mn": np.float32(layer["mn"]), "mx": np.float32(layer["mx"]),
+         "b": _tensor(layer["b"], torch.float32, device)}
+        for layer in tree["qlayers"]], "bits": bits}

@@ -10,7 +10,8 @@ Without a card they skip (the kernels have no CPU mode).
 import pytest
 import torch
 
-from repro_torch.kernels import bottleneck, quant, ssd_intra
+from repro_torch.kernels import bottleneck, flat_trunk, pair_scorer, quant, ssd_intra
+from repro_torch.kernels.ref import code_dtype
 
 
 @pytest.fixture
@@ -72,3 +73,58 @@ def test_ssd_intra_matches_its_plain_twin_on_card(card, dtype):
         args = _ssd_inputs(card, g, b, nc, q, h, p, n, dtype)
         got, want = ssd_intra.ssd_intra(*args), ssd_intra.ssd_intra_plain(*args)
         assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def _scorer_inputs(card, g, n, e, dtype=torch.float32):
+    """The pair scorer's inputs at the magnitudes of tests/test_kernels.py;
+    the observation block in ``dtype``, the weights in float32."""
+    u = lambda *shape: torch.rand(shape, generator=g, device=card)
+    r = lambda *shape: torch.randn(shape, generator=g, device=card)
+    obs = [torch.tanh(r(n, 128)), 1 + 99 * u(n), 5e7 + 4.5e8 * u(n), (u(n) < 0.7).float(),
+           0.5 + 1.5 * u(e, 3),
+           torch.tensor([3.0, 0.5, 1e-9, 0.1, 0.5, e * 2.0, 100.0, 1e-12], device=card)]
+    return [t.to(dtype) for t in obs] + [r(4, 32) * 0.5, torch.zeros(32, device=card),
+                                         r(163, 48) * 0.1, torch.zeros(48, device=card),
+                                         r(48, 1) * 0.01, torch.zeros(1, device=card)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_scorer_matches_its_plain_twin_on_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(9)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for n, e in [(1, 1), (7, 2), (64, 3), (300, 5), (1024, 3)]:
+        args = _scorer_inputs(card, g, n, e, dtype)
+        for got, want in zip(pair_scorer.pair_scorer(*args), pair_scorer.pair_scorer_plain(*args)):
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    # equal occupancy gives bitwise-equal logits
+    args = _scorer_inputs(card, g, 1024, 3)
+    a1, a2 = torch.zeros(1024, device=card), torch.zeros(1024, device=card)
+    a1[:300], a2[-300:] = 1.0, 1.0
+    l1, _ = pair_scorer.pair_scorer(*args[:3], a1, *args[4:])
+    l2, _ = pair_scorer.pair_scorer(*args[:3], a2, *args[4:])
+    assert torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8, 12])
+def test_flat_trunk_matches_its_plain_twin_on_card(card, bits):
+    g = torch.Generator(device=card).manual_seed(10)
+    dims = (19, 64, 64, 13)
+    codes, mns, mxs, bs = [], [], [], []
+    for d_in, d_out in zip(dims, dims[1:]):
+        w = torch.randn(d_in, d_out, generator=g, device=card) * 0.4
+        mn, mx = float(w.min()), float(w.max())
+        codes.append(quant.quantize_2d(w, mn, mx, bits=bits))
+        mns.append(mn)
+        mxs.append(mx)
+        bs.append(torch.randn(d_out, generator=g, device=card) * 0.1)
+    assert codes[0].dtype == code_dtype(bits)
+    for rows in [(1,), (7,), (32,), (600,), (1024,), (10240,)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(*rows, 19, generator=g, device=card).to(dtype)
+            tol = 1e-5 if dtype == torch.float32 else 5e-2
+            torch.testing.assert_close(flat_trunk.flat_trunk(x, codes, mns, mxs, bs, bits=bits),
+                                       flat_trunk.flat_trunk_plain(x, codes, mns, mxs, bs,
+                                                                   bits=bits),
+                                       rtol=tol, atol=tol)
