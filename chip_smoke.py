@@ -31,7 +31,19 @@ line:
 9. dispatch serve, the scheduling main path: a 1024-UE fleet over the
    3-server pool for 64 frames with each agent, its launch counts reset
    before and read after, then one profiled frame of each agent;
-10. the kernels as one JSON line, then the result as the last line.
+10. decode attention: the kernel against its plain twin on the reference's
+   grid (f32 within 2e-5, a bf16 cache within 5e-2), at a ragged S, on a
+   row with no valid slot, at the benchmark's shape and at the serving
+   shape (and there against a float64 twin), then timed beside
+   scaled_dot_product_attention and the bound;
+11. small prefill + decode serving: reduced f32 qwen3-1.7b (GQA kept) and
+   mamba2-1.3b, 80 prompt tokens and 8 decode steps, card against CPU;
+12. decode serve, the KV-cache main path: qwen3-1.7b (28 layers, bf16, 2
+   requests of a (4, 2048) prefill and 31 decode steps) and mamba2-1.3b
+   (48 layers, bf16, 2 requests of (2, 1024) and 31 steps), launch counts
+   reset before each and read after it, decode against the full forward,
+   then one profiled qwen3 decode step;
+13. the kernels as one JSON line, then the result as the last line.
 """
 import collections
 import json
@@ -59,10 +71,14 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
                     "src/repro/kernels/pair_scorer.py:112"),
     "flat_trunk": ("src/repro_torch/kernels/csrc/flat_trunk.cu",
                    "src/repro/kernels/flat_trunk.py:54"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attn.py:59"),
 }
 SERVE = {"qwen3-1.7b": dict(requests=4, batch=4, seq=256),
          "mamba2-1.3b": dict(requests=4, batch=2, seq=1024)}
 DISPATCH = dict(n_ue=1024, n_servers=3, frames=64, seed=0, bits=8)
+DECODE_SERVE = {"qwen3-1.7b": dict(requests=2, batch=4, prompt_len=2048, gen=32),
+                "mamba2-1.3b": dict(requests=2, batch=2, prompt_len=1024, gen=32)}
 TRUNK_DIMS = (19, 64, 64, 13)    # the flat trunk's published widths
 
 
@@ -318,7 +334,7 @@ def expected_launches(cfg, split, requests):
     n = cfg.n_layers
     return {"quantize": 0, "bottleneck_encode": requests, "dequantize": requests,
             "ssd_intra": ssd(0, split) + requests * (ssd(0, n) + ssd(0, n)),
-            "pair_scorer": 0, "flat_trunk": 0}
+            "pair_scorer": 0, "flat_trunk": 0, "decode_attention": 0}
 
 
 def phase_serve(dev, cs, cfg, build_mod, kref):
@@ -367,7 +383,8 @@ KERNEL_NAMES = {"ssd_intra": ("gram_kernel", "intra_kernel"),
                 "bottleneck_encode": ("bottleneck_encode_kernel",),
                 "dequantize": ("dequantize_kernel",),
                 "pair_scorer": ("pair_scorer_kernel",),
-                "flat_trunk": ("flat_trunk_kernel",)}
+                "flat_trunk": ("flat_trunk_kernel",),
+                "decode_attention": ("decode_attn_partial", "decode_attn_merge")}
 
 
 def profile_device(label, fn, wall_ms, unit):
@@ -632,6 +649,216 @@ def phase_dispatch_profile(mahppo, res):
             res.env, agent, frames=1, fused_scorer=fused), res.stats[name]["ms_per_frame"],
             "frame")
 
+# ------------------------------------------------------------- KV-cache decode
+def decode_inputs(dev, g, b, s, hkv, grp, d, kv_dtype=torch.float32, q_dtype=torch.float32,
+                  empty=True):
+    """Decode attention's inputs: with ``empty``, the reference's slots with
+    pos % 5 == 2 empty (tests/test_kernels.py:58), else every slot filled."""
+    q = torch.randn((b, hkv * grp, d), generator=g, device=dev).to(q_dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(kv_dtype) for _ in range(2))
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s).clone()
+    if empty:
+        pos[pos % 5 == 2] = -1
+    return q, k, v, pos
+
+
+def phase_decode_kernel(dev, kda, kref, serve_shape):
+    """Hold decode_attention to its plain twin: |kernel - plain| <= tol +
+    tol |plain| elementwise, tol 2e-5 in f32 (tests/test_kernels.py:72) and
+    5e-2 with a bf16 cache. Returns the max abs error."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+
+    def hold(label, args, idx, tol):
+        nonlocal worst
+        got, want = kda.decode_attention(*args, idx), kda.decode_attention_plain(*args, idx)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"decode_attention {label}: non-finite output")
+        excess = float(((got - want).abs() - tol * want.abs()).max())
+        check(excess <= tol, f"decode_attention {label}: |kernel - plain| exceeds {tol} + "
+              f"{tol}|plain| by {excess - tol:.3e}")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        return err
+
+    for kv_dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-2)):
+        name = str(kv_dtype)[6:]
+        errs = [hold(f"S={s} (hkv,g)=({hkv},{grp}) {name}",
+                     decode_inputs(dev, g, 2, s, hkv, grp, 64, kv_dtype), s - 10, tol)
+                for s in (64, 257, 1024) for hkv, grp in ((2, 4), (1, 8), (4, 1))]
+        print(f"kernels: decode_attention reference grid (S 64, 257, 1024 x (hkv,g) (2,4), "
+              f"(1,8), (4,1); b 2, d 64) {name} cache: max abs err {max(errs):.3e}, allowed "
+              f"{tol} + {tol}|plain|", flush=True)
+        for s in (600, 1088):
+            err = hold(f"ragged S={s} {name}", decode_inputs(dev, g, 2, s, 2, 2, 128, kv_dtype),
+                       s - 10, tol)
+            print(f"kernels: decode_attention ragged S={s} {name} cache: max abs err {err:.3e}",
+                  flush=True)
+        args = decode_inputs(dev, g, 4, 2048, 2, 8, 128, kv_dtype)
+        err = hold(f"bench shape {name}", args, 2047, tol)
+        print(f"kernels: decode_attention bench shape q (4,16,128), k/v (4,2048,2,128) {name}: "
+              f"max abs err {err:.3e}", flush=True)
+    # a row with no valid slot gives the mean of v, as the reference
+    q, k, v, pos = decode_inputs(dev, g, 2, 300, 2, 4, 64)
+    pos[0] = -1
+    hold("all-empty row", (q, k, v, pos), 290, 2e-5)
+    mean_err = float((kda.decode_attention(q, k, v, pos, 290)[0]
+                      - v[0].mean(0).repeat_interleave(4, dim=0)).abs().max())
+    check(mean_err <= 2e-5, f"decode_attention: an all-empty row is {mean_err:.3e} from mean(v)")
+    print(f"kernels: decode_attention all-empty row: {mean_err:.3e} from the mean of v", flush=True)
+    # the serving shape in bf16, and against the same function in float64
+    b, s, hkv, grp, d = serve_shape
+    args = decode_inputs(dev, g, b, s, hkv, grp, d, torch.bfloat16, torch.bfloat16, empty=False)
+    err = hold(f"serving shape {serve_shape} bf16", args, s - 1, 5e-2)
+    exact = kref.decode_attention_ref(*(a.double() for a in args[:3]), args[3], s - 1)
+    k64 = float((kda.decode_attention(*args, s - 1).double() - exact).abs().max())
+    p64 = float((kda.decode_attention_plain(*args, s - 1).double() - exact).abs().max())
+    check(k64 <= 1e-5, f"decode_attention serving bf16: {k64:.3e} from float64 > 1e-5")
+    print(f"kernels: decode_attention serving shape q ({b},{hkv * grp},{d}) bf16, k/v "
+          f"({b},{s},{hkv},{d}) bf16: max abs err {err:.3e} against the twin; against "
+          f"float64: kernel {k64:.3e}, plain {p64:.3e} (allowed 1e-5)", flush=True)
+    return worst
+
+
+def phase_decode_timing(dev, kda, serve_shape):
+    """Kernel, plain and SDPA times at the serving shape, beside the bound:
+    q, k, v, pos read once and the f32 output written once, over the HBM
+    rate (the 4 B Hq S D flops are far below it)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, s, hkv, grp, d = serve_shape
+    q, k, v, pos = decode_inputs(dev, g, b, s, hkv, grp, d, torch.bfloat16, torch.bfloat16,
+                                 empty=False)
+    idx = s - 1
+    # the yardstick: one PyTorch call over the same inputs, transposed to
+    # (B, H, S, D) outside the timed region (its -inf masking and bf16
+    # output differ from the reference: its time is kept, not its result)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = ((pos >= 0) & (pos <= idx))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, pos)) + 4 * b * hkv * grp * d
+    bound_ms, bound_by = bound(n_bytes, 4 * b * hkv * grp * s * d)
+    ms = device_ms(lambda: kda.decode_attention(q, k, v, pos, idx))
+    plain_ms = device_ms(lambda: kda.decode_attention_plain(q, k, v, pos, idx))
+    library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    print(f"timing: decode_attention q ({b},{hkv * grp},{d}) k/v ({b},{s},{hkv},{d}) bf16: kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.5f} ms, library (SDPA) {library_ms:.5f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}, {n_bytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% "
+          f"of bound", flush=True)
+    return {"decode_attention": dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by)}
+
+
+def phase_small_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, steps=8):
+    """Prefill + greedy decode at a small f32 config, card against CPU. Both
+    take the CPU's tokens, so each step compares the same inputs: logits
+    within 1e-4 + 1e-4 |cpu| (the slice's f32 parity bound), and the card's
+    token equal to the CPU's wherever the CPU's top-2 margin exceeds the
+    step's logit error."""
+    cpu = torch.device("cpu")
+    models = {cpu: init_params(cfg, torch.Generator().manual_seed(3), cpu),
+              dev: init_params(cfg, torch.Generator().manual_seed(3), cpu).to(dev)}
+    tokens = torch.randint(0, cfg.vocab_size, (2, prompt), generator=torch.Generator().manual_seed(4))
+    build_mod.reset_launches()
+    worst, least_margin, equal = 0.0, float("inf"), 0
+    with torch.inference_mode():
+        out = {d: model_lib.prefill(m, tokens.to(d), attn_len=prompt + steps) for d, m in models.items()}
+        for i in range(steps + 1):
+            (lc, cache_c), (ld, cache_d) = out[cpu], out[dev]
+            ld = ld.cpu()
+            err = float((ld - lc).abs().max())
+            excess = float(((ld - lc).abs() - 1e-4 * lc.abs()).max())
+            check(excess <= 1e-4, f"small decode {cfg.name} step {i}: logits differ by {err:.3e}")
+            worst = max(worst, err)
+            top = torch.topk(lc, 2, dim=-1).values
+            margin = top[:, 0] - top[:, 1]
+            tok = lc.argmax(-1)
+            sure = margin > err
+            check(torch.equal(ld.argmax(-1)[sure], tok[sure]),
+                  f"small decode {cfg.name} step {i}: tokens differ where the margin exceeds the error")
+            equal += int((ld.argmax(-1) == tok).sum())
+            least_margin = min(least_margin, float(margin.min()))
+            if i == steps:
+                break
+            out = {cpu: model_lib.decode_step(models[cpu], cache_c, tok[:, None], prompt + i),
+                   dev: model_lib.decode_step(models[dev], cache_d, tok[:, None].to(dev), prompt + i)}
+    torch.cuda.synchronize()
+    n_attn = sum(bt == "dense" for bt in cfg.block_types())
+    check(build_mod.LAUNCHES["decode_attention"] == n_attn * steps,
+          f"small decode {cfg.name}: decode_attention launched "
+          f"{build_mod.LAUNCHES['decode_attention']} times, expected {n_attn * steps}")
+    print(f"small decode ({cfg.name}, {cfg.n_layers}L d={cfg.d_model}, prompt {prompt}, {steps} "
+          f"steps): card vs CPU logits max abs diff {worst:.3e} (bound 1e-4 + 1e-4|cpu|), "
+          f"{equal}/{2 * (steps + 1)} tokens equal (least top-2 margin {least_margin:.3e}), "
+          f"decode_attention launches {n_attn * steps}", flush=True)
+
+
+def phase_decode_serve(dev, sv, cfg, build_mod, cache_lib):
+    """The KV-cache serving main path at full width; returns (launches, result)."""
+    run = DECODE_SERVE[cfg.name]
+    torch.cuda.reset_peak_memory_stats()
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = sv.serve(cfg, device=dev, log=lambda m: print(f"decode serve: {m}", flush=True), **run)
+    torch.cuda.synchronize()
+    launches = dict(build_mod.LAUNCHES)
+    wall = time.perf_counter() - t0
+    steps, n = run["gen"] - 1, run["requests"]
+    n_attn = sum(bt == "dense" for bt in cfg.block_types())
+    n_ssd = sum(bt == "mamba2" for bt in cfg.block_types())
+    want = {name: 0 for name in ROUTES}
+    want.update(decode_attention=n_attn * steps * n, ssd_intra=n_ssd * n)
+    for name in ROUTES:
+        check(launches.get(name, 0) == want[name], f"decode serve {cfg.name}: {name} launched "
+              f"{launches.get(name, 0)} times, expected {want[name]}")
+    attn_len = run["prompt_len"] + run["gen"]
+    want_bytes = sum(cache_lib.entry_payload_bits(cfg, bt, run["batch"], attn_len)
+                     for bt in cfg.block_types()) // 8
+    for st in res.stats:
+        check(st["logits_finite"], f"decode serve {cfg.name}: non-finite logits")
+        check(tuple(st["tokens"].shape) == (run["batch"], run["gen"]),
+              f"decode serve {cfg.name}: tokens {tuple(st['tokens'].shape)}")
+        check(st["cache_bytes"] == want_bytes,
+              f"decode serve {cfg.name}: cache {st['cache_bytes']} bytes, expected {want_bytes}")
+    med = lambda key: statistics.median(st[key] for st in res.stats)
+    print(f"decode serve: {cfg.name} ({cfg.n_layers} layers, {cfg.param_dtype}), {n} requests of "
+          f"a ({run['batch']}, {run['prompt_len']}) prefill + {steps} decode steps in {wall:.1f} s "
+          f"(weights included): prefill {med('prefill_ms'):.2f} ms, cache "
+          f"{want_bytes / 1e6:.2f} MB, decode {med('decode_ms_per_token'):.3f} ms/token, "
+          f"{med('tokens_per_s'):.1f} tokens/s (medians); launches {launches} as expected; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches, res
+
+
+def phase_decode_consistency(dev, model, model_lib, prompt=256):
+    """At full width: decoding token s from the cache against position s of
+    the full forward, within 5e-2 x max|logit| (bf16: the prefill's
+    attention rounds q * scale and the probabilities to bf16, the decode
+    kernel keeps them f32)."""
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, prompt + 1), generator=g).to(dev)
+    with torch.inference_mode():
+        full = model_lib.apply_model(model, toks)[:, prompt].float()
+        _, cache = model_lib.prefill(model, toks[:, :prompt], attn_len=prompt + 1)
+        dec, _ = model_lib.decode_step(model, cache, toks[:, prompt:], prompt)
+    err = float((dec.float() - full).abs().max())
+    scale = float(full.abs().max())
+    check(err <= 5e-2 * scale, f"{model.cfg.name}: decode differs from the full forward by "
+          f"{err:.3e} > 5e-2 x {scale:.3e}")
+    print(f"decode serve: {model.cfg.name} decode of token {prompt} against the full forward: max "
+          f"abs diff {err:.3e}, max |logit| {scale:.3e} (bound 5e-2 x max|logit|), argmax equal "
+          f"{int((dec.argmax(-1) == full.argmax(-1)).sum())}/2", flush=True)
+
+
+def phase_decode_profile(model_lib, res):
+    """One decode step of the served model, at the cache's last free slot."""
+    tok = res.stats[-1]["tokens"][:, -1:]
+
+    def step():
+        with torch.inference_mode():
+            model_lib.decode_step(res.model, res.cache, tok, res.attn_len - 1)
+    wall = statistics.median(st["decode_ms_per_token"] for st in res.stats)
+    profile_device(f"{res.model.cfg.name} decode", step, wall, "decode step")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -648,10 +875,14 @@ def main():
     from repro_torch import full_precision_matmuls
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.compressor import pca_init_autoencoder
-    from repro_torch.kernels import _build, bottleneck, flat_trunk, pair_scorer, quant, ssd_intra
+    from repro_torch.kernels import (_build, bottleneck, decode_attn, flat_trunk, pair_scorer,
+                                     quant, ssd_intra)
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import collab_serve, dispatch_serve
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import cache as cache_lib
     from repro_torch.models import init_params, ssm
+    from repro_torch.models import model as model_lib
     from repro_torch.rl import mahppo
     from repro_torch.rl.distill import quantize_flat_trunk
 
@@ -680,16 +911,23 @@ def main():
     times = phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape)
     err.update(phase_dispatch_kernels(dev, pair_scorer, flat_trunk, quant))
     times.update(phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant))
-    qwen_small = reduced(get_config("qwen3-1.7b"), n_layers=4).replace(
-        n_heads=4, n_kv_heads=2, d_head=64)
+    qwen = get_config("qwen3-1.7b")
+    run = DECODE_SERVE[qwen.name]
+    decode_shape = (run["batch"], run["prompt_len"] + run["gen"], qwen.n_kv_heads,
+                    qwen.n_heads // qwen.n_kv_heads, qwen.head_dim)
+    err["decode_attention"] = phase_decode_kernel(dev, decode_attn, kref, decode_shape)
+    times.update(phase_decode_timing(dev, decode_attn, decode_shape))
+    qwen_small = reduced(qwen, n_layers=4).replace(n_heads=4, n_kv_heads=2, d_head=64)
     phase_small_split(dev, collab_serve, qwen_small, 80, init_params, pca_init_autoencoder)
     # seq 40 with chunk 16 leaves a ragged last chunk
     phase_small_split(dev, collab_serve, reduced(mamba, n_layers=4), 40, init_params,
                       pca_init_autoencoder)
     phase_small_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk)
+    for cfg in (qwen_small, reduced(mamba, n_layers=4)):
+        phase_small_decode(dev, cfg, init_params, model_lib, _build)
 
     launches = collections.Counter()
-    for cfg in (get_config("qwen3-1.7b"), mamba):
+    for cfg in (qwen, mamba):
         counts, res = phase_serve(dev, collab_serve, cfg, _build, kref)
         launches.update(counts)
         phase_profile(collab_serve, res)
@@ -698,6 +936,15 @@ def main():
     counts, res = phase_dispatch_serve(dev, dispatch_serve, _build)
     launches.update(counts)
     phase_dispatch_profile(mahppo, res)
+    del res
+    for cfg in (qwen, mamba):
+        counts, res = phase_decode_serve(dev, serve_lib, cfg, _build, cache_lib)
+        launches.update(counts)
+        if cfg.name == qwen.name:
+            phase_decode_consistency(dev, res.model, model_lib)
+            phase_decode_profile(model_lib, res)
+        del res
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

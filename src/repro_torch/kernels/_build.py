@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
-           CSRC / "pair_scorer.cu", CSRC / "flat_trunk.cu")
+           CSRC / "pair_scorer.cu", CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu")
 HEADERS = (CSRC / "quant.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -56,6 +56,8 @@ _SIGNATURES = {
                          ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
                          ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float),
                          ctypes.POINTER(ctypes.c_float), ctypes.c_int, _c],
+    "repro_decode_attention": [_c, ctypes.c_int, _c, _c, ctypes.c_int, _c, ctypes.c_longlong,
+                               _c, _c, _c] + [ctypes.c_int] * 6 + [ctypes.c_float, _c],
 }
 
 _lib = None

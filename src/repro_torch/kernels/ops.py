@@ -1,6 +1,7 @@
 """Any-shape wrappers around the port's kernels, as ``src/repro/kernels/
 ops.py``: flatten the leading dims, call the 2-D wrapper, reshape back
-(``ssd_intra`` takes its 5-D layout as it is, made contiguous), or unpack
+(``ssd_intra`` and ``decode_attention`` take their layouts as they are,
+made contiguous), or unpack
 the reference's parameter and observation dicts (``pair_scorer``,
 ``flat_trunk``).
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bottleneck as _bn
+from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import flat_trunk as _ft
 from repro_torch.kernels import pair_scorer as _ps
 from repro_torch.kernels import quant as _q
@@ -42,6 +44,13 @@ def bottleneck_encode(x, w, mn, mx, *, bits=8):
 def ssd_intra(xh, dt, la, Bm, Cm):
     """Mamba-2 SSD intra-chunk contribution (see kernels/ssd_intra.py)."""
     return _ssd.ssd_intra(*(t.contiguous() for t in (xh, dt, la, Bm, Cm)))
+
+
+def decode_attention(q, k, v, pos, idx):
+    """GQA flash-decode over a (ring) KV cache (see kernels/decode_attn.py).
+    q: (B, Hq, D); k, v: (B, S, Hkv, D); pos: (B, S) int32, -1 = empty;
+    idx: int. Returns (B, Hq, D) float32."""
+    return _da.decode_attention(*(t.contiguous() for t in (q, k, v, pos)), idx)
 
 
 def flat_trunk(rows, qlayers, *, bits=8):

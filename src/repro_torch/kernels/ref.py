@@ -43,6 +43,26 @@ def ssd_intra_ref(xh, dt, la, Bm, Cm):
     return torch.einsum("bcijh,bcjhp->bcihp", w, xh)
 
 
+def decode_attention_ref(q, k, v, pos, idx):
+    """GQA decode attention over a (ring) KV cache.
+
+    q: (B, Hq, D) single query token; k, v: (B, S, Hkv, D);
+    pos: (B, S) absolute positions (-1 = empty slot); idx: scalar int.
+    Returns (B, Hq, D) f32 (float64 for float64 inputs, so the kernel can be
+    held to an exact version of the same function)."""
+    wide = lambda t: t.to(torch.promote_types(t.dtype, torch.float32))
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qf = wide(q).reshape(b, hkv, g, d) * (d ** -0.5)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, wide(k))
+    valid = (pos >= 0) & (pos <= idx)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, wide(v))
+    return o.reshape(b, hq, d)
+
+
 def flat_trunk_ref(x, codes, mns, mxs, bs, bits=8):
     """Oracle of the quantized dispatch trunk: dequantize every layer with
     ``dequantize_ref`` (float32 range), then the tanh MLP, linear last."""

@@ -1,0 +1,120 @@
+"""Serving launcher of the port (``src/repro/launch/serve.py``): a batched
+prefill builds the KV cache (or the Mamba-2 state), then a greedy decode
+loop appends one token per step, for each request, reporting per-phase
+times and cache sizes. It is the edge half of the paper's
+collaborative-inference pipeline.
+
+  python -m repro_torch.launch.serve        # qwen3-1.7b, 28 layers, 4 x 2048 + 32
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --batch 2 --prompt-len 1024
+  python -m repro_torch.launch.serve --device cpu --reduce --prompt-len 64
+
+Runs on the CUDA card at the arch's full width by default; ``--device cpu``
+runs the plain PyTorch twins of the kernels instead, and ``--reduce``
+shrinks the config as the reference's launcher does (4 layers, d_model
+256). Times are on the host clock around work that ends in
+``torch.cuda.synchronize()``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch import full_precision_matmuls, resolve_device
+from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import init_params
+
+
+@dataclass
+class ServeResult:
+    model: torch.nn.Module
+    attn_len: int
+    stats: list = field(default_factory=list)   # one dict per request
+    cache: list = None                          # the last request's final cache
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for entry in cache for t in entry.values())
+
+
+@torch.inference_mode()
+def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, seed=0,
+          log=print) -> ServeResult:
+    """Build ``cfg`` with seeded random weights and answer ``requests``
+    requests of (batch, prompt_len) random prompt tokens, each with a
+    prefill and ``gen - 1`` greedy decode steps (the prefill's argmax is
+    generated token 0), into caches of ``prompt_len + gen`` slots. Each
+    request's stats: prefill ms, cache bytes, decode ms per token, decode
+    tokens per second (batch x steps over the decode time) and the
+    generated tokens (batch, gen)."""
+    device = resolve_device(device)
+    full_precision_matmuls()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    host = torch.Generator().manual_seed(seed + 1)
+    attn_len = prompt_len + gen
+    prefill_step = make_prefill_step(cfg, attn_len)
+    serve_step = make_serve_step(cfg)
+    out = ServeResult(model, attn_len)
+    n_steps = max(gen - 1, 0)
+    for r in range(requests):
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=host).to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(model, tokens)
+        _sync(device)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = cache_bytes(cache)
+        tok = logits.argmax(-1)[:, None]
+        outs = [tok]
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            logits, cache = serve_step(model, cache, tok, prompt_len + i)
+            tok = logits.argmax(-1)[:, None]
+            outs.append(tok)
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+        st = {"request": r, "prefill_ms": prefill_ms, "cache_bytes": nbytes,
+              "decode_ms_per_token": 1e3 * decode_s / max(n_steps, 1),
+              "tokens_per_s": batch * n_steps / decode_s if n_steps else 0.0,
+              "tokens": torch.cat(outs, dim=1), "logits_finite": bool(torch.isfinite(logits).all())}
+        out.stats.append(st)
+        out.cache = cache
+        log(f"request {r}: prefill {batch}x{prompt_len} {prefill_ms:.1f} ms, cache "
+            f"{nbytes / 1e6:.1f} MB; {n_steps} decode steps {st['decode_ms_per_token']:.2f} "
+            f"ms/token, {st['tokens_per_s']:.0f} tokens/s (batch {batch})")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=ARCH_IDS)
+    ap.add_argument("--reduce", action=argparse.BooleanOptionalAction, default=False,
+                    help="shrink the config (4 layers, d_model 256) for a CPU rehearsal")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=2048)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (raises when there is none)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduce:
+        cfg = reduced(cfg, n_layers=4, d_model=256)
+    res = serve(cfg, device=device, batch=args.batch, prompt_len=args.prompt_len,
+                gen=args.gen, requests=args.requests, seed=args.seed)
+    print(f"sample continuation (seq 0): {res.stats[-1]['tokens'][0][:16].tolist()}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Transformer model of the port (dense blocks)."""
-from repro_torch.models.model import Model, apply_model, init_params, layer_plan
+"""Models of the port: dense transformer and Mamba-2 stacks."""
+from repro_torch.models.model import (Model, apply_model, decode_step, init_params, layer_plan,
+                                      prefill)
 
-__all__ = ["Model", "apply_model", "init_params", "layer_plan"]
+__all__ = ["Model", "apply_model", "decode_step", "init_params", "layer_plan", "prefill"]

@@ -1,6 +1,6 @@
-"""GQA self-attention for train/prefill, without a KV cache
-(``src/repro/models/attention.py``: ``_qkv``, ``_flash_inner`` and
-``self_attention``).
+"""GQA self-attention for train, prefill and decode
+(``src/repro/models/attention.py``: ``_qkv``, ``_flash_inner``,
+``_flash_decode`` and ``self_attention``).
 
 Numerics follow the reference: the softmax scale multiplies q in q's dtype
 before the dot; scores and the output accumulate in f32 (operands upcast,
@@ -10,12 +10,20 @@ q's dtype. The reference chunks the KV axis (``attn_chunk``) only to bound
 memory at long contexts; at this slice's lengths the whole (Sq, Sk) score
 matrix fits, so the port computes it in one piece. It does not use
 ``scaled_dot_product_attention``, whose masking and rounding differ.
+
+Decode (one token against the cache) goes through ``ops.decode_attention``
+(the CUDA kernel on the card, its plain twin on the CPU), which computes
+the reference's decode attention in f32: where the reference's
+``_flash_decode`` rounds q * scale and the probabilities to a bf16 cache's
+dtype, the kernel keeps them f32. The new token's k and v are written into
+the cache in place (the reference returns an updated copy).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dtype_of, rms_head_norm
 
 NEG_INF = -1e30
@@ -36,8 +44,9 @@ class Attention(nn.Module):
             self.q_scale, self.k_scale = p(dh), p(dh)
 
     def forward(self, x, positions, *, causal=True, window=0):
+        """Train-mode self-attention; x: (B, S, d) -> (B, S, d)."""
         return self_attention(self, x, self.cfg, positions, causal=causal,
-                              window=window)
+                              window=window)[0]
 
 
 def qkv(p, x, xc, cfg):
@@ -87,12 +96,36 @@ def attention(q, k, v, *, q_positions, k_positions, causal=True, window=0):
     return out.to(q.dtype)
 
 
-def self_attention(p, x, cfg, positions, *, causal=True, window=0):
-    """Self-attention for train/prefill. x: (B, S, d) -> (B, S, d)."""
+def self_attention(p, x, cfg, positions, *, causal=True, window=0, kv_cache=None,
+                   cache_slot=None, cache_positions=None, idx=None):
+    """Self-attention for train/prefill (kv_cache None) or decode.
+
+    Decode: x is one token (B, 1, d); kv_cache = {"k", "v"} each
+    (B, L, Hkv, D); the new token's k/v are written at ``cache_slot`` (an
+    int, already modulo L); cache_positions: (B, L) int32 slot ->
+    absolute-position map (-1 invalid), already holding ``idx`` (an int,
+    the token's position) at the slot.
+    Returns (out (B, S, d), new_kv): the roped (k, v) to cache (prefill) or
+    the updated cache {"k", "v"} (decode)."""
     q, k, v = qkv(p, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    out = attention(q, k, v, q_positions=positions, k_positions=positions,
-                    causal=causal, window=window)
-    b, s = out.shape[0], out.shape[1]
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo
+    b, s = q.shape[0], q.shape[1]
+    if kv_cache is None:
+        out = attention(q, k, v, q_positions=positions, k_positions=positions,
+                        causal=causal, window=window)
+        new_kv = (k, v)
+    else:
+        if cfg.kv_quant_bits:
+            raise NotImplementedError("decode over a quantized cache (kv_quant_bits > 0) is "
+                                      "not ported yet; it comes with a later model-zoo slice")
+        if window:
+            raise NotImplementedError("windowed (lattn) ring decode is not ported yet; it "
+                                      "comes with the hybrid (RG-LRU) slice")
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        ck[:, cache_slot] = k[:, 0]
+        cv[:, cache_slot] = v[:, 0]
+        out = ops.decode_attention(q[:, 0], ck, cv, cache_positions, idx)
+        out = out.to(q.dtype)[:, None]
+        new_kv = {"k": ck, "v": cv}
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo, new_kv

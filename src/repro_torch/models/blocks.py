@@ -1,13 +1,16 @@
 """Residual blocks of the port (``src/repro/models/blocks.py``): the
 ``"dense"`` block (attention + MLP) and the ``"mamba2"`` block (SSD
-mixer)."""
+mixer), each in the modes ``"train"`` (no cache), ``"prefill"`` (build the
+layer's cache entry) and ``"decode"`` (one token: consume and update it).
+"""
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import Attention, self_attention
+from repro_torch.models.cache import pack_full_kv
 from repro_torch.models.layers import MLP, Norm
-from repro_torch.models.ssm import Mamba
+from repro_torch.models.ssm import Mamba, apply_mamba, decode_mamba
 
 _LATER = {
     "moe": "the MoE slice",
@@ -17,6 +20,12 @@ _LATER = {
     "decx": "the encoder-decoder slice",
     "xattn": "the VLM slice",
 }
+MODES = ("train", "prefill", "decode")
+
+
+def _check_mode(mode):
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
 class DenseBlock(nn.Module):
@@ -24,28 +33,55 @@ class DenseBlock(nn.Module):
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = Norm(cfg, device=device)
         self.attn = Attention(cfg, device=device)
         self.ln2 = Norm(cfg, device=device)
         self.mlp = MLP(cfg, device=device)
 
-    def forward(self, x, positions):
-        x = x + self.attn(self.ln1(x), positions)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, positions, *, mode="train", cache=None, idx=None, attn_len=0):
+        """Train mode returns x; prefill and decode return (x, cache entry).
+        Decode writes the token's position into the entry's ``pos`` at slot
+        ``idx % L`` before the attention, and its k/v in place."""
+        _check_mode(mode)
+        h = self.ln1(x)
+        if mode == "decode":
+            slot = idx % cache["k"].shape[1]
+            pos_buf = cache["pos"]
+            pos_buf[:, slot] = positions[:, 0].to(pos_buf.dtype)
+            out, kv = self_attention(self.attn, h, self.cfg, positions, kv_cache=cache,
+                                     cache_slot=slot, cache_positions=pos_buf, idx=idx)
+            entry = dict(kv, pos=pos_buf)
+        else:
+            out, (k, v) = self_attention(self.attn, h, self.cfg, positions)
+            entry = (None if mode == "train" else
+                     pack_full_kv(k, v, positions, attn_len, window=0,
+                                  kv_bits=self.cfg.kv_quant_bits))
+        x = x + out
+        x = x + self.mlp(self.ln2(x))
+        return x if mode == "train" else (x, entry)
 
 
 class Mamba2Block(nn.Module):
     """``x + mixer(ln1(x))``; the positions are not used (the SSD mixer is
-    causal by construction)."""
+    causal by construction). Its cache entry is the mixer's state."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = Norm(cfg, device=device)
         self.mixer = Mamba(cfg, device=device)
 
-    def forward(self, x, positions=None):
-        out, _ = self.mixer(self.ln1(x))
-        return x + out
+    def forward(self, x, positions=None, *, mode="train", cache=None, idx=None, attn_len=0):
+        """Train mode returns x; prefill and decode return (x, state)."""
+        _check_mode(mode)
+        h = self.ln1(x)
+        if mode == "decode":
+            out, entry = decode_mamba(self.mixer, h, self.cfg, cache)
+        else:
+            out, entry = apply_mamba(self.mixer, h, self.cfg)
+        x = x + out
+        return x if mode == "train" else (x, entry)
 
 
 def make_block(cfg, btype, *, device=None):

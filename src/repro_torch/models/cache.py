@@ -1,0 +1,114 @@
+"""Serving caches of the port (``src/repro/models/cache.py``): full and
+ring-buffer KV caches and the Mamba-2 state.
+
+Slot semantics are the reference's: an entry with absolute position p lives
+at slot ``p % cache_len``; ``pos`` maps slot -> absolute position (-1 =
+empty), which the decode attention consumes directly. The port keeps one
+module per layer, so its cache is a list with one entry dict per layer, not
+the reference's ``{"blocks": stacked, "tail": ...}`` tree.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import dtype_of
+
+
+def quantize_kv(x, bits):
+    """Symmetric per-(token, kv-head) quantization of k or v (B, S, Hkv, D)
+    -> (codes int8, scale (B, S, Hkv) f32). Paper Eq. 1 applied to the
+    serving cache."""
+    levels = (1 << (bits - 1)) - 1
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(-1) / levels, min=1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -levels, levels).to(torch.int8)
+    return codes, scale
+
+
+def dequantize_kv(codes, scale, dtype):
+    return (codes.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def pack_full_kv(k, v, positions, cache_len, window=0, kv_bits=0):
+    """Build a decode cache entry from full-sequence k/v (prefill).
+
+    k, v: (B, S, Hkv, D); positions: (B, S). cache_len: allocated length
+    (window if window > 0). Entries beyond capacity keep only the most
+    recent. kv_bits > 0 stores int8 codes + per-(slot, head) scales.
+    """
+    lc = window if window else cache_len
+    b, s, hkv, dh = k.shape
+    scales = {}
+    if kv_bits:
+        k, scales["k_scale"] = quantize_kv(k, kv_bits)
+        v, scales["v_scale"] = quantize_kv(v, kv_bits)
+    positions = positions.to(torch.int32)
+    if s >= lc:
+        # the last lc positions, each at its ring slot
+        slots = torch.remainder(positions[0, -lc:], lc).long()
+        take = lambda t: t[:, -lc:]
+    else:
+        slots = slice(0, s)
+        take = lambda t: t
+    entry = {"k": k.new_zeros((b, lc, hkv, dh)), "v": v.new_zeros((b, lc, hkv, dh)),
+             "pos": torch.full((b, lc), -1, dtype=torch.int32, device=k.device)}
+    entry["k"][:, slots] = take(k)
+    entry["v"][:, slots] = take(v)
+    entry["pos"][:, slots] = take(positions)
+    for name, sc in scales.items():
+        entry[name] = sc.new_zeros((b, lc, hkv))
+        entry[name][:, slots] = take(sc)
+    return entry
+
+
+def entry_shape(cfg, btype, batch, attn_len):
+    """{name: (shape, dtype)} of one layer's cache."""
+    cdt = dtype_of(cfg.compute_dtype)
+    if btype == "mamba2":
+        d_inner, h, pdim, n, d_conv = ssm_lib.dims(cfg)
+        return {"conv_x": ((batch, d_conv - 1, d_inner), cdt),
+                "conv_bc": ((batch, d_conv - 1, 2 * n), cdt),
+                "h": ((batch, h, pdim, n), torch.float32)}
+    if btype != "dense":
+        from repro_torch.models.blocks import _LATER   # blocks imports this module
+        raise NotImplementedError(
+            f"the cache of block type {btype!r} is not ported yet; it comes with "
+            f"{_LATER.get(btype, 'the model-zoo slice')}")
+    hkv, dh, lc = cfg.n_kv_heads, cfg.head_dim, attn_len
+    kv_dt = torch.int8 if cfg.kv_quant_bits else cdt
+    e = {"k": ((batch, lc, hkv, dh), kv_dt),
+         "v": ((batch, lc, hkv, dh), kv_dt),
+         "pos": ((batch, lc), torch.int32)}
+    if cfg.kv_quant_bits:
+        e["k_scale"] = ((batch, lc, hkv), torch.float32)
+        e["v_scale"] = ((batch, lc, hkv), torch.float32)
+    return e
+
+
+def entry_payload_bits(cfg, btype, batch, ctx_len):
+    """Bits to ship one layer's serving-cache state for a ``ctx_len``-token
+    context: ``entry_shape``'s leaves with the sequence axis at the filled
+    length, honoring ``kv_quant_bits`` (int8 codes + f32 per-(slot, head)
+    scales). Mamba-2 layers carry O(1) state. ``core.split.
+    llm_decode_split_table`` sums this over the UE-side layers."""
+    ctx_len = int(ctx_len)
+    if ctx_len < 1:
+        raise ValueError("ctx_len must be >= 1")
+    total = 0
+    for shape, dtype in entry_shape(cfg, btype, batch, ctx_len).values():
+        n = 1
+        for s in shape:
+            n *= int(s)
+        total += n * dtype.itemsize * 8
+    return int(total)
+
+
+def make_cache(cfg, batch, attn_len, device=None):
+    """One zero entry per layer (pos leaves -1)."""
+    def leaf(name, shape, dtype):
+        if name == "pos":
+            return torch.full(shape, -1, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return [{name: leaf(name, *sd) for name, sd in entry_shape(cfg, bt, batch, attn_len).items()}
+            for bt in cfg.block_types()]

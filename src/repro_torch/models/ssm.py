@@ -4,7 +4,8 @@ quadratic intra-chunk term through ``ops.ssd_intra`` and a linear
 inter-chunk scan). n_groups is fixed to 1 (B/C shared across heads), as in
 the mamba2-1.3b config. The projections are separate (d_in, d_out)
 matrices applied as ``x @ w``, as in the reference. All recurrence math
-runs in f32. The one-token decode comes with the decode slice.
+runs in f32. ``decode_mamba`` is the one-token recurrent step from the
+state ``apply_mamba`` returns; it has no kernel.
 """
 from __future__ import annotations
 
@@ -69,6 +70,14 @@ def _conv_seq(w, b, x, init_state=None):
         xpad = torch.cat([init_state.to(x.dtype), x], dim=1)
     y = sum(xpad[:, i:i + x.shape[1], :] * w[i] for i in range(d_conv))
     return F.silu(y + b), xpad[:, -pad:, :]
+
+
+def _conv_step(w, b, x1, state):
+    """One-step conv. x1: (B, C); state: (B, d_conv-1, C)."""
+    d_conv = w.shape[0]
+    xin = torch.cat([state.to(x1.dtype), x1[:, None, :]], dim=1)
+    y = sum(xin[:, i, :] * w[i] for i in range(d_conv))
+    return F.silu(y + b), xin[:, 1:, :]
 
 
 def _gated_norm(p, y, z, eps=1e-6):
@@ -153,3 +162,27 @@ def apply_mamba(p, x, cfg, *, state=None):
     y = y.reshape(b, l, d_inner)
     out = _gated_norm(p, y, z.to(torch.float32)).to(x.dtype) @ p.out_proj
     return out, {"conv_x": conv_x_state, "conv_bc": conv_bc_state, "h": hlast}
+
+
+def decode_mamba(p, x, cfg, state):
+    """One-token decode. x: (B, 1, d); state {"conv_x": (B, d_conv-1, di),
+    "conv_bc": (B, d_conv-1, 2N), "h": (B, H, P, N)}. Returns (out, new
+    state); the state passed in is not changed."""
+    d_inner, h, pdim, n, _ = dims(cfg)
+    b = x.shape[0]
+    z = x @ p.wz
+    xs = (x @ p.wx)[:, 0]
+    bc = (x @ p.wbc)[:, 0]
+    dt = (x @ p.wdt)[:, 0]
+    xs, new_cx = _conv_step(p.conv_x, p.conv_x_b, xs, state["conv_x"])
+    bc, new_cbc = _conv_step(p.conv_bc, p.conv_bc_b, bc, state["conv_bc"])
+    Bm, Cm = torch.chunk(bc, 2, dim=-1)
+    xh = xs.reshape(b, h, pdim).to(torch.float32)
+    dtf = softplus(dt.to(torch.float32) + p.dt_bias)   # (B,H)
+    a = torch.exp(-torch.exp(p.A_log) * dtf)            # (B,H)
+    hnew = (state["h"] * a[:, :, None, None]
+            + torch.einsum("bh,bn,bhp->bhpn", dtf, Bm.to(torch.float32), xh))
+    yh = torch.einsum("bn,bhpn->bhp", Cm.to(torch.float32), hnew)
+    yh = yh + p.D[None, :, None] * xh
+    out = _gated_norm(p, yh.reshape(b, 1, d_inner), z.to(torch.float32)).to(x.dtype) @ p.out_proj
+    return out, {"conv_x": new_cx, "conv_bc": new_cbc, "h": hnew}

@@ -8,6 +8,10 @@ layer axis (``params["decoder"]["blocks"][0][...]`` has shape
 ``(n_layers, ...)``); the port keeps one module per layer, in the same
 (d_in, d_out) layouts, so the stacks are only unstacked.
 
+``cache_from_jax`` carries a serving cache the reference built (its
+``prefill`` output, numpy leaves) into the port's per-layer list, so a
+decode can continue in the port from state the reference made.
+
 ``entity_actor_from_jax`` and ``flat_trunk_from_jax`` carry the
 scheduler's policy nets (``rl.nets.init_entity_actor``,
 ``init_flat_trunk`` and ``rl.distill.quantize_flat_trunk`` outputs) the
@@ -63,6 +67,31 @@ def from_jax_params(tree, cfg, device):
     for name, arr in dec["ln_f"].items():
         load(getattr(model.ln_f, name), arr)
     return model
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+           "int32": torch.int32, "int8": torch.int8}
+
+
+def _leaf(a, device):
+    a = np.asarray(a)
+    dtype = _DTYPES[str(a.dtype)]
+    if dtype.is_floating_point:
+        return _tensor(a, dtype, device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def cache_from_jax(cache_tree, cfg, device):
+    """The reference's cache tree ({"blocks": one dict per pattern position,
+    each leaf stacked over the scan groups, "tail": one dict per tail
+    layer}, numpy leaves) -> the port's list of per-layer entry dicts, each
+    leaf in its own dtype."""
+    pattern, n_groups, _ = layer_plan(cfg)
+    layers = [{name: _leaf(a[i // len(pattern)], device)
+               for name, a in cache_tree["blocks"][i % len(pattern)].items()}
+              for i in range(n_groups * len(pattern))]
+    return layers + [{name: _leaf(a, device) for name, a in entry.items()}
+                     for entry in cache_tree["tail"]]
 
 
 def ae_from_numpy(ae, device):

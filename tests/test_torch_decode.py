@@ -1,0 +1,270 @@
+"""Parity of the port's decode slice with the JAX reference on the CPU: the
+``decode_attention`` kernel's plain twin, the model's prefill and
+``decode_step`` (dense GQA and Mamba-2 stacks), decoding from a cache the
+reference prefilled, and the serving launcher. Inputs are made with numpy
+from a seed; weights come from the reference's ``init_params`` through
+``repro_torch.weights``. The JAX side runs live, with Pallas in interpret
+mode.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs.base import reduced as jreduced
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+from repro.models import model as jmodel
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import _build, decode_attn, ops
+from repro_torch.launch.serve import cache_bytes, serve
+from repro_torch.models import apply_model, cache, decode_step, prefill
+from repro_torch.weights import cache_from_jax, from_jax_params
+
+GQA = dict(n_heads=4, n_kv_heads=2, d_head=64)
+HKV_G = [(2, 4), (1, 8), (4, 1)]           # tests/test_kernels.py:59
+
+
+def _decode_inputs(b, s, hkv, g, d, seed=0, empty_row=False):
+    """The reference's decode inputs: slots with pos % 5 == 2 empty, and
+    optionally every slot of batch row 0."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32) for _ in range(2))
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    pos[pos % 5 == 2] = -1
+    if empty_row:
+        pos[0] = -1
+    return q, k, v, pos
+
+
+def _both(args):
+    return [jnp.asarray(a) for a in args], [torch.from_numpy(a) for a in args]
+
+
+# ------------------------------------------------------------------ kernel
+@pytest.mark.parametrize("s", [64, 257, 1024, 600, 1088])
+@pytest.mark.parametrize("hkv,g", HKV_G)
+def test_decode_attention_twin_matches_the_reference_oracle(s, hkv, g):
+    """The twin against ``ref.decode_attention_ref`` at the reference's
+    2e-5 (tests/test_kernels.py:72), on its grid and at the ragged S = 600
+    and 1088 (not multiples of the TPU kernel's 512-slot block)."""
+    j, t = _both(_decode_inputs(2, s, hkv, g, 64, seed=s + hkv))
+    want = jref.decode_attention_ref(*j, s - 10)
+    got = ops.decode_attention(*t, s - 10)
+    assert got.dtype == torch.float32 and got.shape == (2, hkv * g, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_row_with_no_valid_slot_gives_the_mean_of_v():
+    args = _decode_inputs(2, 600, 2, 4, 32, seed=3, empty_row=True)
+    j, t = _both(args)
+    got = ops.decode_attention(*t, 590).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref.decode_attention_ref(*j, 590)),
+                               rtol=2e-5, atol=2e-5)
+    mean_v = np.repeat(args[2][0].mean(0), 4, axis=0)       # (Hq, D)
+    np.testing.assert_allclose(got[0], mean_v, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,hkv,g", [(64, 2, 4), (257, 1, 8), (512, 4, 1), (1024, 2, 4)])
+def test_decode_attention_twin_matches_the_pallas_kernel(s, hkv, g):
+    """Against ``ops.decode_attention`` (Pallas, interpret mode) where S is at
+    most its 512-slot block or a multiple of it."""
+    j, t = _both(_decode_inputs(2, s, hkv, g, 64, seed=s))
+    want = jops.decode_attention(*j, s - 10, interpret=True)
+    np.testing.assert_allclose(ops.decode_attention(*t, s - 10).numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_the_pallas_kernel_returns_nan_at_a_ragged_s():
+    """Records a fault of the reference kernel, which the port does not
+    copy: at S = 1088 (> 512, not a multiple of 512) the last S block of
+    ``src/repro/kernels/decode_attn.py`` reads past the cache end; the
+    probability of such a slot is 0, but 0 times the NaN it reads is NaN.
+    This test fails, and should be removed, once the reference is fixed."""
+    j, t = _both(_decode_inputs(2, 1088, 2, 2, 32, seed=4))
+    pallas = np.asarray(jops.decode_attention(*j, 1078, interpret=True))
+    assert np.isnan(pallas).any()
+    got = ops.decode_attention(*t, 1078).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(jref.decode_attention_ref(*j, 1078)),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_matches_the_models_flash_decode():
+    """As tests/test_kernels.py:75: the model's flash attention at one query
+    token (``_flash_decode``, two 64-slot chunks) against the twin."""
+    b, s, hkv, g, d = 2, 128, 2, 2, 32
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((b, 1, hkv * g, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32) for _ in range(2))
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 q_positions=jnp.full((b, 1), s - 1),
+                                 k_positions=jnp.asarray(pos), causal=True, chunk=64)
+    got = decode_attn.decode_attention_plain(*(torch.from_numpy(a) for a in (q[:, 0], k, v, pos)),
+                                             s - 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 0], rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_on_the_cpu_counts_no_launch():
+    _build.reset_launches()
+    ops.decode_attention(*_both(_decode_inputs(1, 8, 1, 2, 32))[1], 7)
+    assert _build.LAUNCHES["decode_attention"] == 0
+
+
+# ------------------------------------------------------------------ the slice
+_jprefill = jax.jit(jmodel.prefill, static_argnums=1, static_argnames="attn_len")
+_jdecode = jax.jit(jmodel.decode_step, static_argnums=1)
+_SETUPS = {}
+
+
+def _setup(arch, dtype="float32"):
+    """(jax cfg, port cfg, jax params, port model) at a reduced size; qwen3
+    keeps GQA (4 query heads on 2 KV heads)."""
+    key = (arch, dtype)
+    if key not in _SETUPS:
+        kw = dict(GQA) if arch == "qwen3-1.7b" else {}
+        kw.update(param_dtype=dtype, compute_dtype=dtype)
+        jcfg = jreduced(jget_config(arch), n_layers=3).replace(**kw)
+        cfg = reduced(get_config(arch), n_layers=3).replace(**kw)
+        params = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+        model = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg, "cpu")
+        _SETUPS[key] = (jcfg, cfg, params, model.requires_grad_(False))
+    return _SETUPS[key]
+
+
+def _tokens(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _f(t):
+    return t.detach().float().numpy()
+
+
+def _assert_cache_close(got, want, tol):
+    """The port's per-layer list against the reference's stacked tree."""
+    stacked = want["blocks"][0]
+    assert len(got) == next(iter(stacked.values())).shape[0]
+    for i, entry in enumerate(got):
+        assert sorted(entry) == sorted(stacked)
+        for name, t in entry.items():
+            ref = np.asarray(stacked[name][i]).astype(np.float32)
+            np.testing.assert_allclose(_f(t), ref, rtol=tol, atol=tol, err_msg=f"{i} {name}")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])
+def test_prefill_and_decode_steps_match_the_reference(arch):
+    """Port prefill + 3 decode steps against JAX prefill + decode_step on
+    the same params and tokens, in f32: logits and every cache leaf within
+    1e-4 (f32 through 3 blocks, one softmax against the reference's chunked
+    online softmax). The prompt (40) is ragged against the SSM chunk (16)."""
+    jcfg, cfg, params, model = _setup(arch)
+    p_len, n = 40, 3
+    toks = _tokens(cfg, (2, p_len + n), seed=1)
+    with torch.inference_mode():
+        jl, jc = _jprefill(params, jcfg, jnp.asarray(toks[:, :p_len]), attn_len=p_len + n + 1)
+        tl, tc = prefill(model, torch.from_numpy(toks[:, :p_len]).long(), attn_len=p_len + n + 1)
+        np.testing.assert_allclose(_f(tl), np.asarray(jl), rtol=1e-4, atol=1e-4)
+        _assert_cache_close(tc, jc, 1e-4)
+        for i in range(n):
+            tok = toks[:, p_len + i:p_len + i + 1]
+            jl, jc = _jdecode(params, jcfg, jc, jnp.asarray(tok), jnp.int32(p_len + i))
+            tl, tc = decode_step(model, tc, torch.from_numpy(tok).long(), p_len + i)
+            assert tl.shape == (2, cfg.vocab_size)
+            np.testing.assert_allclose(_f(tl), np.asarray(jl), rtol=1e-4, atol=1e-4)
+            _assert_cache_close(tc, jc, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])
+def test_decode_continues_from_a_cache_the_reference_prefilled(arch):
+    jcfg, cfg, params, model = _setup(arch)
+    p_len = 24
+    toks = _tokens(cfg, (2, p_len + 2), seed=2)
+    _, jc = _jprefill(params, jcfg, jnp.asarray(toks[:, :p_len]), attn_len=p_len + 2)
+    tc = cache_from_jax(jax.tree_util.tree_map(np.asarray, jc), cfg, "cpu")
+    _assert_cache_close(tc, jc, 0.0)
+    with torch.inference_mode():
+        for i in range(2):
+            tok = toks[:, p_len + i:p_len + i + 1]
+            jl, jc = _jdecode(params, jcfg, jc, jnp.asarray(tok), jnp.int32(p_len + i))
+            tl, tc = decode_step(model, tc, torch.from_numpy(tok).long(), p_len + i)
+            np.testing.assert_allclose(_f(tl), np.asarray(jl), rtol=1e-4, atol=1e-4)
+    _assert_cache_close(tc, jc, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])
+def test_decode_logits_match_the_train_forward(arch):
+    """Decoding token s from the cache gives position s of a full train-mode
+    forward (rel < 2e-3, tests/test_smoke_archs.py:81)."""
+    _, cfg, _, model = _setup(arch)
+    s = 17
+    toks = torch.from_numpy(_tokens(cfg, (2, s + 3), seed=3)).long()
+    with torch.inference_mode():
+        full = apply_model(model, toks)
+        _, tc = prefill(model, toks[:, :s], attn_len=s + 3)
+        for i in range(3):
+            dec, tc = decode_step(model, tc, toks[:, s + i:s + i + 1], s + i)
+            ref = full[:, s + i]
+            rel = float((ref - dec).abs().max()) / (float(ref.abs().max()) + 1e-9)
+            assert rel < 2e-3, f"{arch} step {i} rel={rel}"
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])
+def test_bf16_decode_stays_near_the_reference(arch):
+    """In bf16 the two differ by more than rounding order: the reference's
+    ``_flash_decode`` rounds q * scale and the probabilities to bf16
+    (``attention.py:112, 150``) where the port's decode attention keeps them
+    f32, and each bf16 op rounds at other places in the two frameworks. So
+    the bound is 5e-2 x max|logit| over the prefill and 2 decode steps."""
+    jcfg, cfg, params, model = _setup(arch, "bfloat16")
+    p_len = 20
+    toks = _tokens(cfg, (2, p_len + 2), seed=4)
+    with torch.inference_mode():
+        jl, jc = _jprefill(params, jcfg, jnp.asarray(toks[:, :p_len]), attn_len=p_len + 2)
+        tl, tc = prefill(model, torch.from_numpy(toks[:, :p_len]).long(), attn_len=p_len + 2)
+        assert tc[0][next(iter(tc[0]))].dtype == torch.bfloat16
+        for i in range(3):
+            want = np.asarray(jl).astype(np.float32)
+            assert float(np.abs(_f(tl) - want).max()) <= 5e-2 * float(np.abs(want).max())
+            if i == 2:
+                break
+            tok = toks[:, p_len + i:p_len + i + 1]
+            jl, jc = _jdecode(params, jcfg, jc, jnp.asarray(tok), jnp.int32(p_len + i))
+            tl, tc = decode_step(model, tc, torch.from_numpy(tok).long(), p_len + i)
+
+
+def test_decode_names_what_is_not_ported():
+    _, cfg, _, model = _setup("qwen3-1.7b")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with torch.inference_mode():
+        _, tc = prefill(model, toks, attn_len=6)
+        with pytest.raises(ValueError, match="idx"):
+            apply_model(model, toks[:, :1], mode="decode", cache=tc)
+        with pytest.raises(ValueError, match="mode"):
+            apply_model(model, toks, mode="serve")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])
+def test_serve_runs_end_to_end_on_the_cpu(arch):
+    cfg = reduced(get_config(arch), n_layers=2)
+    lines = []
+    res = serve(cfg, device="cpu", batch=2, prompt_len=20, gen=4, requests=2, seed=1,
+                log=lines.append)
+    assert len(res.stats) == 2 and len(lines) == 2
+    btype = cfg.block_types()[0]
+    want_bytes = cfg.n_layers * cache.entry_payload_bits(cfg, btype, 2, 24) // 8
+    for st in res.stats:
+        assert st["tokens"].shape == (2, 4) and st["logits_finite"]
+        assert st["cache_bytes"] == want_bytes
+        assert st["prefill_ms"] > 0 and st["decode_ms_per_token"] > 0
+    assert cache_bytes(res.cache) == want_bytes
+    if btype == "dense":                       # every slot filled but the last
+        assert int((res.cache[0]["pos"] >= 0).sum()) == 2 * 23
+    # the same seed serves the same tokens
+    again = serve(cfg, device="cpu", batch=2, prompt_len=20, gen=4, requests=1, seed=1,
+                  log=lambda _: None)
+    assert torch.equal(again.stats[0]["tokens"], res.stats[0]["tokens"])

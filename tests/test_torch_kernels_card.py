@@ -10,8 +10,9 @@ Without a card they skip (the kernels have no CPU mode).
 import pytest
 import torch
 
-from repro_torch.kernels import bottleneck, flat_trunk, pair_scorer, quant, ssd_intra
-from repro_torch.kernels.ref import code_dtype
+from repro_torch.kernels import (_build, bottleneck, decode_attn, flat_trunk, ops,
+                                 pair_scorer, quant, ssd_intra)
+from repro_torch.kernels.ref import code_dtype, decode_attention_ref
 
 
 @pytest.fixture
@@ -128,3 +129,67 @@ def test_flat_trunk_matches_its_plain_twin_on_card(card, bits):
                                        flat_trunk.flat_trunk_plain(x, codes, mns, mxs, bs,
                                                                    bits=bits),
                                        rtol=tol, atol=tol)
+
+
+def _decode_inputs(card, g, b, s, hkv, grp, d, dtype=torch.float32, empty_row=False):
+    """The reference's decode inputs (tests/test_kernels.py:58): slots with
+    pos % 5 == 2 empty; optionally batch row 0 with every slot empty."""
+    q = torch.randn(b, hkv * grp, d, generator=g, device=card)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=card).to(dtype) for _ in range(2))
+    pos = torch.arange(s, dtype=torch.int32, device=card).expand(b, s).clone()
+    pos[pos % 5 == 2] = -1
+    if empty_row:
+        pos[0] = -1
+    return q, k, v, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_its_plain_twin_on_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(11)
+    # 2e-5 is tests/test_kernels.py:72's bound in f32; 5e-2 with a bf16 cache
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    cases = [(2, s, hkv, grp, 64) for s in (64, 257, 1024) for hkv, grp in ((2, 4), (1, 8), (4, 1))]
+    cases += [(2, 1088, 2, 2, 32), (2, 600, 2, 2, 128), (4, 2080, 8, 2, 128), (3, 5, 1, 1, 32)]
+    for b, s, hkv, grp, d in cases:
+        q, k, v, pos = _decode_inputs(card, g, b, s, hkv, grp, d, dtype)
+        idx = s - 10
+        torch.testing.assert_close(decode_attn.decode_attention(q, k, v, pos, idx),
+                                   decode_attn.decode_attention_plain(q, k, v, pos, idx),
+                                   rtol=tol, atol=tol)
+    # bf16 queries, as the bf16 model's decode gives them
+    q, k, v, pos = _decode_inputs(card, g, 4, 2080, 8, 2, 128, dtype)
+    torch.testing.assert_close(decode_attn.decode_attention(q.bfloat16(), k, v, pos, 2079),
+                               decode_attn.decode_attention_plain(q.bfloat16(), k, v, pos, 2079),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_row_with_no_valid_slot_gives_the_mean_of_v(card):
+    g = torch.Generator(device=card).manual_seed(12)
+    q, k, v, pos = _decode_inputs(card, g, 2, 300, 2, 4, 64, empty_row=True)
+    got = decode_attn.decode_attention(q, k, v, pos, 290)
+    mean = v[0].mean(0).repeat_interleave(4, dim=0)          # (Hq, D)
+    torch.testing.assert_close(got[0], mean, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got, decode_attn.decode_attention_plain(q, k, v, pos, 290),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_decode_attention_counts_launches_and_refuses_what_it_does_not_take(card):
+    g = torch.Generator(device=card).manual_seed(13)
+    q, k, v, pos = _decode_inputs(card, g, 2, 64, 2, 2, 64)
+    _build.reset_launches()
+    out = ops.decode_attention(q, k, v, pos, 60)
+    assert _build.LAUNCHES["decode_attention"] == 1 and out.dtype == torch.float32
+    torch.testing.assert_close(out, decode_attention_ref(q.double(), k.double(), v.double(),
+                                                         pos, 60).float(), rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError):                                           # G 3
+        decode_attn.decode_attention(torch.randn(2, 6, 64, device=card), k, v, pos, 60)
+    with pytest.raises(ValueError):
+        decode_attn.decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                     v[..., :48].contiguous(), pos, 60)            # D 48
+    with pytest.raises(TypeError):
+        decode_attn.decode_attention(q, k, v, pos.long(), 60)
+    with pytest.raises(ValueError):
+        decode_attn.decode_attention(q, k, v, pos.cpu(), 60)

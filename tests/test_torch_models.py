@@ -226,6 +226,11 @@ def test_other_block_types_and_modes_name_their_slice():
     _, cfg = _cfgs("reduced")
     with pytest.raises(NotImplementedError, match="MoE slice"):
         make_block(cfg, "moe")
-    with pytest.raises(NotImplementedError, match="KV-cache"):
-        apply_model(_setup("reduced")[3], torch.zeros(1, 4, dtype=torch.long),
-                    mode="decode")
+    # decode over an int8 KV cache is still unported (prefill packs it)
+    model = init_params(cfg.replace(kv_quant_bits=8), torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    with torch.inference_mode():
+        _, cache = apply_model(model, tokens, mode="prefill", attn_len=6)
+        assert cache[0]["k"].dtype == torch.int8
+        with pytest.raises(NotImplementedError, match="kv_quant_bits"):
+            apply_model(model, tokens[:, :1], mode="decode", cache=cache, idx=4)
