@@ -57,7 +57,8 @@ _SIGNATURES = {
                          ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float),
                          ctypes.POINTER(ctypes.c_float), ctypes.c_int, _c],
     "repro_decode_attention": [_c, ctypes.c_int, _c, _c, ctypes.c_int, _c, ctypes.c_longlong,
-                               _c, _c, _c] + [ctypes.c_int] * 6 + [ctypes.c_float, _c],
+                               _c] + [ctypes.c_int] * 7 + [ctypes.c_float, _c],
+    "repro_decode_attention_max_clusters": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 _lib = None

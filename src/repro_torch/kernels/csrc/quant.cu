@@ -5,9 +5,25 @@
 //
 // Bound on the H100: bytes. Each element is read once and written once and
 // costs a handful of flops, so the floor is (input + output bytes) over the
-// 3.35 TB/s of HBM3. The design is one grid-stride pass with each thread on
-// neighbouring addresses, so every warp load and store is coalesced; the
-// TPU's (256, 512) VMEM tiling has no counterpart, since nothing is reused.
+// 3.35 TB/s of HBM3. The TPU's (256, 512) VMEM tiling has no counterpart,
+// since nothing is reused.
+//
+// quantize is one grid-stride pass with each thread on neighbouring
+// addresses, so every warp load and store is coalesced.
+//
+// dequantize moves 5 bytes an element, and at the serving size (2.62 MB)
+// launch, latency and drain set its floor, not bytes. Each thread takes
+// four codes with one vector load (4 bytes of uint8, 8 of uint16) and
+// writes them with one streaming vector store (16 bytes of f32, 8 of bf16),
+// so the serving size's 131 072 chunks run as 512 blocks of 256 threads,
+// about four resident an SM: many short threads keep more loads and stores
+// in flight than few long ones (a sweep of 4, 8 and 16 codes a thread on
+// the H100 found 4 fastest and 16 slowest). Larger inputs take a
+// grid-stride loop over chunks. A scalar head runs up to the first code
+// whose chunk is aligned and a scalar tail takes the rest, so a view at any
+// byte offset, of any length, is taken; where the output's chunk is not
+// aligned to its vector (a view whose offset is no multiple of four codes)
+// the chunk is stored element by element.
 //
 // Numerics match the plain PyTorch twins in kernels/quant.py bit for bit:
 //   * rintf rounds half to even, as jnp.round and torch.round do;
@@ -52,13 +68,61 @@ __global__ void quantize_kernel(const In* __restrict__ x, Code* __restrict__ y,
   }
 }
 
-template <typename Code, typename Out>
-__global__ void dequantize_kernel(const Code* __restrict__ y, Out* __restrict__ out,
-                                  long long n, float mn, float mx, float levels) {
+constexpr int kDqThreads = 256;
+constexpr int kDqCodes = 4;            // codes a thread takes: one vector load and store
+constexpr int kDqMaxBlocks = 132 * 8;  // 8 resident blocks on each of 132 SMs
+
+// four codes loaded as one vector (4 bytes of uint8, 8 of uint16), as f32
+__device__ __forceinline__ void load4(const uint8_t* p, float (&c)[4]) {
+  const unsigned int w = __ldcs(reinterpret_cast<const unsigned int*>(p));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = (float)((w >> (8 * i)) & 0xffu);
+}
+__device__ __forceinline__ void load4(const uint16_t* p, float (&c)[4]) {
+  const uint2 w = __ldcs(reinterpret_cast<const uint2*>(p));
+  c[0] = (float)(w.x & 0xffffu);
+  c[1] = (float)(w.x >> 16);
+  c[2] = (float)(w.y & 0xffffu);
+  c[3] = (float)(w.y >> 16);
+}
+
+// four values stored as one streaming vector (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  __stcs(reinterpret_cast<uint2*>(p), make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                 *reinterpret_cast<const uint32_t*>(&hi)));
+}
+
+// Codes [0, head) and [head + 4 chunks, n) one a thread, the chunks of four
+// between one a thread per grid-stride step. kVecOut: out + head is aligned
+// to a vector of four outputs.
+template <typename Code, typename Out, bool kVecOut>
+__global__ void __launch_bounds__(kDqThreads)
+dequantize_vec_kernel(const Code* __restrict__ y, Out* __restrict__ out, long long n,
+                      long long head, long long chunks, float mn, float mx, float levels) {
   const float step = dequant_step(mn, mx, levels);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long tail = head + chunks * kDqCodes;
+  if (tid < head) store_f32(out, tid, dequant_value((float)y[tid], step, mn));
+  if (tid < n - tail) store_f32(out, tail + tid, dequant_value((float)y[tail + tid], step, mn));
+  const Code* src = y + head;
+  Out* dst = out + head;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    store_f32(out, i, dequant_value((float)y[i], step, mn));
+  for (long long c = tid; c < chunks; c += stride) {
+    float v[kDqCodes];
+    load4(src + c * kDqCodes, v);
+#pragma unroll
+    for (int i = 0; i < kDqCodes; ++i) v[i] = dequant_value(v[i], step, mn);
+    if constexpr (kVecOut) {
+      store4(dst + c * kDqCodes, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kDqCodes; ++i) store_f32(dst, c * kDqCodes + i, v[i]);
+    }
   }
 }
 
@@ -77,8 +141,21 @@ void launch_quantize(const void* x, void* y, long long n, float mn, float mx,
 template <typename Code, typename Out>
 void launch_dequantize(const void* y, void* out, long long n, float mn, float mx,
                        float levels, cudaStream_t s) {
-  dequantize_kernel<Code, Out><<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const Code*>(y), static_cast<Out*>(out), n, mn, mx, levels);
+  constexpr uintptr_t kVecIn = kDqCodes * sizeof(Code);      // bytes of a chunk's codes
+  const uintptr_t misaligned = reinterpret_cast<uintptr_t>(y) % kVecIn;
+  long long head = misaligned ? (long long)((kVecIn - misaligned) / sizeof(Code)) : 0;
+  if (head > n) head = n;
+  const long long chunks = (n - head) / kDqCodes;
+  long long blocks = (chunks + kDqThreads - 1) / kDqThreads;
+  blocks = blocks < 1 ? 1 : (blocks > kDqMaxBlocks ? kDqMaxBlocks : blocks);
+  const Code* yc = static_cast<const Code*>(y);
+  Out* o = static_cast<Out*>(out);
+  if (reinterpret_cast<uintptr_t>(o + head) % (kDqCodes * sizeof(Out)) == 0)
+    dequantize_vec_kernel<Code, Out, true><<<(int)blocks, kDqThreads, 0, s>>>(
+        yc, o, n, head, chunks, mn, mx, levels);
+  else
+    dequantize_vec_kernel<Code, Out, false><<<(int)blocks, kDqThreads, 0, s>>>(
+        yc, o, n, head, chunks, mn, mx, levels);
 }
 
 }  // namespace
@@ -102,7 +179,8 @@ extern "C" int repro_quantize(const void* x, void* y, long long n, int in_dtype,
   return (int)cudaGetLastError();
 }
 
-// out_dtype: 0 = float32, 1 = bfloat16. Codes as in repro_quantize.
+// out_dtype: 0 = float32, 1 = bfloat16. Codes as in repro_quantize, at any
+// address (a view); out as allocated by the caller.
 extern "C" int repro_dequantize(const void* y, void* out, long long n, int out_dtype,
                                 int bits, float mn, float mx, void* stream) {
   if (n <= 0 || bits < 1 || bits > 16 || out_dtype < 0 || out_dtype > 1)

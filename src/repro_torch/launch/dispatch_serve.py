@@ -47,7 +47,10 @@ def dispatch_fleet(n_ue):
     return build_fleet([p for p, _ in picks], [d for _, d in picks])
 
 
-def dispatch_env(n_ue=1024, n_servers=3, device="cpu"):
+def dispatch_env(n_ue=1024, n_servers=3, device=None):
+    """The slice's env on ``device`` (the card unless the caller asks for
+    the CPU; raises when there is no card and no device was given)."""
+    device = resolve_device(device)
     return MECEnv(make_env_params(dispatch_fleet(n_ue), n_channels=2, t0=0.5, beta=0.47,
                                   pool=make_edge_pool(n_servers), device=device))
 

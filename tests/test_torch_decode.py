@@ -116,6 +116,115 @@ def test_decode_attention_on_the_cpu_counts_no_launch():
     assert _build.LAUNCHES["decode_attention"] == 0
 
 
+def _resident(gpcs, per_sm, cluster_cap=None):
+    """A card's resident blocks in clusters of 1..8, as the occupancy query
+    gives them: the SMs of a GPC hold ``per_sm`` blocks each, and a cluster
+    lies within one GPC; ``cluster_cap`` caps the clusters of 8."""
+    counts = [sum(k * per_sm // c * c for k in gpcs) for c in range(1, 9)]
+    if cluster_cap is not None:
+        counts[7] = min(counts[7], 8 * cluster_cap)
+    return tuple(counts)
+
+
+_TABLES = {"132x3": _resident([132], 3), "gpc-132x3": _resident([18] * 4 + [16] * 2 + [14] * 2, 3),
+           "132x3-cap45": _resident([132], 3, cluster_cap=45), "132x1": _resident([132], 1),
+           "gpc-114x2": _resident([16] * 6 + [18], 2)}
+
+
+@pytest.mark.parametrize("table", list(_TABLES))
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 257, 520, 2080, 40_000])
+@pytest.mark.parametrize("pairs", [1, 7, 32, 100, 300])
+def test_split_planner_covers_each_slot_once_in_one_wave(pairs, s, table):
+    """The kernel's split planner: every slot in exactly one non-empty
+    split, each a run of whole tiles but the last, at most a cluster's worth
+    of splits, the grid within one wave of the card's resident blocks unless
+    the (b, kv head) pairs alone exceed it, and no plan that fits one wave
+    with fewer tiles a block."""
+    resident = _TABLES[table]
+    n, per = decode_attn.plan_splits(pairs, s, resident)
+    tile = decode_attn.TILE
+    assert 1 <= n <= decode_attn.MAX_SPLIT and per % tile == 0
+    seen = np.zeros(s, dtype=int)
+    for c in range(n):
+        lo, hi = c * per, min(s, (c + 1) * per)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert pairs * n <= resident[n - 1] or n == 1
+    for c in range(1, min(decode_attn.MAX_SPLIT, -(-s // tile)) + 1):
+        if pairs * c <= resident[c - 1]:
+            assert per // tile <= -(-s // (c * tile)), c
+
+
+def test_split_planner_refuses_what_it_cannot_plan():
+    with pytest.raises(ValueError):
+        decode_attn.plan_splits(0, 10, _TABLES["132x3"])
+    with pytest.raises(ValueError):
+        decode_attn.plan_splits(4, 0, _TABLES["132x3"])
+    with pytest.raises(ValueError):
+        decode_attn.plan_splits(4, 10, (396,) * 4)
+
+
+def _merge(parts):
+    """Merge online-softmax partials (m, l, acc) by their maxima."""
+    mm = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - mm) for m, _, _ in parts]
+    return (mm, sum(wc * l for wc, (_, l, _) in zip(w, parts)),
+            sum(wc[..., None] * a for wc, (_, _, a) in zip(w, parts)))
+
+
+def _kernel_schedule(q, k, v, pos, idx, resident, warps=2):
+    """The CUDA kernel's order of work, in float64: the planner's splits;
+    in each, 32-slot tiles dealt to ``warps`` consumer warps, one max and one
+    rescale a tile (invalid slots -1e30, nothing past the split); the warps
+    merged, then the splits."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1:3]
+    g = hq // hkv
+    n, per = decode_attn.plan_splits(b * hkv, s, resident)
+    qg = q.double().reshape(b, hkv, g, d) * d ** -0.5
+    kk, vv = (t.double().permute(0, 2, 1, 3) for t in (k, v))       # (B, Hkv, S, D)
+    valid = ((pos >= 0) & (pos <= idx))[:, None, None, :]
+    splits = []
+    for c in range(n):
+        lo, hi = c * per, min(s, (c + 1) * per)
+        states = [(torch.full((b, hkv, g), -1e30, dtype=torch.float64),
+                   torch.zeros((b, hkv, g), dtype=torch.float64),
+                   torch.zeros((b, hkv, g, d), dtype=torch.float64)) for _ in range(warps)]
+        for t, t0 in enumerate(range(lo, hi, decode_attn.TILE)):
+            t1 = min(t0 + decode_attn.TILE, hi)
+            m, l, acc = states[t % warps]
+            sc = torch.einsum("bhgd,bhsd->bhgs", qg, kk[:, :, t0:t1])
+            sc = torch.where(valid[..., t0:t1], sc, torch.tensor(-1e30, dtype=torch.float64))
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new[..., None])
+            states[t % warps] = (m_new, l * alpha + p.sum(-1), acc * alpha[..., None]
+                                 + torch.einsum("bhgs,bhsd->bhgd", p, vv[:, :, t0:t1]))
+        splits.append(_merge(states))
+    _, l, acc = _merge(splits)
+    return (acc / torch.clamp(l, min=1e-20)[..., None]).reshape(b, hq, d)
+
+
+@pytest.mark.parametrize("b,s,hkv,g,d", [(2, 1, 2, 4, 32), (2, 31, 1, 8, 32), (2, 32, 2, 2, 64),
+                                         (2, 33, 4, 1, 64), (1, 257, 2, 4, 32),
+                                         (3, 600, 5, 2, 32), (4, 2080, 8, 2, 32)])
+def test_the_kernels_schedule_matches_the_reference_oracle(b, s, hkv, g, d):
+    """The kernel's tiles, splits and merges give the reference's function
+    at the planner's edges (S = 1, a tile less one, a tile, a tile and one,
+    eight splits' worth and one), with B Hkv not dividing 132, a row with no
+    valid slot and a split whose slots are all empty."""
+    q, k, v, pos = _decode_inputs(b, s, hkv, g, d, seed=s, empty_row=True)
+    resident = _TABLES["gpc-132x3"]
+    n, per = decode_attn.plan_splits(b * hkv, s, resident)
+    pos[-1, (n - 1) * per:] = -1                        # the last split of the last row
+    j, t = _both((q, k, v, pos))
+    want = np.asarray(jref.decode_attention_ref(*j, s - 1))
+    got = _kernel_schedule(*t, s - 1, resident)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got[0].numpy(), np.repeat(v[0].mean(0), g, 0),
+                               rtol=2e-5, atol=2e-5)
+
+
 # ------------------------------------------------------------------ the slice
 _jprefill = jax.jit(jmodel.prefill, static_argnums=1, static_argnames="attn_len")
 _jdecode = jax.jit(jmodel.decode_step, static_argnums=1)

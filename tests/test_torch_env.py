@@ -23,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import fleets, split
 from repro_torch.core import overhead as oh
 from repro_torch.env import mecenv
+from repro_torch.launch.dispatch_serve import dispatch_env
 
 N = 16
 KINDS = [("qwen3-1.7b", "PHONE_NPU"), ("mamba2-1.3b", "JETSON_NANO")]
@@ -220,3 +221,12 @@ def test_reset_and_what_waits():
         v.reset(eval_mode=True, randomize=True)
     with pytest.raises(NotImplementedError, match="observe"):
         v.observe(s)
+
+
+def test_dispatch_env_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The scheduling entry's env, like every entry point, takes the card by
+    default and raises when there is none and no device was given."""
+    assert dispatch_env(4, 3, "cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dispatch_env(4, 3)

@@ -46,6 +46,32 @@ def test_kernels_match_plain_twins_on_card(card, dtype, bits):
     assert (b.int() - b_plain.int()).abs().max().item() <= 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [4, 8, 12, 16])
+def test_dequantize_is_bit_equal_on_views_at_any_offset_on_card(card, bits, out_dtype):
+    """The vectorised dequantize against its twin, torch.equal: uint8 and
+    uint16 codes, f32 and bf16 output, n no multiple of 16, and 2-D views
+    that start 0-15 bytes past a 16-byte boundary (the scalar head, the
+    element-wise stores of an unaligned output chunk and the scalar tail)."""
+    g = torch.Generator(device=card).manual_seed(14)
+    dtype, levels = code_dtype(bits), (1 << bits) - 1
+    step = dtype.itemsize
+    _build.reset_launches()
+    calls = 0
+    for m, n in [(1024, 512), (1, 1), (3, 5), (7, 37), (33, 100), (129, 257)]:
+        for offset in range(0, 16, step):
+            buf = torch.randint(0, levels + 1, (m * n + offset // step,), generator=g,
+                                device=card).to(dtype)
+            y = buf[offset // step:].view(m, n)
+            assert (y.data_ptr() - buf.data_ptr()) == offset and buf.data_ptr() % 16 == 0
+            got = quant.dequantize_2d(y, -2.5, 3.0, bits=bits, out_dtype=out_dtype)
+            want = quant.dequantize_plain(y, -2.5, 3.0, bits=bits, out_dtype=out_dtype)
+            assert got.dtype == out_dtype and torch.equal(got, want), (m, n, offset)
+            calls += 1
+    assert _build.LAUNCHES["dequantize"] == calls
+
+
 def _ssd_inputs(card, g, b, nc, q, h, p, n, dtype):
     xh = torch.randn(b, nc, q, h, p, generator=g, device=card).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn(b, nc, q, h, generator=g, device=card))
@@ -143,6 +169,14 @@ def _decode_inputs(card, g, b, s, hkv, grp, d, dtype=torch.float32, empty_row=Fa
     return q, k, v, pos
 
 
+def _assert_twin(got, want, tol):
+    """Within the reference's tol (2e-5 in f32, 5e-2 with a bf16 cache), and
+    within 2e-5 whatever the cache: kernel and twin read the same values and
+    compute in f32, so only the order of the sums parts them."""
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_its_plain_twin_on_card(card, dtype):
@@ -154,14 +188,35 @@ def test_decode_attention_matches_its_plain_twin_on_card(card, dtype):
     for b, s, hkv, grp, d in cases:
         q, k, v, pos = _decode_inputs(card, g, b, s, hkv, grp, d, dtype)
         idx = s - 10
-        torch.testing.assert_close(decode_attn.decode_attention(q, k, v, pos, idx),
-                                   decode_attn.decode_attention_plain(q, k, v, pos, idx),
-                                   rtol=tol, atol=tol)
+        _assert_twin(decode_attn.decode_attention(q, k, v, pos, idx),
+                     decode_attn.decode_attention_plain(q, k, v, pos, idx), tol)
     # bf16 queries, as the bf16 model's decode gives them
     q, k, v, pos = _decode_inputs(card, g, 4, 2080, 8, 2, 128, dtype)
-    torch.testing.assert_close(decode_attn.decode_attention(q.bfloat16(), k, v, pos, 2079),
-                               decode_attn.decode_attention_plain(q.bfloat16(), k, v, pos, 2079),
-                               rtol=tol, atol=tol)
+    _assert_twin(decode_attn.decode_attention(q.bfloat16(), k, v, pos, 2079),
+                 decode_attn.decode_attention_plain(q.bfloat16(), k, v, pos, 2079), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_the_planners_edges_on_card(card, dtype):
+    """S = 1 and S at the tile and split edges the planner makes (a tile
+    less one, a tile, a tile and one, eight splits' worth and one), B Hkv
+    not dividing 132 and above a wave, G = 8 with D = 32, f32 and bf16 q,
+    a row with no valid slot and a split whose slots are all empty."""
+    g = torch.Generator(device=card).manual_seed(15)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    tile = decode_attn.TILE
+    cases = [(2, 1, 2, 4, 64), (2, tile - 1, 2, 2, 128), (2, tile, 2, 2, 128),
+             (2, tile + 1, 2, 2, 128), (2, 8 * tile + 1, 2, 2, 64), (1, 8 * 260 + 1, 2, 2, 128),
+             (5, 700, 7, 1, 64), (2, 300, 2, 8, 32), (40, 100, 8, 2, 64), (4, 2080, 8, 2, 128)]
+    for b, s, hkv, grp, d in cases:
+        q, k, v, pos = _decode_inputs(card, g, b, s, hkv, grp, d, dtype, empty_row=b > 1)
+        n, per = decode_attn.plan_splits(b * hkv, s,
+                                         decode_attn.resident_blocks(card, dtype, grp, d))
+        pos[-1, (n - 1) * per:] = -1                    # the last split of the last row
+        for qq in (q, q.bfloat16()):
+            _assert_twin(decode_attn.decode_attention(qq, k, v, pos, s - 1),
+                         decode_attn.decode_attention_plain(qq, k, v, pos, s - 1), tol)
 
 
 @pytest.mark.cuda
