@@ -10,9 +10,12 @@ line:
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch twin on the card, at the
    serving shapes and ragged ones, in float32 and bfloat16 (4 and 8 bits
-   for the codes; dequantize also on views at every byte offset); then
+   for the codes, and bottleneck_encode at both serving shapes also at 12
+   and 16 bits, where a single-TF32 product would miss by many codes;
+   quantize and dequantize also on views at every element offset); then
    the kernel, plain and library times (CUDA events, median of 25) beside
-   the least time the card could take;
+   the least time the card could take, quantize and bottleneck_encode at
+   both of their main-path shapes;
 4. small split forwards: the split-serving path at small f32 configs of
    qwen3-1.7b and mamba2-1.3b on the card (kernels) against the same
    models on the CPU (plain twins);
@@ -65,6 +68,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
 ROUTES = {  # name: (source, the TPU kernel it replaces)
     "quantize": ("src/repro_torch/kernels/csrc/quant.cu",
                  "src/repro/kernels/quant.py:62"),
@@ -116,10 +120,21 @@ def device_ms(fn, reps=25, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(n_bytes, n_flops):
+def bound(n_bytes, n_flops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * n_flops / F32_FLOP_PER_S
+    t_ops = 1e3 * n_flops / flop_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bottleneck_bounds(t, d, dp):
+    """(3xTF32 bound, f32-FMA bound), each (ms, by): x, W read once and the
+    codes written once; 2 T d d' flops of the product (three times over in
+    3xTF32 on the tensor cores, once in f32 FMA) and 5 T d' of Eq. 1."""
+    n_bytes, prod, eq1 = 4 * t * d + 4 * d * dp + t * dp, 2 * t * d * dp, 5 * t * dp
+    ops_ms = 1e3 * (3 * prod / TF32_FLOP_PER_S + eq1 / F32_FLOP_PER_S)
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    tf32 = (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
+    return tf32, bound(n_bytes, prod + eq1)
 
 
 def code_diff(a, b):
@@ -136,8 +151,8 @@ def phase_kernels(dev, kq, kb, ref):
             for bits in (4, 8):
                 q = kq.quantize_2d(x, -9.0, 9.0, bits=bits)
                 dq = code_diff(q, kq.quantize_plain(x, -9.0, 9.0, bits=bits))
-                check(dq == 0 if dtype == torch.float32 else dq <= 1,
-                      f"quantize {shape} {dtype} {bits}b differs by {dq} codes")
+                check(torch.equal(q, kq.quantize_plain(x, -9.0, 9.0, bits=bits)),
+                      f"quantize {shape} {dtype} {bits}b not bit-equal ({dq} codes)")
                 err["quantize"] = max(err["quantize"], dq)
                 for out_dtype in (torch.float32, torch.bfloat16):
                     d = kq.dequantize_2d(q, -9.0, 9.0, bits=bits, out_dtype=out_dtype)
@@ -155,8 +170,17 @@ def phase_kernels(dev, kq, kb, ref):
         check(rt <= 10.0 / ((1 << bits) - 1) / 2 + 1e-5, f"round trip {bits}b off by {rt}")
         oracle = max(oracle, float((d - ref.dequantize_ref(q, -5.0, 5.0, bits)).abs().max()))
     check(oracle <= 1e-5, f"dequantize differs from the oracle by {oracle}")
-    # views of the codes 0-15 bytes past a 16-byte boundary, n no multiple
-    # of 16: the kernel's scalar head and tail and its unaligned stores
+    # views of the inputs 0-15 bytes past a 16-byte boundary, n no multiple
+    # of 16: the kernels' scalar heads and tails and their unaligned stores
+    for dtype in (torch.float32, torch.bfloat16):
+        step = dtype.itemsize
+        for offset in range(0, 16, step):
+            buf = (torch.randn((37 * 41 + offset // step,), generator=g, device=dev) * 3).to(dtype)
+            x = buf[offset // step:].view(37, 41)
+            for bits in (8, 12):
+                check(torch.equal(kq.quantize_2d(x, -9.0, 9.0, bits=bits),
+                                  kq.quantize_plain(x, -9.0, 9.0, bits=bits)),
+                      f"quantize {dtype} {bits}b view at byte offset {offset} not bit-equal")
     for bits in (8, 12):
         code = torch.uint8 if bits <= 8 else torch.uint16
         step = code.itemsize
@@ -169,19 +193,21 @@ def phase_kernels(dev, kq, kb, ref):
                                   kq.dequantize_plain(y, -9.0, 9.0, bits=bits,
                                                       out_dtype=out_dtype)),
                       f"dequantize {bits}b view at byte offset {offset} not bit-equal")
-    print(f"kernels: quantize bit-equal in f32 (max {err['quantize']} code overall), "
-          f"dequantize bit-equal, also on views at every byte offset (oracle's association "
-          f"within {oracle:.2e}), "
-          f"round trip within step/2", flush=True)
-    # the last shapes take the kernel's element-wise loads: d and d' not
-    # multiples of 4, and an x that starts 4 bytes into its buffer
-    for t, d, dp, offset in [(1024, 2048, 512, 0), (513, 384, 96, 0), (100, 260, 64, 0),
-                             (64, 128, 32, 0), (100, 257, 63, 0), (96, 256, 64, 1)]:
+    print(f"kernels: quantize bit-equal in f32 and bf16 (max {err['quantize']} code overall), "
+          f"dequantize bit-equal, both also on views at every element offset (oracle's "
+          f"association within {oracle:.2e}), round trip within step/2", flush=True)
+    # the serving shapes (T = 1024 and 2048) at every width, then ragged
+    # shapes; the last two take the SIMT kernel: d and d' not multiples of
+    # 4, and an x that starts 4 bytes into its buffer
+    for t, d, dp, offset in [(1024, 2048, 512, 0), (2048, 2048, 512, 0), (513, 384, 96, 0),
+                             (100, 260, 64, 0), (64, 128, 32, 0), (100, 257, 63, 0),
+                             (96, 256, 64, 1)]:
         for dtype in (torch.float32, torch.bfloat16):
             buf = torch.randn((t * d + offset,), generator=g, device=dev).to(dtype)
             x = buf[offset:].view(t, d)
             w = (torch.randn((d, dp), generator=g, device=dev) * 0.05).to(dtype)
-            for bits in (4, 8):
+            serving = d == 2048 and dtype == torch.float32
+            for bits in (4, 8, 12, 16) if serving else (4, 8):
                 c = kb.bottleneck_encode(x, w, -4.0, 4.0, bits=bits)
                 p = kb.bottleneck_encode_plain(x, w, -4.0, 4.0, bits=bits)
                 diff = code_diff(c, p)
@@ -190,7 +216,7 @@ def phase_kernels(dev, kq, kb, ref):
                       f"differs by {diff} codes")
                 err["bottleneck_encode"] = max(err["bottleneck_encode"], diff)
                 print(f"kernels: bottleneck_encode ({t},{d})->{dp}{' offset' if offset else ''} "
-                      f"{str(dtype)[6:]} {bits}b: max {diff} code, "
+                      f"{str(dtype)[6:]} {bits}b ({kb.route(x, w)}): max {diff} code, "
                       f"{100 * share:.4f}% of codes differ",
                       flush=True)
     return err
@@ -266,20 +292,53 @@ def ssd_work(b, nc, q, h, p, n):
 
 
 def phase_timing(dev, kq, kb, kssd, ssd_shape):
-    """Kernel, plain and library times at the serving shapes."""
+    """Kernel, plain and library times at the serving shapes: the JSON line
+    takes qwen3-1.7b's (1024, 512) feature and (1024, 2048) @ (2048, 512)
+    encode; quantize is also timed at the trunk's (64, 64) layer, the
+    shape its main path gives it, and bottleneck_encode at mamba2-1.3b's
+    (2048, 2048) @ (2048, 512)."""
     g = torch.Generator(device=dev).manual_seed(1)
     serve = SERVE["qwen3-1.7b"]
     t, d, dp = serve["batch"] * serve["seq"], 2048, 512
     mn, mx, levels = -4.0, 4.0, 255
     z = torch.randn((t, dp), generator=g, device=dev) * 2
     codes = kq.quantize_2d(z, mn, mx)
-    x = torch.randn((t, d), generator=g, device=dev)
-    w = torch.randn((d, dp), generator=g, device=dev) * 0.05
     step = (mx - mn) / levels
     zp = int(round(-mn / step))
     qt = torch.quantize_per_tensor(z, step, zp, torch.quint8)
     scale = torch.tensor(levels / (mx - mn), device=dev)
     n = t * dp
+    trunk = torch.randn(TRUNK_DIMS[1:3], generator=g, device=dev) * 0.4
+    t_mamba = SERVE["mamba2-1.3b"]["batch"] * SERVE["mamba2-1.3b"]["seq"]
+    enc = {tt: (torch.randn((tt, d), generator=g, device=dev),
+                torch.randn((d, dp), generator=g, device=dev) * 0.05) for tt in (t, t_mamba)}
+
+    xb, wb = (a.to(torch.bfloat16) for a in enc[t])
+
+    def encode_row(tt):
+        x, w = enc[tt]
+        return dict(kernel=lambda: kb.bottleneck_encode(x, w, mn, mx),
+                    plain=lambda: kb.bottleneck_encode_plain(x, w, mn, mx),
+                    library=lambda: torch.clamp(torch.round((x @ w - mn) * scale), 0,
+                                                levels).to(torch.uint8),
+                    bound=bottleneck_bounds(tt, d, dp)[0])
+
+    extra = {
+        f"quantize {TRUNK_DIMS[1:3]}": dict(
+            kernel=lambda: kq.quantize_2d(trunk, -1.0, 1.0),
+            plain=lambda: kq.quantize_plain(trunk, -1.0, 1.0),
+            library=lambda: torch.quantize_per_tensor(trunk, 2.0 / levels, 128, torch.quint8),
+            bound=bound(trunk.numel() * 5, 5 * trunk.numel())),
+        f"bottleneck_encode ({t_mamba},{d})->{dp}": encode_row(t_mamba),
+        # bf16 inputs take one TF32 product, not three: beside the f32 row,
+        # the share of the time the products take (no library call: a bf16
+        # cuBLAS product rounds z to bf16)
+        f"bottleneck_encode ({t},{d})->{dp} bf16": dict(
+            kernel=lambda: kb.bottleneck_encode(xb, wb, mn, mx),
+            plain=lambda: kb.bottleneck_encode_plain(xb, wb, mn, mx),
+            library=None,
+            bound=bound(2 * t * d + 2 * d * dp + t * dp, 2 * t * d * dp, TF32_FLOP_PER_S)),
+    }
     rows = {
         "quantize": dict(
             kernel=lambda: kq.quantize_2d(z, mn, mx),
@@ -293,12 +352,7 @@ def phase_timing(dev, kq, kb, kssd, ssd_shape):
             plain=lambda: kq.dequantize_plain(codes, mn, mx),
             library=lambda: qt.dequantize(),
             bound=bound(n * (1 + 4), 2 * n)),
-        "bottleneck_encode": dict(
-            kernel=lambda: kb.bottleneck_encode(x, w, mn, mx),
-            plain=lambda: kb.bottleneck_encode_plain(x, w, mn, mx),
-            library=lambda: torch.clamp(torch.round((x @ w - mn) * scale), 0,
-                                        levels).to(torch.uint8),
-            bound=bound(4 * t * d + 4 * d * dp + t * dp, 2 * t * d * dp + 5 * t * dp)),
+        "bottleneck_encode": encode_row(t),
         # f32 inputs, as the SSD mixer gives them; no single PyTorch call
         # computes this function, so it has no library yardstick
         "ssd_intra": dict(
@@ -309,17 +363,25 @@ def phase_timing(dev, kq, kb, kssd, ssd_shape):
     }
     ssd_args = ssd_inputs(dev, g, *ssd_shape)
     out = {}
-    for name, r in rows.items():
+    for name, r in {**rows, **extra}.items():
         ms = device_ms(r["kernel"])
         plain_ms = device_ms(r["plain"])
         library_ms = None if r["library"] is None else device_ms(r["library"])
         bound_ms, bound_by = r["bound"]
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+        if name in rows:    # the JSON line's shapes
+            out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
         lib = "none" if library_ms is None else f"{library_ms:.5f} ms"
         print(f"timing: {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
               f"library {lib}, bound {bound_ms:.5f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tt in (t, t_mamba):
+        x, w = enc[tt]
+        (tf32_ms, _), (f32_ms, _) = bottleneck_bounds(tt, d, dp)
+        print(f"timing: bottleneck_encode ({tt},{d})->{dp}: route {kb.route(x, w)}, K split "
+              f"over {kb.plan_split(tt, d, dp, n_sm)} blocks; bound in 3xTF32 "
+              f"{tf32_ms:.5f} ms, in f32 FMA {f32_ms:.5f} ms", flush=True)
     return out
 
 
@@ -402,7 +464,7 @@ def phase_serve(dev, cs, cfg, build_mod, kref):
 
 # the CUDA kernels of each port kernel, as the profiler names them
 KERNEL_NAMES = {"ssd_intra": ("gram_kernel", "intra_kernel"),
-                "bottleneck_encode": ("bottleneck_encode_kernel",),
+                "bottleneck_encode": ("bottleneck_mma_kernel",),
                 "dequantize": ("dequantize_vec_kernel",),
                 "pair_scorer": ("pair_scorer_kernel",),
                 "flat_trunk": ("flat_trunk_kernel",),

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.core import overhead as oh
 from repro_torch.core.fleets import (BITS_NORM, DIST_NORM, EDGE_SLOW_NORM,
                                      RATE_NORM, EdgePool, pool_aggregate_features,
@@ -119,16 +120,18 @@ def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
                     d_low=1.0, d_high=100.0, pathloss=3.0,
                     churn_rate=0.0, leave_rate=0.0,
                     pool: Optional[EdgePool] = None,
-                    pool_ranges=None, device="cpu") -> EnvParams:
+                    pool_ranges=None, device=None) -> EnvParams:
     """A SplitPlan is broadcast to ``n_ue`` identical UEs; a FleetPlan
     gives per-UE tables and power draws. An EdgePool of more than one
     server (or one non-default server) gives the routed action space. The
     tables are built in numpy (float64), cast to float32 as the reference
-    casts them, and put on ``device``."""
+    casts them, and put on ``device`` (the card unless the caller passes
+    one; raises when there is no card and none was given)."""
     if churn_rate > 0.0 or leave_rate > 0.0:
         raise NotImplementedError(_CHURN)
     if pool_ranges is not None:
         raise NotImplementedError(_GEOMETRY)
+    device = resolve_device(device)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     if isinstance(plan, FleetPlan):
         n_ue = plan.n_ue

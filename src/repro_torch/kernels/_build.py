@@ -43,9 +43,11 @@ _SIGNATURES = {
                        ctypes.c_float, ctypes.c_float, _c],
     "repro_dequantize": [_c, _c, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                          ctypes.c_float, ctypes.c_float, _c],
+    # ..., mn, mx, route (1 tensor cores, 0 SIMT), K split, stream
     "repro_bottleneck_encode": [_c, _c, _c, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_float, ctypes.c_float, _c],
+                                ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                                ctypes.c_int, _c],
     "repro_ssd_intra": [_c, _c, _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _c],

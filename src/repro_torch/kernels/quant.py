@@ -2,10 +2,9 @@
 
 Replaces ``src/repro/kernels/quant.py::quantize_2d`` and ``::dequantize_2d``
 (Pallas TPU). On a CUDA tensor the wrappers launch the hand-written kernels
-of ``csrc/quant.cu`` (bound by bytes on the H100: one coalesced read and
-one write per element; dequantize takes four codes a thread with one
-vector load and store, and a view of the codes at any byte offset) or
-raise; on a CPU tensor they run the plain twins,
+of ``csrc/quant.cu`` (bound by bytes on the H100: each takes four elements
+a thread with one vector load and one vector store, and a view at any
+element offset) or raise; on a CPU tensor they run the plain twins,
 which mirror ``quantize_xla`` / ``dequantize_xla`` op for op and give the
 kernels' results bit for bit.
 """

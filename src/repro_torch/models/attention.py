@@ -6,10 +6,12 @@ Numerics follow the reference: the softmax scale multiplies q in q's dtype
 before the dot; scores and the output accumulate in f32 (operands upcast,
 which is exact for bf16); masked scores are -1e30; the probabilities are
 cast to v's dtype before the second product; the output is cast back to
-q's dtype. The reference chunks the KV axis (``attn_chunk``) only to bound
-memory at long contexts; at this slice's lengths the whole (Sq, Sk) score
-matrix fits, so the port computes it in one piece. It does not use
-``scaled_dot_product_attention``, whose masking and rounding differ.
+q's dtype. Train and prefill attention is the reference's ``_flash_inner``:
+an online softmax over key chunks of ``attn_chunk`` (the last one padded
+with invalid slots, as the reference pads it), in query blocks of 2048
+when Sq is longer, so memory is O(q_block * chunk) per head rather than
+O(Sq * Sk). It does not use ``scaled_dot_product_attention``, whose masking
+and rounding differ.
 
 Decode (one token against the cache) goes through ``ops.decode_attention``
 (the CUDA kernel on the card, its plain twin on the CPU), which computes
@@ -67,30 +69,58 @@ def qkv(p, x, xc, cfg):
     return q, k, v
 
 
-def attention(q, k, v, *, q_positions, k_positions, causal=True, window=0):
+def attention(q, k, v, *, q_positions, k_positions, causal=True, window=0, chunk=1024,
+              q_block=2048):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); positions (B, S) int,
-    k_positions -1 = invalid slot. Returns (B, Sq, Hq, D) in q's dtype."""
+    k_positions -1 = invalid slot. Returns (B, Sq, Hq, D) in q's dtype.
+    Query rows are independent, so blocks of ``q_block`` rows are computed
+    one after another."""
+    blocks = [_flash_inner(q[:, i:i + q_block], k, v, q_positions[:, i:i + q_block],
+                           k_positions, causal, window, chunk)
+              for i in range(0, q.shape[1], q_block)]
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+
+
+def _flash_inner(q, k, v, q_positions, k_positions, causal, window, chunk):
+    """Online softmax over key chunks: running max m, sum l and f32
+    accumulator; a chunk's probabilities are cast to v's dtype before the
+    second product. The first chunk sets (m, l, acc) directly: from the
+    reference's (-1e30, 0, 0) its step gives the same values."""
     b, sq, hq, dh = q.shape
-    hkv = k.shape[2]
+    sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     # the scale rounded to q's dtype first, as jnp.asarray(scale, q.dtype)
     scale = float(torch.tensor(dh ** -0.5, dtype=q.dtype))
-    qf = (q.reshape(b, sq, hkv, g, dh) * scale).to(k.dtype)
-    s = torch.einsum("bqhgd,bchd->bhgqc", qf.to(torch.float32),
-                     k.to(torch.float32))                      # (B,Hkv,G,Sq,Sk)
-    kp = k_positions[:, None, None, None, :]
+    qf = (q.reshape(b, sq, hkv, g, dh) * scale).to(k.dtype).to(torch.float32)
     qp = q_positions[:, None, None, :, None]
-    valid = kp >= 0
-    if causal:
-        valid = valid & (kp <= qp)
-    if window:
-        valid = valid & (kp > qp - window)
-    s = s.masked_fill(~valid, NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1)
-    acc = torch.einsum("bhgqc,bchd->bhgqd", p.to(v.dtype).to(torch.float32),
-                       v.to(torch.float32))
+    chunk = min(chunk, sk)
+    m = l = acc = None
+    for c0 in range(0, sk, chunk):
+        kb, vb, pb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], k_positions[:, c0:c0 + chunk]
+        pad = chunk - kb.shape[1]
+        if pad:     # the reference pads the last chunk with zeros at position -1
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
+            pb = torch.nn.functional.pad(pb, (0, pad), value=-1)
+        s = torch.einsum("bqhgd,bchd->bhgqc", qf, kb.to(torch.float32))   # (B,Hkv,G,Sq,C)
+        kp = pb[:, None, None, None, :]
+        valid = kp >= 0
+        if causal:
+            valid = valid & (kp <= qp)
+        if window:
+            valid = valid & (kp > qp - window)
+        s = s.masked_fill(~valid, NEG_INF)
+        m_new = s.amax(-1) if m is None else torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        pv = torch.einsum("bhgqc,bchd->bhgqd", p.to(vb.dtype).to(torch.float32),
+                          vb.to(torch.float32))
+        if m is None:
+            l, acc = p.sum(-1), pv
+        else:
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + pv
+        m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]           # (B,Hkv,G,Sq,D)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
     return out.to(q.dtype)
@@ -113,7 +143,7 @@ def self_attention(p, x, cfg, positions, *, causal=True, window=0, kv_cache=None
     b, s = q.shape[0], q.shape[1]
     if kv_cache is None:
         out = attention(q, k, v, q_positions=positions, k_positions=positions,
-                        causal=causal, window=window)
+                        causal=causal, window=window, chunk=cfg.attn_chunk)
         new_kv = (k, v)
     else:
         if cfg.kv_quant_bits:

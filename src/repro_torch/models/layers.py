@@ -4,6 +4,8 @@
 (weights as (d_in, d_out), applied as ``x @ w``)."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -90,12 +92,21 @@ class MLP(nn.Module):
 
 
 # ---------------------------------------------------------------- RoPE
+@functools.lru_cache(maxsize=None)
+def rope_inv_freqs(d_rot, theta, device):
+    """RoPE's inverse frequencies, built in numpy with the reference's bits
+    and copied to ``device`` once per (d_rot, theta, device): a copy from
+    the host on every call would synchronise the stream."""
+    inv = 1.0 / (theta ** (np.arange(0, d_rot, 2, dtype=np.float32) / d_rot))
+    with torch.inference_mode(False):     # usable in and out of inference mode
+        return torch.from_numpy(inv.astype(np.float32)).to(device)
+
+
 def rope_freqs(positions, d_head, theta, fraction=1.0):
     """positions: (..., S) int -> cos/sin (..., S, d_rot//2), d_rot."""
     d_rot = int(d_head * fraction)
     d_rot -= d_rot % 2
-    inv = 1.0 / (theta ** (np.arange(0, d_rot, 2, dtype=np.float32) / d_rot))
-    inv = torch.from_numpy(inv.astype(np.float32)).to(positions.device)
+    inv = rope_inv_freqs(d_rot, theta, positions.device)
     ang = positions[..., None].to(torch.float32) * inv
     return torch.cos(ang), torch.sin(ang), d_rot
 

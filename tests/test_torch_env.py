@@ -45,7 +45,8 @@ def _envs(n_servers):
     jpool = None if n_servers == 1 else jfleets.make_edge_pool(n_servers)
     pool = None if n_servers == 1 else fleets.make_edge_pool(n_servers)
     return (jenv.MECEnv(jenv.make_env_params(jfleet, n_channels=2, pool=jpool)),
-            mecenv.MECEnv(mecenv.make_env_params(fleet, n_channels=2, pool=pool)))
+            mecenv.MECEnv(mecenv.make_env_params(fleet, n_channels=2, pool=pool,
+                                                 device="cpu")))
 
 
 _TABLES = ("t_local", "e_local", "t_comp", "e_comp", "f_bits", "feasible")
@@ -230,3 +231,16 @@ def test_dispatch_env_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dispatch_env(4, 3)
+
+
+def test_make_env_params_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The public env constructor takes the card by default and raises when
+    there is none and no device was given; the cases it does not port yet
+    raise NotImplementedError before any device is chosen."""
+    fleet = _fleets()[1]
+    assert mecenv.make_env_params(fleet, device="cpu").l_new.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mecenv.make_env_params(fleet)
+    with pytest.raises(NotImplementedError, match="churn"):
+        mecenv.make_env_params(fleet, leave_rate=0.1)

@@ -114,6 +114,49 @@ def test_any_shape_bottleneck_and_uint16_codes():
         _codes(jref.quantize_ref(jnp.asarray(x), -2.0, 2.0, bits=12)))
 
 
+def test_bottleneck_route_is_chosen_by_shape_and_address():
+    """The tensor-core kernel takes d and d' multiples of 4 with x and w on
+    a four-element boundary (both serving shapes); the SIMT kernel takes
+    the rest. The choice is made before any launch, from shape and address."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = torch.zeros(1024, 2048, dtype=dtype), torch.zeros(2048, 512, dtype=dtype)
+        assert bottleneck.route(x, w) == "mma"
+        assert bottleneck.route(torch.zeros(5, 2048, dtype=dtype), w) == "mma"
+        assert bottleneck.route(x[:, :2044], torch.zeros(2044, 12, dtype=dtype)) == "mma"
+        assert bottleneck.route(torch.zeros(4, 258, dtype=dtype),
+                                torch.zeros(258, 64, dtype=dtype)) == "simt"
+        assert bottleneck.route(torch.zeros(4, 256, dtype=dtype),
+                                torch.zeros(256, 63, dtype=dtype)) == "simt"
+        buf = torch.zeros(96 * 256 + 4, dtype=dtype)
+        for offset in range(4):
+            got = bottleneck.route(buf[offset:offset + 96 * 256].view(96, 256),
+                                   torch.zeros(256, 64, dtype=dtype))
+            assert got == ("mma" if offset == 0 else "simt")
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 78])
+def test_bottleneck_split_planner_fills_one_wave(n_sm):
+    """The serving shapes on an H100 (132 SMs): 64 tiles in clusters of 2
+    at T = 1024 and 128 tiles unsplit at T = 2048, both 128 blocks. On any
+    card and shape a split grid fits the SMs and every block keeps a ring's
+    worth of K tiles."""
+    if n_sm == 132:
+        assert bottleneck.plan_split(1024, 2048, 512, n_sm) == 2
+        assert bottleneck.plan_split(2048, 2048, 512, n_sm) == 1
+    fits = lambda split, tiles, k_tiles: (split * tiles <= n_sm
+                                          and k_tiles >= split * bottleneck.STAGES)
+    for t in (1, 100, 513, 1024, 2048, 4096):
+        for d in (4, 128, 384, 2048, 8192):
+            for dp in (4, 96, 512):
+                split = bottleneck.plan_split(t, d, dp, n_sm)
+                tiles = -(-t // bottleneck.BM) * -(-dp // bottleneck.BN)
+                k_tiles = -(-d // bottleneck.BK)
+                assert split in (1, 2, 4)
+                assert split == 1 or fits(split, tiles, k_tiles)
+                # and the largest such split
+                assert split == bottleneck.MAX_SPLIT or not fits(2 * split, tiles, k_tiles)
+
+
 def test_plain_twins_are_the_cpu_path_and_count_nothing():
     _build.reset_launches()
     x = torch.randn(33, 70, generator=torch.Generator().manual_seed(5))

@@ -47,6 +47,71 @@ def test_kernels_match_plain_twins_on_card(card, dtype, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 12, 16])
+def test_bottleneck_encode_on_the_tensor_cores_at_the_serving_shapes_on_card(card, bits):
+    """Both serving shapes take the 3xTF32 kernel and stay within one code
+    of the f32 twin at up to 16 bits, where a single TF32 product would
+    miss by many codes (its 10-bit mantissa, summed over d = 2048)."""
+    g = torch.Generator(device=card).manual_seed(16)
+    for t in (1024, 2048):
+        x = torch.randn(t, 2048, generator=g, device=card)
+        w = torch.randn(2048, 512, generator=g, device=card) * 0.05
+        assert bottleneck.route(x, w) == "mma"
+        _build.reset_launches()
+        b = bottleneck.bottleneck_encode(x, w, -4.0, 4.0, bits=bits)
+        assert _build.LAUNCHES["bottleneck_encode"] == 1 and b.dtype == code_dtype(bits)
+        b_plain = bottleneck.bottleneck_encode_plain(x, w, -4.0, 4.0, bits=bits)
+        assert (b.int() - b_plain.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bottleneck_encode_takes_the_simt_kernel_where_the_shape_asks_on_card(card, dtype):
+    """d' not a multiple of 4, d not a multiple of 4, and an x four bytes
+    into its buffer take the SIMT kernel, chosen before the launch; 16-bit
+    codes within one of the twin's, one launch a call."""
+    g = torch.Generator(device=card).manual_seed(17)
+    buf = torch.randn(300 * 256 + 1, generator=g, device=card).to(dtype)
+    cases = [(torch.randn(300, 256, generator=g, device=card).to(dtype),
+              (torch.randn(256, 62, generator=g, device=card) * 0.05).to(dtype)),
+             (torch.randn(300, 258, generator=g, device=card).to(dtype),
+              (torch.randn(258, 64, generator=g, device=card) * 0.05).to(dtype)),
+             (buf[1:].view(300, 256), (torch.randn(256, 64, generator=g, device=card)
+                                       * 0.05).to(dtype))]
+    for x, w in cases:
+        assert bottleneck.route(x, w) == "simt"
+        _build.reset_launches()
+        b = bottleneck.bottleneck_encode(x, w, -4.0, 4.0, bits=16)
+        assert _build.LAUNCHES["bottleneck_encode"] == 1
+        b_plain = bottleneck.bottleneck_encode_plain(x, w, -4.0, 4.0, bits=16)
+        assert (b.int() - b_plain.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [4, 8, 12, 16])
+def test_quantize_is_bit_equal_on_views_at_any_offset_on_card(card, bits, dtype):
+    """The vectorised quantize against its twin, torch.equal: f32 and bf16
+    input, uint8 and uint16 codes, n no multiple of 16, and 2-D views that
+    start 0-15 bytes past a 16-byte boundary (the scalar head, the
+    element-wise stores of an unaligned output chunk and the scalar tail)."""
+    g = torch.Generator(device=card).manual_seed(18)
+    step = dtype.itemsize
+    _build.reset_launches()
+    calls = 0
+    for m, n in [(1024, 512), (64, 64), (1, 1), (3, 5), (7, 37), (33, 100), (129, 257)]:
+        for offset in range(0, 16, step):
+            buf = (torch.randn(m * n + offset // step, generator=g, device=card) * 3).to(dtype)
+            x = buf[offset // step:].view(m, n)
+            assert (x.data_ptr() - buf.data_ptr()) == offset and buf.data_ptr() % 16 == 0
+            got = quant.quantize_2d(x, -2.5, 3.0, bits=bits)
+            want = quant.quantize_plain(x, -2.5, 3.0, bits=bits)
+            assert got.dtype == code_dtype(bits) and torch.equal(got, want), (m, n, offset)
+            calls += 1
+    assert _build.LAUNCHES["quantize"] == calls
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [4, 8, 12, 16])
 def test_dequantize_is_bit_equal_on_views_at_any_offset_on_card(card, bits, out_dtype):

@@ -5,8 +5,8 @@ across by ``repro_torch.weights``; activations are made with numpy.
 
 Two configs: ``reduced(qwen3-1.7b)`` (which caps the heads at 4, so
 n_kv_heads == n_heads) and a GQA variant (4 query heads on 2 KV heads) run
-at a sequence longer than ``attn_chunk``, so the reference's chunked online
-softmax takes several chunks where the port takes one.
+at a sequence longer than ``attn_chunk``, so both chunked online softmaxes
+take several chunks, the last one ragged.
 """
 import dataclasses
 
@@ -113,6 +113,29 @@ def test_rope_rotates_interleaved_pairs(fraction):
     np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=2e-5)
 
 
+def test_rope_frequencies_are_built_once_per_device(monkeypatch):
+    """rope_freqs gives the same bits on every call, and after the first
+    call per (d_rot, theta, device) its inverse frequencies are the cached
+    tensor: nothing is built in numpy or copied from the host again."""
+    _, pt = _positions(2, 40)
+    first = layers.rope_freqs(pt, 64, 1e6, 0.5)
+    inv = layers.rope_inv_freqs(32, 1e6, pt.device)
+    misses = layers.rope_inv_freqs.cache_info().misses
+
+    def no_host_copy(*args):
+        raise AssertionError("rope_freqs built its frequencies again")
+    monkeypatch.setattr(torch, "from_numpy", no_host_copy)
+    again = layers.rope_freqs(pt, 64, 1e6, 0.5)
+    for a, b in zip(first[:2], again[:2]):
+        assert torch.equal(a, b)
+    assert first[2] == again[2] == 32
+    assert layers.rope_inv_freqs(32, 1e6, pt.device) is inv
+    assert layers.rope_inv_freqs.cache_info().misses == misses
+    # the cached bits are the reference's numpy bits
+    np.testing.assert_array_equal(
+        _np(inv), 1.0 / (1e6 ** (np.arange(0, 32, 2, dtype=np.float32) / 32)))
+
+
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])
 def test_mlp(act):
     _, cfg = _cfgs("reduced")
@@ -145,7 +168,7 @@ def test_qkv_and_self_attention(kind):
         np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
     want, _ = jattn.self_attention(p0, jnp.asarray(x), jcfg, pj)
     got = a0(torch.from_numpy(x), pt)
-    # one f32 softmax against the reference's two-chunk online softmax
+    # two f32 chunks (64 + a ragged 16) on both sides, summed in other orders
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=2e-5)
 
 
@@ -163,6 +186,84 @@ def test_attention_matches_flash_attention(causal, window):
     got = attn.attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                          q_positions=tp, k_positions=tp, causal=causal, window=window)
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=2e-5)
+
+
+def _attention_inputs(b, sq, sk, hq, hkv, dh, seed):
+    q = _x((b, sq, hq, dh), seed)
+    k, v = _x((b, sk, hkv, dh), seed + 1), _x((b, sk, hkv, dh), seed + 2)
+    qpos = np.broadcast_to(np.arange(sk - sq, sk, dtype=np.int32), (b, sq)).copy()
+    kpos = np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk)).copy()
+    kpos[1, 7:11] = -1                           # invalid slots in one row
+    return q, k, v, qpos, kpos
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 40)])
+def test_chunked_attention_matches_jax_flash_inner(causal, window):
+    """Sq and Sk above the chunk (32), with a ragged last chunk (150 = 4 x 32
+    + 22), and query rows whose every key is invalid (q position -1): the
+    reference pads the last chunk with slots at position -1, which such a
+    row counts, and the port pads it the same way."""
+    b, sq, sk, hq, hkv, dh = 2, 130, 150, 4, 2, 32
+    q, k, v, qpos, kpos = _attention_inputs(b, sq, sk, hq, hkv, dh, 30)
+    qpos[0, :3] = -1                             # rows with no valid key when causal
+    want = jattn._flash_inner(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              q_positions=jnp.asarray(qpos), k_positions=jnp.asarray(kpos),
+                              causal=causal, window=window, chunk=32)
+    got = attn.attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         q_positions=torch.from_numpy(qpos), k_positions=torch.from_numpy(kpos),
+                         causal=causal, window=window, chunk=32)
+    # the same chunks and running max in f32; only the sums' order differs
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40)])
+def test_query_blocks_match_jax_flash_attention(causal, window):
+    """Sq above q_block (48) with a ragged last block (130 = 2 x 48 + 34):
+    the reference pads the queries and maps over blocks; the port takes
+    the blocks one after another."""
+    b, sq, sk, hq, hkv, dh = 2, 130, 150, 4, 2, 32
+    q, k, v, qpos, kpos = _attention_inputs(b, sq, sk, hq, hkv, dh, 40)
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 q_positions=jnp.asarray(qpos), k_positions=jnp.asarray(kpos),
+                                 causal=causal, window=window, chunk=32, q_block=48)
+    got = attn.attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         q_positions=torch.from_numpy(qpos), k_positions=torch.from_numpy(kpos),
+                         causal=causal, window=window, chunk=32, q_block=48)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=2e-6)
+
+
+def _one_piece_attention(q, k, v, qpos, kpos, causal, window):
+    """The whole (B, Hkv, G, Sq, Sk) score matrix in one softmax: the form
+    the port used before it chunked, kept here as an oracle."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qf = q.reshape(b, sq, hkv, hq // hkv, dh) * float(torch.tensor(dh ** -0.5))
+    s = torch.einsum("bqhgd,bchd->bhgqc", qf, k)
+    kp, qp = kpos[:, None, None, None, :], qpos[:, None, None, :, None]
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window:
+        valid = valid & (kp > qp - window)
+    s = s.masked_fill(~valid, attn.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhgqc,bchd->bhgqd", p, v) / p.sum(-1)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 40)])
+def test_chunked_attention_matches_the_one_piece_form(causal, window):
+    """Every query row here has a valid key, so padding the last chunk
+    changes nothing and the chunked softmax equals the one-piece one up to
+    f32 rounding."""
+    b, sq, sk, hq, hkv, dh = 2, 130, 150, 4, 2, 32
+    q, k, v, qpos, kpos = (torch.from_numpy(a) for a in
+                           _attention_inputs(b, sq, sk, hq, hkv, dh, 50))
+    want = _one_piece_attention(q, k, v, qpos, kpos, causal, window)
+    for chunk, q_block in [(32, 2048), (32, 48), (1024, 2048)]:
+        got = attn.attention(q, k, v, q_positions=qpos, k_positions=kpos, causal=causal,
+                             window=window, chunk=chunk, q_block=q_block)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("kind", ["reduced", "gqa"])
