@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --timing-only [--src OTHER_TREE/src]
 
 Phases, one line or more each, any failure exits non-zero before the last
-line:
+line (``--timing-only`` runs only the build and the kernel timings, of the
+port under ``--src``, so two trees' kernels can be timed in one session):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
@@ -12,10 +14,13 @@ line:
    serving shapes and ragged ones, in float32 and bfloat16 (4 and 8 bits
    for the codes, and bottleneck_encode at both serving shapes also at 12
    and 16 bits, where a single-TF32 product would miss by many codes;
-   quantize and dequantize also on views at every element offset); then
-   the kernel, plain and library times (CUDA events, median of 25) beside
-   the least time the card could take, quantize and bottleneck_encode at
-   both of their main-path shapes;
+   quantize and dequantize also on views at every element offset;
+   ssd_intra with the route it takes, at the serving and calibration
+   shapes too, and against float64 at the serving shape and a ragged Q);
+   then the kernel, plain and library times (CUDA events, median of 25)
+   beside the least time the card could take, quantize, bottleneck_encode
+   and ssd_intra at both of their main-path shapes (the last two with
+   their 3xTF32 and f32-FMA bounds, ssd_intra with its plan);
 4. small split forwards: the split-serving path at small f32 configs of
    qwen3-1.7b and mamba2-1.3b on the card (kernels) against the same
    models on the CPU (plain twins);
@@ -55,6 +60,7 @@ line:
    then one profiled qwen3 decode step;
 13. the kernels as one JSON line, then the result as the last line.
 """
+import argparse
 import collections
 import json
 import math
@@ -87,6 +93,7 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
 }
 SERVE = {"qwen3-1.7b": dict(requests=4, batch=4, seq=256),
          "mamba2-1.3b": dict(requests=4, batch=2, seq=1024)}
+CALIB_BATCH = 8      # collab_serve.serve calibrates the AE on 8 sequences
 DISPATCH = dict(n_ue=1024, n_servers=3, frames=64, seed=0, bits=8)
 DECODE_SERVE = {"qwen3-1.7b": dict(requests=2, batch=4, prompt_len=2048, gen=32),
                 "mamba2-1.3b": dict(requests=2, batch=2, prompt_len=1024, gen=32)}
@@ -232,18 +239,34 @@ def ssd_inputs(dev, g, b, nc, q, h, p, n, dtype=torch.float32):
     return xh, dt, la, bm, cm
 
 
-def phase_ssd_kernel(dev, kssd, kref, serve_shape):
+def ssd_route(kssd, args, dev):
+    """The route the wrapper takes for these inputs, with the tensor-core
+    kernel's plan (a parent tree without them: "simt")."""
+    if not hasattr(kssd, "route"):
+        return "simt"
+    r = kssd.route(args[0], args[3], args[4])
+    if r != "mma":
+        return r
+    b, nc, q, h, p = args[0].shape
+    pl = kssd.plan(b * nc, q, h, p, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return (f"mma, {pl.blocks} blocks of {pl.heads_per_block} heads ({b * nc} chunks x "
+            f"{pl.n_pairs} row-tile pairs x {pl.n_groups} head groups x {pl.n_ptiles} P tiles)")
+
+
+def phase_ssd_kernel(dev, kssd, kref, serve_shape, calib_shape):
     """Hold ssd_intra to its plain twin; returns the max abs error. At the
     reference's shapes (tests/test_ssd_kernel.py) the bound is the
     reference's elementwise rtol = atol (1e-5 in f32, 5e-2 with bf16
     inputs); at larger N and Q f32 itself breaks that (max |y| in the
-    hundreds), so there the bound is max|kernel - plain| <= tol * max|plain|."""
+    hundreds), so there the bound is max|kernel - plain| <= tol * max|plain|.
+    Kernel and twin sum in different orders, so both are also held to the
+    same function in float64 at the serving shape and at a ragged Q."""
     g = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
     shapes = [("reference", (2, 2, 16, 2, 8, 8)), ("reference", (2, 2, 32, 4, 16, 8)),
               ("reference", (2, 2, 64, 2, 32, 16)), ("reduced Q=16", (2, 3, 16, 16, 32, 16)),
               ("Q=200", (2, 2, 200, 3, 64, 128)), ("ragged P, N", (1, 2, 100, 2, 130, 24)),
-              ("serving", serve_shape)]
+              ("serving", serve_shape), ("calibration", calib_shape)]
     for kind, shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             tol = 1e-5 if dtype == torch.float32 else 5e-2
@@ -263,21 +286,21 @@ def phase_ssd_kernel(dev, kssd, kref, serve_shape):
                       f"{float(err.max()):.3e} > {bound_err:.3e}")
                 allowed = f"{bound_err:.3e} = {tol} max|plain|"
             worst = max(worst, float(err.max()))
-            print(f"kernels: ssd_intra {kind} (B,NC,Q,H,P,N)={shape} {str(dtype)[6:]}: "
-                  f"max abs err {float(err.max()):.3e}, max |plain| "
-                  f"{float(want.abs().max()):.3e}, allowed {allowed}", flush=True)
-    # the kernel and the twin may sum in the same order, so also hold both
-    # to the same function in float64 at the serving shape
-    args = ssd_inputs(dev, g, *serve_shape)
-    exact = kref.ssd_intra_ref(*(a.double() for a in args))
-    scale = float(exact.abs().max())
-    k64 = float((kssd.ssd_intra(*args).double() - exact).abs().max())
-    p64 = float((kssd.ssd_intra_plain(*args).double() - exact).abs().max())
-    check(k64 <= 1e-5 * scale, f"ssd_intra serving f32: {k64:.3e} from float64 "
-          f"> 1e-5 max|y| = {1e-5 * scale:.3e}")
-    print(f"kernels: ssd_intra serving float32 against float64: kernel max abs err "
-          f"{k64:.3e}, plain {p64:.3e}, max |y| {scale:.3e}, allowed {1e-5 * scale:.3e}",
-          flush=True)
+            print(f"kernels: ssd_intra {kind} (B,NC,Q,H,P,N)={shape} {str(dtype)[6:]} "
+                  f"({ssd_route(kssd, args, dev).split(',')[0]}): max abs err "
+                  f"{float(err.max()):.3e}, max |plain| {float(want.abs().max()):.3e}, "
+                  f"allowed {allowed}", flush=True)
+    for kind, shape in (("serving", serve_shape), ("Q=200", (2, 2, 200, 3, 64, 128))):
+        args = ssd_inputs(dev, g, *shape)
+        exact = kref.ssd_intra_ref(*(a.double() for a in args))
+        scale = float(exact.abs().max())
+        k64 = float((kssd.ssd_intra(*args).double() - exact).abs().max())
+        p64 = float((kssd.ssd_intra_plain(*args).double() - exact).abs().max())
+        check(k64 <= 1e-5 * scale, f"ssd_intra {kind} f32: {k64:.3e} from float64 "
+              f"> 1e-5 max|y| = {1e-5 * scale:.3e}")
+        print(f"kernels: ssd_intra {kind} (B,NC,Q,H,P,N)={shape} float32 against float64: "
+              f"kernel max abs err {k64:.3e}, plain {p64:.3e}, max |y| {scale:.3e}, allowed "
+              f"{1e-5 * scale:.3e}", flush=True)
     return worst
 
 
@@ -291,12 +314,26 @@ def ssd_work(b, nc, q, h, p, n):
     return n_bytes, 2 * p * pairs * h + 2 * n * pairs + 4 * pairs * h
 
 
-def phase_timing(dev, kq, kb, kssd, ssd_shape):
+def ssd_bounds(shape):
+    """(3xTF32 bound, f32-FMA bound), each (ms, by), of ``ssd_work``: the
+    tensor-core kernel runs both products (W x and the Gram matrix) three
+    times over on the tensor cores and the weights in f32 outside them."""
+    b, nc, q, h, p, n = shape
+    n_bytes, flops = ssd_work(*shape)
+    weights = 4 * (b * nc * q * (q + 1) // 2) * h
+    ops_ms = 1e3 * (3 * (flops - weights) / TF32_FLOP_PER_S + weights / F32_FLOP_PER_S)
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    tf32 = (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
+    return tf32, bound(n_bytes, flops)
+
+
+def phase_timing(dev, kq, kb, kssd, ssd_shape, calib_shape):
     """Kernel, plain and library times at the serving shapes: the JSON line
     takes qwen3-1.7b's (1024, 512) feature and (1024, 2048) @ (2048, 512)
-    encode; quantize is also timed at the trunk's (64, 64) layer, the
-    shape its main path gives it, and bottleneck_encode at mamba2-1.3b's
-    (2048, 2048) @ (2048, 512)."""
+    encode and mamba2-1.3b's serving ssd_intra; quantize is also timed at
+    the trunk's (64, 64) layer, the shape its main path gives it,
+    bottleneck_encode at mamba2-1.3b's (2048, 2048) @ (2048, 512) and
+    ssd_intra at the calibration batch's shape."""
     g = torch.Generator(device=dev).manual_seed(1)
     serve = SERVE["qwen3-1.7b"]
     t, d, dp = serve["batch"] * serve["seq"], 2048, 512
@@ -323,7 +360,17 @@ def phase_timing(dev, kq, kb, kssd, ssd_shape):
                                                 levels).to(torch.uint8),
                     bound=bottleneck_bounds(tt, d, dp)[0])
 
+    ssd_args = {sh: ssd_inputs(dev, g, *sh) for sh in (ssd_shape, calib_shape)}
+
+    def ssd_row(sh):
+        # f32 inputs, as the SSD mixer gives them; no single PyTorch call
+        # computes this function, so it has no library yardstick
+        args = ssd_args[sh]
+        return dict(kernel=lambda: kssd.ssd_intra(*args), plain=lambda: kssd.ssd_intra_plain(*args),
+                    library=None, bound=ssd_bounds(sh)[0])
+
     extra = {
+        f"ssd_intra (B,NC,Q,H,P,N)={calib_shape}": ssd_row(calib_shape),
         f"quantize {TRUNK_DIMS[1:3]}": dict(
             kernel=lambda: kq.quantize_2d(trunk, -1.0, 1.0),
             plain=lambda: kq.quantize_plain(trunk, -1.0, 1.0),
@@ -353,15 +400,8 @@ def phase_timing(dev, kq, kb, kssd, ssd_shape):
             library=lambda: qt.dequantize(),
             bound=bound(n * (1 + 4), 2 * n)),
         "bottleneck_encode": encode_row(t),
-        # f32 inputs, as the SSD mixer gives them; no single PyTorch call
-        # computes this function, so it has no library yardstick
-        "ssd_intra": dict(
-            kernel=lambda: kssd.ssd_intra(*ssd_args),
-            plain=lambda: kssd.ssd_intra_plain(*ssd_args),
-            library=None,
-            bound=bound(*ssd_work(*ssd_shape))),
+        "ssd_intra": ssd_row(ssd_shape),
     }
-    ssd_args = ssd_inputs(dev, g, *ssd_shape)
     out = {}
     for name, r in {**rows, **extra}.items():
         ms = device_ms(r["kernel"])
@@ -382,6 +422,11 @@ def phase_timing(dev, kq, kb, kssd, ssd_shape):
         print(f"timing: bottleneck_encode ({tt},{d})->{dp}: route {kb.route(x, w)}, K split "
               f"over {kb.plan_split(tt, d, dp, n_sm)} blocks; bound in 3xTF32 "
               f"{tf32_ms:.5f} ms, in f32 FMA {f32_ms:.5f} ms", flush=True)
+    for sh in (ssd_shape, calib_shape):
+        (tf32_ms, tf32_by), (f32_ms, f32_by) = ssd_bounds(sh)
+        print(f"timing: ssd_intra (B,NC,Q,H,P,N)={sh}: route {ssd_route(kssd, ssd_args[sh], dev)}; "
+              f"bound in 3xTF32 {tf32_ms:.5f} ms ({tf32_by}), in f32 FMA {f32_ms:.5f} ms "
+              f"({f32_by})", flush=True)
     return out
 
 
@@ -463,7 +508,7 @@ def phase_serve(dev, cs, cfg, build_mod, kref):
 
 
 # the CUDA kernels of each port kernel, as the profiler names them
-KERNEL_NAMES = {"ssd_intra": ("gram_kernel", "intra_kernel"),
+KERNEL_NAMES = {"ssd_intra": ("ssd_intra_mma_kernel", "gram_kernel", "intra_kernel"),
                 "bottleneck_encode": ("bottleneck_mma_kernel",),
                 "dequantize": ("dequantize_vec_kernel",),
                 "pair_scorer": ("pair_scorer_kernel",),
@@ -497,8 +542,10 @@ def profile_device(label, fn, wall_ms, unit):
         mine = [e for e in kernels if any(p in e.key for p in parts)]
         if mine:
             t = sum(us(e) for e in mine)
+            names = ", ".join(f"{p} x{sum(e.count for e in mine if p in e.key)}" for p in parts
+                              if any(p in e.key for e in mine))
             print(f"profile:   {port_name}: {t / 1e3:.4f} ms, {100 * t / total:.1f}% of device "
-                  f"time, {sum(e.count for e in mine)} CUDA launches", flush=True)
+                  f"time, {sum(e.count for e in mine)} CUDA launches ({names})", flush=True)
     for e in sorted(kernels, key=us, reverse=True)[:8]:
         print(f"profile:   {us(e) / 1e3:8.4f} ms {100 * us(e) / total:5.1f}% "
               f"x{e.count:<4d} {e.key[:90]}", flush=True)
@@ -985,13 +1032,20 @@ def phase_decode_profile(model_lib, res):
     profile_device(f"{res.model.cfg.name} decode", step, wall, "decode step")
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--src", type=Path, default=Path(__file__).resolve().parent / "src",
+                        help="the directory that holds repro_torch (default: src beside "
+                             "this script); another tree's src times that tree's kernels")
+    parser.add_argument("--timing-only", action="store_true",
+                        help="build and time the kernels (phases 1-2 and the timings of "
+                             "3, 7 and 10), check nothing else and print no result")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 2
-    src = Path(__file__).resolve().parent / "src"
-    sys.path.insert(0, str(src))
+    sys.path.insert(0, str(args.src.resolve()))
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -1031,15 +1085,21 @@ def main():
     serve = SERVE[mamba.name]
     ssd_shape = (serve["batch"], serve["seq"] // mamba.ssm.chunk, mamba.ssm.chunk, n_heads,
                  head_dim, d_state)
-    err = phase_kernels(dev, quant, bottleneck, kref)
-    err["ssd_intra"] = phase_ssd_kernel(dev, ssd_intra, kref, ssd_shape)
-    times = phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape)
-    err.update(phase_dispatch_kernels(dev, pair_scorer, flat_trunk, quant))
-    times.update(phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant))
+    calib_shape = (CALIB_BATCH,) + ssd_shape[1:]
     qwen = get_config("qwen3-1.7b")
     run = DECODE_SERVE[qwen.name]
     decode_shape = (run["batch"], run["prompt_len"] + run["gen"], qwen.n_kv_heads,
                     qwen.n_heads // qwen.n_kv_heads, qwen.head_dim)
+    if args.timing_only:
+        phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
+        phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant)
+        phase_decode_timing(dev, decode_attn, decode_shape)
+        return 0
+    err = phase_kernels(dev, quant, bottleneck, kref)
+    err["ssd_intra"] = phase_ssd_kernel(dev, ssd_intra, kref, ssd_shape, calib_shape)
+    times = phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
+    err.update(phase_dispatch_kernels(dev, pair_scorer, flat_trunk, quant))
+    times.update(phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant))
     err["decode_attention"] = phase_decode_kernel(dev, decode_attn, kref, decode_shape)
     times.update(phase_decode_timing(dev, decode_attn, decode_shape))
     qwen_small = reduced(qwen, n_layers=4).replace(n_heads=4, n_kv_heads=2, d_head=64)

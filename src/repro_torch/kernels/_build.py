@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
            CSRC / "pair_scorer.cu", CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu")
-HEADERS = (CSRC / "quant.cuh",)
+HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # No --use_fast_math: the kernels' roundings must match the plain versions.
@@ -48,9 +48,8 @@ _SIGNATURES = {
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_float, ctypes.c_float, ctypes.c_int,
                                 ctypes.c_int, _c],
-    "repro_ssd_intra": [_c, _c, _c, _c, _c, _c, _c, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, _c],
+    # ..., x and B/C dtypes, route (1 tensor cores, 0 SIMT), heads a block, stream
+    "repro_ssd_intra": [_c] * 7 + [ctypes.c_int] * 9 + [_c],
     "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 5 + [_c],
     # the descriptor arrays are host arrays: widths, code and bias pointers,
     # and each layer's (mn, mx)

@@ -3,20 +3,56 @@
 
 Replaces ``src/repro/kernels/ssd_intra.py::ssd_intra`` (Pallas TPU), the
 quadratic hot spot of ``models/ssm.ssd_chunked``. On a CUDA tensor the
-wrapper launches the hand-written SIMT kernels of ``csrc/ssd_intra.cu`` (the
-lower triangle of the chunk's Gram matrix C B^T into an L2-resident
-scratch, then 64-row output tiles that walk only the column tiles on or
-below the diagonal, f32 FMA accumulation) or raises. It is bound by
-operations on the H100; tensor cores are not used, since TF32 misses the
-reference's 1e-5 tolerance. On a CPU tensor the wrapper runs the plain twin.
+wrapper launches a hand-written kernel of ``csrc/ssd_intra.cu`` or raises;
+on a CPU tensor it runs the plain twin.
+
+The kernel is chosen by shape and address before the launch (``route``):
+
+* ``"mma"``, every shape with Q <= 256, P rows of whole 16-byte units, N a
+  multiple of 4 and the inputs aligned (both main-path shapes): one launch
+  on the tensor cores (``wgmma``). A block owns one chunk, the row tiles
+  ``lo`` and ``nt - 1 - lo`` (the same tile products for every pair) and a
+  group of heads sized by ``plan`` so the grid fills the card in one wave.
+  It computes its tiles' Gram strip C B^T into shared memory and reuses it
+  for every head of the group; its two warpgroups then take alternate
+  heads, each streaming x tiles in by TMA, building the weights straight
+  into the product's register operand and multiplying asynchronously. Both
+  products run in 3xTF32 (each f32 operand split into TF32 high and low
+  parts, three products summed in f32; a bf16 operand, exact in TF32, is
+  not split), so the result is f32-grade, not TF32-grade.
+* ``"simt"``, anything else: the lower triangle of C B^T into a (B NC, Q,
+  Q) scratch, then 64-row output tiles in SIMT f32 FMA (two launches).
+
+With the products on the tensor cores the least time at the serving shape
+is set by bytes (x read and y written once dominate), not by f32
+operations; what holds the kernel above it is building the weights and
+splitting x, on 8 warps an SM (PERF.md).
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.bottleneck import _sm_count
 from repro_torch.kernels.quant import _FLOAT_CODES
 from repro_torch.kernels.ref import ssd_intra_ref
+
+TILE = 64        # rows i, columns j and columns p of a tile product
+MAX_Q = 256      # the tensor-core kernel keeps a Q <= 4 tiles Gram strip on chip
+CHUNK = 4        # elements a cp.async moves
+
+
+class Plan(NamedTuple):
+    """The tensor-core kernel's grid: blocks of ``heads_per_block`` heads, one
+    per (chunk, row-tile pair, head group, P tile)."""
+    heads_per_block: int
+    n_pairs: int
+    n_groups: int
+    n_ptiles: int
+    blocks: int
 
 
 def ssd_intra_plain(xh, dt, la, Bm, Cm):
@@ -24,6 +60,45 @@ def ssd_intra_plain(xh, dt, la, Bm, Cm):
     in float32."""
     f = lambda t: t.to(torch.float32)
     return ssd_intra_ref(f(xh), f(dt), f(la), f(Bm), f(Cm))
+
+
+def route(xh, Bm, Cm) -> str:
+    """``"mma"`` (tensor cores) where Q <= 256, a row of P is a whole number
+    of 16-byte units and xh starts on one (the Tensor Memory Accelerator's
+    terms for x), and N is a multiple of 4 with Bm and Cm on a four-element
+    boundary; else ``"simt"``."""
+    q, p, n = xh.shape[2], xh.shape[4], Bm.shape[-1]
+    ok = (q <= MAX_Q and p * xh.element_size() % 16 == 0 and xh.data_ptr() % 16 == 0
+          and n % CHUNK == 0
+          and all(t.data_ptr() % (CHUNK * t.element_size()) == 0 for t in (Bm, Cm)))
+    return "mma" if ok else "simt"
+
+
+def plan(bc, q, h, p, n_sm) -> Plan:
+    """Heads a block of the tensor-core kernel: the smallest divisor of H
+    whose grid still fits in one wave of ``n_sm`` blocks (one block an SM: its
+    shared memory holds the Gram strip), else all H. Fewer heads a block
+    means more blocks but more copies of the Gram strip, one a block. At the
+    serving shape (8 chunks, Q 256, 64 heads of 64) on 132 SMs: 8 chunks x
+    2 pairs x 8 groups of 8 heads = 128 blocks; at 32 chunks, 2 groups of 32
+    heads, again 128."""
+    nt = math.ceil(q / TILE)
+    n_pairs, n_ptiles = (nt + 1) // 2, math.ceil(p / TILE)
+    units = bc * n_pairs * n_ptiles
+    divisors = [d for d in range(1, h + 1) if h % d == 0]
+    hpb = next((d for d in divisors if units * (h // d) <= n_sm), h)
+    return Plan(hpb, n_pairs, h // hpb, n_ptiles, units * (h // hpb))
+
+
+def block_work(pl: Plan, q, h, block):
+    """What block ``block`` of the grid computes, decoded in the kernel's
+    order: (chunk, its row tiles, its heads, its P tile)."""
+    block, pt = divmod(block, pl.n_ptiles)
+    block, grp = divmod(block, pl.n_groups)
+    bc, lo = divmod(block, pl.n_pairs)
+    hi = math.ceil(q / TILE) - 1 - lo
+    h0 = grp * pl.heads_per_block
+    return bc, sorted({lo, hi}), range(h0, min(h, h0 + pl.heads_per_block)), pt
 
 
 def ssd_intra(xh, dt, la, Bm, Cm):
@@ -55,11 +130,16 @@ def ssd_intra(xh, dt, la, Bm, Cm):
         return out
     if n == 0:
         raise ValueError("ssd_intra: the state dim N is 0")
-    gram = torch.empty((b * nc, q, q), dtype=torch.float32, device=xh.device)
+    mma = route(xh, Bm, Cm) == "mma"
+    if mma:
+        gram, hpb = None, plan(b * nc, q, h, p, _sm_count(xh.device)).heads_per_block
+    else:
+        gram, hpb = torch.empty((b * nc, q, q), dtype=torch.float32, device=xh.device), 0
     lib = _build.library()
     _build.check(lib.repro_ssd_intra(
         xh.data_ptr(), dt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        gram.data_ptr(), out.data_ptr(), b * nc, q, h, p, n,
-        _FLOAT_CODES[xh.dtype], _FLOAT_CODES[Bm.dtype], _build.stream_of(xh)), "ssd_intra")
+        None if gram is None else gram.data_ptr(), out.data_ptr(), b * nc, q, h, p, n,
+        _FLOAT_CODES[xh.dtype], _FLOAT_CODES[Bm.dtype], int(mma), hpb,
+        _build.stream_of(xh)), "ssd_intra")
     _build.LAUNCHES["ssd_intra"] += 1
     return out

@@ -6,6 +6,9 @@ tolerances are those of tests/test_kernels.py. The kernels themselves are
 held to the twins on the card by tests/test_torch_kernels_card.py and by
 chip_smoke.py.
 """
+import collections
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,6 +160,124 @@ def test_bottleneck_split_planner_fills_one_wave(n_sm):
                 assert split == bottleneck.MAX_SPLIT or not fits(2 * split, tiles, k_tiles)
 
 
+def _ssd_meta(b, nc, q, h, p, n, dtype=torch.float32, x_offset=0):
+    """ssd_intra's inputs as meta tensors (shapes, dtypes and addresses, no
+    data); xh starts ``x_offset`` elements into its buffer."""
+    buf = torch.empty(b * nc * q * h * p + x_offset, dtype=dtype, device="meta")
+    xh = buf[x_offset:].view(b, nc, q, h, p)
+    dt, la = (torch.empty(b, nc, q, h, device="meta") for _ in range(2))
+    bm, cm = (torch.empty(b, nc, q, n, dtype=dtype, device="meta") for _ in range(2))
+    return xh, dt, la, bm, cm
+
+
+def test_ssd_intra_route_is_chosen_by_shape_and_address():
+    """Both main-path shapes take the tensor-core kernel; a row of P that is
+    no whole number of 16-byte units, an N that is not a multiple of 4, a Q
+    above 256 and an x off a 16-byte boundary take the SIMT pair. The choice
+    is made before any launch."""
+    xh, _, _, bm, cm = _ssd_meta(1, 1, 256, 1, 4, 4)
+    assert ssd_intra.route(xh, bm, cm) == "mma"                      # P 4 in f32
+    xh, _, _, bm, cm = _ssd_meta(1, 1, 256, 1, 4, 4, dtype=torch.bfloat16)
+    assert ssd_intra.route(xh, bm, cm) == "simt"                     # 8 bytes in bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in [(2, 4, 256, 64, 64, 128), (8, 4, 256, 64, 64, 128), (2, 2, 16, 2, 8, 8),
+                      (2, 2, 200, 3, 64, 128), (2, 3, 16, 16, 32, 16), (1, 1, 256, 1, 8, 4)]:
+            xh, _, _, bm, cm = _ssd_meta(*shape, dtype=dtype)
+            assert ssd_intra.route(xh, bm, cm) == "mma", shape
+        for shape in [(1, 2, 100, 2, 130, 24), (1, 2, 100, 2, 64, 18), (1, 1, 257, 2, 64, 16),
+                      (1, 1, 512, 2, 64, 16)]:
+            xh, _, _, bm, cm = _ssd_meta(*shape, dtype=dtype)
+            assert ssd_intra.route(xh, bm, cm) == "simt", shape
+        for offset in range(4):
+            xh, _, _, bm, cm = _ssd_meta(1, 2, 64, 2, 32, 16, dtype=dtype, x_offset=offset)
+            assert ssd_intra.route(xh, bm, cm) == ("mma" if offset == 0 else "simt")
+        xh, _, _, bm, cm = _ssd_meta(1, 2, 64, 2, 32, 16, dtype=dtype)
+        assert ssd_intra.route(xh, bm[..., 1:], cm[..., 1:]) == "simt"   # N 15, B at +1
+
+
+@pytest.mark.parametrize("bc, q, h, p", [(8, 256, 64, 64), (32, 256, 64, 64), (4, 16, 2, 8),
+                                         (4, 200, 3, 64), (2, 192, 6, 130), (1, 64, 5, 32),
+                                         (300, 256, 4, 64)])
+@pytest.mark.parametrize("n_sm", [132, 114, 16])
+def test_ssd_intra_plan_covers_every_tile_once(bc, q, h, p, n_sm):
+    """The blocks of a plan, decoded in the kernel's order, cover every
+    (chunk, row tile, head, P tile) exactly once; where the row tiles pair
+    up evenly, every block does the same number of tile products."""
+    pl = ssd_intra.plan(bc, q, h, p, n_sm)
+    nt, n_pt = -(-q // ssd_intra.TILE), -(-p // ssd_intra.TILE)
+    assert h % pl.heads_per_block == 0
+    assert pl.blocks == bc * pl.n_pairs * pl.n_groups * pl.n_ptiles
+    seen, products = set(), set()
+    for blk in range(pl.blocks):
+        chunk, tiles, heads, pt = ssd_intra.block_work(pl, q, h, blk)
+        assert 0 <= chunk < bc and 0 <= pt < n_pt and len(heads) == pl.heads_per_block
+        assert sum(tiles) == nt - 1 or tiles == [(nt - 1) // 2]
+        for it in tiles:
+            for hh in heads:
+                assert (chunk, it, hh, pt) not in seen
+                seen.add((chunk, it, hh, pt))
+        products.add(len(heads) * sum(it + 1 for it in tiles))
+    assert len(seen) == bc * nt * h * n_pt
+    if nt % 2 == 0:
+        assert products == {pl.heads_per_block * (nt + 1)}
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 78])
+def test_ssd_intra_plan_fills_one_wave(n_sm):
+    """The serving shape (8 chunks) on an H100's 132 SMs: 8 groups of 8
+    heads, 128 blocks, one wave. The calibration batch (32 chunks) takes
+    more heads a block (fewer copies of the Gram strip) and again one wave.
+    On any card a plan fits one wave unless it already holds every head,
+    and fewer heads a block would not fit."""
+    if n_sm == 132:
+        assert ssd_intra.plan(8, 256, 64, 64, n_sm) == (8, 2, 8, 1, 128)
+        assert ssd_intra.plan(32, 256, 64, 64, n_sm) == (32, 2, 2, 1, 128)
+    for bc in (1, 4, 8, 32, 128, 1024):
+        for q, h, p in [(256, 64, 64), (200, 3, 64), (64, 24, 128)]:
+            pl = ssd_intra.plan(bc, q, h, p, n_sm)
+            assert pl.blocks <= n_sm or pl.heads_per_block == h
+            smaller = [d for d in range(1, pl.heads_per_block) if h % d == 0]
+            if smaller:
+                assert pl.blocks * pl.heads_per_block // smaller[-1] > n_sm
+
+
+def test_ssd_intra_wrapper_launches_the_route_it_chose_or_raises(monkeypatch):
+    """Off the CPU the wrapper passes the route and plan it chose before the
+    launch (the SIMT pair also gets its Gram scratch), counts one launch a
+    call, and raises, counting nothing, when the launch reports an error;
+    nothing falls back to the twin. The card is stood in for by meta
+    tensors and a recording library."""
+    calls, status = [], [0]
+
+    class Lib:
+        def repro_ssd_intra(self, *a):
+            calls.append(a)
+            return status[0]
+
+    monkeypatch.setattr(_build, "require_cuda", lambda name, *ts: None)
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    monkeypatch.setattr(ssd_intra, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+    out = ssd_intra.ssd_intra(*_ssd_meta(2, 4, 256, 64, 64, 128))
+    assert out.shape == (2, 4, 256, 64, 64) and out.dtype == torch.float32
+    assert calls[-1][6 + 1:] == (8, 256, 64, 64, 128, 0, 0, 1, 8, None) and calls[-1][5] is None
+    ssd_intra.ssd_intra(*_ssd_meta(8, 4, 256, 64, 64, 128, dtype=torch.bfloat16))
+    assert calls[-1][7:16] == (32, 256, 64, 64, 128, 1, 1, 1, 32)
+    ssd_intra.ssd_intra(*_ssd_meta(1, 2, 100, 2, 130, 24))
+    assert calls[-1][14:16] == (0, 0) and calls[-1][5] is not None     # SIMT, Gram scratch
+    assert _build.LAUNCHES["ssd_intra"] == 3
+    status[0] = 1
+    with pytest.raises(RuntimeError, match="ssd_intra kernel launch failed"):
+        ssd_intra.ssd_intra(*_ssd_meta(2, 4, 256, 64, 64, 128))
+    xh, dt, la, bm, cm = _ssd_meta(1, 2, 64, 2, 32, 16)
+    with pytest.raises(TypeError, match="dt and la must be float32"):
+        ssd_intra.ssd_intra(xh, dt.double(), la, bm, cm)
+    with pytest.raises(TypeError, match="share"):
+        ssd_intra.ssd_intra(xh, dt, la, bm, cm.bfloat16())
+    assert _build.LAUNCHES["ssd_intra"] == 3 and len(calls) == 4
+
+
 def test_plain_twins_are_the_cpu_path_and_count_nothing():
     _build.reset_launches()
     x = torch.randn(33, 70, generator=torch.Generator().manual_seed(5))
@@ -220,3 +341,21 @@ def test_build_commands_target_sm90a_without_fast_math(tmp_path):
     lib = _build.library_path()
     assert lib.parent == _build.BUILD_DIR and lib == _build.library_path()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+def test_library_name_follows_every_source_and_header(monkeypatch, tmp_path):
+    """The library is named by a hash of the sources and the headers they
+    include (tf32_mma.cuh among them), so an edit to a header cannot leave
+    a stale library under the same name."""
+    assert {h.name for h in _build.HEADERS} == {"quant.cuh", "tf32_mma.cuh"}
+    for f in _build.SOURCES:
+        for inc in re.findall(r'#include "([^"]+)"', f.read_text()):
+            assert _build.CSRC / inc in _build.HEADERS, (f.name, inc)
+    src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"\n')
+    hdr.write_text("// one\n")
+    monkeypatch.setattr(_build, "SOURCES", (src,))
+    monkeypatch.setattr(_build, "HEADERS", (hdr,))
+    before = _build.library_path()
+    hdr.write_text("// two\n")
+    assert _build.library_path() != before

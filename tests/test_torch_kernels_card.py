@@ -167,6 +167,57 @@ def test_ssd_intra_matches_its_plain_twin_on_card(card, dtype):
         assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 256, 64, 64, 128), (2, 2, 200, 3, 64, 128)])
+def test_ssd_intra_on_the_tensor_cores_against_float64_on_card(card, shape):
+    """The serving shape and a ragged Q take the 3xTF32 kernel, one launch a
+    call, and stay within 1e-5 max|y| of the same function in float64 (the
+    kernel and the f32 twin sum in different orders)."""
+    g = torch.Generator(device=card).manual_seed(19)
+    args = _ssd_inputs(card, g, *shape, torch.float32)
+    assert ssd_intra.route(args[0], args[3], args[4]) == "mma"
+    _build.reset_launches()
+    got = ssd_intra.ssd_intra(*args)
+    assert _build.LAUNCHES["ssd_intra"] == 1
+    exact = ssd_intra.ssd_intra_ref(*(a.double() for a in args))
+    assert float((got.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_at_the_calibration_shape_on_card(card, dtype):
+    """The calibration batch's shape (8 sequences of 4 chunks): the planner's
+    other main-path grid (2 groups of 32 heads), against the twin."""
+    g = torch.Generator(device=card).manual_seed(20)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    args = _ssd_inputs(card, g, 8, 4, 256, 64, 64, 128, dtype)
+    assert ssd_intra.route(args[0], args[3], args[4]) == "mma"
+    got, want = ssd_intra.ssd_intra(*args), ssd_intra.ssd_intra_plain(*args)
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_takes_the_simt_pair_where_the_shape_asks_on_card(card, dtype):
+    """A ragged P and N, a Q above 256 and an x four bytes into its buffer
+    take the SIMT pair, chosen before the launch; one launch counted a call,
+    within the tolerances of the twin check."""
+    g = torch.Generator(device=card).manual_seed(21)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    cases = [_ssd_inputs(card, g, 1, 2, 100, 2, 130, 24, dtype),
+             _ssd_inputs(card, g, 1, 1, 300, 2, 64, 32, dtype)]
+    xh, dt, la, bm, cm = _ssd_inputs(card, g, 1, 2, 64, 2, 32, 16, dtype)
+    buf = torch.empty(xh.numel() + 1, dtype=dtype, device=card)
+    buf[1:].copy_(xh.reshape(-1))
+    cases.append((buf[1:].view(xh.shape), dt, la, bm, cm))
+    for args in cases:
+        assert ssd_intra.route(args[0], args[3], args[4]) == "simt"
+        _build.reset_launches()
+        got, want = ssd_intra.ssd_intra(*args), ssd_intra.ssd_intra_plain(*args)
+        assert _build.LAUNCHES["ssd_intra"] == 1
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
 def _scorer_inputs(card, g, n, e, dtype=torch.float32):
     """The pair scorer's inputs at the magnitudes of tests/test_kernels.py;
     the observation block in ``dtype``, the weights in float32."""
