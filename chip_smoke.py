@@ -33,8 +33,10 @@ port under ``--src``, so two trees' kernels can be timed in one session):
 6. profile: one request's device time by kernel, for each model
    (informative);
 7. scheduling kernels: pair_scorer and flat_trunk against their twins at
-   the reference's shapes and the serving ones (bitwise-equal logits for
-   equal occupancy, bit-equal dequantized trunk weights), then timed;
+   the reference's shapes, the serving ones and ragged fleets (bitwise-equal
+   logits for equal occupancy, bit-equal dequantized trunk weights, the same
+   bits from the same call twice), then timed beside the launch floor (an
+   empty kernel timed the same way) and by the profiler, with their plans;
 8. a small scheduling run (16 UEs, 3 servers, 8 frames, the entity agent
    through the fused scorer and the int8 trunk), card against CPU;
 9. dispatch serve, the scheduling main path: a 1024-UE fleet over the
@@ -75,6 +77,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
+FP64_TC_FLOP_PER_S = 67e12  # H100 SXM FP64 on the tensor cores, dense
 ROUTES = {  # name: (source, the TPU kernel it replaces)
     "quantize": ("src/repro_torch/kernels/csrc/quant.cu",
                  "src/repro/kernels/quant.py:62"),
@@ -511,25 +514,51 @@ def phase_serve(dev, cs, cfg, build_mod, kref):
 KERNEL_NAMES = {"ssd_intra": ("ssd_intra_mma_kernel", "gram_kernel", "intra_kernel"),
                 "bottleneck_encode": ("bottleneck_mma_kernel",),
                 "dequantize": ("dequantize_vec_kernel",),
-                "pair_scorer": ("pair_scorer_kernel",),
-                "flat_trunk": ("flat_trunk_kernel",),
+                "pair_scorer": ("pair_scorer_fused_kernel",),
+                "flat_trunk": ("flat_trunk_persistent_kernel",),
                 "decode_attention": ("decode_attn_cluster_kernel",)}
+
+
+def device_kernels(fn):
+    """One torch.profiler window around ``fn`` (which synchronizes): the
+    CUDA kernels it saw, and each one's device time in us."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return kernels, lambda e: getattr(e, "self_device_time_total", 0.0)
+
+
+def profiled_ms(fn, calls=10):
+    """Device time of one call of ``fn`` by the profiler: every CUDA kernel
+    in one window around ``calls`` calls, over the calls, with the kernels'
+    names (None if the profiler saw no device time)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, us = device_kernels(run)
+    total = sum(us(e) for e in kernels)
+    names = ", ".join(f"{e.key[:40]} x{e.count}" for e in kernels)
+    return (total / 1e3 / calls if total > 0 else None), names
 
 
 def profile_device(label, fn, wall_ms, unit):
     """Profile one call of ``fn`` (torch.profiler): device time by kernel,
     launches and the idle share against ``wall_ms`` (informative: no check
     rests on it)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    kernels, us = device_kernels(run)
     total = sum(us(e) for e in kernels)
     if total <= 0:
         print(f"profile: {label}: the profiler saw no device time", flush=True)
@@ -591,7 +620,7 @@ def phase_dispatch_kernels(dev, kps, kft, kq):
     tolerances: 1e-5 in f32, 5e-2 with bf16 inputs); returns max errors."""
     g = torch.Generator(device=dev).manual_seed(5)
     err = {"pair_scorer": 0.0, "flat_trunk": 0.0}
-    for n, e in [(1, 1), (7, 2), (64, 3), (300, 5), (1024, 3)]:
+    for n, e in [(1, 1), (7, 2), (64, 3), (300, 5), (1024, 3), (1023, 3), (1025, 3), (1024, 8)]:
         for dtype in (torch.float32, torch.bfloat16):
             tol = 1e-5 if dtype == torch.float32 else 5e-2
             args = scorer_inputs(dev, g, n, e, dtype)
@@ -613,8 +642,10 @@ def phase_dispatch_kernels(dev, kps, kft, kq):
     l1, _ = kps.pair_scorer(*args[:3], a1, *args[4:])
     l2, _ = kps.pair_scorer(*args[:3], a2, *args[4:])
     check(torch.equal(l1, l2), "pair_scorer: equal occupancy gave logits that are not bit-equal")
-    print("kernels: pair_scorer (1024,3): two masks of equal occupancy give bit-equal logits",
-          flush=True)
+    check(torch.equal(l1, kps.pair_scorer(*args[:3], a1, *args[4:])[0]),
+          "pair_scorer: the same call twice gave logits that are not bit-equal")
+    print("kernels: pair_scorer (1024,3): two masks of equal occupancy give bit-equal logits; "
+          "the same call twice gives the same bits", flush=True)
     for bits in (4, 8, 12):
         codes, mns, mxs, bs = trunk_inputs(dev, g, kq, bits)
         # a one-layer trunk on the identity rows with a zero bias returns
@@ -639,9 +670,12 @@ def phase_dispatch_kernels(dev, kps, kft, kq):
                       f"exceeds {tol} + {tol}|plain| by {excess - tol:.3e}")
                 worst = float((got - want).abs().max())
                 err["flat_trunk"] = max(err["flat_trunk"], worst)
+                check(torch.equal(got, kft.flat_trunk(x2, codes, mns, mxs, bs, bits=bits)),
+                      f"flat_trunk {rows} {dtype} {bits}b: the same call twice differs")
         print(f"kernels: flat_trunk {bits}b: dequantized weights bit-equal to the twin's; "
               f"rows 1, 7, 4x8, 600, 1024, 10240 in f32 and bf16 within the reference's "
-              f"tolerance (max abs err so far {err['flat_trunk']:.3e})", flush=True)
+              f"tolerance, the same bits from the same call twice (max abs err so far "
+              f"{err['flat_trunk']:.3e})", flush=True)
     return err
 
 
@@ -667,9 +701,26 @@ def trunk_work(m, dims=TRUNK_DIMS, code_bytes=1):
     return n_bytes, 2 * m * sum(a * b for a, b in pairs)
 
 
+def dispatch_plans(kps, kft, sargs, targs, x):
+    """The launch each wrapper plans for these inputs (a parent tree without
+    planners: none)."""
+    if not hasattr(kps, "plan"):
+        return {}
+    f32 = [a.to(torch.float32).contiguous() for a in sargs]
+    (n, d_ue), e, s_dim, hid = f32[0].shape, f32[4].shape[0], f32[6].shape[1], f32[8].shape[1]
+    out = {f"pair_scorer (N,E)=({n},{e})": kps.plan(n, e, d_ue, s_dim, hid,
+                                                   kps.route(f32[0], f32[8]))}
+    for m in x:
+        out[f"flat_trunk M={m}"] = kft.launch_plan(x[m], targs[0], DISPATCH["bits"])
+    return out
+
+
 def phase_dispatch_timing(dev, kps, kft, kq):
     """Kernel, plain and bound times at the serving shapes (no single
-    PyTorch call computes either function: no library time)."""
+    PyTorch call computes either function: no library time); beside them
+    the launch floor (an empty kernel timed the same way, a yardstick the
+    port never calls), each kernel's time above it, and its device time by
+    the profiler."""
     g = torch.Generator(device=dev).manual_seed(6)
     n, e = DISPATCH["n_ue"], DISPATCH["n_servers"]
     sargs = scorer_inputs(dev, g, n, e)
@@ -682,13 +733,26 @@ def phase_dispatch_timing(dev, kps, kft, kq):
         rows[f"flat_trunk M={m}"] = ("flat_trunk", lambda m=m: kft.flat_trunk(x[m], *targs),
                                      lambda m=m: kft.flat_trunk_plain(x[m], *targs),
                                      trunk_work(m))
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    print(f"timing: launch floor (an empty kernel, torch.cuda._sleep(0)): {floor_ms:.5f} ms",
+          flush=True)
+    plans = dispatch_plans(kps, kft, sargs, targs, x)
     out = {}
     for label, (name, kernel, plain, work) in rows.items():
         ms, plain_ms = device_ms(kernel), device_ms(plain)
+        prof_ms, prof_names = profiled_ms(kernel)
         bound_ms, bound_by = bound(*work)
-        print(f"timing: {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library none, "
+        prof = "not measured" if prof_ms is None else f"{prof_ms:.5f} ms ({prof_names})"
+        print(f"timing: {label}: kernel {ms:.5f} ms, {ms - floor_ms:.5f} ms above the launch "
+              f"floor, profiler {prof} a call, plain {plain_ms:.5f} ms, library none, "
               f"bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound",
               flush=True)
+        if label in plans:
+            print(f"timing: {label}: {plans[label]}", flush=True)
+        if name == "flat_trunk":
+            # its products run on the FP64 tensor cores (mma.m8n8k4)
+            print(f"timing: {label}: bound on the FP64 tensor cores "
+                  f"{bound(*work, FP64_TC_FLOP_PER_S)[0]:.5f} ms (operations)", flush=True)
         if name not in out:    # the serving shape goes to the JSON line
             out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                              bound_by=bound_by)

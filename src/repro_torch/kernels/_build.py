@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
            CSRC / "pair_scorer.cu", CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu")
-HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh")
+HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh", CSRC / "mbarrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # No --use_fast_math: the kernels' roundings must match the plain versions.
@@ -50,13 +51,21 @@ _SIGNATURES = {
                                 ctypes.c_int, _c],
     # ..., x and B/C dtypes, route (1 tensor cores, 0 SIMT), heads a block, stream
     "repro_ssd_intra": [_c] * 7 + [ctypes.c_int] * 9 + [_c],
-    "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 5 + [_c],
+    # ..., n, E, d_ue, S, H, ue-term K split, route (1 bulk copy, 0 loads),
+    # shared bytes, stream
+    "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 7 + [ctypes.c_longlong, _c],
     # the descriptor arrays are host arrays: widths, code and bias pointers,
-    # and each layer's (mn, mx)
+    # each layer's (mn, mx) and K split; then bits, grid, route (1 bulk
+    # copy, 0 loads), stream
     "repro_flat_trunk": [_c, _c, ctypes.c_int, ctypes.c_int,
                          ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
                          ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float),
-                         ctypes.POINTER(ctypes.c_float), ctypes.c_int, _c],
+                         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _c],
+    # layers, widths, bits, route -> shared bytes, blocks an SM holds
+    "repro_flat_trunk_plan": [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                              ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.POINTER(ctypes.c_int)],
     "repro_decode_attention": [_c, ctypes.c_int, _c, _c, ctypes.c_int, _c, ctypes.c_longlong,
                                _c] + [ctypes.c_int] * 7 + [ctypes.c_float, _c],
     "repro_decode_attention_max_clusters": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
@@ -142,6 +151,12 @@ def library():
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (the planners' wave size)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t) -> ctypes.c_void_p:

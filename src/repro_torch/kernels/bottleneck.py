@@ -21,7 +21,6 @@ within one of the twin's at 16 bits.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -64,11 +63,6 @@ def plan_split(t, d, dp, n_sm):
     return split
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def bottleneck_encode(x, w, mn, mx, *, bits=8):
     """x: (T, d); w: (d, d'), both float32 or both bfloat16; mn/mx: the
     calibrated quantization range. Returns (T, d') codes, uint8 for
@@ -90,7 +84,7 @@ def bottleneck_encode(x, w, mn, mx, *, bits=8):
     if d == 0:
         raise ValueError("bottleneck_encode: the contraction dim d is 0")
     mma = route(x, w) == "mma"
-    split = plan_split(t, d, dp, _sm_count(x.device)) if mma else 1
+    split = plan_split(t, d, dp, _build.sm_count(x.device)) if mma else 1
     lib = _build.library()
     _build.check(lib.repro_bottleneck_encode(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), t, d, dp,

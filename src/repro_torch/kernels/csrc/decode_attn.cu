@@ -63,6 +63,8 @@
 
 #include <type_traits>
 
+#include "mbarrier.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -118,44 +120,6 @@ template <int kBoxRow>
 __device__ __forceinline__ int swizzled(int r, int c) {
   if constexpr (kBoxRow == 128) return r * 128 + ((c ^ (r & 7)) << 4);
   else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}" ::"r"(smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the completion of the barrier's phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // One box of a tensor map into this block's shared memory; bar counts it.

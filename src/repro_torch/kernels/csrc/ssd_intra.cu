@@ -74,6 +74,7 @@
 
 #include <type_traits>
 
+#include "mbarrier.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -251,37 +252,6 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads)
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}" ::"r"(smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait for the completion of the barrier's phase of the given parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // one box of a 4-D tensor map into shared memory; bar counts its bytes

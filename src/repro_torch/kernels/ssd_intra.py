@@ -36,7 +36,6 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bottleneck import _sm_count
 from repro_torch.kernels.quant import _FLOAT_CODES
 from repro_torch.kernels.ref import ssd_intra_ref
 
@@ -132,7 +131,7 @@ def ssd_intra(xh, dt, la, Bm, Cm):
         raise ValueError("ssd_intra: the state dim N is 0")
     mma = route(xh, Bm, Cm) == "mma"
     if mma:
-        gram, hpb = None, plan(b * nc, q, h, p, _sm_count(xh.device)).heads_per_block
+        gram, hpb = None, plan(b * nc, q, h, p, _build.sm_count(xh.device)).heads_per_block
     else:
         gram, hpb = torch.empty((b * nc, q, q), dtype=torch.float32, device=xh.device), 0
     lib = _build.library()

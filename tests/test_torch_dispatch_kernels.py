@@ -17,7 +17,7 @@ import torch
 from repro.kernels import flat_trunk as jft
 from repro.kernels import pair_scorer as jps
 from repro.kernels import ref as jref
-from repro_torch.kernels import flat_trunk, ops, pair_scorer, ref
+from repro_torch.kernels import _build, flat_trunk, ops, pair_scorer, ref
 from repro_torch.kernels.ref import code_dtype
 
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -181,3 +181,128 @@ def test_flat_trunk_other_widths_and_depth():
     _close(out, jft.flat_trunk_xla(jnp.asarray(x), *jargs, bits=6), 1e-5)
     with pytest.raises(ValueError, match="chain"):
         flat_trunk.flat_trunk(torch.from_numpy(x[:, :9]), *targs, bits=6)
+
+
+# ------------------------------------------------------------- the planners
+# What the kernels are launched with is decided on the host, so it is
+# tested here; the kernels themselves run on the card only.
+@pytest.mark.parametrize("n,blocks", [(1024, 128), (1, 1), (7, 1), (300, 38), (1023, 128),
+                                      (1025, 129)])
+def test_pair_scorer_plan_at_the_serving_and_ragged_fleets(n, blocks):
+    pl = pair_scorer.plan(n, 3, 128, 32, 48, "bulk")
+    assert (pl.rows_per_block, pl.blocks, pl.route) == (8, blocks, "bulk")
+    # 48 tiles of 2 x 4 outputs over the six ue warps' 192 lanes: K in 4
+    # parts of 32
+    assert pl.ue_split == 4
+    # W1 163 x 48, UE rows 8 x 128, their term 8 x 48, the servers' 3 x 48,
+    # b1 and w2 48 each, embeddings 3 x 32, w_srv's last row and b_srv 2 x
+    # 32, edges 8 x 3 x 3, 4 partials; then the 8-byte mbarrier
+    floats = 163 * 48 + 8 * 128 + 8 * 48 + 3 * 48 + 2 * 48 + 96 + 64 + 72 + 4
+    assert pl.smem_bytes == 4 * floats + 8
+
+
+def test_pair_scorer_plan_pads_odd_widths_and_refuses_what_does_not_fit():
+    # d_ue 126 and H 50 are padded to 128 and 52 in shared memory
+    pl = pair_scorer.plan(300, 8, 126, 32, 50, "loads")
+    floats = ((128 + 32 + 3) * 52 + 8 * 128 + 8 * 52 + 8 * 52 + 2 * 52 + 8 * 32 + 64
+              + 8 * 8 * 3 + 4)
+    assert (pl.blocks, pl.smem_bytes, pl.route) == (38, 4 * floats + 8, "loads")
+    # parts at least 4 deep
+    assert [pair_scorer.plan(64, 3, d, 32, 48, "bulk").ue_split for d in (4, 8, 16)] == [1, 2, 4]
+    with pytest.raises(ValueError, match="shared memory"):
+        pair_scorer.plan(1024, 3, 1024, 32, 64, "bulk")
+
+
+def test_pair_scorer_route_by_width_and_address():
+    t = [torch.from_numpy(a) for a in _scorer_inputs(1, 16, 3)]
+    assert pair_scorer.route(t[0], t[8]) == "bulk"
+    base = torch.zeros(16 * 128 + 4)
+    for offset, want in ((0, "bulk"), (1, "loads"), (2, "loads"), (4, "bulk")):
+        view = base[offset:offset + 16 * 128].view(16, 128)
+        assert pair_scorer.route(view, t[8]) == want, offset
+    assert pair_scorer.route(t[0][:, :126].contiguous(), t[8]) == "loads"      # d_ue 126
+    assert pair_scorer.route(t[0], t[8][:, :46].contiguous()) == "loads"       # H 46
+
+
+@pytest.mark.parametrize("m,tiles,grid", [(1024, 128, 128), (1, 1, 1), (7, 1, 1),
+                                          (600, 75, 75), (10240, 1280, 396)])
+def test_flat_trunk_plan_at_the_serving_and_ragged_batches(m, tiles, grid):
+    """At 132 SMs holding 3 blocks each: one block a tile up to one wave.
+    The shared bytes are the kernel's own (the library's plan query, held to
+    its layout by the card tests); the planner passes them on."""
+    pl = flat_trunk.plan(m, (19, 64, 64, 13), "bulk", 61_000, 132, 3)
+    assert (pl.rows_per_tile, pl.tiles, pl.grid, pl.route) == (8, tiles, grid, "bulk")
+    # 19 -> 64 and 64 -> 64 have 8 column tiles, one a warp; 64 -> 13 has 2,
+    # so its K is split over 4 warps (4 of its 16 steps each)
+    assert pl.k_split == (1, 1, 4)
+    assert pl.smem_bytes == 61_000
+
+
+def test_flat_trunk_plan_by_code_width_route_and_depth():
+    dims = (19, 64, 64, 13)
+    assert flat_trunk.plan(1024, dims, "loads", 55_000, 132, 3).route == "loads"
+    pl = flat_trunk.plan(70, (10, 30, 5), "loads", 9_000, 132, 3)
+    # 10 -> 30: 4 column tiles of 3 steps (too few to split); 30 -> 5: one
+    # tile of 8 steps, split over 4 warps
+    assert (pl.tiles, pl.grid, pl.k_split) == (9, 9, (1, 4))
+    assert flat_trunk.plan(5, (19, 13), "bulk", 6_000, 132, 3).k_split == (2,)   # no hidden layer
+    # wide and deep trunks split K only where a layer has few column tiles
+    assert flat_trunk.plan(1024, (19, 128, 128, 13), "bulk", 210_000, 132, 1).k_split == (1, 1, 4)
+    assert flat_trunk.plan(1024, (19, 64, 64, 64, 64, 13), "bulk", 90_000, 132, 2).k_split == \
+        (1, 1, 1, 1, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        flat_trunk.plan(1024, (19, 256, 256, 13), "bulk", flat_trunk.SMEM_MAX + 8, 132, 0)
+    with pytest.raises(ValueError, match="blocks fit"):
+        flat_trunk.plan(1024, dims, "bulk", 61_000, 132, 0)
+
+
+@pytest.mark.parametrize("m,n_sm,resident", [(10240, 132, 5), (10240, 132, 1), (1024, 132, 4),
+                                             (40000, 16, 3), (9, 132, 8), (8 * 661, 132, 5)])
+def test_flat_trunk_persistent_grid_takes_every_tile_once(m, n_sm, resident):
+    pl = flat_trunk.plan(m, (19, 64, 64, 13), "bulk", 61_000, n_sm, resident)
+    assert pl.grid <= n_sm * resident and pl.grid <= pl.tiles
+    walked = [t for b in range(pl.grid) for t in flat_trunk.block_tiles(pl, b)]
+    assert sorted(walked) == list(range(pl.tiles))
+    # the rows of the tiles are the rows of the batch, once each
+    rows = [r for t in walked for r in range(t * pl.rows_per_tile,
+                                             min(m, (t + 1) * pl.rows_per_tile))]
+    assert sorted(rows) == list(range(m))
+
+
+def test_flat_trunk_launch_plan_loads_the_codes_where_staging_them_does_not_fit(monkeypatch):
+    """The launch plan takes the library's shared bytes and resident blocks
+    for the codes' route, and falls back to the loads route, before the
+    launch, where the bulk route's layout leaves no block room on an SM."""
+    asked = []
+
+    def query(device, dims, bits, copy_route):
+        asked.append(copy_route)
+        return (232_456, 0) if copy_route == "bulk" else (191_496, 1)
+
+    monkeypatch.setattr(flat_trunk, "_query", query)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    codes = [torch.zeros(a, b, dtype=torch.int16) for a, b in ((19, 128), (128, 128), (128, 13))]
+    assert flat_trunk.route(codes) == "bulk"
+    pl = flat_trunk.launch_plan(torch.zeros(1024, 19), codes, 12)
+    assert asked == ["bulk", "loads"]
+    assert (pl.route, pl.smem_bytes, pl.grid, pl.k_split) == ("loads", 191_496, 128, (1, 1, 4))
+    # where the bulk route fits, it is the only one asked for
+    asked.clear()
+    fits = {"bulk": (61_000, 3)}
+    monkeypatch.setattr(flat_trunk, "_query",
+                        lambda device, dims, bits, r: asked.append(r) or fits[r])
+    pl = flat_trunk.launch_plan(torch.zeros(10240, 19), codes, 8)
+    assert asked == ["bulk"] and (pl.route, pl.grid) == ("bulk", 396)
+
+
+def test_flat_trunk_route_by_size_and_address():
+    layers = _trunk(1)
+    codes = [torch.from_numpy(c.astype(np.int32)).to(torch.uint8) for c, *_ in layers]
+    assert flat_trunk.route(codes) == "bulk"     # 1 216, 4 096 and 832 bytes
+    buf = torch.zeros(64 * 64 + 16, dtype=torch.uint8)
+    for offset, want in ((0, "bulk"), (1, "loads"), (8, "loads"), (16, "bulk")):
+        codes[1] = buf[offset:offset + 64 * 64].view(64, 64)
+        assert flat_trunk.route(codes) == want, offset
+    odd = [torch.from_numpy(c.astype(np.int32)).to(torch.uint8) for c, *_ in
+           _trunk(9, dims=(10, 30, 5), bits=6)]
+    assert flat_trunk.route(odd) == "loads"      # 300 and 150 bytes

@@ -257,7 +257,7 @@ def test_ssd_intra_wrapper_launches_the_route_it_chose_or_raises(monkeypatch):
     monkeypatch.setattr(_build, "require_cuda", lambda name, *ts: None)
     monkeypatch.setattr(_build, "library", lambda: Lib())
     monkeypatch.setattr(_build, "stream_of", lambda t: None)
-    monkeypatch.setattr(ssd_intra, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
     monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
     out = ssd_intra.ssd_intra(*_ssd_meta(2, 4, 256, 64, 64, 128))
     assert out.shape == (2, 4, 256, 64, 64) and out.dtype == torch.float32
@@ -345,9 +345,9 @@ def test_build_commands_target_sm90a_without_fast_math(tmp_path):
 
 def test_library_name_follows_every_source_and_header(monkeypatch, tmp_path):
     """The library is named by a hash of the sources and the headers they
-    include (tf32_mma.cuh among them), so an edit to a header cannot leave
-    a stale library under the same name."""
-    assert {h.name for h in _build.HEADERS} == {"quant.cuh", "tf32_mma.cuh"}
+    include (tf32_mma.cuh and mbarrier.cuh among them), so an edit to a
+    header cannot leave a stale library under the same name."""
+    assert {h.name for h in _build.HEADERS} == {"quant.cuh", "tf32_mma.cuh", "mbarrier.cuh"}
     for f in _build.SOURCES:
         for inc in re.findall(r'#include "([^"]+)"', f.read_text()):
             assert _build.CSRC / inc in _build.HEADERS, (f.name, inc)

@@ -218,17 +218,17 @@ def test_ssd_intra_takes_the_simt_pair_where_the_shape_asks_on_card(card, dtype)
         assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
-def _scorer_inputs(card, g, n, e, dtype=torch.float32):
+def _scorer_inputs(card, g, n, e, dtype=torch.float32, d_ue=128, hid=48):
     """The pair scorer's inputs at the magnitudes of tests/test_kernels.py;
     the observation block in ``dtype``, the weights in float32."""
     u = lambda *shape: torch.rand(shape, generator=g, device=card)
     r = lambda *shape: torch.randn(shape, generator=g, device=card)
-    obs = [torch.tanh(r(n, 128)), 1 + 99 * u(n), 5e7 + 4.5e8 * u(n), (u(n) < 0.7).float(),
+    obs = [torch.tanh(r(n, d_ue)), 1 + 99 * u(n), 5e7 + 4.5e8 * u(n), (u(n) < 0.7).float(),
            0.5 + 1.5 * u(e, 3),
            torch.tensor([3.0, 0.5, 1e-9, 0.1, 0.5, e * 2.0, 100.0, 1e-12], device=card)]
     return [t.to(dtype) for t in obs] + [r(4, 32) * 0.5, torch.zeros(32, device=card),
-                                         r(163, 48) * 0.1, torch.zeros(48, device=card),
-                                         r(48, 1) * 0.01, torch.zeros(1, device=card)]
+                                         r(d_ue + 35, hid) * 0.1, torch.zeros(hid, device=card),
+                                         r(hid, 1) * 0.01, torch.zeros(1, device=card)]
 
 
 @pytest.mark.cuda
@@ -249,11 +249,8 @@ def test_pair_scorer_matches_its_plain_twin_on_card(card, dtype):
     assert torch.equal(l1, l2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [4, 8, 12])
-def test_flat_trunk_matches_its_plain_twin_on_card(card, bits):
-    g = torch.Generator(device=card).manual_seed(10)
-    dims = (19, 64, 64, 13)
+def _trunk(card, g, bits, dims=(19, 64, 64, 13)):
+    """A quantized trunk (codes by the quantize kernel, range, biases)."""
     codes, mns, mxs, bs = [], [], [], []
     for d_in, d_out in zip(dims, dims[1:]):
         w = torch.randn(d_in, d_out, generator=g, device=card) * 0.4
@@ -262,6 +259,14 @@ def test_flat_trunk_matches_its_plain_twin_on_card(card, bits):
         mns.append(mn)
         mxs.append(mx)
         bs.append(torch.randn(d_out, generator=g, device=card) * 0.1)
+    return codes, mns, mxs, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8, 12])
+def test_flat_trunk_matches_its_plain_twin_on_card(card, bits):
+    g = torch.Generator(device=card).manual_seed(10)
+    codes, mns, mxs, bs = _trunk(card, g, bits)
     assert codes[0].dtype == code_dtype(bits)
     for rows in [(1,), (7,), (32,), (600,), (1024,), (10240,)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -271,6 +276,151 @@ def test_flat_trunk_matches_its_plain_twin_on_card(card, bits):
                                        flat_trunk.flat_trunk_plain(x, codes, mns, mxs, bs,
                                                                    bits=bits),
                                        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e", [(1023, 3), (1025, 3), (1024, 8), (300, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_scorer_at_ragged_fleets_and_more_servers_on_card(card, n, e, dtype):
+    """A last block of 7 or 1 UEs, and E = 8 (64 pairs a block, two passes
+    of the pair stage)."""
+    g = torch.Generator(device=card).manual_seed(20 + n + e)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    args = _scorer_inputs(card, g, n, e, dtype)
+    assert pair_scorer.route(args[0].float(), args[8]) == "bulk"
+    for got, want in zip(pair_scorer.pair_scorer(*args), pair_scorer.pair_scorer_plain(*args)):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8, 12])
+def test_flat_trunk_dequantized_weights_are_bit_equal_on_card(card, bits):
+    """A one-layer trunk on the identity rows with a zero bias returns the
+    kernel's dequantized weights exactly (x 1 and + 0 are exact, and the
+    other lanes' K parts add zeros)."""
+    g = torch.Generator(device=card).manual_seed(21)
+    codes, mns, mxs, _ = _trunk(card, g, bits)
+    for c, mn, mx in zip(codes, mns, mxs):
+        eye = torch.eye(c.shape[0], device=card)
+        got = flat_trunk.flat_trunk(eye, [c], [mn], [mx], [torch.zeros(c.shape[1], device=card)],
+                                    bits=bits)
+        assert torch.equal(got, flat_trunk.dequantized_weights(c, mn, mx, bits=bits))
+
+
+@pytest.mark.cuda
+def test_flat_trunk_other_widths_and_depth_on_card(card):
+    """A 2-layer 10 -> 30 -> 5 trunk at 6 bits (its 300 code bytes take the
+    loads route), from one row to a persistent grid of many tiles a block."""
+    g = torch.Generator(device=card).manual_seed(22)
+    codes, mns, mxs, bs = _trunk(card, g, 6, dims=(10, 30, 5))
+    assert flat_trunk.route(codes) == "loads"
+    for m in (1, 70, 10240, 40000):
+        x = torch.randn(m, 10, generator=g, device=card)
+        torch.testing.assert_close(flat_trunk.flat_trunk(x, codes, mns, mxs, bs, bits=6),
+                                   flat_trunk.flat_trunk_plain(x, codes, mns, mxs, bs, bits=6),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(19, 128, 128, 13), (19, 64, 64, 64, 64, 13)])
+@pytest.mark.parametrize("bits", [8, 12])
+def test_flat_trunk_wide_and_deep_trunks_on_card(card, dims, bits):
+    """Trunks whose padded biases number more than a block's 256 threads
+    (128 + 128 + 16 and 4 x 64 + 16 = 272), so the bias load must take some
+    threads more than once; the wide one takes one block an SM, and at 12
+    bits loads its codes (staged, they would not fit)."""
+    g = torch.Generator(device=card).manual_seed(25)
+    codes, mns, mxs, bs = _trunk(card, g, bits, dims=dims)
+    # the wide trunk's 16-bit codes leave no room to stage them: loads
+    wide12 = dims[1] == 128 and bits == 12
+    assert flat_trunk.launch_plan(torch.empty(8, dims[0], device=card), codes, bits).route == \
+        ("loads" if wide12 else "bulk")
+    for m in (1, 600, 10240):
+        x = torch.randn(m, dims[0], generator=g, device=card)
+        torch.testing.assert_close(flat_trunk.flat_trunk(x, codes, mns, mxs, bs, bits=bits),
+                                   flat_trunk.flat_trunk_plain(x, codes, mns, mxs, bs, bits=bits),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flat_trunk_plan_query_gives_the_kernel_layout_on_card(card):
+    """The shared memory the library reports is the kernel's layout: f64
+    weight fragments (K padded to 4, N to 8), the K parts' sums (8 warps x
+    32 lanes x 2 f64), two f64 activation tiles of the widest hidden layer
+    (rows padded by 4), the layers' 64-byte table, the f32 biases (padded to
+    8), two f32 row stages (padded to 4), the codes' staging area on the
+    bulk route, the 8-byte mbarrier; widths that need more than a block has
+    are refused before the launch."""
+    g = torch.Generator(device=card).manual_seed(26)
+    x = torch.randn(1024, 19, generator=g, device=card)
+    n = (8 * (20 * 64 + 64 * 64 + 64 * 16) + 8 * 512 + 8 * 2 * 8 * 68 + 3 * 64 + 4 * 144
+         + 4 * 2 * 8 * 20)
+    codes8, codes12 = _trunk(card, g, 8)[0], _trunk(card, g, 12)[0]
+    pl = flat_trunk.launch_plan(x, codes8, 8)
+    assert (pl.route, pl.smem_bytes, pl.k_split, pl.tiles) == ("bulk", n + 6144 + 8, (1, 1, 4), 128)
+    assert pl.grid == 128
+    assert flat_trunk.launch_plan(x, codes12, 12).smem_bytes == n + 2 * 6144 + 8
+    shifted = torch.empty(64 * 64 + 1, dtype=torch.uint8, device=card)[1:].view(64, 64)
+    shifted.copy_(codes8[1])
+    loads = flat_trunk.launch_plan(x, [codes8[0], shifted, codes8[2]], 8)
+    assert (loads.route, loads.smem_bytes) == ("loads", n + 8)
+    big = flat_trunk.launch_plan(torch.randn(10240, 19, device=card), codes8, 8)
+    assert big.tiles == 1280 and big.grid < big.tiles      # one wave, several tiles a block
+    odd = _trunk(card, g, 6, dims=(10, 30, 5))[0]
+    n = 8 * (12 * 32 + 32 * 8) + 8 * 512 + 8 * 2 * 8 * 36 + 2 * 64 + 4 * (32 + 8) + 4 * 2 * 8 * 12
+    assert flat_trunk.launch_plan(x[:70, :10], odd, 6).smem_bytes == n + 8
+    with pytest.raises(ValueError, match="shared memory"):
+        flat_trunk.launch_plan(x, _trunk(card, g, 8, dims=(19, 256, 256, 13))[0], 8)
+
+
+@pytest.mark.cuda
+def test_dispatch_kernels_are_deterministic_and_launch_once_a_call_on_card(card):
+    """The same call twice gives the same bits (fixed-order sums, no
+    atomics), and each call is one launch."""
+    g = torch.Generator(device=card).manual_seed(23)
+    args = _scorer_inputs(card, g, 1024, 3)
+    codes, mns, mxs, bs = _trunk(card, g, 8)
+    x = torch.randn(10240, 19, generator=g, device=card)
+    _build.reset_launches()
+    l1, s1 = pair_scorer.pair_scorer(*args)
+    assert _build.LAUNCHES["pair_scorer"] == 1
+    l2, s2 = pair_scorer.pair_scorer(*args)
+    assert torch.equal(l1, l2) and torch.equal(s1, s2)
+    _build.reset_launches()
+    t1 = flat_trunk.flat_trunk(x, codes, mns, mxs, bs)
+    assert _build.LAUNCHES["flat_trunk"] == 1
+    assert torch.equal(t1, flat_trunk.flat_trunk(x, codes, mns, mxs, bs))
+    assert sum(_build.LAUNCHES.values()) == 2
+
+
+@pytest.mark.cuda
+def test_dispatch_kernels_take_the_loads_route_where_planned_on_card(card):
+    """Inputs off a 16-byte boundary, and widths that are not multiples of 4,
+    take the loads route and still match the twins."""
+    g = torch.Generator(device=card).manual_seed(24)
+    args = _scorer_inputs(card, g, 300, 3)
+    ue = torch.empty(300 * 128 + 1, device=card)[1:].view(300, 128)
+    ue.copy_(args[0])
+    moved = [ue] + args[1:]
+    assert pair_scorer.route(ue, args[8]) == "loads"
+    odd = _scorer_inputs(card, g, 300, 3, d_ue=126, hid=50)
+    assert pair_scorer.route(odd[0], odd[8]) == "loads"
+    for a in (moved, odd):
+        _build.reset_launches()
+        got = pair_scorer.pair_scorer(*a)
+        assert _build.LAUNCHES["pair_scorer"] == 1
+        for k, p in zip(got, pair_scorer.pair_scorer_plain(*a)):
+            torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-5)
+    codes, mns, mxs, bs = _trunk(card, g, 8)
+    shifted = torch.empty(codes[1].numel() + 1, dtype=torch.uint8, device=card)[1:]
+    shifted = shifted.view(codes[1].shape)
+    shifted.copy_(codes[1])
+    codes[1] = shifted
+    assert flat_trunk.route(codes) == "loads"
+    x = torch.randn(600, 19, generator=g, device=card)
+    torch.testing.assert_close(flat_trunk.flat_trunk(x, codes, mns, mxs, bs),
+                               flat_trunk.flat_trunk_plain(x, codes, mns, mxs, bs),
+                               rtol=1e-5, atol=1e-5)
 
 
 def _decode_inputs(card, g, b, s, hkv, grp, d, dtype=torch.float32, empty_row=False):
