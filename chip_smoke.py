@@ -60,10 +60,21 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    (48 layers, bf16, 2 requests of (2, 1024) and 31 steps), launch counts
    reset before each and read after it, decode against the full forward,
    then one profiled qwen3 decode step;
-13. the kernels as one JSON line, then the result as the last line.
+13. training, the paper's own pipeline: the quickstart twin
+   (``repro_torch.launch.quickstart``) at examples/quickstart.py's defaults
+   (qwen3-1.7b's split table, 5 UEs on 2 channels, MAHPPO per-UE actors,
+   30 iterations of 1024 frames over 8 envs, 64 eval frames), seed 0: every
+   reward finite, no kernel launched, MAHPPO's t + beta e overhead below
+   full-local's; then seconds per iteration (rollout and update apart,
+   synchronized), one profiled iteration (device time, launches, idle
+   share, and the rollout and the update alone), and one update on the card
+   held to the same update on the CPU;
+14. the card's name and power limit again, the kernels as one JSON line,
+   then the result as the last line.
 """
 import argparse
 import collections
+import copy
 import json
 import math
 import statistics
@@ -101,6 +112,7 @@ DISPATCH = dict(n_ue=1024, n_servers=3, frames=64, seed=0, bits=8)
 DECODE_SERVE = {"qwen3-1.7b": dict(requests=2, batch=4, prompt_len=2048, gen=32),
                 "mamba2-1.3b": dict(requests=2, batch=2, prompt_len=1024, gen=32)}
 TRUNK_DIMS = (19, 64, 64, 13)    # the flat trunk's published widths
+TRAIN_TIMED = 3                  # iterations timed with a sync between rollout and update
 
 
 class Failed(Exception):
@@ -1096,6 +1108,131 @@ def phase_decode_profile(model_lib, res):
     profile_device(f"{res.model.cfg.name} decode", step, wall, "decode step")
 
 
+# ------------------------------------------------------------- training
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def phase_train(dev, quickstart, build_mod):
+    """The quickstart twin at its defaults on the card, the way a user runs
+    it; no kernel may launch, every reward must be finite and MAHPPO must
+    beat full-local on t + beta e."""
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = quickstart.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    check(not launches, f"train: the training path launched kernels: {launches}")
+    hist = res["history"]
+    check(len(hist) == 30 and all(math.isfinite(r["reward_mean"]) for r in hist),
+          f"train: rewards {[r['reward_mean'] for r in hist]}")
+    ev, lo, beta = res["mahppo"], res["local"], res["beta"]
+    ovh, lovh = ev["t_task"] + beta * ev["e_task"], lo["t_task"] + beta * lo["e_task"]
+    check(all(math.isfinite(v) for v in (ovh, lovh)), f"train: overheads {ovh}, {lovh}")
+    check(ovh < lovh, f"train: MAHPPO's overhead {ovh} is not below full-local's {lovh}")
+    print(f"train: quickstart twin in {wall:.1f} s (30 iterations, eval and baseline "
+          f"included), no kernel launched; reward {hist[0]['reward_mean']:.4f} -> "
+          f"{hist[-1]['reward_mean']:.4f}; MAHPPO t {ev['t_task']:.6f} s e "
+          f"{ev['e_task']:.6f} J overhead {ovh:.6f} against local t {lo['t_task']:.6f} "
+          f"e {lo['e_task']:.6f} overhead {lovh:.6f} (beta {beta:.6f})", flush=True)
+
+
+def phase_train_timing(dev, quickstart, mahppo, optim, build_mod):
+    """Where an iteration's time goes: synchronized rollout and update
+    seconds and profiled device time. Then one update on the card against
+    the same update on the CPU, from the same agent, batch and indices:
+    held at the configuration of the CPU test (tests/test_torch_train.py:
+    horizon 64, 2 envs, batch 32, a fresh agent) to its bound, each
+    parameter's change within 1e-3 of its leaf's largest change; and
+    reported, beside a float64 CPU update, at the quickstart's
+    configuration, where float32 rounding alone moves a leaf by more than
+    that (an element whose gradient sits at rounding noise takes AdamW
+    steps of up to lr either way)."""
+    build_mod.reset_launches()
+    _, env = quickstart.quickstart_env(device=dev)
+    cfg = mahppo.MAHPPOConfig(iterations=TRAIN_TIMED, horizon=1024, n_envs=8)
+    fns = mahppo.make_train_fns(env, cfg)
+    agent = mahppo.init_agent(torch.Generator().manual_seed(0), env)
+    opt = optim.adamw_init(mahppo.agent_parameters(agent))
+    states = mahppo.init_states(env, cfg, torch.Generator(device=dev).manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rollout, update = [], []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, traj, last_v = fns.collect(agent, gen, states)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fns.update(agent, opt, gen, traj, last_v)
+        torch.cuda.synchronize()
+        rollout.append(1e3 * (t1 - t0))
+        update.append(1e3 * (time.perf_counter() - t1))
+    print("train: ms an iteration (rollout + update, synchronized): "
+          + ", ".join(f"{r:.1f} + {u:.1f}" for r, u in zip(rollout, update)), flush=True)
+    wall_r, wall_u = statistics.median(rollout), statistics.median(update)
+    box = {"states": states}
+
+    def one_iteration():
+        box["states"] = fns.iteration(agent, opt, gen, box["states"])[2]
+
+    def one_rollout():
+        box["traj"] = fns.collect(agent, gen, box["states"])
+
+    profile_device("train iteration", one_iteration, wall_r + wall_u, "iteration")
+    profile_device("train rollout", one_rollout, wall_r, "rollout")
+    _, traj, last_v = box["traj"]
+    profile_device("train update", lambda: fns.update(agent, opt, gen, traj, last_v), wall_u,
+                   "update")
+
+    # one update on the card and on the CPU, same agent, batch and indices:
+    # checked at the CPU test's configuration, reported at the quickstart's
+    _, env_cpu = quickstart.quickstart_env(device="cpu")
+    small = mahppo.MAHPPOConfig(horizon=64, n_envs=2, batch=32)
+    agent0 = mahppo.init_agent(torch.Generator().manual_seed(3), env)
+    states0 = mahppo.init_states(env, small, torch.Generator(device=dev).manual_seed(4))
+    _, traj0, last_v0 = mahppo.make_train_fns(env, small).collect(agent0, gen, states0)
+    worst = {}
+    for label, c, a, tr, lv in (("test", small, agent0, traj0, last_v0),
+                                ("quickstart", cfg, agent, traj, last_v)):
+        n_updates = c.reuse * max(c.horizon // c.batch, 1)
+        keys = torch.rand((n_updates, c.horizon), generator=gen, device=dev)
+        idx = torch.argsort(keys, dim=-1)[:, :c.batch]
+        moved = {run: update_moves(mahppo, optim, mahppo.make_train_fns(e, c), a, tr, lv, idx, d,
+                                   dt)
+                 for run, e, d, dt in (("card", env, dev, torch.float32),
+                                       ("cpu", env_cpu, torch.device("cpu"), torch.float32),
+                                       ("cpu64", env_cpu, torch.device("cpu"), torch.float64))}
+        worst[label] = {pair: max(float((x - y).abs().max() / y.abs().max())
+                                  for x, y in zip(moved[pair[0]], moved[pair[1]]))
+                        for pair in (("card", "cpu"), ("card", "cpu64"), ("cpu", "cpu64"))}
+        print(f"train: one update at the {label} configuration (horizon {c.horizon}, "
+              f"{c.n_envs} envs, batch {c.batch}, {n_updates} AdamW steps), the largest "
+              f"difference of a leaf's change over that leaf's largest: "
+              + ", ".join(f"{x} against {y} {r:.2e}" for (x, y), r in worst[label].items())
+              + " (cpu64: float64 forward and backward)", flush=True)
+    check(worst["test"][("card", "cpu")] <= 1e-3,
+          f"train: the card's update is {worst['test'][('card', 'cpu')]:.2e} of a leaf's "
+          f"largest change from the CPU's (1e-3 allowed)")
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    check(not launches, f"train: the timed iterations launched kernels: {launches}")
+
+
+def update_moves(mahppo, optim, fns, agent, traj, last_v, idx, device, dtype):
+    """Each parameter's change under one ``fns.update`` of a copy of
+    ``agent`` on ``device`` in ``dtype``, with the minibatch indices
+    ``idx``."""
+    conv = lambda x: x.to(device, dtype) if x.is_floating_point() else x.to(device)
+    a = {k: copy.deepcopy(m).to(device, dtype) for k, m in agent.items()}
+    params = mahppo.agent_parameters(a)
+    before = [p.detach().clone() for p in params]
+    fns.update(a, optim.adamw_init(params), None, _tree(conv, traj), conv(last_v),
+               indices=[i.to(device) for i in idx])
+    return [(p.detach() - b).double().cpu() for p, b in zip(params, before)]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", type=Path, default=Path(__file__).resolve().parent / "src",
@@ -1121,7 +1258,8 @@ def main(argv=None):
     from repro_torch.kernels import (_build, bottleneck, decode_attn, flat_trunk, pair_scorer,
                                      quant, ssd_intra)
     from repro_torch.kernels import ref as kref
-    from repro_torch.launch import collab_serve, dispatch_serve
+    from repro_torch import optim
+    from repro_torch.launch import collab_serve, dispatch_serve, quickstart
     from repro_torch.launch import serve as serve_lib
     from repro_torch.models import cache as cache_lib
     from repro_torch.models import init_params, ssm
@@ -1135,7 +1273,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -1194,12 +1333,15 @@ def main(argv=None):
             phase_decode_profile(model_lib, res)
         del res
         torch.cuda.empty_cache()
+    phase_train(dev, quickstart, _build)
+    phase_train_timing(dev, quickstart, mahppo, optim, _build)
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches.get(name, 0), max_abs_err=err[name],
                             **times[name]))
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

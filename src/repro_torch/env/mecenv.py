@@ -16,13 +16,20 @@ transmit remainder below ``TX_EPS_BITS`` counts as sent and is reported in
 pays ``t_edge[n, b, e]`` times the number of UEs offloading to server e.
 
 The fleet is static in this port: churn (``churn_rate``/``leave_rate`` >
-0), resampled pool geometry (``pool_ranges``, ``reset(randomize=True)``)
-and the flat ``observe`` of the per-UE actors raise ``NotImplementedError``
-naming the slice that brings them. Tables are float32 where the
-reference casts them. The state carries a ``torch.Generator`` in place of
-the reference's threefry key: eval-mode reset draws nothing, a random
-reset and every step's auto-reset draw from it (the reference draws its
-auto-reset every frame too and keeps it only when the episode ends).
+0) and resampled pool geometry (``pool_ranges``, ``reset(randomize=True)``)
+raise ``NotImplementedError`` naming the slice that brings them. Tables
+are float32 where the reference casts them. The state carries a
+``torch.Generator`` in place of the reference's threefry key: eval-mode
+reset draws nothing, a random reset and every step's auto-reset draw from
+it (the reference draws its auto-reset every frame too and keeps it only
+when the episode ends).
+
+Every state leaf may carry a leading env axis: ``reset(gen, n_envs=E)``
+gives (E, N) leaves (and an (E,) frame counter), and ``step``,
+``observe*`` and ``task_overhead`` then work on all E envs at once, where
+the reference trains on ``vmap``-batched states. Reductions run over the
+UE axis only; one generator draws every env's auto-reset as one (E, N)
+block. The (N,) single-env path computes as it did before the axis came.
 """
 from __future__ import annotations
 
@@ -38,13 +45,12 @@ from repro_torch.core.fleets import (BITS_NORM, DIST_NORM, EDGE_SLOW_NORM,
                                      RATE_NORM, EdgePool, pool_aggregate_features,
                                      pool_geometry, ue_edge_work, ue_table_features)
 from repro_torch.core.split import FleetPlan, SplitPlan
-from repro_torch.env.channel import channel_gain, uplink_rates
+from repro_torch.env.channel import channel_gain, slot_totals, uplink_rates
 from repro_torch.rl.actionspace import ContinuousHead, DiscreteHead, HybridActionSpace
 
-_LATER = "comes with the port's dynamic-env slice (churn, pool geometry, flat observe)"
+_LATER = "comes with the port's dynamic-env slice (churn and resampled pool geometry)"
 _CHURN = f"UE churn {_LATER}"
 _GEOMETRY = f"resampled pool geometry {_LATER}"
-_FLAT_OBS = f"the flat observe of the per-UE actors {_LATER}"
 
 
 class EnvParams(NamedTuple):
@@ -95,8 +101,9 @@ def _f32(x) -> float:
 
 
 def per_ue(table, b):
-    """Each UE's own table entry: table (N, B+2), b (N,) -> (N,)."""
-    return torch.gather(table, 1, b.long()[:, None])[:, 0]
+    """Each UE's own table entry: table (N, B+2), b (..., N) -> (..., N)."""
+    b = b.long()
+    return torch.gather(table.expand(*b.shape, table.shape[-1]), -1, b[..., None])[..., 0]
 
 
 def _ue_tables(plan, n_ue):
@@ -173,6 +180,7 @@ def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
 
 
 class EnvState(NamedTuple):
+    """Leaves of (N,), or (E, N) with a leading env axis (``t``: (E,))."""
     k: torch.Tensor          # (N,) remaining tasks (incl. in-flight)
     l: torch.Tensor          # (N,) remaining local seconds of current task
     n: torch.Tensor          # (N,) remaining offload bits of current task
@@ -201,6 +209,7 @@ class MECEnv:
         if params.churn_rate > 0.0 or params.leave_rate > 0.0:
             raise NotImplementedError(_CHURN)
         self.ue_feat_dim = OBS_UE_DIM
+        self.obs_dim = 4 * params.n_ue      # observe: [k, l, n, d] per UE
         dev = self.device
         self._ue_static = torch.as_tensor(ue_table_features(
             _np(params.l_new), _np(params.n_new), _np(params.feasible),
@@ -212,6 +221,7 @@ class MECEnv:
             else float(_np(params.server_dist).min())
         self.entity_dims = {"ue": OBS_ENT_UE, "server": OBS_ENT_SRV,
                             "edge": OBS_ENT_EDGE}
+        self._srv_scale = torch.tensor([1.0, 1.0, 1.0 / EDGE_SLOW_NORM], device=dev)
         work = _np(params.edge_work).astype(np.float64)
         offl_feas = _np(params.feasible)[:, :-1]
         cnt = np.maximum(offl_feas.sum(axis=1), 1)
@@ -237,40 +247,46 @@ class MECEnv:
             masks={"split": params.feasible})
 
     def reset(self, gen: Optional[torch.Generator] = None, *, eval_mode=False,
-              randomize=False) -> EnvState:
+              randomize=False, n_envs: Optional[int] = None) -> EnvState:
         """Eval mode: k = lam_tasks and d = 50 m for every UE, nothing
         drawn. Otherwise k ~ Poisson(lam_tasks), d ~ U(d_low, d_high), from
         ``gen`` (on the env's device). ``gen`` stays on the state for the
-        auto-resets of ``step``."""
+        auto-resets of ``step``. ``n_envs`` gives every leaf a leading env
+        axis of that length, each env drawn from the same ``gen``."""
         if randomize:
             raise NotImplementedError(_GEOMETRY)
         p = self.params
-        n, dev = p.n_ue, self.device
+        dev = self.device
+        shape = (p.n_ue,) if n_envs is None else (n_envs, p.n_ue)
         if eval_mode:
-            k = torch.full((n,), p.lam_tasks, dtype=torch.float32, device=dev)
-            d = torch.full((n,), 50.0, dtype=torch.float32, device=dev)
+            k = torch.full(shape, p.lam_tasks, dtype=torch.float32, device=dev)
+            d = torch.full(shape, 50.0, dtype=torch.float32, device=dev)
         else:
             if gen is None:
                 raise ValueError("a random reset needs a torch.Generator")
-            k, d = self._draw_tasks(gen)
-        zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
+            k, d = self._draw_tasks(gen, shape)
+        zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
         return EnvState(k=k, l=zeros, n=zeros.clone(), d=d,
-                        t=torch.zeros((), dtype=torch.int32, device=dev), gen=gen,
-                        active=torch.ones((n,), dtype=torch.bool, device=dev))
+                        t=torch.zeros(shape[:-1], dtype=torch.int32, device=dev), gen=gen,
+                        active=torch.ones(shape, dtype=torch.bool, device=dev))
 
-    def _draw_tasks(self, gen):
+    def _draw_tasks(self, gen, shape):
         p = self.params
-        rate = torch.full((p.n_ue,), p.lam_tasks, dtype=torch.float32, device=self.device)
+        rate = torch.full(shape, p.lam_tasks, dtype=torch.float32, device=self.device)
         k = torch.poisson(rate, generator=gen)
-        u = torch.rand((p.n_ue,), generator=gen, device=self.device)
+        u = torch.rand(shape, generator=gen, device=self.device)
         return k, p.d_low + u * (p.d_high - p.d_low)
 
     def observe(self, s: EnvState):
-        raise NotImplementedError(_FLAT_OBS)
+        """The per-UE actors' flat global observation, (..., 4N):
+        ``[k / lam, l / t0, n / 1e6, d / 100]``, each block over the UEs."""
+        p = self.params
+        return torch.cat([s.k / max(p.lam_tasks, 1.0), s.l / p.t0, s.n / 1e6, s.d / 100.0],
+                         dim=-1)
 
     def _own_fleet(self, s: EnvState, min_dist_scale, n_slots):
-        """The own block (N, 5) and the fleet aggregates (4,) shared by the
-        per-UE and entity observations."""
+        """The own block (..., N, 5) and the fleet aggregates (..., 4)
+        shared by the per-UE and entity observations."""
         p = self.params
         act = s.active.to(torch.float32)
         lam = max(p.lam_tasks, 1.0)
@@ -280,55 +296,57 @@ class MECEnv:
             s.n / BITS_NORM,
             s.d / DIST_NORM,
             s.d * min_dist_scale / DIST_NORM,
-        ], dim=1) * act[:, None]
-        n_act = torch.clamp(act.sum(), min=1.0)
-        per_slot = act.sum() / n_slots
+        ], dim=-1) * act[..., None]
+        n_act = torch.clamp(act.sum(-1), min=1.0)
+        per_slot = act.sum(-1) / n_slots
         fleet = torch.stack([
-            act.sum() / p.n_ue,
-            (s.k * act).sum() / (n_act * lam),
-            (s.d * act).sum() / (n_act * DIST_NORM),
+            act.sum(-1) / p.n_ue,
+            (s.k * act).sum(-1) / (n_act * lam),
+            (s.d * act).sum(-1) / (n_act * DIST_NORM),
             per_slot,
-        ])
+        ], dim=-1)
         return own, act, fleet, per_slot
 
     def observe_per_ue(self, s: EnvState):
-        """(N, OBS_UE_DIM) rows for a weight-shared policy: own state (5),
-        activity (1), device descriptor (5), pool aggregate (4), fleet
+        """(..., N, OBS_UE_DIM) rows for a weight-shared policy: own state
+        (5), activity (1), device descriptor (5), pool aggregate (4), fleet
         aggregates (4)."""
-        n = self.params.n_ue
         own, act, fleet, _ = self._own_fleet(s, self._min_dist_scale,
                                              self.n_servers * self.n_channels)
+        rows = own.shape[:-1]
         return torch.cat([
-            own, act[:, None], self._ue_static,
-            self._pool_static.broadcast_to((n, OBS_UE_POOL)),
-            fleet.broadcast_to((n, OBS_UE_FLEET)),
-        ], dim=1)
+            own, act[..., None], self._ue_static.expand(*rows, OBS_UE_DEVICE),
+            self._pool_static.expand(*rows, OBS_UE_POOL),
+            fleet[..., None, :].expand(*rows, OBS_UE_FLEET),
+        ], dim=-1)
 
     def _ue_rows(self, s: EnvState, geom):
-        n = self.params.n_ue
         own, act, fleet, per_slot = self._own_fleet(
             s, geom[:, 0].min(), geom.shape[0] * self.n_channels)
-        ue = torch.cat([own, act[:, None], self._ue_static,
-                        fleet.broadcast_to((n, OBS_UE_FLEET))], dim=1)
+        rows = own.shape[:-1]
+        ue = torch.cat([own, act[..., None], self._ue_static.expand(*rows, OBS_UE_DEVICE),
+                        fleet[..., None, :].expand(*rows, OBS_UE_FLEET)], dim=-1)
         return ue, act, per_slot
 
     def observe_entities(self, s: EnvState):
-        """Entity-set observation {"ue": (N, 15), "server": (E, 4),
-        "edge": (N, E, 3)}: UE rows, server geometry plus occupancy, and
-        UE x server distance, clean-rate proxy and edge seconds."""
+        """Entity-set observation {"ue": (..., N, 15), "server": (..., E,
+        4), "edge": (..., N, E, 3)}: UE rows, server geometry plus
+        occupancy, and UE x server distance, clean-rate proxy and edge
+        seconds."""
         p = self.params
         geom = p.pool_geom
         n_srv = geom.shape[0]
         ue, _, per_slot = self._ue_rows(s, geom)
+        lead = per_slot.shape
         srv = torch.cat([
-            geom * torch.tensor([1.0, 1.0, 1.0 / EDGE_SLOW_NORM], device=geom.device),
-            per_slot.broadcast_to((n_srv,))[:, None],
-        ], dim=1)
-        dist_ne = s.d[:, None] * geom[None, :, 0]
+            (geom * self._srv_scale).expand(*lead, n_srv, 3),
+            per_slot[..., None, None].expand(*lead, n_srv, 1),
+        ], dim=-1)
+        dist_ne = s.d[..., None] * geom[:, 0]
         g_ne = channel_gain(dist_ne, p.pathloss)
         om_mean = geom[:, 1] * p.omega_cell.mean()
-        rate = om_mean[None, :] * torch.log2(1.0 + p.p_max * g_ne / p.sigma.mean()) / RATE_NORM
-        te = self._ue_work_mean[:, None] * geom[None, :, 2] / p.t0
+        rate = om_mean * torch.log2(1.0 + p.p_max * g_ne / p.sigma.mean()) / RATE_NORM
+        te = (self._ue_work_mean[:, None] * geom[None, :, 2] / p.t0).expand_as(dist_ne)
         edge = torch.stack([dist_ne / DIST_NORM, rate, te], dim=-1)
         return {"ue": ue, "server": srv, "edge": edge}
 
@@ -361,16 +379,18 @@ class MECEnv:
 
     def _edge_seconds(self, b, route, offloads):
         """Per-task edge time under processor sharing: t_edge[n, b, e]
-        times the number of UEs offloading to e."""
+        times the number of UEs (of the same env) offloading to e."""
         prm = self.params
         te = prm.t_edge[torch.arange(prm.n_ue, device=b.device), b, route]
-        load = F.one_hot(route, self.n_servers).to(te.dtype).T @ offloads.to(te.dtype)
-        return te * torch.clamp(load[route], min=1.0), load
+        load = slot_totals(F.one_hot(route, self.n_servers).to(te.dtype),
+                           offloads.to(te.dtype))
+        return te * torch.clamp(torch.gather(load, -1, route), min=1.0), load
 
     def step(self, s: EnvState, actions):
-        """actions: (N,) int per discrete head, (N,) physical watts for
-        "power" (clamped here). Returns (next_state, reward, done, info),
-        all tensors on the env's device."""
+        """actions: (..., N) int per discrete head, (..., N) physical watts
+        for "power" (clamped here), with the state's leading env axis.
+        Returns (next_state, reward, done, info), all tensors on the env's
+        device; reward, done and the info scalars are per env."""
         prm = self.params
         a = self.action_space.clip(actions)
         b, c, p_tx = a["split"].long(), a["channel"].long(), a["power"]
@@ -440,28 +460,29 @@ class MECEnv:
         l_nxt = torch.where(carry_open, l1, l2)
         n_nxt = torch.where(carry_open, n1, n2)
 
-        k_t = completed.sum()
-        e_t = energy.sum()
+        k_t = completed.sum(-1)
+        e_t = energy.sum(-1)
         k_div = torch.clamp(k_t, min=1.0)
         # a tensor numerator: ``scalar / tensor`` would multiply by 1 / k
         reward = torch.full_like(k_div, -prm.t0) / k_div - prm.beta * e_t / k_div
 
-        done = torch.all(k3 <= 0)
+        done = torch.all(k3 <= 0, dim=-1)
         # auto-reset on termination, drawn every frame as the reference does
-        fresh_k, fresh_d = self._draw_tasks(s.gen)
+        fresh_k, fresh_d = self._draw_tasks(s.gen, k3.shape)
         zeros = torch.zeros_like(k3)
+        dn = done[..., None]
         nxt = EnvState(
-            k=torch.where(done, fresh_k, k3),
-            l=torch.where(done, zeros, l_nxt),
-            n=torch.where(done, zeros, n_nxt),
-            d=torch.where(done, fresh_d, s.d),
+            k=torch.where(dn, fresh_k, k3),
+            l=torch.where(dn, zeros, l_nxt),
+            n=torch.where(dn, zeros, n_nxt),
+            d=torch.where(dn, fresh_d, s.d),
             t=torch.where(done, torch.zeros_like(s.t), s.t + 1),
             gen=s.gen,
-            active=torch.where(done, torch.ones_like(act), act))
-        zero = torch.zeros((), dtype=torch.float32, device=k3.device)
-        info = {"completed": k_t, "energy": e_t, "rate_mean": r.mean(),
-                "offloads": offloads.sum(), "n_active": act.sum(),
-                "spawned": zero, "dropped": zero, "eps_bits": eps_bits.sum()}
+            active=torch.where(dn, torch.ones_like(act), act))
+        zero = torch.zeros_like(k_t)
+        info = {"completed": k_t, "energy": e_t, "rate_mean": r.mean(-1),
+                "offloads": offloads.sum(-1), "n_active": act.sum(-1),
+                "spawned": zero, "dropped": zero, "eps_bits": eps_bits.sum(-1)}
         if self.multi_server:
             info["server_load"] = server_load
         return nxt, reward, done, info

@@ -1,9 +1,18 @@
-"""Policy networks of the scheduler, the port of the entity-set and flat-
-trunk halves of ``src/repro/rl/nets.py``.
+"""Policy networks of the scheduler, the port of ``src/repro/rl/nets.py``.
 
 Weights keep the reference's (d_in, d_out) layout: a layer is
 ``x @ w + b`` with tanh between layers and the last linear. Every network
-is generic over the env's :class:`HybridActionSpace`.
+is generic over the env's :class:`HybridActionSpace`, and takes any leading
+batch axes.
+
+* The actor (paper Fig. 3) is a trunk (D -> 256 -> 128, tanh on its
+  output) and one (128, 64, n) branch per head. The paper's per-UE actors
+  are N of them held as one :class:`Actor` of :class:`StackedLinear`
+  layers (weights (N, d_in, d_out)), every actor reading the same flat
+  global observation: the counterpart of the reference's ``vmap`` over
+  actors. The weight-shared actor is one plain :class:`Actor` applied to
+  every ``observe_per_ue`` row. The critic is one (D, 256, 128, 64, 1)
+  MLP.
 
 * The entity actor encodes UE rows (15 -> 192 -> 128) and server rows
   (4 -> 32), scores every (UE, server) pair with one shared MLP
@@ -16,8 +25,7 @@ is generic over the env's :class:`HybridActionSpace`.
   ({"qlayers", "bits"}) runs through ``kernels.ops.flat_trunk``.
 
 Initialization is orthogonal as in the reference (the same distribution,
-not the same numbers), from an explicit ``torch.Generator``. The per-UE
-and shared actors come with the actors slice.
+not the same numbers), from an explicit ``torch.Generator`` on the CPU.
 """
 from __future__ import annotations
 
@@ -46,6 +54,19 @@ class Linear(nn.Module):
 
     def params(self):
         return {"w": self.w, "b": self.b}
+
+
+class StackedLinear(nn.Module):
+    """N independent layers, ``x[..., i, :] @ w[i] + b[i]`` with w (N, d_in,
+    d_out) and b (N, d_out): a :class:`Linear` vmapped over an actor axis."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
+
+    def forward(self, x):
+        return torch.einsum("...nd,nde->...ne", x, self.w) + self.b
 
 
 class MLP(nn.Module):
@@ -85,6 +106,64 @@ def _mlp_init(gen, sizes, out_scale=0.01, device=None):
     return MLP(layers)
 
 
+def _stack_mlps(mlps):
+    """N MLPs of equal widths -> one MLP of :class:`StackedLinear` layers."""
+    return MLP([StackedLinear(torch.stack([m.layers[i].w.data for m in mlps]),
+                              torch.stack([m.layers[i].b.data for m in mlps]))
+                for i in range(len(mlps[0].layers))])
+
+
+class Actor(nn.Module):
+    """Trunk (D, 256, 128) and one (128, 64, n) branch per head. With
+    ``n_actors`` set its layers are :class:`StackedLinear`: the paper's N
+    per-UE actors, each reading the same global observation."""
+
+    def __init__(self, trunk: MLP, heads: nn.ModuleDict, n_actors=None):
+        super().__init__()
+        self.trunk, self.heads, self.n_actors = trunk, heads, n_actors
+
+
+def init_actor(gen, obs_dim, space: HybridActionSpace, device=None):
+    """One actor, trunk first and then the heads in declaration order."""
+    return Actor(_mlp_init(gen, (obs_dim, 256, 128), out_scale=math.sqrt(2.0), device=device),
+                 space.init_heads(gen, 128, _mlp_init, device=device))
+
+
+def init_actor_stack(gen, n_actors, obs_dim, space: HybridActionSpace, device=None):
+    """The paper's per-UE actors: ``n_actors`` independent inits, one after
+    another from ``gen``, held as one stacked :class:`Actor`."""
+    actors = [init_actor(gen, obs_dim, space, device) for _ in range(n_actors)]
+    heads = nn.ModuleDict({name: _stack_mlps([a.heads[name] for a in actors])
+                           for name in actors[0].heads})
+    return Actor(_stack_mlps([a.trunk for a in actors]), heads, n_actors)
+
+
+def actor_forward(p: Actor, space: HybridActionSpace, obs, masks=None):
+    """obs (..., D) for a per-UE stack (the flat global observation, read by
+    every actor) or (..., F) rows for a single actor -> the per-head
+    distribution dict; a stack's has an actor axis (..., N, ...)."""
+    if p.n_actors is not None:
+        obs = obs.unsqueeze(-2).expand(*obs.shape[:-1], p.n_actors, obs.shape[-1])
+    h = torch.tanh(p.trunk(obs))
+    return space.forward(p.heads, h, masks)
+
+
+def shared_actor_forward(p: Actor, space: HybridActionSpace, feats, masks):
+    """ONE actor over every fleet row: feats (..., N, F) ``observe_per_ue``
+    rows, masks a complete per-actor dict with (N, n) leaves. The result
+    has the same actor axis as the per-UE stack's."""
+    return actor_forward(p, space, feats, masks)
+
+
+def init_critic(gen, obs_dim, device=None):
+    """The global critic, (obs_dim, 256, 128, 64, 1)."""
+    return _mlp_init(gen, (obs_dim, 256, 128, 64, 1), out_scale=1.0, device=device)
+
+
+def critic_forward(p: MLP, obs):
+    return p(obs)[..., 0]
+
+
 class EntityActor(nn.Module):
     def __init__(self, ue_enc: MLP, srv_enc: Linear, scorer: MLP, heads: nn.ModuleDict):
         super().__init__()
@@ -104,19 +183,20 @@ def init_entity_actor(gen, dims, space: HybridActionSpace, device=None):
 
 
 def entity_trunk(p: EntityActor, obs):
-    """(ue_embed (N, 128), srv_embed (E, S), route_logits (N, E), ctx (N, S)).
-    An obs with a "raw" block (``env.observe_entities_raw``) runs the
-    scorer through the fused ``ops.pair_scorer``; the default entity obs
-    builds the (N, E, 128 + S + 3) pair concat."""
+    """(ue_embed (..., N, 128), srv_embed (..., E, S), route_logits (..., N,
+    E), ctx (..., N, S)). An obs with a "raw" block
+    (``env.observe_entities_raw``, one env) runs the scorer through the
+    fused ``ops.pair_scorer``; the default entity obs builds the (..., N,
+    E, 128 + S + 3) pair concat."""
     ue = torch.tanh(p.ue_enc(obs["ue"]))
     if "raw" in obs:
         route_logits, srv = ops.pair_scorer(ue, obs["raw"], p.srv_enc.params(),
                                             [layer.params() for layer in p.scorer.layers])
     else:
         srv = torch.tanh(obs["server"] @ p.srv_enc.w + p.srv_enc.b)
-        n, e = obs["edge"].shape[:2]
-        pair = torch.cat([ue[:, None, :].expand(n, e, ue.shape[-1]),
-                          srv[None, :, :].expand(n, e, srv.shape[-1]),
+        *lead, n, e, _ = obs["edge"].shape
+        pair = torch.cat([ue[..., :, None, :].expand(*lead, n, e, ue.shape[-1]),
+                          srv[..., None, :, :].expand(*lead, n, e, srv.shape[-1]),
                           obs["edge"]], dim=-1)
         route_logits = p.scorer(pair)[..., 0]
     ctx = torch.softmax(route_logits, dim=-1) @ srv
@@ -138,8 +218,19 @@ def init_entity_critic(gen, device=None):
 
 def entity_value_forward(actor_p: EntityActor, head_p: MLP, obs):
     ue, srv, _, _ = entity_trunk(actor_p, obs)
-    h = torch.cat([ue.mean(dim=0), srv.mean(dim=0)], dim=-1)
+    h = torch.cat([ue.mean(dim=-2), srv.mean(dim=-2)], dim=-1)
     return head_p(h)[..., 0]
+
+
+def entity_policy_value(actor_p: EntityActor, head_p: MLP, space: HybridActionSpace, obs,
+                        masks):
+    """(dist, value) from ONE trunk pass, the training path's form of
+    ``entity_actor_forward`` and ``entity_value_forward``."""
+    ue, srv, route_logits, ctx = entity_trunk(actor_p, obs)
+    dist = space.forward(actor_p.heads, torch.cat([ue, ctx], dim=-1), masks,
+                         provided={"route": route_logits})
+    h = torch.cat([ue.mean(dim=-2), srv.mean(dim=-2)], dim=-1)
+    return dist, head_p(h)[..., 0]
 
 
 # ------------------------------------------------ distilled flat trunk

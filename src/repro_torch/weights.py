@@ -12,10 +12,12 @@ layer axis (``params["decoder"]["blocks"][0][...]`` has shape
 ``prefill`` output, numpy leaves) into the port's per-layer list, so a
 decode can continue in the port from state the reference made.
 
-``entity_actor_from_jax`` and ``flat_trunk_from_jax`` carry the
-scheduler's policy nets (``rl.nets.init_entity_actor``,
-``init_flat_trunk`` and ``rl.distill.quantize_flat_trunk`` outputs) the
-same way, as numpy trees.
+``entity_actor_from_jax``, ``flat_trunk_from_jax``, ``actor_from_jax``
+and ``actor_stack_from_jax`` carry the scheduler's policy nets
+(``rl.nets.init_entity_actor``, ``init_flat_trunk``,
+``rl.distill.quantize_flat_trunk`` and ``init_actor`` outputs, the last
+also ``vmap``-stacked over the per-UE actors) the same way, as numpy
+trees; ``agent_from_jax`` carries a whole MAHPPO agent.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 from repro_torch.kernels.ref import code_dtype
 from repro_torch.models.blocks import _LATER
 from repro_torch.models.model import Model, layer_plan
-from repro_torch.rl.nets import MLP, EntityActor, Linear
+from repro_torch.rl.nets import MLP, Actor, EntityActor, Linear, StackedLinear
 
 
 def _tensor(a, dtype, device):
@@ -118,6 +120,43 @@ def entity_actor_from_jax(tree, device):
         mlp_from_jax(tree["scorer"], device),
         torch.nn.ModuleDict({name: mlp_from_jax(layers, device)
                              for name, layers in tree["heads"].items()}))
+
+
+def actor_from_jax(tree, device):
+    """``nets.init_actor``'s tree ({"trunk", "heads"}) -> an :class:`Actor`."""
+    return Actor(mlp_from_jax(tree["trunk"], device),
+                 torch.nn.ModuleDict({name: mlp_from_jax(layers, device)
+                                      for name, layers in tree["heads"].items()}))
+
+
+def _stacked_mlp(layers, device):
+    return MLP([StackedLinear(_tensor(layer["w"], torch.float32, device),
+                              _tensor(layer["b"], torch.float32, device))
+                for layer in layers])
+
+
+def actor_stack_from_jax(tree, device):
+    """The per-UE actors (``init_actor`` vmapped over N keys: every leaf
+    has a leading actor axis, weights (N, d_in, d_out)) -> one stacked
+    :class:`Actor`."""
+    return Actor(_stacked_mlp(tree["trunk"], device),
+                 torch.nn.ModuleDict({name: _stacked_mlp(layers, device)
+                                      for name, layers in tree["heads"].items()}),
+                 n_actors=int(np.shape(tree["trunk"][0]["w"])[0]))
+
+
+def agent_from_jax(tree, device):
+    """A MAHPPO agent tree (``mahppo.init_agent``'s: "actors", "actor" or
+    "entity_actor", and "critic") -> the port's agent dict."""
+    if "actors" in tree:
+        actor = ("actors", actor_stack_from_jax(tree["actors"], device))
+    elif "actor" in tree:
+        actor = ("actor", actor_from_jax(tree["actor"], device))
+    elif "entity_actor" in tree:
+        actor = ("entity_actor", entity_actor_from_jax(tree["entity_actor"], device))
+    else:
+        raise ValueError(f"unknown agent with keys {sorted(tree)}")
+    return dict([actor, ("critic", mlp_from_jax(tree["critic"], device))])
 
 
 def flat_trunk_from_jax(tree, device):

@@ -220,8 +220,6 @@ def test_reset_and_what_waits():
         mecenv.make_env_params(_fleets()[1], churn_rate=0.1)
     with pytest.raises(NotImplementedError, match="geometry"):
         v.reset(eval_mode=True, randomize=True)
-    with pytest.raises(NotImplementedError, match="observe"):
-        v.observe(s)
 
 
 def test_dispatch_env_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -256,7 +256,5 @@ def test_evaluate_policy_refuses_what_waits():
                                                 v.action_space)}
     with pytest.raises(NotImplementedError, match="n_envs"):
         mahppo.evaluate_policy(v, trunk, frames=1, n_envs=2)
-    with pytest.raises(NotImplementedError, match="shared"):
-        mahppo.evaluate_policy(v, {"actor": None}, frames=1)
     with pytest.raises(ValueError, match="entity"):
         mahppo.evaluate_policy(v, trunk, frames=1, fused_scorer=True)
