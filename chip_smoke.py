@@ -69,7 +69,22 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    synchronized), one profiled iteration (device time, launches, idle
    share, and the rollout and the update alone), and one update on the card
    held to the same update on the CPU;
-14. the card's name and power limit again, the kernels as one JSON line,
+14. the pair scorer's backward (pair_scorer_bwd.cu) against its plain
+   formula and a float64 twin, within 1e-5 of each gradient's largest, at
+   the fleet demo's rollout (4, 4, 2) and minibatch (256, 4, 2) shapes, the
+   zero-shot pool (E 3), the dispatch fleet (1, 1024, 3), a ragged N and E
+   1 and 5, in f32 and with bf16 observations, the same bits twice; the
+   batched forward bit-equal to B single-env launches; both timed at the
+   minibatch and dispatch shapes beside the launch floor and their bounds;
+15. training through the scorer kernels, a main path: the fleet demo
+   (``repro_torch.launch.fleet_demo``) at its defaults, the example's
+   ``--fleet --entity-policy --fused-scorer --servers 2`` (the mixed fleet,
+   15 iterations of 512 frames over 4 envs on resampled pool geometry),
+   seed 0: every reward finite, exactly the scorer launches the path makes
+   and no other kernel, MAHPPO against greedy, nearest, load-balanced and
+   the zero-shot 3-server pool; then seconds per iteration, one profiled
+   iteration, and one fused update on the card held to the CPU's;
+16. the card's name and power limit again, the kernels as one JSON line,
    then the result as the last line.
 """
 import argparse
@@ -104,6 +119,9 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
                    "src/repro/kernels/flat_trunk.py:54"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn.py:59"),
+    # no TPU kernel: the reference differentiates pair_scorer_xla
+    "pair_scorer_backward": ("src/repro_torch/kernels/csrc/pair_scorer_bwd.cu",
+                             "src/repro/kernels/pair_scorer.py:164"),
 }
 SERVE = {"qwen3-1.7b": dict(requests=4, batch=4, seq=256),
          "mamba2-1.3b": dict(requests=4, batch=2, seq=1024)}
@@ -113,6 +131,12 @@ DECODE_SERVE = {"qwen3-1.7b": dict(requests=2, batch=4, prompt_len=2048, gen=32)
                 "mamba2-1.3b": dict(requests=2, batch=2, prompt_len=1024, gen=32)}
 TRUNK_DIMS = (19, 64, 64, 13)    # the flat trunk's published widths
 TRAIN_TIMED = 3                  # iterations timed with a sync between rollout and update
+# the scorer's shapes on the fleet demo's path (envs, UEs, servers): the
+# rollout, the minibatch, the zero-shot pool, the dispatch fleet, a ragged
+# N and E 1 and 5
+SCORER_GRAD_SHAPES = {"rollout": (4, 4, 2), "minibatch": (256, 4, 2), "zero-shot": (1, 4, 3),
+                      "dispatch": (1, 1024, 3), "ragged N": (3, 13, 2), "E 1": (2, 20, 1),
+                      "E 5": (2, 20, 5)}
 
 
 class Failed(Exception):
@@ -478,7 +502,8 @@ def expected_launches(cfg, split, requests):
     n = cfg.n_layers
     return {"quantize": 0, "bottleneck_encode": requests, "dequantize": requests,
             "ssd_intra": ssd(0, split) + requests * (ssd(0, n) + ssd(0, n)),
-            "pair_scorer": 0, "flat_trunk": 0, "decode_attention": 0}
+            "pair_scorer": 0, "flat_trunk": 0, "decode_attention": 0,
+            "pair_scorer_backward": 0}
 
 
 def phase_serve(dev, cs, cfg, build_mod, kref):
@@ -528,6 +553,7 @@ KERNEL_NAMES = {"ssd_intra": ("ssd_intra_mma_kernel", "gram_kernel", "intra_kern
                 "dequantize": ("dequantize_vec_kernel",),
                 "pair_scorer": ("pair_scorer_fused_kernel",),
                 "flat_trunk": ("flat_trunk_persistent_kernel",),
+                "pair_scorer_backward": ("pair_scorer_backward_kernel",),
                 "decode_attention": ("decode_attn_cluster_kernel",)}
 
 
@@ -855,6 +881,281 @@ def phase_dispatch_profile(mahppo, res):
         profile_device(f"dispatch {name}", lambda: mahppo.evaluate_policy(
             res.env, agent, frames=1, fused_scorer=fused), res.stats[name]["ms_per_frame"],
             "frame")
+
+# ------------------------------------------------- the scorer's envs and backward
+def grad_inputs(dev, g, b, n, e, dtype=torch.float32):
+    """Batched scorer inputs at the training path's magnitudes (slowness in
+    s/FLOP and edge work in FLOPs, so every edge feature is O(1) and the
+    hidden layer does not saturate); the observation block in ``dtype``."""
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    geom = torch.stack([0.9 + 1.1 * u(b, e), 0.5 + 0.75 * u(b, e), 4.2e-12 * u(b, e)], -1)
+    obs = [torch.tanh(r(b, n, 128)), 1 + 99 * u(b, n), 1e8 + 4.9e9 * u(b, n),
+           (u(b, n) < 0.7).float(), geom]
+    consts = torch.tensor([3.0, 0.5, 1e-9, 0.1, 0.5, e * 2.0, 100.0, 1e12], device=dev)
+    return [t.to(dtype) for t in obs] + [consts, r(4, 32) * 0.5, r(32) * 0.1, r(163, 48) * 0.1,
+                                         r(48) * 0.1, r(48, 1) * 0.3, r(1)]
+
+
+SCORER_GRADS = (0, 6, 7, 8, 9, 10, 11)      # ue_emb and the weights
+
+
+def float64_grads(kps, args, g_logits, g_srv):
+    """Autograd of the plain twin in float64 from the same inputs."""
+    wide = [a.detach().double().requires_grad_(i in SCORER_GRADS) for i, a in enumerate(args)]
+    logits, srv = kps.pair_scorer_plain(*wide)
+    loss = (logits * g_logits.double()).sum() + (srv * g_srv.double()).sum()
+    return torch.autograd.grad(loss, [wide[i] for i in SCORER_GRADS])
+
+
+def grad_excess(got, want, bf16_ue):
+    """The largest amount by which a gradient exceeds 1e-5 of its largest
+    magnitude (d ue in bf16: plus one bf16 step, 2^-7 of the element), and
+    the largest such relative difference."""
+    excess, rel = -float("inf"), 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.double(), b.double()
+        top = float(b.abs().max())
+        tol = 1e-5 * top + (2.0 ** -7 * b.abs() if bf16_ue and i == 0 else 0.0)
+        excess = max(excess, float(((a - b).abs() - tol).max()))
+        rel = max(rel, float((a - b).abs().max()) / max(top, 1e-30))
+    return excess, rel
+
+
+def phase_scorer_backward(dev, kps, build_mod):
+    """(a) The backward kernel against its plain formula and a float64 twin
+    at every shape of the fleet demo's path and beyond, in f32 and with bf16
+    observations, and the same bits from the same call twice; (b) the
+    batched forward against B single-env launches (bitwise) and its twin.
+    Returns (backward max abs error, forward max abs error)."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    err_b = err_f = 0.0
+    for label, (b, n, e) in SCORER_GRAD_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = grad_inputs(dev, g, b, n, e, dtype)
+            g_l = torch.randn((b, n, e), generator=g, device=dev)
+            g_s = torch.randn((b, e, 32), generator=g, device=dev)
+            build_mod.reset_launches()
+            _, srv = kps.pair_scorer(*args)
+            got = kps.pair_scorer_backward(g_l, g_s, *args, srv=srv)
+            again = kps.pair_scorer_backward(g_l, g_s, *args, srv=srv)
+            torch.cuda.synchronize()
+            check(dict(build_mod.LAUNCHES) == {"pair_scorer": 1, "pair_scorer_backward": 2},
+                  f"scorer backward {label}: launches {dict(build_mod.LAUNCHES)}")
+            check(got[0].dtype == dtype, f"scorer backward {label}: d ue is {got[0].dtype}")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"scorer backward {label} {dtype}: the same call twice gave other bits")
+            bf16 = dtype == torch.bfloat16
+            plain = kps.pair_scorer_backward_plain(g_l, g_s, *args)
+            ex_p, rel_p = grad_excess(got, plain, bf16)
+            ex_w, rel_w = grad_excess(got, float64_grads(kps, args, g_l, g_s), bf16)
+            check(ex_p <= 0 and ex_w <= 0, f"scorer backward {label} (B,N,E)=({b},{n},{e}) "
+                  f"{dtype}: beyond 1e-5 of a gradient's largest (by {ex_p:.2e} against the "
+                  f"formula, {ex_w:.2e} against float64)")
+            if not bf16:
+                err_b = max(err_b, max(float((x - y).abs().max()) for x, y in zip(got, plain)))
+            print(f"kernels: pair_scorer_backward {label} (B,N,E)=({b},{n},{e}) "
+                  f"{str(dtype)[6:]}: largest difference over a gradient's largest "
+                  f"{rel_p:.2e} against the formula, {rel_w:.2e} against float64 (1e-5 "
+                  f"allowed{', d ue plus one bf16 step' if bf16 else ''}); the same bits twice",
+                  flush=True)
+    for b, n, e in [(4, 4, 2), (256, 4, 2), (3, 37, 3), (2, 1025, 5)]:
+        args = grad_inputs(dev, g, b, n, e)
+        logits, srv = kps.pair_scorer(*args)
+        single = [kps.pair_scorer(*(a[i] for a in args[:5]), *args[5:]) for i in range(b)]
+        lp, sp = kps.pair_scorer_plain(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(logits[i], l1) and torch.equal(srv[i], s1)
+                  for i, (l1, s1) in enumerate(single)),
+              f"pair_scorer (B,N,E)=({b},{n},{e}): the batched launch differs from B single "
+              f"launches")
+        worst = max(float((logits - lp).abs().max()), float((srv - sp).abs().max()))
+        excess = max(float(((logits - lp).abs() - 1e-5 * lp.abs()).max()),
+                     float(((srv - sp).abs() - 1e-5 * sp.abs()).max()))
+        check(excess <= 1e-5, f"pair_scorer (B,N,E)=({b},{n},{e}): |kernel - plain| exceeds "
+              f"1e-5 + 1e-5|plain| by {excess - 1e-5:.2e}")
+        err_f = max(err_f, worst)
+        print(f"kernels: pair_scorer batched (B,N,E)=({b},{n},{e}): bit-equal to {b} single-env "
+              f"launches; against the twin max abs err {worst:.3e} (1e-5 + 1e-5|plain|)",
+              flush=True)
+    return err_b, err_f
+
+
+def scorer_grad_work(b, n, e, d_ue=128, s_dim=32, hid=48):
+    """(bytes, flops) the least the backward (with its two W1u products)
+    needs: the inputs (ue rows, three per-UE vectors, geometry, constants,
+    W1, b1, w2, the forward's embeddings, both incoming gradients) read
+    once, d ue and the weight gradients written once; the ue and server
+    terms of the first layer, per (pair, hidden unit) the edge term, the
+    sum, da and g h (12 flops) and its five reductions (10), the server
+    side's products and the two W1u products."""
+    k1 = d_ue + s_dim + 3
+    n_bytes = 4 * (b * n * d_ue + 3 * b * n + 3 * b * e + 8 + k1 * hid + 2 * hid
+                   + 2 * b * e * s_dim + b * n * e
+                   + b * n * d_ue + 5 * s_dim + k1 * hid + 2 * hid + 1)
+    flops = (2 * b * n * d_ue * hid + 2 * b * e * s_dim * hid + 22 * b * n * e * hid
+             + 2 * 2 * b * e * s_dim * hid + 2 * 4 * b * e * s_dim
+             + 2 * 2 * b * n * d_ue * hid)
+    return n_bytes, flops
+
+
+def phase_scorer_timing(dev, kps):
+    """(c) The batched forward and the backward at the minibatch and dispatch
+    shapes: kernel, plain and bound times, beside the launch floor (no
+    single PyTorch call computes either: no library time). The backward is
+    timed as the path calls it: its kernel and the two W1u GEMMs."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    out = {}
+    for label in ("minibatch", "dispatch"):
+        b, n, e = SCORER_GRAD_SHAPES[label]
+        args = grad_inputs(dev, g, b, n, e)
+        g_l = torch.randn((b, n, e), generator=g, device=dev)
+        g_s = torch.randn((b, e, 32), generator=g, device=dev)
+        srv = kps.pair_scorer(*args)[1]
+        fwd_bytes, fwd_flops = scorer_work(n, e)
+        weights = 4 * (4 * 32 + 32 + 163 * 48 + 2 * 48 + 1)
+        rows = {"pair_scorer": (lambda: kps.pair_scorer(*args),
+                                lambda: kps.pair_scorer_plain(*args),
+                                (b * (fwd_bytes - weights) + weights, b * fwd_flops)),
+                "pair_scorer_backward": (
+                    lambda: kps.pair_scorer_backward(g_l, g_s, *args, srv=srv),
+                    lambda: kps.pair_scorer_backward_plain(g_l, g_s, *args),
+                    scorer_grad_work(b, n, e))}
+        for name, (kernel, plain, work) in rows.items():
+            ms, plain_ms = device_ms(kernel), device_ms(plain)
+            bound_ms, bound_by = bound(*work)
+            print(f"timing: {name} {label} (B,N,E)=({b},{n},{e}): kernel {ms:.5f} ms, "
+                  f"{ms - floor_ms:.5f} ms above the launch floor ({floor_ms:.5f}), plain "
+                  f"{plain_ms:.5f} ms, library none, bound {bound_ms:.5f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
+            if name == "pair_scorer_backward" and label == "minibatch":
+                out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+    return out
+
+
+def fleet_demo_launches(cfg):
+    """The scorer launches of ``train_mahppo`` under ``cfg`` (the demo's
+    evaluations take the unfused path): each iteration's rollout, one
+    forward a step and one for the last values, and each minibatch step's
+    forward and backward."""
+    steps = cfg.horizon // cfg.n_envs
+    m = steps * cfg.n_envs
+    updates = cfg.reuse * max(m // min(cfg.batch, m), 1)
+    return {"pair_scorer": cfg.iterations * (steps + 1 + updates),
+            "pair_scorer_backward": cfg.iterations * updates}
+
+
+def phase_fleet_demo(dev, fleet_demo, build_mod):
+    """(d) The fleet demo at its defaults (the entity agent through the
+    scorer kernels over resampled geometry), seed 0, as a user runs it:
+    every reward finite, the scorer's launches exactly those the path
+    makes, no other kernel."""
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = fleet_demo.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    cfg = fleet_demo.fleet_config(len(res["history"]), entity_policy=True, randomize_pool=True,
+                                  fused_scorer=True)
+    want = fleet_demo_launches(cfg)
+    check(launches == want, f"fleet demo: launches {launches}, expected {want}")
+    hist = res["history"]
+    check(len(hist) == 15 and all(math.isfinite(r["reward_mean"]) for r in hist),
+          f"fleet demo: rewards {[r['reward_mean'] for r in hist]}")
+    beta = res["env"].params.beta
+    ovh = res["mahppo"]["t_task"] + beta * res["mahppo"]["e_task"]
+    values = [ovh, res["greedy"]["overhead"], res["nearest"]["overhead"],
+              res["loadbal"]["overhead"], res["zero_shot"]["overhead"],
+              res["zero_shot"]["nearest"]["overhead"]]
+    check(all(math.isfinite(v) for v in values), f"fleet demo: overheads {values}")
+    print(f"fleet demo: 15 iterations in {res['seconds']:.1f} s ({wall:.1f} s with the "
+          f"evaluations and baselines), launches {launches} as expected; reward "
+          f"{hist[0]['reward_mean']:.4f} -> {hist[-1]['reward_mean']:.4f}; overhead MAHPPO "
+          f"{ovh:.4f}, greedy {values[1]:.4f}, nearest {values[2]:.4f}, load-balanced "
+          f"{values[3]:.4f}; zero-shot on 3 servers {values[4]:.4f} against nearest "
+          f"{values[5]:.4f}", flush=True)
+    return launches, res
+
+
+def phase_fleet_timing(dev, fleet_demo, mahppo, optim, build_mod, res):
+    """Seconds per iteration of the demo's training (rollout and update
+    apart, synchronized), one profiled iteration, rollout and update; then
+    (e) one fused update on the card held to the same update on the CPU
+    (test_torch_scorer_grad.py's configuration: horizon 64, 2 envs, batch
+    32), each leaf's change within 1e-3 of its largest, the scorer's last
+    bias (a zero gradient in exact arithmetic) to AdamW's bound of lr a
+    step."""
+    env = res["env"]
+    cfg = fleet_demo.fleet_config(TRAIN_TIMED, entity_policy=True, randomize_pool=True,
+                                  fused_scorer=True)
+    fns = mahppo.make_train_fns(env, cfg)
+    agent = res["agent"]
+    opt = optim.adamw_init(mahppo.agent_parameters(agent))
+    states = mahppo.init_states(env, cfg, torch.Generator(device=dev).manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rollout, update = [], []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, traj, last_v = fns.collect(agent, gen, states)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fns.update(agent, opt, gen, traj, last_v)
+        torch.cuda.synchronize()
+        rollout.append(1e3 * (t1 - t0))
+        update.append(1e3 * (time.perf_counter() - t1))
+    print("fleet demo: ms an iteration (rollout + update, synchronized): "
+          + ", ".join(f"{r:.1f} + {u:.1f}" for r, u in zip(rollout, update)), flush=True)
+    wall_r, wall_u = statistics.median(rollout), statistics.median(update)
+    box = {"states": states}
+
+    def one_iteration():
+        box["states"] = fns.iteration(agent, opt, gen, box["states"])[2]
+
+    def one_rollout():
+        box["traj"] = fns.collect(agent, gen, box["states"])
+
+    profile_device("fleet demo iteration", one_iteration, wall_r + wall_u, "iteration")
+    profile_device("fleet demo rollout", one_rollout, wall_r, "rollout")
+    _, traj, last_v = box["traj"]
+    profile_device("fleet demo update", lambda: fns.update(agent, opt, gen, traj, last_v),
+                   wall_u, "update")
+
+    env_cpu = fleet_demo.fleet_env(device="cpu")
+    small = mahppo.MAHPPOConfig(horizon=64, n_envs=2, batch=32, entity_policy=True,
+                                randomize_pool=True, fused_scorer=True)
+    agent0 = mahppo.init_agent(torch.Generator().manual_seed(3), env, entity_policy=True)
+    states0 = mahppo.init_states(env, small, torch.Generator(device=dev).manual_seed(4))
+    _, traj0, last_v0 = mahppo.make_train_fns(env, small).collect(agent0, gen, states0)
+    n_updates = small.reuse * max(small.horizon // small.batch, 1)
+    keys = torch.rand((n_updates, small.horizon), generator=gen, device=dev)
+    idx = torch.argsort(keys, dim=-1)[:, :small.batch]
+    shift = [p is agent0["entity_actor"].scorer.layers[-1].b
+             for p in mahppo.agent_parameters(agent0)].index(True)
+    moved = {run: update_moves(mahppo, optim, mahppo.make_train_fns(e, small), agent0, traj0,
+                               last_v0, idx, d, dt)
+             for run, e, d, dt in (("card", env, dev, torch.float32),
+                                   ("cpu", env_cpu, torch.device("cpu"), torch.float32),
+                                   ("cpu64", env_cpu, torch.device("cpu"), torch.float64))}
+    worst = {pair: max(float((x - y).abs().max() / y.abs().max())
+                       for i, (x, y) in enumerate(zip(moved[pair[0]], moved[pair[1]]))
+                       if i != shift)
+             for pair in (("card", "cpu"), ("card", "cpu64"), ("cpu", "cpu64"))}
+    bias_step = float(moved["card"][shift].abs().max())
+    print(f"fleet demo: one fused update (horizon 64, 2 envs, batch 32, {n_updates} AdamW "
+          f"steps), the largest difference of a leaf's change over that leaf's largest: "
+          + ", ".join(f"{x} against {y} {r:.2e}" for (x, y), r in worst.items())
+          + f" (cpu64: float64 forward and backward); the scorer's last bias moved "
+            f"{bias_step:.2e} (bound {n_updates * small.lr:.1e})", flush=True)
+    check(worst[("card", "cpu")] <= 1e-3,
+          f"fleet demo: the card's update is {worst[('card', 'cpu')]:.2e} of a leaf's largest "
+          f"change from the CPU's (1e-3 allowed)")
+    check(bias_step <= n_updates * small.lr * (1 + 1e-5),
+          f"fleet demo: the scorer's last bias moved {bias_step:.2e}")
+
 
 # ------------------------------------------------------------- KV-cache decode
 def decode_inputs(dev, g, b, s, hkv, grp, d, kv_dtype=torch.float32, q_dtype=torch.float32,
@@ -1259,7 +1560,7 @@ def main(argv=None):
                                      quant, ssd_intra)
     from repro_torch.kernels import ref as kref
     from repro_torch import optim
-    from repro_torch.launch import collab_serve, dispatch_serve, quickstart
+    from repro_torch.launch import collab_serve, dispatch_serve, fleet_demo, quickstart
     from repro_torch.launch import serve as serve_lib
     from repro_torch.models import cache as cache_lib
     from repro_torch.models import init_params, ssm
@@ -1296,6 +1597,8 @@ def main(argv=None):
     if args.timing_only:
         phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
         phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant)
+        if hasattr(pair_scorer, "pair_scorer_backward"):      # a parent tree may lack it
+            phase_scorer_timing(dev, pair_scorer)
         phase_decode_timing(dev, decode_attn, decode_shape)
         return 0
     err = phase_kernels(dev, quant, bottleneck, kref)
@@ -1303,6 +1606,9 @@ def main(argv=None):
     times = phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
     err.update(phase_dispatch_kernels(dev, pair_scorer, flat_trunk, quant))
     times.update(phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant))
+    err["pair_scorer_backward"], fwd_err = phase_scorer_backward(dev, pair_scorer, _build)
+    err["pair_scorer"] = max(err["pair_scorer"], fwd_err)
+    times.update(phase_scorer_timing(dev, pair_scorer))
     err["decode_attention"] = phase_decode_kernel(dev, decode_attn, kref, decode_shape)
     times.update(phase_decode_timing(dev, decode_attn, decode_shape))
     qwen_small = reduced(qwen, n_layers=4).replace(n_heads=4, n_kv_heads=2, d_head=64)
@@ -1335,6 +1641,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     phase_train(dev, quickstart, _build)
     phase_train_timing(dev, quickstart, mahppo, optim, _build)
+    counts, res = phase_fleet_demo(dev, fleet_demo, _build)
+    launches.update(counts)
+    phase_fleet_timing(dev, fleet_demo, mahppo, optim, _build, res)
+    del res
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

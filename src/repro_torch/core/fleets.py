@@ -1,7 +1,8 @@
 """Fleet and edge-pool helpers, the port's copy of the analytic half of
 ``src/repro/core/fleets.py`` (numpy only): the normalisers and feature
-builders the env serves to the policies, and the demo edge pools. The
-mixed CNN fleets come with the CNN slice.
+builders the env serves to the policies, the demo edge pools and the
+mixed CNN + transformer fleet. The mixed CNN + LLM-decode fleet comes
+with the port's ``--llm`` slice.
 
 Every per-UE feature is a normalized scalar summary, never a raw table, so
 feature widths do not depend on the fleet size N, the action width B_max
@@ -15,6 +16,24 @@ from typing import Tuple
 import numpy as np
 
 from repro_torch.core import overhead as oh
+from repro_torch.core.cnn import make_resnet18
+from repro_torch.core.split import (FleetPlan, build_fleet, cnn_split_table,
+                                    transformer_split_table)
+
+def make_mixed_fleet(arch: str = "qwen3-1.7b", n_ue: int = 4) -> FleetPlan:
+    """ResNet18 on a Jetson, ResNet18 on an IoT-class SoC, and two
+    transformer UEs (``arch``) on phone NPUs, each split table built for
+    the device that runs it; ``n_ue`` cycles that 4-UE mix."""
+    from repro_torch.configs import get_config
+    cnn = make_resnet18(101)
+    tcfg = get_config(arch)
+    base = [(cnn_split_table(cnn, 224, dev=oh.JETSON_NANO), oh.JETSON_NANO),
+            (cnn_split_table(cnn, 224, dev=oh.IOT_SOC), oh.IOT_SOC),
+            (transformer_split_table(tcfg, ue_dev=oh.PHONE_NPU), oh.PHONE_NPU),
+            (transformer_split_table(tcfg, ue_dev=oh.PHONE_NPU), oh.PHONE_NPU)]
+    picks = [base[i % len(base)] for i in range(n_ue)]
+    return build_fleet([p for p, _ in picks], [d for _, d in picks])
+
 
 P_COMPUTE_NORM = 5.0        # W
 OMEGA_NORM = 1e6            # Hz; the paper's per-channel bandwidth

@@ -1,6 +1,7 @@
 """DNN decoupling: split plans and the per-split overhead tables that define
 the env's action space (paper §3.2-3.4); the port's copy of the analytic
-transformer half of ``src/repro/core/split.py`` (numpy only).
+builders of ``src/repro/core/split.py`` (numpy only): the CNN backbones'
+tables and the decoder-only transformers'.
 
 A split decision b in {0, 1, ..., B+1} means:
   b = 0    offload the raw input
@@ -8,8 +9,8 @@ A split decision b in {0, 1, ..., B+1} means:
            boundary feature with the AE (+ quantization), transmit
   b = B+1  full local inference
 
-The CNN builders come with the CNN slice and the measured builders with
-the launch slice; this module imports no CNN code.
+The JALAD table comes with the port's ``jalad.py``, the measured and
+LLM-decode builders with later slices.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import overhead as oh
+from repro_torch.core.cnn import CNNModel
 
 
 @dataclasses.dataclass
@@ -140,6 +142,34 @@ def homogeneous_fleet(plan: SplitPlan, n_ue: int,
     return build_fleet([plan] * n_ue, [prof] * n_ue)
 
 
+def cnn_split_table(model: CNNModel, in_size: int, *,
+                    dev=oh.JETSON_NANO, ae_ratio=(16, 12, 8, 4),
+                    quant_bits=8, batch=1,
+                    input_bits_per_px=8) -> SplitPlan:
+    """The split table of a CNN backbone on UE device ``dev``. ae_ratio:
+    the per-split-point channel-reduction factors R_c (the paper's Fig. 4:
+    early features compress best), or one scalar for every point."""
+    flops = model.module_flops(in_size)
+    shapes = model.feature_shapes(in_size)
+    points = list(model.split_after)
+    if not hasattr(ae_ratio, "__len__"):
+        ae_ratio = [ae_ratio] * len(points)
+    raw_bits = batch * 3 * in_size * in_size * input_bits_per_px
+    rows = [(0.0, 0.0, 0.0, 0.0, raw_bits, True)]       # b = 0: raw input offload
+    for pi, k in enumerate(points):
+        fl = sum(flops[:k + 1]) * batch
+        t, e = oh.module_time_energy(fl, fl / 8, dev)
+        c, h, w = shapes[k]
+        cp = max(1, c // ae_ratio[pi])
+        enc_fl = 2 * c * cp * h * w * batch
+        tc, ec = oh.module_time_energy(enc_fl, enc_fl / 4, dev)
+        rows.append((t, e, tc, ec, batch * cp * h * w * quant_bits, True))
+    fl = sum(flops) * batch
+    t, e = oh.module_time_energy(fl, fl / 8, dev)
+    rows.append((t, e, 0.0, 0.0, 0.0, True))
+    return _finalize(model.name, points, rows, device=dev.name)
+
+
 def transformer_split_table(cfg: ModelConfig, *, seq_len=128,
                             ue_dev=oh.PHONE_NPU, n_points=4,
                             ae_ratio=None, quant_bits=None,
@@ -180,3 +210,10 @@ def transformer_split_table(cfg: ModelConfig, *, seq_len=128,
     total_pb = embed_pb + cum_pb[-1] + (emb["param_bytes"] - embed_pb)
     rows.append((t, e, 0.0, 0.0, 0.0, total_pb <= ue_dev.mem_bytes))
     return _finalize(cfg.name, points, rows, device=ue_dev.name)
+
+
+def split_table(target, **kw) -> SplitPlan:
+    """target: a CNNModel (``in_size`` defaults to 224) or a ModelConfig."""
+    if isinstance(target, CNNModel):
+        return cnn_split_table(target, kw.pop("in_size", 224), **kw)
+    return transformer_split_table(target, **kw)

@@ -4,7 +4,9 @@ Channel gain g_n = d_n^-l (path-loss exponent l = 3); the uplink rate of UE
 n under interference from the other offloading UEs on its slot is
 ``r_n = omega * log2(1 + p_n g_n / (sigma + sum_{i != n, same slot} p_i g_i))``.
 With ``route`` the slots are (server, channel) pairs of an edge pool and
-omega/sigma are (E, C); without it they are the (C,) channels of one server.
+omega/sigma are (E, C) (omega also (..., E, C), one per env, where the
+pool's geometry is drawn per env); without it they are the (C,) channels
+of one server.
 Every per-UE tensor may carry leading env axes; interference stays within
 an env.
 """
@@ -34,9 +36,11 @@ def uplink_rates(p, c, g, transmitting, *, omega, sigma, route=None):
         slot, n_slots = c, omega.shape[0]
         om, sg = omega[c], sigma[c]
     else:
-        n_ch = omega.shape[1]
-        slot, n_slots = route * n_ch + c, omega.numel()
-        om, sg = omega[route, c], sigma[route, c]
+        n_ch = omega.shape[-1]
+        slot, n_slots = (route * n_ch + c).long(), omega.shape[-2] * n_ch
+        sg = sigma[route, c]
+        om = omega[route, c] if omega.dim() == 2 \
+            else torch.gather(omega.flatten(-2), -1, slot)
     slot = slot.long()
     onehot = F.one_hot(slot, n_slots).to(pg.dtype)              # (..., N, E*C)
     per_slot = slot_totals(onehot, pg)                          # total power

@@ -16,9 +16,17 @@ transmit remainder below ``TX_EPS_BITS`` counts as sent and is reported in
 pays ``t_edge[n, b, e]`` times the number of UEs offloading to server e.
 
 The fleet is static in this port: churn (``churn_rate``/``leave_rate`` >
-0) and resampled pool geometry (``pool_ranges``, ``reset(randomize=True)``)
-raise ``NotImplementedError`` naming the slice that brings them. Tables
-are float32 where the reference casts them. The state carries a
+0) raises ``NotImplementedError`` naming the slice that brings it. Tables
+are float32 where the reference casts them.
+
+Pool geometry may be resampled per episode: an env built with
+``pool_ranges`` (a multi-server pool) takes ``reset(gen,
+randomize=True)``, which draws every server's [dist_scale, bw_scale,
+slowness] uniformly from the ranges into ``EnvState.geom`` ((E, 3), or
+(n_envs, E, 3)); the physics (distances, bandwidths, edge seconds) and the
+entity observations then follow each env's own draw, and ``step`` redraws
+it where an episode ends. A state without geometry (``geom`` None) runs
+exactly the static graph. The state carries a
 ``torch.Generator`` in place of the reference's threefry key: eval-mode
 reset draws nothing, a random reset and every step's auto-reset draw from
 it (the reference draws its auto-reset every frame too and keeps it only
@@ -48,9 +56,7 @@ from repro_torch.core.split import FleetPlan, SplitPlan
 from repro_torch.env.channel import channel_gain, slot_totals, uplink_rates
 from repro_torch.rl.actionspace import ContinuousHead, DiscreteHead, HybridActionSpace
 
-_LATER = "comes with the port's dynamic-env slice (churn and resampled pool geometry)"
-_CHURN = f"UE churn {_LATER}"
-_GEOMETRY = f"resampled pool geometry {_LATER}"
+_CHURN = "UE churn comes with the port's churn slice (ROADMAP queue 1)"
 
 
 class EnvParams(NamedTuple):
@@ -75,6 +81,8 @@ class EnvParams(NamedTuple):
     pool_geom: Optional[torch.Tensor] = None     # (E, 3) [dist, bw, slowness]
     omega_cell: Optional[torch.Tensor] = None    # (C,) base channel bandwidth
     edge_work: Optional[torch.Tensor] = None     # (N, B_max+2) edge-tail FLOPs
+    pool_low: Optional[torch.Tensor] = None      # (E, 3) resample range low
+    pool_high: Optional[torch.Tensor] = None     # (E, 3) resample range high
 
 
 # per-UE featurized observation layout (observe_per_ue): widths do not
@@ -130,14 +138,14 @@ def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
                     pool_ranges=None, device=None) -> EnvParams:
     """A SplitPlan is broadcast to ``n_ue`` identical UEs; a FleetPlan
     gives per-UE tables and power draws. An EdgePool of more than one
-    server (or one non-default server) gives the routed action space. The
+    server (or one non-default server) gives the routed action space;
+    ``pool_ranges``, a (low, high) pair of (E, 3) bounds, makes its
+    geometry resamplable (``reset(randomize=True)``). The
     tables are built in numpy (float64), cast to float32 as the reference
     casts them, and put on ``device`` (the card unless the caller passes
     one; raises when there is no card and none was given)."""
     if churn_rate > 0.0 or leave_rate > 0.0:
         raise NotImplementedError(_CHURN)
-    if pool_ranges is not None:
-        raise NotImplementedError(_GEOMETRY)
     device = resolve_device(device)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     if isinstance(plan, FleetPlan):
@@ -156,6 +164,8 @@ def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
     t_loc, feas_np, peaks = _ue_tables(plan, n_ue)
     work = ue_edge_work(t_loc, feas_np, peaks)       # (N, B+2) float64
     if pool is None or pool.is_single_paper_server:
+        if pool_ranges is not None:
+            raise ValueError("pool_ranges needs a multi-server EdgePool")
         omega_t = f32(np.full((n_channels,), np.float32(omega)))
         sigma_t = f32(np.full((n_channels,), np.float32(sigma)))
         server_dist = t_edge = None
@@ -167,6 +177,15 @@ def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
         speed = np.array([s.edge_speed for s in pool.servers])
         t_edge = f32(work[:, :, None] / np.where(speed > 0, speed, np.inf))
 
+    pool_low = pool_high = None
+    if pool_ranges is not None:
+        lo, hi = pool_ranges
+        shape = (pool.n_servers, 3)
+        if np.asarray(lo).shape != shape or np.asarray(hi).shape != shape:
+            raise ValueError(f"pool_ranges must be (low, high) {shape} "
+                             f"arrays, got {np.asarray(lo).shape}")
+        pool_low, pool_high = f32(lo), f32(hi)
+
     return EnvParams(
         l_new=l_new, n_new=n_new, feasible=feasible, p_compute=p_vec,
         t0=_f32(t0), beta=_f32(beta), omega=omega_t, sigma=sigma_t,
@@ -176,11 +195,12 @@ def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
         leave_rate=_f32(leave_rate), server_dist=server_dist, t_edge=t_edge,
         pool_geom=f32(pool_geometry(pool)),
         omega_cell=f32(np.full((n_channels,), np.float32(omega))),
-        edge_work=f32(work))
+        edge_work=f32(work), pool_low=pool_low, pool_high=pool_high)
 
 
 class EnvState(NamedTuple):
-    """Leaves of (N,), or (E, N) with a leading env axis (``t``: (E,))."""
+    """Leaves of (N,), or (E, N) with a leading env axis (``t``: (E,),
+    ``geom``: (E, n_servers, 3))."""
     k: torch.Tensor          # (N,) remaining tasks (incl. in-flight)
     l: torch.Tensor          # (N,) remaining local seconds of current task
     n: torch.Tensor          # (N,) remaining offload bits of current task
@@ -188,6 +208,7 @@ class EnvState(NamedTuple):
     t: torch.Tensor          # frame counter (int32)
     gen: Optional[torch.Generator]   # draws of random and auto resets
     active: torch.Tensor = None      # (N,) bool membership (all True: static fleet)
+    geom: Optional[torch.Tensor] = None  # (n_servers, 3) resampled geometry; None: static
 
 
 def _np(t):
@@ -219,6 +240,7 @@ class MECEnv:
             _np(params.feasible), params.t0), device=dev)
         self._min_dist_scale = 1.0 if params.server_dist is None \
             else float(_np(params.server_dist).min())
+        self.randomizable = params.pool_low is not None
         self.entity_dims = {"ue": OBS_ENT_UE, "server": OBS_ENT_SRV,
                             "edge": OBS_ENT_EDGE}
         self._srv_scale = torch.tensor([1.0, 1.0, 1.0 / EDGE_SLOW_NORM], device=dev)
@@ -252,12 +274,19 @@ class MECEnv:
         drawn. Otherwise k ~ Poisson(lam_tasks), d ~ U(d_low, d_high), from
         ``gen`` (on the env's device). ``gen`` stays on the state for the
         auto-resets of ``step``. ``n_envs`` gives every leaf a leading env
-        axis of that length, each env drawn from the same ``gen``."""
-        if randomize:
-            raise NotImplementedError(_GEOMETRY)
+        axis of that length, each env drawn from the same ``gen``.
+        ``randomize=True`` (needs ``pool_ranges``) first draws each env's
+        pool geometry from ``gen`` (nothing else draws without it)."""
         p = self.params
         dev = self.device
         shape = (p.n_ue,) if n_envs is None else (n_envs, p.n_ue)
+        geom = None
+        if randomize:
+            if not self.randomizable:
+                raise ValueError("randomize=True needs pool_ranges")
+            if gen is None:
+                raise ValueError("a randomized reset needs a torch.Generator")
+            geom = self._draw_geom(gen, shape[:-1])
         if eval_mode:
             k = torch.full(shape, p.lam_tasks, dtype=torch.float32, device=dev)
             d = torch.full(shape, 50.0, dtype=torch.float32, device=dev)
@@ -268,7 +297,30 @@ class MECEnv:
         zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
         return EnvState(k=k, l=zeros, n=zeros.clone(), d=d,
                         t=torch.zeros(shape[:-1], dtype=torch.int32, device=dev), gen=gen,
-                        active=torch.ones(shape, dtype=torch.bool, device=dev))
+                        active=torch.ones(shape, dtype=torch.bool, device=dev), geom=geom)
+
+    def _draw_geom(self, gen, lead):
+        """(*lead, E, 3) geometry, uniform in [pool_low, pool_high)."""
+        p = self.params
+        u = torch.rand((*lead, *p.pool_low.shape), generator=gen, device=self.device)
+        return p.pool_low + u * (p.pool_high - p.pool_low)
+
+    def _geom(self, s: EnvState):
+        """The state's pool geometry: its draw, else the construction-time
+        (E, 3) one."""
+        return self.params.pool_geom if s.geom is None else s.geom
+
+    def _pool_phys(self, s: EnvState):
+        """None on the static path (the physics read the params' arrays);
+        with drawn geometry the (server_dist (..., E), omega (..., E, C),
+        t_edge (..., N, B+2, E)) of each env's draw."""
+        if not self.multi_server or s.geom is None:
+            return None
+        p = self.params
+        omega = s.geom[..., 1, None] * p.omega_cell
+        # service time is linear in the drawn slowness (0 = instant edge)
+        t_edge = p.edge_work[:, :, None] * s.geom[..., None, None, :, 2]
+        return s.geom[..., 0], omega, t_edge
 
     def _draw_tasks(self, gen, shape):
         p = self.params
@@ -321,8 +373,11 @@ class MECEnv:
         ], dim=-1)
 
     def _ue_rows(self, s: EnvState, geom):
+        nearest = geom[..., 0].amin(-1)
+        if nearest.dim():                   # one scale per env: (E, 1)
+            nearest = nearest[..., None]
         own, act, fleet, per_slot = self._own_fleet(
-            s, geom[:, 0].min(), geom.shape[0] * self.n_channels)
+            s, nearest, geom.shape[-2] * self.n_channels)
         rows = own.shape[:-1]
         ue = torch.cat([own, act[..., None], self._ue_static.expand(*rows, OBS_UE_DEVICE),
                         fleet[..., None, :].expand(*rows, OBS_UE_FLEET)], dim=-1)
@@ -332,21 +387,21 @@ class MECEnv:
         """Entity-set observation {"ue": (..., N, 15), "server": (..., E,
         4), "edge": (..., N, E, 3)}: UE rows, server geometry plus
         occupancy, and UE x server distance, clean-rate proxy and edge
-        seconds."""
+        seconds, all from the state's geometry."""
         p = self.params
-        geom = p.pool_geom
-        n_srv = geom.shape[0]
+        geom = self._geom(s)
+        n_srv = geom.shape[-2]
         ue, _, per_slot = self._ue_rows(s, geom)
         lead = per_slot.shape
         srv = torch.cat([
             (geom * self._srv_scale).expand(*lead, n_srv, 3),
             per_slot[..., None, None].expand(*lead, n_srv, 1),
         ], dim=-1)
-        dist_ne = s.d[..., None] * geom[:, 0]
+        dist_ne = s.d[..., None] * geom[..., None, :, 0]
         g_ne = channel_gain(dist_ne, p.pathloss)
-        om_mean = geom[:, 1] * p.omega_cell.mean()
+        om_mean = geom[..., None, :, 1] * p.omega_cell.mean()
         rate = om_mean * torch.log2(1.0 + p.p_max * g_ne / p.sigma.mean()) / RATE_NORM
-        te = (self._ue_work_mean[:, None] * geom[None, :, 2] / p.t0).expand_as(dist_ne)
+        te = (self._ue_work_mean[:, None] * geom[..., None, :, 2] / p.t0).expand_as(dist_ne)
         edge = torch.stack([dist_ne / DIST_NORM, rate, te], dim=-1)
         return {"ue": ue, "server": srv, "edge": edge}
 
@@ -354,34 +409,46 @@ class MECEnv:
         """Kernel-path variant of ``observe_entities``: the same UE rows,
         and in place of the (N, E, 3) edge block the raw per-UE vectors,
         the geometry and the physics constants ``kernels.ops.pair_scorer``
-        takes."""
-        geom = self.params.pool_geom
+        takes. With an env axis every raw leaf carries it, as the
+        reference's ``vmap`` gives them."""
+        geom = self._geom(s)
         ue, act, _ = self._ue_rows(s, geom)
+        lead = s.d.shape[:-1]
         return {"ue": ue, "raw": {
-            "d": s.d, "work": self._ue_work_mean, "active": act,
-            "geom": geom, "consts": self._scorer_consts}}
+            "d": s.d, "work": self._ue_work_mean.expand(s.d.shape), "active": act,
+            "geom": geom.expand(*lead, *geom.shape[-2:]),
+            "consts": self._scorer_consts.expand(*lead, -1)}}
 
     def action_masks(self, s: EnvState = None):
         """{head: (N, n) bool}: the split head's per-UE table feasibility."""
         return {"split": self.action_space.masks["split"]}
 
     # ------------------------------------------------------------ physics
-    def _rates(self, d, c, p_tx, route, transmitting):
+    def _rates(self, d, c, p_tx, route, transmitting, phys=None):
+        """Uplink rates; ``phys`` (``_pool_phys``) replaces the static
+        pool's distances and bandwidths with each env's draw."""
         prm = self.params
         if self.multi_server:
-            g = channel_gain(d * prm.server_dist[route], prm.pathloss)
-            r = uplink_rates(p_tx, c, g, transmitting, omega=prm.omega,
+            dist, omega = (prm.server_dist, prm.omega) if phys is None else phys[:2]
+            scale = dist[route] if dist.dim() == 1 else torch.gather(dist, -1, route)
+            g = channel_gain(d * scale, prm.pathloss)
+            r = uplink_rates(p_tx, c, g, transmitting, omega=omega,
                              sigma=prm.sigma, route=route)
         else:
             g = channel_gain(d, prm.pathloss)
             r = uplink_rates(p_tx, c, g, transmitting, omega=prm.omega, sigma=prm.sigma)
         return torch.clamp(r, min=1.0)   # 1 b/s floor
 
-    def _edge_seconds(self, b, route, offloads):
+    def _edge_seconds(self, b, route, offloads, phys=None):
         """Per-task edge time under processor sharing: t_edge[n, b, e]
         times the number of UEs (of the same env) offloading to e."""
         prm = self.params
-        te = prm.t_edge[torch.arange(prm.n_ue, device=b.device), b, route]
+        t_edge = prm.t_edge if phys is None else phys[2]
+        ue = torch.arange(prm.n_ue, device=b.device)
+        if t_edge.dim() == 3:
+            te = t_edge[ue, b, route]
+        else:                               # a table per env: (envs, N, B+2, servers)
+            te = t_edge[torch.arange(b.shape[0], device=b.device)[:, None], ue, b, route]
         load = slot_totals(F.one_hot(route, self.n_servers).to(te.dtype),
                            offloads.to(te.dtype))
         return te * torch.clamp(torch.gather(load, -1, route), min=1.0), load
@@ -395,12 +462,13 @@ class MECEnv:
         a = self.action_space.clip(actions)
         b, c, p_tx = a["split"].long(), a["channel"].long(), a["power"]
         route = a["route"].long() if self.multi_server else None
+        phys = self._pool_phys(s)
         act = s.active
         has_work = (s.k > 0) & act
         l_new = per_ue(prm.l_new, b)
         n_new = per_ue(prm.n_new, b)
         offloads = ((s.n > 0) | (n_new > 0)) & has_work
-        r = self._rates(s.d, c, p_tx, route, offloads)
+        r = self._rates(s.d, c, p_tx, route, offloads, phys)
         hw = has_work.to(torch.float32)
 
         t_rem = torch.full_like(s.l, prm.t0)
@@ -428,7 +496,7 @@ class MECEnv:
         t_task = l_new + n_new / r
         server_load = None
         if self.multi_server:
-            te_eff, server_load = self._edge_seconds(b, route, offloads)
+            te_eff, server_load = self._edge_seconds(b, route, offloads, phys)
             t_task = t_task + te_eff
         can = (k1 > 0) & (t_task > 0) & act
         m = torch.where(can, torch.floor(t_rem / torch.clamp(t_task, min=1e-9)), 0.0)
@@ -471,6 +539,9 @@ class MECEnv:
         fresh_k, fresh_d = self._draw_tasks(s.gen, k3.shape)
         zeros = torch.zeros_like(k3)
         dn = done[..., None]
+        geom = s.geom
+        if geom is not None:                # redrawn where the episode ended
+            geom = torch.where(done[..., None, None], self._draw_geom(s.gen, done.shape), geom)
         nxt = EnvState(
             k=torch.where(dn, fresh_k, k3),
             l=torch.where(dn, zeros, l_nxt),
@@ -478,7 +549,7 @@ class MECEnv:
             d=torch.where(dn, fresh_d, s.d),
             t=torch.where(done, torch.zeros_like(s.t), s.t + 1),
             gen=s.gen,
-            active=torch.where(dn, torch.ones_like(act), act))
+            active=torch.where(dn, torch.ones_like(act), act), geom=geom)
         zero = torch.zeros_like(k_t)
         info = {"completed": k_t, "energy": e_t, "rate_mean": r.mean(-1),
                 "offloads": offloads.sum(-1), "n_active": act.sum(-1),
@@ -495,11 +566,12 @@ class MECEnv:
         a = self.action_space.clip(actions)
         b, c, p_tx = a["split"].long(), a["channel"].long(), a["power"]
         route = a["route"].long() if self.multi_server else None
+        phys = self._pool_phys(s)
         l_b = per_ue(prm.l_new, b)
         n_b = per_ue(prm.n_new, b)
         offl = (n_b > 0) & s.active
-        r = self._rates(s.d, c, p_tx, route, offl)
+        r = self._rates(s.d, c, p_tx, route, offl, phys)
         te_eff = None
         if self.multi_server:
-            te_eff, _ = self._edge_seconds(b, route, offl)
+            te_eff, _ = self._edge_seconds(b, route, offl, phys)
         return oh.task_latency_energy(l_b, n_b, r, prm.p_compute, p_tx, te_eff)

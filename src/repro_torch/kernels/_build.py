@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
-           CSRC / "pair_scorer.cu", CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu")
+           CSRC / "pair_scorer.cu", CSRC / "pair_scorer_bwd.cu", CSRC / "flat_trunk.cu",
+           CSRC / "decode_attn.cu")
 HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh", CSRC / "mbarrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -51,9 +52,15 @@ _SIGNATURES = {
                                 ctypes.c_int, _c],
     # ..., x and B/C dtypes, route (1 tensor cores, 0 SIMT), heads a block, stream
     "repro_ssd_intra": [_c] * 7 + [ctypes.c_int] * 9 + [_c],
-    # ..., n, E, d_ue, S, H, ue-term K split, route (1 bulk copy, 0 loads),
-    # shared bytes, stream
-    "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 7 + [ctypes.c_longlong, _c],
+    # ..., n, E, d_ue, S, H, envs, ue-term K split, route (1 bulk copy, 0
+    # loads), shared bytes, stream
+    "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 8 + [ctypes.c_longlong, _c],
+    # 12 inputs, srv, g, g_srv; u, dw_srv, db_srv, dw1, db1, dw2, db2;
+    # workspace, tickets; n, E, d_ue, S, H, envs; shared bytes, stream
+    "repro_pair_scorer_backward": [_c] * 24 + [ctypes.c_int] * 6 + [ctypes.c_longlong, _c],
+    # n, E, envs, d_ue, S, H -> shared bytes, workspace floats, tickets
+    "repro_pair_scorer_backward_plan": [ctypes.c_int] * 6
+    + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.POINTER(ctypes.c_int)],
     # the descriptor arrays are host arrays: widths, code and bias pointers,
     # each layer's (mn, mx) and K split; then bits, grid, route (1 bulk
     # copy, 0 loads), stream

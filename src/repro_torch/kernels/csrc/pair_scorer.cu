@@ -2,7 +2,10 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/pair_scorer.py::
-// pair_scorer_pallas (_scorer_kernel). For N UEs and E servers it computes
+// pair_scorer_pallas (_scorer_kernel), and the reference's vmap of it over
+// envs: the grid is (N / 8, B), block (x, b) scoring 8 UEs of env b and
+// reading only that env's rows. For each env's N UEs and E servers it
+// computes
 // the fleet-wide occupancy per_slot = sum(active) / (E C), the server rows
 // [g0, g1, g2 / EDGE_SLOW_NORM, per_slot] and their tanh embedding (E, S),
 // and for every (UE, server) pair the three edge features (distance,
@@ -16,7 +19,7 @@
 // critical path inside one launch: the weight copy's latency, then chains
 // of dependent FMAs and loads, each phase waiting for the last. The design
 // shortens that path:
-//   * one launch of 8-UE blocks (128 at N = 1024, one an SM);
+//   * one launch of 8-UE blocks (128 at N = 1024, one an SM), times B envs;
 //   * at entry the first lanes of two warps start bulk copies of W1 and of
 //     the block's UE rows into shared memory on an mbarrier (ordinary
 //     loads where a size or an address is not a multiple of 16 bytes: the
@@ -165,6 +168,15 @@ pair_scorer_fused_kernel(const float* __restrict__ ue, const float* __restrict__
                          int n_srv, int d_ue, int s_dim, int hid, int ue_split, int bulk) {
   extern __shared__ __align__(16) float sm[];
   const Layout L(n_srv, d_ue, s_dim, hid);
+  // this block's env: every per-env pointer moves to its rows
+  const size_t env = blockIdx.y;
+  ue += env * n * d_ue;
+  d += env * n;
+  work += env * n;
+  active += env * n;
+  geom += env * n_srv * 3;
+  logits += env * n * n_srv;
+  srv_out += env * n_srv * s_dim;
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.floats);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * kRows;
@@ -350,9 +362,10 @@ pair_scorer_fused_kernel(const float* __restrict__ ue, const float* __restrict__
 
 }  // namespace
 
-// ue: (n, d_ue); d, work, active: (n,); geom: (n_srv, 3); consts: (8,);
-// w_srv: (4, s_dim); b_srv: (s_dim,); w1: (d_ue + s_dim + 3, hid); b1:
-// (hid,); w2: (hid, 1); b2: (1,); logits: (n, n_srv); srv: (n_srv, s_dim).
+// ue: (batch, n, d_ue); d, work, active: (batch, n); geom: (batch, n_srv,
+// 3); consts: (8,); w_srv: (4, s_dim); b_srv: (s_dim,); w1: (d_ue + s_dim +
+// 3, hid); b1: (hid,); w2: (hid, 1); b2: (1,); logits: (batch, n, n_srv);
+// srv: (batch, n_srv, s_dim).
 // All float32, contiguous. ue_split: lanes that split the ue term's K (a
 // power of two <= 32); bulk: 1 for the bulk-copy route (d_ue and hid
 // multiples of 4, ue and w1 16-byte aligned), 0 for ordinary loads;
@@ -362,9 +375,10 @@ extern "C" int repro_pair_scorer(const void* ue, const void* d, const void* work
                                  const void* w_srv, const void* b_srv, const void* w1,
                                  const void* b1, const void* w2, const void* b2,
                                  void* logits, void* srv, int n, int n_srv, int d_ue,
-                                 int s_dim, int hid, int ue_split, int bulk,
+                                 int s_dim, int hid, int batch, int ue_split, int bulk,
                                  long long smem_bytes, void* stream) {
-  if (n <= 0 || n_srv <= 0 || d_ue <= 0 || s_dim <= 0 || hid <= 0 || ue_split < 1 ||
+  if (n <= 0 || n_srv <= 0 || d_ue <= 0 || s_dim <= 0 || hid <= 0 || batch <= 0 ||
+      batch > 65535 || ue_split < 1 ||
       ue_split > 32 || (ue_split & (ue_split - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (bulk && (d_ue % 4 != 0 || hid % 4 != 0 || reinterpret_cast<uintptr_t>(ue) % 16 != 0 ||
@@ -374,8 +388,8 @@ extern "C" int repro_pair_scorer(const void* ue, const void* d, const void* work
   if ((long long)L.bytes() != smem_bytes) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem<pair_scorer_fused_kernel>(L.bytes());
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kRows - 1) / kRows;
-  pair_scorer_fused_kernel<<<blocks, kThreads, L.bytes(), static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + kRows - 1) / kRows, batch);
+  pair_scorer_fused_kernel<<<grid, kThreads, L.bytes(), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ue), static_cast<const float*>(d),
       static_cast<const float*>(work), static_cast<const float*>(active),
       static_cast<const float*>(geom), static_cast<const float*>(consts),

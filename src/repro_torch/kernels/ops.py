@@ -65,10 +65,22 @@ def flat_trunk(rows, qlayers, *, bits=8):
 
 
 def pair_scorer(ue_emb, raw, srv_enc, scorer):
-    """Fused entity route scorer -> (route_logits (N, E), srv_emb (E, S)).
-    raw: the env's kernel-path block (``observe_entities_raw``: "d",
-    "work", "active", "geom", "consts"); srv_enc: {"w", "b"}; scorer: two
-    {"w", "b"} layers."""
-    return _ps.pair_scorer(ue_emb, raw["d"], raw["work"], raw["active"], raw["geom"],
-                           raw["consts"], srv_enc["w"], srv_enc["b"], scorer[0]["w"],
-                           scorer[0]["b"], scorer[1]["w"], scorer[1]["b"])
+    """Fused entity route scorer -> (route_logits (..., N, E), srv_emb (...,
+    E, S)), differentiable (``pair_scorer.PairScorer``: the forward and
+    backward kernels on the card, their plain twins on the CPU). ue_emb:
+    (..., N, d_ue); raw: the env's kernel-path block
+    (``observe_entities_raw``: "d", "work", "active" (..., N), "geom" (...,
+    E, 3), "consts" (..., 8)), whose leading axes (envs, minibatch samples)
+    run as one launch, each env scored on its own; srv_enc: {"w", "b"};
+    scorer: two {"w", "b"} layers. The env's constants are the same in
+    every env: the first row is taken."""
+    *lead, n, d_ue = ue_emb.shape
+    flat = lambda t, k: t.expand(*lead, *t.shape[t.dim() - k:]).reshape(
+        -1, *t.shape[t.dim() - k:])
+    geom = flat(raw["geom"], 2)
+    logits, srv = _ps.PairScorer.apply(
+        ue_emb.reshape(-1, n, d_ue), flat(raw["d"], 1), flat(raw["work"], 1),
+        flat(raw["active"], 1), geom, raw["consts"].reshape(-1, _ps.N_CONSTS)[0],
+        srv_enc["w"], srv_enc["b"], scorer[0]["w"], scorer[0]["b"], scorer[1]["w"],
+        scorer[1]["b"])
+    return logits.reshape(*lead, n, geom.shape[-2]), srv.reshape(*lead, *srv.shape[-2:])

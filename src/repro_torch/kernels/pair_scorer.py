@@ -10,11 +10,15 @@ TPU). One op computes, from raw per-UE vectors and the pool geometry:
   * the pair MLP with its first layer split by input block,
     ``tanh(ue @ W1u + srv_e @ W1s + edge_e @ W1e + b1) @ w2 + b2``,
 
-and returns (route_logits (N, E), srv_emb (E, S)), both float32.
+and returns (route_logits (N, E), srv_emb (E, S)), both float32. Every
+input but ``consts`` and the weights may carry a leading env axis B (the
+reference ``vmap``s its ``pallas_call``): (B, N, d_ue), (B, N), (B, E, 3)
+give (B, N, E) and (B, E, S), each env scored on its own.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
 ``csrc/pair_scorer.cu`` or raises; on a CPU tensor it runs the plain twin.
-The kernel is one launch of 8-UE blocks, laid out before the launch by
+The kernel is one launch of 8-UE blocks on a grid of (N / 8, B), laid out
+before the launch by
 ``plan``: at entry one thread starts bulk copies of W1 and the block's UE
 rows into shared memory (the ``"bulk"`` route, where d_ue and H are
 multiples of 4 and ue_emb and w1 start on 16-byte boundaries; else the
@@ -31,9 +35,25 @@ bound by its critical path, not by work: its least work is ~14 MFLOP and
 ``consts`` is the env's 8-vector (``MECEnv._scorer_consts``):
 [pathloss, p_max, sigma_mean, omega_mean / RATE_NORM, t0, E * n_channels,
 DIST_NORM, 1 / EDGE_SLOW_NORM].
+
+The backward (the reference has no kernel for it: it differentiates
+``pair_scorer_xla``) is ``csrc/pair_scorer_bwd.cu``: one launch on the same
+grid recomputes each pair's edge triple and hidden layer, forms da = g w2
+tanh'(a) (as sech^2 of the pre-activation, which keeps its digits where
+tanh rounds to 1) and reduces it, per UE into ``sum_e da`` (B, N, H) and per block
+into the server, edge-weight and bias partials; the last block of each env
+(an integer ticket, no float atomics) sums its env's partials in block
+order and runs the server side (W1s, the server tanh, w_srv, b_srv), and
+the envs' results are summed in a fixed-order tree of 16-way tails, so the
+same call gives the same bits. The two products with W1u, ``d ue = (sum_e
+da) W1u^T`` and ``dW1u = ue^T (sum_e da)``, are ``torch.matmul``.
+:class:`PairScorer` wires both into autograd; ``pair_scorer_backward_plain``
+is the same gradient as an explicit formula in plain PyTorch, which CPU
+tensors run.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -52,9 +72,9 @@ SMEM_MAX = 232448   # the shared memory a block may take on Hopper
 
 
 class Plan(NamedTuple):
-    """The kernel's launch: ``blocks`` blocks of ``rows_per_block`` UEs, the
-    ue term's K split over ``ue_split`` lanes, ``smem_bytes`` of shared memory
-    and the copy ``route``."""
+    """The kernel's launch: ``blocks`` blocks of ``rows_per_block`` UEs an
+    env, the ue term's K split over ``ue_split`` lanes, ``smem_bytes`` of
+    shared memory and the copy ``route``."""
     rows_per_block: int
     blocks: int
     ue_split: int
@@ -99,8 +119,8 @@ def ue_split(d_ue, hid) -> int:
 
 
 def plan(n, n_srv, d_ue, s_dim, hid, copy_route) -> Plan:
-    """The launch for N UEs and E servers by ``copy_route``; raises where
-    the widths need more shared memory than a block has."""
+    """The launch for N UEs and E servers an env by ``copy_route``; raises
+    where the widths need more shared memory than a block has."""
     smem = smem_bytes(n_srv, d_ue, s_dim, hid)
     if smem > SMEM_MAX:
         raise ValueError(f"pair_scorer: E={n_srv}, d_ue={d_ue}, S={s_dim}, H={hid} need "
@@ -108,12 +128,17 @@ def plan(n, n_srv, d_ue, s_dim, hid, copy_route) -> Plan:
     return Plan(ROWS, -(-n // ROWS), ue_split(d_ue, hid), smem, copy_route)
 
 
-def pair_scorer_plain(ue_emb, d, work, active, geom, consts,
-                      w_srv, b_srv, w1, b1, w2, b2):
-    """The kernel's function in plain PyTorch, in the decomposed form of
-    ``pair_scorer_xla``: the first scorer layer split by input block, so
-    the (N, E, d_ue+S+3) pair concat never exists."""
-    f = lambda t: t.to(torch.float32)
+def _dtype(*tensors):
+    """float64 where every float input is float64 (the float64 twins of the
+    tests), else float32, the kernels' type."""
+    wide = all(t.dtype == torch.float64 for t in tensors if t.is_floating_point())
+    return torch.float64 if wide else torch.float32
+
+
+def _pair_scorer_plain_env(ue_emb, d, work, active, geom, consts,
+                           w_srv, b_srv, w1, b1, w2, b2):
+    dt = _dtype(ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2)
+    f = lambda t: t.to(dt)
     ue_emb, d, work, active, geom, consts = map(f, (ue_emb, d, work, active, geom, consts))
     w_srv, b_srv, w1, b1, w2, b2 = map(f, (w_srv, b_srv, w1, b1, w2, b2))
     d_ue, s_dim = ue_emb.shape[1], w_srv.shape[1]
@@ -137,35 +162,186 @@ def pair_scorer_plain(ue_emb, d, work, active, geom, consts,
     return (h @ w2 + b2)[..., 0], srv
 
 
-def pair_scorer(ue_emb, d, work, active, geom, consts,
-                w_srv, b_srv, w1, b1, w2, b2):
-    """ue_emb: (N, d_ue); d, work, active: (N,); geom: (E, 3); consts:
-    (8,); w_srv: (4, S); b_srv: (S,); w1: (d_ue+S+3, H); b1: (H,); w2:
-    (H, 1); b2: (1,). Any float dtype (cast to float32, as the reference
-    casts before its call). Returns (logits (N, E), srv_emb (E, S))."""
-    args = (ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2)
-    n, d_ue = ue_emb.shape
-    n_srv, s_dim, hid = geom.shape[0], w_srv.shape[1], w1.shape[1]
-    if (d.shape != (n,) or work.shape != (n,) or active.shape != (n,)
-            or geom.shape != (n_srv, 3) or consts.shape != (N_CONSTS,)
+def pair_scorer_plain(ue_emb, d, work, active, geom, consts,
+                      w_srv, b_srv, w1, b1, w2, b2):
+    """The kernel's function in plain PyTorch, in the decomposed form of
+    ``pair_scorer_xla``: the first scorer layer split by input block, so
+    the (N, E, d_ue+S+3) pair concat never exists. With an env axis each
+    env is scored by its own call, so a batch gives the bits of B single
+    calls. In float32, or in float64 where every float input is."""
+    if ue_emb.dim() == 2:
+        return _pair_scorer_plain_env(ue_emb, d, work, active, geom, consts,
+                                      w_srv, b_srv, w1, b1, w2, b2)
+    outs = [_pair_scorer_plain_env(ue_emb[b], d[b], work[b], active[b], geom[b], consts,
+                                   w_srv, b_srv, w1, b1, w2, b2)
+            for b in range(ue_emb.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def _check_shapes(name, ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2):
+    lead, (n, d_ue) = ue_emb.shape[:-2], ue_emb.shape[-2:]
+    n_srv, s_dim, hid = geom.shape[-2], w_srv.shape[1], w1.shape[1]
+    if (ue_emb.dim() not in (2, 3) or d.shape != (*lead, n) or work.shape != (*lead, n)
+            or active.shape != (*lead, n) or geom.shape != (*lead, n_srv, 3)
+            or consts.shape != (N_CONSTS,)
             or w_srv.shape != (SRV_ROW, s_dim) or b_srv.shape != (s_dim,)
             or w1.shape != (d_ue + s_dim + EDGE_COLS, hid) or b1.shape != (hid,)
             or w2.shape != (hid, 1) or b2.shape != (1,)):
-        raise ValueError("pair_scorer: shapes do not agree: "
+        args = (ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2)
+        raise ValueError(f"{name}: shapes do not agree: "
                          + ", ".join(str(tuple(a.shape)) for a in args))
+    return lead, n, d_ue, n_srv, s_dim, hid
+
+
+def pair_scorer(ue_emb, d, work, active, geom, consts,
+                w_srv, b_srv, w1, b1, w2, b2):
+    """ue_emb: (N, d_ue) or (B, N, d_ue); d, work, active: (N,) / (B, N);
+    geom: (E, 3) / (B, E, 3); consts: (8,); w_srv: (4, S); b_srv: (S,); w1:
+    (d_ue+S+3, H); b1: (H,); w2: (H, 1); b2: (1,). Any float dtype (cast to
+    float32, as the reference casts before its call). Returns (logits (N,
+    E), srv_emb (E, S)), with the env axis where the inputs have one."""
+    args = (ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2)
+    lead, n, d_ue, n_srv, s_dim, hid = _check_shapes("pair_scorer", *args)
     if all(a.device.type == "cpu" for a in args):
         return pair_scorer_plain(*args)
     args = tuple(a.to(torch.float32).contiguous() for a in args)
     _build.require_cuda("pair_scorer", *args)
-    if n == 0 or n_srv == 0:
-        raise ValueError("pair_scorer: needs at least one UE and one server")
+    if n == 0 or n_srv == 0 or 0 in lead:
+        raise ValueError("pair_scorer: needs at least one env, UE and server")
+    batch = lead[0] if lead else 1
     pl = plan(n, n_srv, d_ue, s_dim, hid, route(args[0], args[8]))
-    logits = torch.empty((n, n_srv), dtype=torch.float32, device=ue_emb.device)
-    srv = torch.empty((n_srv, s_dim), dtype=torch.float32, device=ue_emb.device)
+    logits = torch.empty((*lead, n, n_srv), dtype=torch.float32, device=ue_emb.device)
+    srv = torch.empty((*lead, n_srv, s_dim), dtype=torch.float32, device=ue_emb.device)
     lib = _build.library()
     _build.check(lib.repro_pair_scorer(
         *(a.data_ptr() for a in args), logits.data_ptr(), srv.data_ptr(),
-        n, n_srv, d_ue, s_dim, hid, pl.ue_split, int(pl.route == "bulk"), pl.smem_bytes,
-        _build.stream_of(logits)), "pair_scorer")
+        n, n_srv, d_ue, s_dim, hid, batch, pl.ue_split, int(pl.route == "bulk"),
+        pl.smem_bytes, _build.stream_of(logits)), "pair_scorer")
     _build.LAUNCHES["pair_scorer"] += 1
     return logits, srv
+
+
+def _edge_triples(d, work, geom, consts):
+    """(B, N, E, 3) edge features, as the forward builds them."""
+    dist = d[..., :, None] * geom[..., None, :, 0]
+    gain = torch.pow(torch.clamp(dist, min=1.0), -consts[C_PATHLOSS])
+    rate = (geom[..., 1] * consts[C_RATE_SCALE])[..., None, :] \
+        * torch.log2(1.0 + consts[C_PMAX] * gain / consts[C_SIGMA])
+    te = work[..., :, None] * geom[..., None, :, 2] / consts[C_T0]
+    return torch.stack([dist / consts[C_DIST_NORM], rate, te], dim=-1)
+
+
+def _dtanh(x):
+    """tanh'(x) = sech^2 x = 4 t / (1 + t)^2 with t = exp(-2|x|): accurate
+    where tanh rounds to +-1, where 1 - tanh^2 would be 0 (the backward
+    kernel takes the same form)."""
+    t = torch.exp(-2.0 * x.abs())
+    return 4.0 * t / ((1.0 + t) * (1.0 + t))
+
+
+def pair_scorer_backward_plain(g_logits, g_srv, ue_emb, d, work, active, geom, consts,
+                               w_srv, b_srv, w1, b1, w2, b2):
+    """The gradients of ``pair_scorer`` for incoming gradients ``g_logits``
+    (B, N, E) and ``g_srv`` (B, E, S), as an explicit formula in plain
+    PyTorch (float32; float64 where every input is). Every input carries
+    the env axis. Returns (d ue_emb in ue_emb's dtype, d w_srv, d b_srv, d
+    w1, d b1, d w2, d b2). With a = ue W1u + srv W1s + edge W1e + b1, h =
+    tanh(a) and da = g w2 tanh'(a): d ue = (sum_e da) W1u^T, dW1u = ue^T
+    sum_e da, dW1s = srv^T sum_n da, dW1e = edge^T da; d srv = (sum_n da)
+    W1s^T + g_srv goes through the server tanh into dw_srv and db_srv.
+    tanh' is ``_dtanh`` of the pre-activation."""
+    dt = _dtype(g_logits, g_srv, ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1,
+                w2, b2)
+    f = lambda t: t.to(dt)
+    ue, d, work, active, geom, consts = map(f, (ue_emb, d, work, active, geom, consts))
+    w_srv, b_srv, w1, b1, w2, b2, g, gs = map(f, (w_srv, b_srv, w1, b1, w2, b2, g_logits, g_srv))
+    d_ue, s_dim = ue.shape[-1], w_srv.shape[1]
+    w1u, w1s, w1e = w1[:d_ue], w1[d_ue:d_ue + s_dim], w1[d_ue + s_dim:]
+    per_slot = active.sum(-1) / consts[C_SLOT_DIV]                      # (B,)
+    rows = torch.cat([geom[..., :2], geom[..., 2:] * consts[C_SLOW_INV],
+                      per_slot[:, None, None].expand(*geom.shape[:-1], 1)], dim=-1)
+    srv_pre = rows @ w_srv + b_srv
+    srv = torch.tanh(srv_pre)                                          # (B, E, S)
+    edge = _edge_triples(d, work, geom, consts)                        # (B, N, E, 3)
+    pre = ((ue @ w1u)[:, :, None, :] + (srv @ w1s)[:, None, :, :]
+           + edge @ w1e + b1)                                          # (B, N, E, H)
+    h = torch.tanh(pre)
+    da = g[..., None] * w2[:, 0] * _dtanh(pre)
+    u, v = da.sum(2), da.sum(1)                                        # (B, N, H), (B, E, H)
+    dw1 = torch.cat([torch.einsum("bnd,bnh->dh", ue, u), torch.einsum("bes,beh->sh", srv, v),
+                     torch.einsum("bnek,bneh->kh", edge, da)])
+    dpre = (v @ w1s.T + gs) * _dtanh(srv_pre)                          # (B, E, S)
+    return ((u @ w1u.T).to(ue_emb.dtype), torch.einsum("ber,bes->rs", rows, dpre),
+            dpre.sum((0, 1)), dw1, da.sum((0, 1, 2)),
+            torch.einsum("bne,bneh->h", g, h)[:, None], g.sum().reshape(1))
+
+
+def pair_scorer_backward(g_logits, g_srv, ue_emb, d, work, active, geom, consts,
+                         w_srv, b_srv, w1, b1, w2, b2, *, srv):
+    """``pair_scorer_backward_plain``'s gradients by the backward kernel on
+    CUDA tensors (every input with the env axis), its formula on CPU
+    tensors. ``srv``: the (B, E, S) server embeddings the forward returned
+    (the formula recomputes them)."""
+    args = (ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2)
+    if all(a.device.type == "cpu" for a in args + (g_logits, g_srv)):
+        return pair_scorer_backward_plain(g_logits, g_srv, *args)
+    _check_shapes("pair_scorer_backward", *args)
+    f32 = tuple(a.to(torch.float32).contiguous() for a in args)
+    g, gs, srv = (t.to(torch.float32).contiguous() for t in (g_logits, g_srv, srv))
+    _build.require_cuda("pair_scorer_backward", *f32, g, gs, srv)
+    ue, w1f = f32[0], f32[8]
+    batch, n, d_ue = ue.shape
+    n_srv, s_dim, hid = geom.shape[-2], w_srv.shape[1], w1.shape[1]
+    if g.shape != (batch, n, n_srv) or gs.shape != (batch, n_srv, s_dim) \
+            or srv.shape != gs.shape:
+        raise ValueError(f"pair_scorer_backward: gradients {tuple(g.shape)}, "
+                         f"{tuple(gs.shape)} and srv {tuple(srv.shape)} do not agree")
+    lib = _build.library()
+    smem, floats, tickets = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+    _build.check(lib.repro_pair_scorer_backward_plan(
+        n, n_srv, batch, d_ue, s_dim, hid, ctypes.byref(smem), ctypes.byref(floats),
+        ctypes.byref(tickets)), "pair_scorer_backward plan")
+    if smem.value > SMEM_MAX:
+        raise ValueError(f"pair_scorer backward: E={n_srv}, d_ue={d_ue}, S={s_dim}, H={hid} "
+                         f"need {smem.value} bytes of shared memory, more than a block's "
+                         f"{SMEM_MAX}")
+    dev = ue.device
+    u = torch.empty((batch, n, hid), dtype=torch.float32, device=dev)
+    dw_srv = torch.empty_like(f32[6])
+    db_srv = torch.empty_like(f32[7])
+    dw1 = torch.empty_like(w1f)
+    db1, dw2, db2 = torch.empty_like(f32[9]), torch.empty_like(f32[10]), torch.empty_like(f32[11])
+    ws = torch.empty((floats.value,), dtype=torch.float32, device=dev)
+    ticket_buf = torch.zeros((tickets.value,), dtype=torch.int32, device=dev)
+    _build.check(lib.repro_pair_scorer_backward(
+        *(a.data_ptr() for a in f32), srv.data_ptr(), g.data_ptr(), gs.data_ptr(), u.data_ptr(),
+        dw_srv.data_ptr(), db_srv.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+        db2.data_ptr(), ws.data_ptr(), ticket_buf.data_ptr(), n, n_srv, d_ue, s_dim, hid, batch,
+        smem.value, _build.stream_of(u)), "pair_scorer_backward")
+    _build.LAUNCHES["pair_scorer_backward"] += 1
+    u2 = u.reshape(batch * n, hid)
+    torch.mm(ue.reshape(batch * n, d_ue).T, u2, out=dw1[:d_ue])
+    d_ue_grad = (u2 @ w1f[:d_ue].T).reshape(batch, n, d_ue).to(ue_emb.dtype)
+    return d_ue_grad, dw_srv, db_srv, dw1, db1, dw2, db2
+
+
+class PairScorer(torch.autograd.Function):
+    """``pair_scorer`` with its gradient: the forward kernel (the twin on
+    CPU tensors) and, backward, ``pair_scorer_backward``. Inputs carry the
+    env axis ((B, N, d_ue), ...); ``d``, ``work``, ``active``, ``geom`` and
+    ``consts`` are observations and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2):
+        logits, srv = pair_scorer(ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1,
+                                  w2, b2)
+        ctx.save_for_backward(ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1,
+                              w2, b2, srv)
+        return logits, srv
+
+    @staticmethod
+    def backward(ctx, g_logits, g_srv):
+        *saved, srv = ctx.saved_tensors
+        d_ue, dw_srv, db_srv, dw1, db1, dw2, db2 = pair_scorer_backward(g_logits, g_srv, *saved,
+                                                                        srv=srv)
+        return (d_ue, None, None, None, None, None, dw_srv, db_srv, dw1, db1, dw2, db2)

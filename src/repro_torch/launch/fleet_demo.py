@@ -1,0 +1,211 @@
+"""Mixed-fleet scheduling, the port's twin of ``examples/collaborative_serve.py
+--fleet`` (``run_fleet_demo``) for a static fleet.
+
+Two ResNet18 UEs (on a Jetson and on an IoT SoC) and two qwen3-1.7b UEs
+(on phone NPUs) share 2 channels of each edge server; MAHPPO learns every
+UE's split, channel, power and (on a pool) route. The run prints the fleet
+and the pool, the reward every 5 iterations, MAHPPO against the greedy
+heuristic (and, on a pool, against nearest-server and load-balanced
+routing), the parameter counts, each UE's learned split and route, and
+for the entity policy a zero-shot run on an unseen pool of E + 1 servers.
+
+  PYTHONPATH=src python -m repro_torch.launch.fleet_demo
+  PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1
+
+With no mode flag the demo is the example's ``--fleet --entity-policy
+--fused-scorer --servers 2``: the entity actor over randomized pool
+geometry, its route scorer through the ``pair_scorer`` kernel forward and
+backward. The example's flags pick the other modes (``--fleet`` alone: the
+per-UE actors on one server; ``--shared-policy``; ``--entity-policy``
+without the kernel; ``--servers E``; ``--n-ue N``). Runs on the CUDA card
+unless ``--device cpu`` is given. ``--churn``, ``--llm``, ``--distill``
+and ``--n-shards`` > 1 raise ``NotImplementedError`` naming the slice that
+brings them.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import full_precision_matmuls, resolve_device
+from repro_torch.configs import ARCH_IDS
+from repro_torch.core.fleets import make_edge_pool, make_mixed_fleet, random_pool_ranges
+from repro_torch.env.mecenv import MECEnv, make_env_params
+from repro_torch.rl import nets
+from repro_torch.rl.baselines import load_aware_eval, nearest_server_eval
+from repro_torch.rl.heuristics import greedy_eval
+from repro_torch.rl.mahppo import MAHPPOConfig, evaluate_policy, init_agent, train_mahppo
+
+_WAITS = {"churn": "dynamic fleets (--churn) come with the port's churn slice",
+          "llm": "the mixed CNN + LLM-decode fleet (--llm) comes with the port's --llm slice",
+          "distill": "distillation (--distill) comes with the port's distillation and "
+                     "streaming slice",
+          "n_shards": "sharded rollouts (--n-shards > 1) come with the launch and sharding "
+                      "slice"}
+
+
+def fleet_config(iterations=15, *, shared_policy=False, entity_policy=False,
+                 randomize_pool=False, fused_scorer=False):
+    """The example's training settings."""
+    return MAHPPOConfig(iterations=iterations, horizon=512, n_envs=4, reuse=4,
+                        shared_policy=shared_policy, entity_policy=entity_policy,
+                        randomize_pool=randomize_pool, fused_scorer=fused_scorer)
+
+
+def fleet_env(arch="qwen3-1.7b", n_ue=4, n_servers=2, randomize=True, device=None):
+    """The demo's env: the mixed fleet on 2 channels, t0 = 0.5, the demo
+    pool of ``n_servers`` (none for 1), its geometry resampled per episode
+    with ``randomize`` (ranges ``random_pool_ranges``)."""
+    pool = make_edge_pool(n_servers) if n_servers > 1 else None
+    return MECEnv(make_env_params(
+        make_mixed_fleet(arch, n_ue=n_ue), n_channels=2, t0=0.5, pool=pool,
+        pool_ranges=random_pool_ranges(n_servers) if randomize and pool else None,
+        device=resolve_device(device)))
+
+
+def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_policy=False,
+                   entity_policy=False, n_ue=4, fused_scorer=False, device=None):
+    """Train and score the demo. Returns {"history", "mahppo", "greedy",
+    "nearest", "loadbal", "zero_shot", "agent", "env", "seconds"} (entries
+    that do not apply are None)."""
+    dev = resolve_device(device)
+    fleet = make_mixed_fleet(arch, n_ue=n_ue)
+    print("fleet:")
+    for i, (name, prof) in enumerate(zip(fleet.names, fleet.profiles)):
+        print(f"  ue{i}: {name:14s} on {prof.name:12s} (P_compute={prof.p_compute:.1f} W, "
+            f"{int(fleet.feasible[i].sum())}/{fleet.n_actions} feasible actions)")
+    pool = make_edge_pool(n_servers) if n_servers > 1 else None
+    if pool is not None:
+        print("edge pool:")
+        for e, srv in enumerate(pool.servers):
+            print(f"  srv{e}: {srv.name:10s} dist x{srv.dist_scale:.1f}  bw x{srv.bw_scale:.1f}  "
+                f"edge_speed={srv.edge_speed / 1e12:.1f} TFLOP/s")
+    randomize = entity_policy and pool is not None
+    env = fleet_env(arch, n_ue, n_servers, randomize, dev)
+    print(f"action space: {', '.join(env.action_space.names)}")
+    mode = "entity-set actor, per-server route scorer" if entity_policy \
+        else "weight-shared actor" if shared_policy else "per-UE actors"
+    extra = " over randomized pool geometries" if randomize else ""
+    print(f"\ntraining MAHPPO ({mode}) on the mixed fleet{extra} ({iterations} iterations)...")
+    if fused_scorer:
+        print("  fused pair-scorer kernel path (observe_entities_raw)")
+    cfg = fleet_config(iterations, shared_policy=shared_policy, entity_policy=entity_policy,
+                       randomize_pool=randomize, fused_scorer=fused_scorer)
+    t0 = time.perf_counter()
+    agent, hist = train_mahppo(env, cfg, seed=0, log_cb=lambda r: print(
+        f"  iter {r['iteration']:3d} reward={r['reward_mean']:.4f}")
+        if r["iteration"] % 5 == 0 else None)
+    seconds = time.perf_counter() - t0
+    ev = evaluate_policy(env, agent, frames=64)
+    gr = greedy_eval(env)
+    beta = env.params.beta
+    out = {"history": hist, "mahppo": ev, "greedy": gr, "nearest": None, "loadbal": None,
+           "zero_shot": None, "agent": agent, "env": env, "seconds": seconds}
+    print(f"\nMAHPPO : latency {1e3 * ev['t_task']:.1f} ms  energy {1e3 * ev['e_task']:.1f} mJ  "
+        f"overhead {ev['t_task'] + beta * ev['e_task']:.4f}")
+    print(f"greedy : latency {1e3 * gr['t_task']:.1f} ms  energy {1e3 * gr['e_task']:.1f} mJ  "
+        f"overhead {gr['overhead']:.4f}  (per-UE b={gr['b']}"
+        + (f", route={gr['route']}" if "route" in gr else "") + ")")
+    if env.multi_server:
+        out["nearest"], out["loadbal"] = near, load = nearest_server_eval(env), load_aware_eval(env)
+        print(f"nearest: overhead {near['overhead']:.4f}  (route={near['route']})")
+        print(f"loadbal: overhead {load['overhead']:.4f}  (route={load['route']})")
+
+    if (shared_policy or entity_policy) and n_ue <= 16:
+        n_pol = nets.param_count(agent.get("actor") or agent["entity_actor"])
+        n_per_ue = nets.param_count(init_agent(torch.Generator().manual_seed(0), env)["actors"])
+        kind = "entity" if entity_policy else "shared"
+        print(f"\nactor parameters: {n_pol} {kind} (O(1) in fleet size"
+            + (" AND pool size" if entity_policy else "")
+            + f") vs {n_per_ue} for per-UE actors at N={env.params.n_ue}")
+
+    # learned per-UE decisions at the eval state
+    space, n = env.action_space, env.params.n_ue
+    s = env.reset(eval_mode=True)
+    with torch.inference_mode():
+        if entity_policy:
+            masks = space.broadcast_masks(env.action_masks(), n, device=dev)
+            dist = nets.entity_actor_forward(agent["entity_actor"], space,
+                                             env.observe_entities(s), masks)
+        elif shared_policy:
+            masks = space.broadcast_masks(env.action_masks(), n, device=dev)
+            dist = nets.shared_actor_forward(agent["actor"], space, env.observe_per_ue(s),
+                                             masks)
+        else:
+            masks = env.action_masks()
+            dist = nets.actor_forward(agent["actors"], space, env.observe(s), masks)
+        a_star = {k: v.cpu().numpy() for k, v in space.mode(dist, masks).items()}
+    for i, b in enumerate(a_star["split"]):
+        kind = ("raw offload" if b == 0 else
+                "full local" if b == env.n_actions_b - 1 else f"split b={b}")
+        where = f" -> srv{int(a_star['route'][i])}" \
+            if env.multi_server and b != env.n_actions_b - 1 else ""
+        print(f"  ue{i} ({fleet.names[i]}): {kind}{where}")
+    if env.multi_server:
+        counts = np.bincount(a_star["route"], minlength=env.n_servers)
+        print("  learned route distribution: "
+            + ", ".join(f"srv{e}={int(c)}" for e, c in enumerate(counts)))
+
+    # the entity policy's parameters do not depend on the pool size: the
+    # same agent on an E + 1-server pool, zero-shot
+    if entity_policy and env.multi_server and n_servers < 3:
+        env_big = MECEnv(make_env_params(fleet, n_channels=2, pool=make_edge_pool(n_servers + 1),
+                                         device=dev))
+        ev_big = evaluate_policy(env_big, agent, frames=64)
+        near_big = nearest_server_eval(env_big)
+        ovh_big = ev_big["t_task"] + beta * ev_big["e_task"]
+        out["zero_shot"] = {"mahppo": ev_big, "overhead": ovh_big, "nearest": near_big}
+        print(f"\nzero-shot on an UNSEEN {n_servers + 1}-server pool (route head is E-free): "
+            f"entity overhead {ovh_big:.4f} vs nearest-server {near_big['overhead']:.4f} "
+            f"[{'BEATS' if ovh_big <= near_big['overhead'] else 'LOSES'}]")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=ARCH_IDS)
+    ap.add_argument("--fleet", action="store_true",
+                    help="the example's fleet demo flag (alone: per-UE actors, one server)")
+    ap.add_argument("--servers", type=int, default=1, metavar="E")
+    ap.add_argument("--shared-policy", action="store_true")
+    ap.add_argument("--entity-policy", action="store_true")
+    ap.add_argument("--fused-scorer", action="store_true",
+                    help="the entity route scorer through the pair_scorer kernel "
+                         "(implies --entity-policy)")
+    ap.add_argument("--n-ue", type=int, default=4, metavar="N")
+    ap.add_argument("--iterations", type=int, default=15)
+    ap.add_argument("--churn", action="store_true")
+    ap.add_argument("--llm", action="store_true")
+    ap.add_argument("--distill", action="store_true")
+    ap.add_argument("--n-shards", type=int, default=1, metavar="K")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' for the plain path)")
+    args = ap.parse_args(argv)
+    for flag in ("churn", "llm", "distill"):
+        if getattr(args, flag):
+            raise NotImplementedError(_WAITS[flag])
+    if args.n_shards > 1:
+        raise NotImplementedError(_WAITS["n_shards"])
+    if args.entity_policy and args.shared_policy:
+        ap.error("pick one of --entity-policy / --shared-policy")
+    if args.fused_scorer and args.shared_policy:
+        ap.error("--fused-scorer fuses the entity route scorer; it cannot combine with "
+                 "--shared-policy")
+    if not (args.fleet or args.servers > 1 or args.shared_policy or args.entity_policy
+            or args.fused_scorer or args.n_ue != 4):
+        args.fused_scorer, args.servers = True, 2          # the slice's run
+    if args.fused_scorer:
+        args.entity_policy = True
+    if args.entity_policy and args.servers < 2:
+        args.servers = 2           # the route scorer needs a pool to score
+    full_precision_matmuls()
+    return run_fleet_demo(args.arch, args.iterations, n_servers=args.servers,
+                          shared_policy=args.shared_policy, entity_policy=args.entity_policy,
+                          n_ue=args.n_ue, fused_scorer=args.fused_scorer, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

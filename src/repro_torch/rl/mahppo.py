@@ -11,7 +11,12 @@ three actor modes, chosen by ``MAHPPOConfig.shared_policy`` /
 * shared policy: ONE actor over every UE's ``env.observe_per_ue`` row, and
   a critic over the mean of the rows;
 * entity policy: the entity-set actor and its value head over
-  ``env.observe_entities``, dist and value from one trunk pass.
+  ``env.observe_entities``, dist and value from one trunk pass; with
+  ``fused_scorer`` over ``env.observe_entities_raw``, the route scorer
+  running through the ``pair_scorer`` kernel forward and backward (one
+  launch each for every env or minibatch sample), and with
+  ``randomize_pool`` every env drawing its own pool geometry at each
+  reset.
 
 The reference's iteration is one jitted function: a ``lax.scan`` over the
 horizon with ``vmap`` over ``n_envs``, then a scan over minibatch updates.
@@ -23,10 +28,8 @@ iteration's record once, as the reference's ``float(v)`` does. Random draws
 ``torch.Generator``\\ s, so the streams are not the reference's.
 
 Still to come, each raising ``NotImplementedError``: sharded rollouts and
-batched or sharded evaluation (``n_shards``, ``n_envs`` > 1 in eval),
-training through the fused pair scorer (``fused_scorer``: gradients
-through the kernel), resampled pool geometry (``randomize_pool``) and
-dynamic fleets.
+batched or sharded evaluation (``n_shards``, ``n_envs`` > 1 in eval) and
+dynamic fleets (churn).
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from repro_torch.rl.gae import gae
 
 _SUMMARY = ("reward", "t_sum", "e_sum", "w_sum", "completed", "n_active", "done")
 _SHARDS = "sharded rollouts (n_shards > 1) come with the launch and sharding slice"
-_DYNAMIC = "churn and resampled pool geometry come with the port's dynamic-env slice"
+_CHURN = "dynamic fleets (churn) come with the port's churn slice (ROADMAP queue 1)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,12 +97,8 @@ class MAHPPOConfig:
 def _refuse_what_waits(env: MECEnv, cfg: MAHPPOConfig):
     if cfg.n_shards > 1:
         raise NotImplementedError(_SHARDS)
-    if cfg.fused_scorer:
-        raise NotImplementedError(
-            "training through the fused pair scorer needs a backward through the "
-            "pair_scorer kernel; it comes with a later slice (ROADMAP queue 1)")
-    if cfg.randomize_pool or env.params.churn_rate > 0.0 or env.params.leave_rate > 0.0:
-        raise NotImplementedError(_DYNAMIC)
+    if env.params.churn_rate > 0.0 or env.params.leave_rate > 0.0:
+        raise NotImplementedError(_CHURN)
 
 
 def init_agent(gen: torch.Generator, env: MECEnv, *, shared_policy=False,
@@ -162,8 +161,8 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
     # masks only the split head, as the reference's vmap over actors does
     masks = space.broadcast_masks(masks0, n_ue, device=env.device) \
         if (shared or entity) else masks0
-    observe = env.observe_entities if entity \
-        else env.observe_per_ue if shared else env.observe
+    observe = (env.observe_entities_raw if cfg.fused_scorer else env.observe_entities) \
+        if entity else env.observe_per_ue if shared else env.observe
 
     def value_of(agent, obs):
         if entity:
@@ -264,10 +263,9 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
 def init_states(env: MECEnv, cfg: MAHPPOConfig, gen: torch.Generator):
     """Batched initial states for training, (n_envs, N) leaves drawn from
     ``gen`` (on the env's device), which the states keep for their
-    auto-resets."""
-    if cfg.randomize_pool:
-        raise NotImplementedError(_DYNAMIC)
-    return env.reset(gen, n_envs=cfg.n_envs)
+    auto-resets; with ``cfg.randomize_pool`` each env draws its own pool
+    geometry (and redraws it at each auto-reset)."""
+    return env.reset(gen, n_envs=cfg.n_envs, randomize=cfg.randomize_pool)
 
 
 def train_mahppo(env: MECEnv, cfg: MAHPPOConfig, seed=0, log_cb: Callable = None):

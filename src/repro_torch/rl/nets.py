@@ -19,7 +19,8 @@ batch axes.
   (128 + 32 + 3 -> 48 -> 1) into (N, E) route logits, attention-pools the
   server embeddings with their softmax, and feeds [ue ‖ ctx] (160) to one
   (160, 64, n) branch per other head. Its kernel path (an obs with a
-  "raw" block) routes the scorer through ``kernels.ops.pair_scorer``.
+  "raw" block) routes the scorer through ``kernels.ops.pair_scorer``, one
+  launch for every env or minibatch sample, with a hand-written backward.
 * The flat trunk is one tanh MLP (19 -> 64 -> 64 -> 13) over
   ``observe_per_ue`` rows emitting every head in one pass; its int8 form
   ({"qlayers", "bits"}) runs through ``kernels.ops.flat_trunk``.
@@ -185,9 +186,10 @@ def init_entity_actor(gen, dims, space: HybridActionSpace, device=None):
 def entity_trunk(p: EntityActor, obs):
     """(ue_embed (..., N, 128), srv_embed (..., E, S), route_logits (..., N,
     E), ctx (..., N, S)). An obs with a "raw" block
-    (``env.observe_entities_raw``, one env) runs the scorer through the
-    fused ``ops.pair_scorer``; the default entity obs builds the (..., N,
-    E, 128 + S + 3) pair concat."""
+    (``env.observe_entities_raw``) runs the scorer through the fused
+    ``ops.pair_scorer``, one launch for all leading axes (envs, or
+    minibatch samples), differentiable through its backward kernel; the
+    default entity obs builds the (..., N, E, 128 + S + 3) pair concat."""
     ue = torch.tanh(p.ue_enc(obs["ue"]))
     if "raw" in obs:
         route_logits, srv = ops.pair_scorer(ue, obs["raw"], p.srv_enc.params(),

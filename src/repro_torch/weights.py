@@ -18,6 +18,10 @@ and ``actor_stack_from_jax`` carry the scheduler's policy nets
 ``rl.distill.quantize_flat_trunk`` and ``init_actor`` outputs, the last
 also ``vmap``-stacked over the per-UE actors) the same way, as numpy
 trees; ``agent_from_jax`` carries a whole MAHPPO agent.
+
+``cnn_from_jax`` carries a CNN backbone's parameters (``core.cnn``'s
+``model.init`` output): the same nesting of lists, tuples and dicts, with
+float32 tensors in place of the arrays.
 """
 from __future__ import annotations
 
@@ -172,3 +176,20 @@ def flat_trunk_from_jax(tree, device):
          "mn": np.float32(layer["mn"]), "mx": np.float32(layer["mx"]),
          "b": _tensor(layer["b"], torch.float32, device)}
         for layer in tree["qlayers"]], "bits": bits}
+
+
+def cnn_from_jax(tree, device):
+    """A reference CNN parameter tree -> the same tree with float32 tensors
+    on ``device``. Lists, tuples and dicts keep their shape; the structural
+    entries (VGG's layer kinds, MobileNetV2's block descriptors) stay Python
+    values, also where a numpy tree map made them 0-d arrays."""
+    if isinstance(tree, dict):
+        return {k: cnn_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cnn_from_jax(v, device) for v in tree)
+    if tree is None or isinstance(tree, (str, int, float)):
+        return tree
+    a = np.asarray(tree)
+    if a.ndim == 0 and a.dtype.kind in "USiub":
+        return a.item()
+    return _tensor(a, torch.float32, device)

@@ -218,7 +218,8 @@ def test_reset_and_what_waits():
     assert ((s.d >= 1.0) & (s.d <= 100.0)).all() and s.k.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="churn"):
         mecenv.make_env_params(_fleets()[1], churn_rate=0.1)
-    with pytest.raises(NotImplementedError, match="geometry"):
+    # resampled geometry needs pool_ranges, as in the reference
+    with pytest.raises(ValueError, match="pool_ranges"):
         v.reset(eval_mode=True, randomize=True)
 
 

@@ -514,3 +514,114 @@ def test_decode_attention_counts_launches_and_refuses_what_it_does_not_take(card
         decode_attn.decode_attention(q, k, v, pos.long(), 60)
     with pytest.raises(ValueError):
         decode_attn.decode_attention(q, k, v, pos.cpu(), 60)
+
+
+# ------------------------------------------------- pair_scorer: envs and backward
+# The shapes the training path gives the kernels: the rollout (4 envs of 4
+# UEs, 2 servers), the minibatch (256 samples), the zero-shot pool (E 3),
+# the dispatch fleet (1024 UEs, E 3), a ragged N and E 1 and 5.
+GRAD_SHAPES = [(4, 4, 2), (256, 4, 2), (4, 4, 3), (1, 1024, 3), (3, 13, 2), (2, 20, 1),
+               (2, 20, 5)]
+
+
+def _grad_inputs(card, g, b, n, e, dtype=torch.float32):
+    """Batched scorer inputs at the training path's magnitudes (slowness in
+    s/FLOP, edge work in FLOPs, so the edge features are O(1)); the
+    observation block (ue, d, work, active, geom) in ``dtype``."""
+    u = lambda *shape: torch.rand(shape, generator=g, device=card)
+    r = lambda *shape: torch.randn(shape, generator=g, device=card)
+    geom = torch.stack([0.9 + 1.1 * u(b, e), 0.5 + 0.75 * u(b, e), 4.2e-12 * u(b, e)], -1)
+    obs = [torch.tanh(r(b, n, 128)), 1 + 99 * u(b, n), 1e8 + 4.9e9 * u(b, n),
+           (u(b, n) < 0.7).float(), geom]
+    consts = torch.tensor([3.0, 0.5, 1e-9, 0.1, 0.5, e * 2.0, 100.0, 1e12], device=card)
+    return [t.to(dtype) for t in obs] + [consts, r(4, 32) * 0.5, r(32) * 0.1, r(163, 48) * 0.1,
+                                         r(48) * 0.1, r(48, 1) * 0.3, r(1)]
+
+
+_GRAD_ARGS = (0, 6, 7, 8, 9, 10, 11)       # ue_emb and the weights take gradients
+
+
+def _float64_grads(args, g_logits, g_srv):
+    """Autograd of the plain twin in float64 from the same inputs."""
+    wide = [a.detach().double().requires_grad_(i in _GRAD_ARGS) for i, a in enumerate(args)]
+    logits, srv = pair_scorer.pair_scorer_plain(*wide)
+    loss = (logits * g_logits.double()).sum() + (srv * g_srv.double()).sum()
+    return torch.autograd.grad(loss, [wide[i] for i in _GRAD_ARGS])
+
+
+def _hold(got, want, what, bf16_ue=False):
+    """Each gradient within 1e-5 of its largest magnitude; d ue in bf16 also
+    one bf16 step of each element (2^-7 of it: two float32 values a
+    rounding apart may round to neighbouring bf16 values)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.double(), b.double()
+        tol = 1e-5 * float(b.abs().max()) + (2.0 ** -7 * b.abs() if bf16_ue and i == 0 else 0)
+        assert bool(((a - b).abs() <= tol).all()), (what, i, float((a - b).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,e", GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_scorer_backward_matches_its_formula_and_float64_on_card(card, b, n, e, dtype):
+    g = torch.Generator(device=card).manual_seed(30 + b + n + e)
+    args = _grad_inputs(card, g, b, n, e, dtype)
+    g_logits = torch.randn((b, n, e), generator=g, device=card)
+    g_srv = torch.randn((b, e, 32), generator=g, device=card)
+    _build.reset_launches()
+    _, srv = pair_scorer.pair_scorer(*args)
+    got = pair_scorer.pair_scorer_backward(g_logits, g_srv, *args, srv=srv)
+    assert _build.LAUNCHES["pair_scorer_backward"] == 1 and _build.LAUNCHES["pair_scorer"] == 1
+    assert got[0].dtype == dtype and got[0].shape == (b, n, 128)
+    bf16 = dtype == torch.bfloat16
+    _hold(got, pair_scorer.pair_scorer_backward_plain(g_logits, g_srv, *args), "plain", bf16)
+    _hold(got, _float64_grads(args, g_logits, g_srv), "float64", bf16)
+    again = pair_scorer.pair_scorer_backward(g_logits, g_srv, *args, srv=srv)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,e", [(4, 4, 2), (256, 4, 2), (3, 37, 3), (2, 1025, 5)])
+def test_pair_scorer_batched_forward_equals_single_env_launches_on_card(card, b, n, e):
+    """One launch over B envs gives the bits of B launches of one env, and
+    the twin's values within the reference's 1e-5."""
+    g = torch.Generator(device=card).manual_seed(40 + b + n)
+    args = _grad_inputs(card, g, b, n, e)
+    _build.reset_launches()
+    logits, srv = pair_scorer.pair_scorer(*args)
+    assert _build.LAUNCHES["pair_scorer"] == 1
+    assert logits.shape == (b, n, e) and srv.shape == (b, e, 32)
+    for i in range(b):
+        one = pair_scorer.pair_scorer(*(a[i] for a in args[:5]), *args[5:])
+        assert torch.equal(logits[i], one[0]) and torch.equal(srv[i], one[1])
+    for got, want in zip((logits, srv), pair_scorer.pair_scorer_plain(*args)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ops_pair_scorer_differentiates_through_the_kernels_on_card(card):
+    """ops.pair_scorer on (T, B, ...) leaves: one forward and one backward
+    launch, the card's gradients those of the CPU's plain twins."""
+    g = torch.Generator(device=card).manual_seed(50)
+    args = _grad_inputs(card, g, 8, 4, 2)
+    params = [a.clone().requires_grad_(True) for a in args[6:]]
+    mix = torch.randn((2, 4, 4, 2), generator=g, device=card)
+
+    def run(dev):
+        ue = args[0].reshape(2, 4, 4, 128).to(dev).requires_grad_(True)
+        raw = {"d": args[1].reshape(2, 4, 4).to(dev), "work": args[2].reshape(2, 4, 4).to(dev),
+               "active": args[3].reshape(2, 4, 4).to(dev),
+               "geom": args[4].reshape(2, 4, 2, 3).to(dev),
+               "consts": args[5].expand(2, 4, 8).to(dev)}
+        w = [p.detach().to(dev).requires_grad_(True) for p in params]
+        logits, srv = ops.pair_scorer(ue, raw, {"w": w[0], "b": w[1]},
+                                      [{"w": w[2], "b": w[3]}, {"w": w[4], "b": w[5]}])
+        assert logits.shape == (2, 4, 4, 2) and srv.shape == (2, 4, 2, 32)
+        # a logit term too: a softmax alone leaves b2 a zero gradient
+        loss = (torch.softmax(logits, -1) @ srv).square().sum() + srv.mean() \
+            + (logits * mix.to(dev)).sum()
+        return [t.cpu() for t in torch.autograd.grad(loss, [ue] + w)]
+
+    _build.reset_launches()
+    got = run(card)
+    assert dict(_build.LAUNCHES) == {"pair_scorer": 1, "pair_scorer_backward": 1}
+    _hold(got, run(torch.device("cpu")), "cpu")
