@@ -16,11 +16,14 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    and 16 bits, where a single-TF32 product would miss by many codes;
    quantize and dequantize also on views at every element offset;
    ssd_intra with the route it takes, at the serving and calibration
-   shapes too, and against float64 at the serving shape and a ragged Q);
-   then the kernel, plain and library times (CUDA events, median of 25)
-   beside the least time the card could take, quantize, bottleneck_encode
-   and ssd_intra at both of their main-path shapes (the last two with
-   their 3xTF32 and f32-FMA bounds, ssd_intra with its plan);
+   shapes too, and against float64 at the serving shape and a ragged Q;
+   the ssd_intra backward against its formula and the formula in float64
+   at the serving shape and the shapes of both forward routes, the same
+   bits twice); then the kernel, plain and library times (CUDA events,
+   median of 25) beside the least time the card could take, quantize,
+   bottleneck_encode and ssd_intra at both of their main-path shapes (the
+   last two with their 3xTF32 and f32-FMA bounds, ssd_intra with its plan),
+   the ssd_intra backward at the serving shape (and by the profiler);
 4. small split forwards: the split-serving path at small f32 configs of
    qwen3-1.7b and mamba2-1.3b on the card (kernels) against the same
    models on the CPU (plain twins);
@@ -60,6 +63,11 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    (48 layers, bf16, 2 requests of (2, 1024) and 31 steps), launch counts
    reset before each and read after it, decode against the full forward,
    then one profiled qwen3 decode step;
+12b. the loss gradient, a main path: one loss-and-gradient pass of
+   mamba2-1.3b (48 layers, bf16, (2, 1024)) through ``models.loss_fn`` and
+   autograd, exactly 48 ssd_intra and 48 ssd_intra_backward launches, its
+   wall and device ms and peak memory; then at full width, 2 layers and
+   f32 the card's gradient against the CPU's;
 13. training, the paper's own pipeline: the quickstart twin
    (``repro_torch.launch.quickstart``) at examples/quickstart.py's defaults
    (qwen3-1.7b's split table, 5 UEs on 2 channels, MAHPPO per-UE actors,
@@ -75,7 +83,8 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    zero-shot pool (E 3), the dispatch fleet (1, 1024, 3), a ragged N and E
    1 and 5, in f32 and with bf16 observations, the same bits twice; the
    batched forward bit-equal to B single-env launches; both timed at the
-   minibatch and dispatch shapes beside the launch floor and their bounds;
+   rollout, minibatch and dispatch shapes beside the launch floor, their
+   bounds and the profiler's kernels (the backward as called: one launch);
 15. training through the scorer kernels, a main path: the fleet demo
    (``repro_torch.launch.fleet_demo``) at its defaults, the example's
    ``--fleet --entity-policy --fused-scorer --servers 2`` (the mixed fleet,
@@ -122,6 +131,9 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
     # no TPU kernel: the reference differentiates pair_scorer_xla
     "pair_scorer_backward": ("src/repro_torch/kernels/csrc/pair_scorer_bwd.cu",
                              "src/repro/kernels/pair_scorer.py:164"),
+    # no TPU kernel: the reference differentiates ssd_chunked's einsum form
+    "ssd_intra_backward": ("src/repro_torch/kernels/csrc/ssd_intra_bwd.cu",
+                           "src/repro/models/ssm.py:81"),
 }
 SERVE = {"qwen3-1.7b": dict(requests=4, batch=4, seq=256),
          "mamba2-1.3b": dict(requests=4, batch=2, seq=1024)}
@@ -137,6 +149,17 @@ TRAIN_TIMED = 3                  # iterations timed with a sync between rollout 
 SCORER_GRAD_SHAPES = {"rollout": (4, 4, 2), "minibatch": (256, 4, 2), "zero-shot": (1, 4, 3),
                       "dispatch": (1, 1024, 3), "ragged N": (3, 13, 2), "E 1": (2, 20, 1),
                       "E 5": (2, 20, 5)}
+# the ssd_intra backward beyond the serving shape: a ragged Q (the forward's
+# tensor-core route) and a ragged P and N (its SIMT route)
+SSD_BWD_SHAPES = {"Q=200": (2, 2, 200, 3, 64, 128), "ragged P, N": (1, 2, 100, 2, 130, 24)}
+LOSS_BATCH = (2, 1024)    # mamba2-1.3b's loss gradient at full width: the serving batch
+LOSS_CHECK = (2, 640)     # card against CPU at full width and 2 layers: a ragged last chunk
+# card against CPU, each parameter's gradient over its largest: f32 on both
+# sides with products summed in other orders (cuBLAS and the ssd kernels'
+# 3xTF32 forward on the card, MKL and the einsum twin on the CPU) through
+# full-width layers and a 50 280-way head; a dropped intra-chunk gradient
+# moves the mixers' gradients by O(1) of their largest
+LOSS_GRAD_TOL = 1e-3
 
 
 class Failed(Exception):
@@ -469,6 +492,230 @@ def phase_timing(dev, kq, kb, kssd, ssd_shape, calib_shape):
     return out
 
 
+# ------------------------------------------------- the SSD backward and the loss gradient
+def ssd_bwd_work(b, nc, q, h, p, n):
+    """(bytes, product flops, other flops) the least the ssd_intra backward
+    needs: x, dy, dt, la, B and C read once, dx, d dt, d la, dB and dC
+    written once (f32), and over the causal half of the (i, j) pairs the
+    two per-head products dM = dy x^T and dx = M^T dy (2 P flops each a
+    pair and head), the Gram matrix again, dC and dB (2 N each a pair), the
+    weights and the sums of dM (12 flops a pair and head)."""
+    pairs = b * nc * q * (q + 1) // 2
+    n_bytes = 4 * (3 * b * nc * q * h * p + 4 * b * nc * q * h + 4 * b * nc * q * n)
+    return n_bytes, pairs * (4 * p * h + 6 * n), pairs * 12 * h
+
+
+def ssd_bwd_bounds(shape):
+    """(3xTF32 bound, f32-FMA bound), each (ms, by), of ``ssd_bwd_work``: the
+    products three times over on the tensor cores and the rest in f32, or
+    everything in f32 FMA (the SIMT kernel's)."""
+    n_bytes, prod, other = ssd_bwd_work(*shape)
+    ops_ms = 1e3 * (3 * prod / TF32_FLOP_PER_S + other / F32_FLOP_PER_S)
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    tf32 = (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
+    return tf32, bound(n_bytes, prod + other)
+
+
+def ssd_grad_inputs(dev, g, shape, dtype=torch.float32):
+    """An incoming dy (f32) and ssd_intra's inputs."""
+    args = ssd_inputs(dev, g, *shape, dtype=dtype)
+    return (torch.randn(args[0].shape, generator=g, device=dev), *args)
+
+
+def ssd_grad_excess(got, want, bf16):
+    """The largest amount by which a gradient exceeds 1e-5 of its largest
+    magnitude (a gradient returned in bf16 also one bf16 step, 2^-7 of the
+    element), and the largest difference over a gradient's largest."""
+    excess, rel = -float("inf"), 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.double(), b.double()
+        top = float(b.abs().max())
+        tol = 1e-5 * top + (2.0 ** -7 * b.abs() if bf16 and i in (0, 3, 4) else 0.0)
+        excess = max(excess, float(((a - b).abs() - tol).max()))
+        rel = max(rel, float((a - b).abs().max()) / max(top, 1e-30))
+    return excess, rel
+
+
+def phase_ssd_backward(dev, kssd, build_mod, serve_shape):
+    """The ssd_intra backward kernel against its plain formula and against
+    the formula in float64, each gradient within 1e-5 of its largest (bf16
+    gradients also one bf16 step), at the serving shape and the shapes of
+    both forward routes, in f32 and bf16; one launch a call and the same
+    bits twice. Returns the max abs error against the formula in f32."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    for label, shape in {"serving": serve_shape, **SSD_BWD_SHAPES}.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dy, *args = ssd_grad_inputs(dev, g, shape, dtype)
+            build_mod.reset_launches()
+            got = kssd.ssd_intra_backward(dy, *args)
+            again = kssd.ssd_intra_backward(dy, *args)
+            torch.cuda.synchronize()
+            check(dict(build_mod.LAUNCHES) == {"ssd_intra_backward": 2},
+                  f"ssd_intra backward {label}: launches {dict(build_mod.LAUNCHES)}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"ssd_intra backward {label} {dtype}: the same call twice gave other bits")
+            check([t.dtype for t in got] == [dtype, torch.float32, torch.float32, dtype, dtype],
+                  f"ssd_intra backward {label}: dtypes {[t.dtype for t in got]}")
+            bf16 = dtype == torch.bfloat16
+            plain = kssd.ssd_intra_backward_plain(dy, *args)
+            ex_p, rel_p = ssd_grad_excess(got, plain, bf16)
+            wide = kssd.ssd_intra_backward_plain(*(t.double() for t in (dy, *args)))
+            ex_w, rel_w = ssd_grad_excess(got, wide, bf16)
+            _, rel_pw = ssd_grad_excess(plain, wide, bf16)
+            del wide
+            check(ex_p <= 0 and ex_w <= 0, f"ssd_intra backward {label} {shape} {dtype}: beyond "
+                  f"1e-5 of a gradient's largest (by {ex_p:.2e} against the formula, {ex_w:.2e} "
+                  f"against float64)")
+            if not bf16:
+                worst = max(worst, max(float((a - b).abs().max()) for a, b in zip(got, plain)))
+            print(f"kernels: ssd_intra_backward {label} (B,NC,Q,H,P,N)={shape} "
+                  f"{str(dtype)[6:]} (forward route {ssd_route(kssd, args, dev).split(',')[0]}): "
+                  f"largest difference over a gradient's largest {rel_p:.2e} against the "
+                  f"formula, {rel_w:.2e} against float64 (the f32 formula {rel_pw:.2e}; 1e-5 "
+                  f"allowed{', bf16 gradients plus one bf16 step' if bf16 else ''}); the same "
+                  f"bits twice", flush=True)
+            del got, again, plain
+            torch.cuda.empty_cache()
+    return worst
+
+
+def phase_ssd_backward_timing(dev, kssd, shape):
+    """The ssd_intra backward at the serving shape as the loss gradient
+    calls it: kernel (its three launches, as called), plain and bound times,
+    the profiler's time by kernel, the plan (no single PyTorch call
+    computes this function: no library time). Returns the JSON row."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    dy, *args = ssd_grad_inputs(dev, g, shape)
+    kernel = lambda: kssd.ssd_intra_backward(dy, *args)
+    ms, plain_ms = device_ms(kernel), device_ms(lambda: kssd.ssd_intra_backward_plain(dy, *args))
+    prof_ms, names = profiled_ms(kernel)
+    kernel()
+    torch.cuda.synchronize()
+
+    def ten_calls():
+        for _ in range(10):
+            kernel()
+        torch.cuda.synchronize()
+    kernels, us = device_kernels(ten_calls)
+    split = ", ".join(f"{e.key.split('(')[0].split('::')[-1][:24]} {us(e) / 1e4:.5f} ms"
+                      for e in kernels)
+    (tf32_ms, tf32_by), (f32_ms, f32_by) = ssd_bwd_bounds(shape)
+    b, nc, q, h, _, _ = shape
+    pl = kssd.backward_plan(b * nc, q, h, torch.cuda.get_device_properties(dev).multi_processor_count)
+    prof = "not measured" if prof_ms is None else f"{prof_ms:.5f} ms ({names})"
+    # the bound is the card's, the products in 3xTF32 as the forward's row
+    # takes it; the f32-FMA figure is what the SIMT kernel's own arithmetic
+    # could reach, printed only beside it
+    print(f"timing: ssd_intra_backward (B,NC,Q,H,P,N)={shape}: kernel {ms:.5f} ms, profiler "
+          f"{prof} a call, plain {plain_ms:.5f} ms, library none, bound {tf32_ms:.5f} ms "
+          f"({tf32_by}), {100 * tf32_ms / ms:.1f}% of bound; in f32 FMA {f32_ms:.5f} ms "
+          f"({f32_by}); {pl}; by kernel a call: {split}", flush=True)
+    return {"ssd_intra_backward": dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                       bound_ms=tf32_ms, bound_by=tf32_by)}
+
+
+def loss_batch(cfg, b, s, gen, dev):
+    """Next-token labels of random tokens, the first 16 positions and the
+    last ignored (-100)."""
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    labels = tokens.roll(-1, dims=1)
+    labels[:, -1] = -100
+    labels[:, :16] = -100
+    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+
+
+def phase_loss_grad(dev, model_lib, init_params, cfg, build_mod):
+    """A main path: one loss-and-gradient pass of mamba2-1.3b at its
+    published widths (seeded random bf16 weights) at LOSS_BATCH, the way a
+    training step takes it (``models.loss_fn``, then autograd): exactly one
+    ssd_intra and one ssd_intra_backward launch a layer and no other
+    kernel, a finite loss and every gradient finite and nonzero; the wall
+    and device ms of the forward and the backward, peak memory. Then at
+    full width and 2 layers in f32, the card's gradient against the CPU's
+    (the twin and the formula), each parameter within LOSS_GRAD_TOL of its
+    largest. Returns the full-width pass's launches."""
+    b, s = LOSS_BATCH
+    n_ssd = sum(bt == "mamba2" for bt in cfg.block_types())
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(7), dev)
+    params = list(model.parameters())
+    batch = loss_batch(cfg, b, s, torch.Generator().manual_seed(8), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build_mod.reset_launches()
+    loss, metrics = model_lib.loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    want = {"ssd_intra": n_ssd, "ssd_intra_backward": n_ssd}
+    check(launches == want, f"loss gradient {cfg.name}: launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    value = float(loss.detach())
+    check(math.isfinite(value), f"loss gradient {cfg.name}: loss {value}")
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in grads),
+          f"loss gradient {cfg.name}: a gradient is not finite or is zero")
+    ce = float(metrics["ce"].detach())
+    del loss, metrics, grads
+    # the wall of a second pass (the first one pays for first-call set-up)
+    t0 = time.perf_counter()
+    loss = model_lib.loss_fn(model, batch)[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del loss
+    box = {}
+
+    def forward():
+        box["loss"] = model_lib.loss_fn(model, batch)[0]
+        torch.cuda.synchronize()
+
+    def backward():
+        torch.autograd.grad(box.pop("loss"), params)
+        torch.cuda.synchronize()
+
+    device = {}
+    for label, fn in (("forward", forward), ("backward", backward)):
+        kernels, us = device_kernels(fn)
+        ssd = sum(us(e) for e in kernels if "ssd_" in e.key)
+        device[label] = (sum(us(e) for e in kernels) / 1e3, sum(e.count for e in kernels),
+                         ssd / 1e3)
+    print(f"loss gradient: {cfg.name} ({cfg.n_layers} layers, {cfg.param_dtype}) at ({b}, {s}): "
+          f"loss {value:.6f} (ce {ce:.6f}, log vocab {math.log(cfg.vocab_size):.6f}); wall of a "
+          f"second pass: forward {1e3 * (t1 - t0):.1f} ms, backward {1e3 * (t2 - t1):.1f} ms; device "
+          + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]} launches (ssd kernels {v[2]:.3f} ms)"
+                      for k, v in device.items())
+          + f"; launches {launches} as expected; every gradient finite and nonzero; peak "
+            f"memory {peak:.2f} GiB", flush=True)
+    del model, params, box
+    torch.cuda.empty_cache()
+
+    small = cfg.replace(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    cpu = torch.device("cpu")
+    b2, s2 = LOSS_CHECK
+    batch2 = loss_batch(small, b2, s2, torch.Generator().manual_seed(9), cpu)
+    res = {}
+    for d in (dev, cpu):
+        m = init_params(small, torch.Generator().manual_seed(10), cpu).to(d)
+        build_mod.reset_launches()
+        l, _ = model_lib.loss_fn(m, {k: v.to(d) for k, v in batch2.items()})
+        res[d.type] = (float(l.detach()), [t.cpu() for t in torch.autograd.grad(
+            l, list(m.parameters()))], dict(build_mod.LAUNCHES))
+    n2 = sum(bt == "mamba2" for bt in small.block_types())
+    check(res[dev.type][2] == {"ssd_intra": n2, "ssd_intra_backward": n2},
+          f"loss gradient check: launches {res[dev.type][2]}")
+    worst = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for a, c in zip(res[dev.type][1], res["cpu"][1]))
+    check(worst <= LOSS_GRAD_TOL, f"loss gradient check: the card's gradient is {worst:.2e} of "
+          f"a parameter's largest from the CPU's ({LOSS_GRAD_TOL} allowed)")
+    print(f"loss gradient: {cfg.name} at full width, 2 layers, f32, ({b2}, {s2}): loss card "
+          f"{res[dev.type][0]:.6f}, CPU {res['cpu'][0]:.6f}; the largest difference of a "
+          f"parameter's gradient over its largest {worst:.2e} ({LOSS_GRAD_TOL} allowed), the "
+          f"card through {res[dev.type][2]}", flush=True)
+    return launches
+
+
 def phase_small_split(dev, cs, cfg, seq, init_params, pca):
     """The split forward at a small f32 config: card against CPU."""
     cpu = torch.device("cpu")
@@ -503,7 +750,7 @@ def expected_launches(cfg, split, requests):
     return {"quantize": 0, "bottleneck_encode": requests, "dequantize": requests,
             "ssd_intra": ssd(0, split) + requests * (ssd(0, n) + ssd(0, n)),
             "pair_scorer": 0, "flat_trunk": 0, "decode_attention": 0,
-            "pair_scorer_backward": 0}
+            "pair_scorer_backward": 0, "ssd_intra_backward": 0}
 
 
 def phase_serve(dev, cs, cfg, build_mod, kref):
@@ -554,6 +801,8 @@ KERNEL_NAMES = {"ssd_intra": ("ssd_intra_mma_kernel", "gram_kernel", "intra_kern
                 "pair_scorer": ("pair_scorer_fused_kernel",),
                 "flat_trunk": ("flat_trunk_persistent_kernel",),
                 "pair_scorer_backward": ("pair_scorer_backward_kernel",),
+                "ssd_intra_backward": ("ssd_bwd_pair_kernel", "ssd_bwd_dx_kernel",
+                                       "ssd_bwd_finish_kernel"),
                 "decode_attention": ("decode_attn_cluster_kernel",)}
 
 
@@ -1000,14 +1249,16 @@ def scorer_grad_work(b, n, e, d_ue=128, s_dim=32, hid=48):
 
 
 def phase_scorer_timing(dev, kps):
-    """(c) The batched forward and the backward at the minibatch and dispatch
-    shapes: kernel, plain and bound times, beside the launch floor (no
-    single PyTorch call computes either: no library time). The backward is
-    timed as the path calls it: its kernel and the two W1u GEMMs."""
+    """(c) The batched forward and the backward at the fleet demo's rollout
+    and minibatch shapes and the dispatch shape: kernel, plain and bound
+    times, beside the launch floor, and each call's kernels by the profiler
+    (no single PyTorch call computes either: no library time). The backward
+    is timed as the path calls it (with a parent tree, its kernel and the
+    two W1u GEMMs)."""
     g = torch.Generator(device=dev).manual_seed(32)
     floor_ms = device_ms(lambda: torch.cuda._sleep(0))
     out = {}
-    for label in ("minibatch", "dispatch"):
+    for label in ("rollout", "minibatch", "dispatch"):
         b, n, e = SCORER_GRAD_SHAPES[label]
         args = grad_inputs(dev, g, b, n, e)
         g_l = torch.randn((b, n, e), generator=g, device=dev)
@@ -1024,14 +1275,21 @@ def phase_scorer_timing(dev, kps):
                     scorer_grad_work(b, n, e))}
         for name, (kernel, plain, work) in rows.items():
             ms, plain_ms = device_ms(kernel), device_ms(plain)
+            prof_ms, names = profiled_ms(kernel)
             bound_ms, bound_by = bound(*work)
+            prof = "not measured" if prof_ms is None else f"{prof_ms:.5f} ms ({names})"
             print(f"timing: {name} {label} (B,N,E)=({b},{n},{e}): kernel {ms:.5f} ms, "
-                  f"{ms - floor_ms:.5f} ms above the launch floor ({floor_ms:.5f}), plain "
-                  f"{plain_ms:.5f} ms, library none, bound {bound_ms:.5f} ms ({bound_by}), "
-                  f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
+                  f"{ms - floor_ms:.5f} ms above the launch floor ({floor_ms:.5f}), profiler "
+                  f"{prof} a call, plain {plain_ms:.5f} ms, library none, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound",
+                  flush=True)
             if name == "pair_scorer_backward" and label == "minibatch":
                 out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                                  bound_by=bound_by)
+        if hasattr(kps, "backward_plan"):
+            print(f"timing: pair_scorer_backward {label}: "
+                  f"{kps.backward_plan(b, n, e, 128, 32, 48, dev, kps.route(args[0], args[8]))}",
+                  flush=True)
     return out
 
 
@@ -1599,11 +1857,15 @@ def main(argv=None):
         phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant)
         if hasattr(pair_scorer, "pair_scorer_backward"):      # a parent tree may lack it
             phase_scorer_timing(dev, pair_scorer)
+        if hasattr(ssd_intra, "ssd_intra_backward"):
+            phase_ssd_backward_timing(dev, ssd_intra, ssd_shape)
         phase_decode_timing(dev, decode_attn, decode_shape)
         return 0
     err = phase_kernels(dev, quant, bottleneck, kref)
     err["ssd_intra"] = phase_ssd_kernel(dev, ssd_intra, kref, ssd_shape, calib_shape)
+    err["ssd_intra_backward"] = phase_ssd_backward(dev, ssd_intra, _build, ssd_shape)
     times = phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
+    times.update(phase_ssd_backward_timing(dev, ssd_intra, ssd_shape))
     err.update(phase_dispatch_kernels(dev, pair_scorer, flat_trunk, quant))
     times.update(phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant))
     err["pair_scorer_backward"], fwd_err = phase_scorer_backward(dev, pair_scorer, _build)
@@ -1639,6 +1901,8 @@ def main(argv=None):
             phase_decode_profile(model_lib, res)
         del res
         torch.cuda.empty_cache()
+    launches.update(phase_loss_grad(dev, model_lib, init_params, mamba, _build))
+    torch.cuda.empty_cache()
     phase_train(dev, quickstart, _build)
     phase_train_timing(dev, quickstart, mahppo, optim, _build)
     counts, res = phase_fleet_demo(dev, fleet_demo, _build)

@@ -27,8 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
-           CSRC / "pair_scorer.cu", CSRC / "pair_scorer_bwd.cu", CSRC / "flat_trunk.cu",
-           CSRC / "decode_attn.cu")
+           CSRC / "ssd_intra_bwd.cu", CSRC / "pair_scorer.cu", CSRC / "pair_scorer_bwd.cu",
+           CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu")
 HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh", CSRC / "mbarrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -52,15 +52,21 @@ _SIGNATURES = {
                                 ctypes.c_int, _c],
     # ..., x and B/C dtypes, route (1 tensor cores, 0 SIMT), heads a block, stream
     "repro_ssd_intra": [_c] * 7 + [ctypes.c_int] * 9 + [_c],
+    # x, dt, la, bm, cm, dy; gram, dG, sums scratch; dx, ddt, dla, db, dc;
+    # BC, Q, H, P, N, x and B/C dtypes, heads a pair block, stream
+    "repro_ssd_intra_backward": [_c] * 14 + [ctypes.c_int] * 8 + [_c],
     # ..., n, E, d_ue, S, H, envs, ue-term K split, route (1 bulk copy, 0
     # loads), shared bytes, stream
     "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 8 + [ctypes.c_longlong, _c],
-    # 12 inputs, srv, g, g_srv; u, dw_srv, db_srv, dw1, db1, dw2, db2;
-    # workspace, tickets; n, E, d_ue, S, H, envs; shared bytes, stream
-    "repro_pair_scorer_backward": [_c] * 24 + [ctypes.c_int] * 6 + [ctypes.c_longlong, _c],
-    # n, E, envs, d_ue, S, H -> shared bytes, workspace floats, tickets
-    "repro_pair_scorer_backward_plan": [ctypes.c_int] * 6
-    + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.POINTER(ctypes.c_int)],
+    # 11 inputs, srv, g, g_srv; d ue, dw_srv, db_srv, dw1, db1, dw2, db2;
+    # the blocks' partials, the split envs' sums, the barrier; n, E, d_ue,
+    # S, H, envs, envs a unit, chunk rows, units, grid, route (1 bulk copy,
+    # 0 loads); shared bytes, stream
+    "repro_pair_scorer_backward": [_c] * 24 + [ctypes.c_int] * 11 + [ctypes.c_longlong, _c],
+    # n, E, envs, d_ue, S, H, envs a unit, chunk rows -> shared bytes,
+    # partial floats a block, split sums' floats, resident blocks
+    "repro_pair_scorer_backward_plan": [ctypes.c_int] * 8
+    + [ctypes.POINTER(ctypes.c_longlong)] * 3 + [ctypes.POINTER(ctypes.c_int)],
     # the descriptor arrays are host arrays: widths, code and bias pointers,
     # each layer's (mn, mx) and K split; then bits, grid, route (1 bulk
     # copy, 0 loads), stream
@@ -179,3 +185,17 @@ def require_cuda(name: str, *tensors) -> None:
                              f"(CPU tensors take the plain version), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+
+
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise where autograd would want a gradient through a forward-only
+    kernel: grad mode is on and an input that the plain twin differentiates
+    requires grad. The kernel's output has no autograd node, so the
+    gradient would be dropped without a word; run such a call under
+    ``torch.inference_mode()`` or ``torch.no_grad()``, or on detached
+    tensors."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in inputs):
+        raise RuntimeError(f"{name}: the kernel has no backward and an input requires grad in "
+                           f"grad mode; call it under torch.no_grad() / inference_mode() or on "
+                           f"detached tensors")

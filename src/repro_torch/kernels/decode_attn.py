@@ -16,6 +16,9 @@ block cluster as ``plan_splits`` says, K and V staged through shared
 memory by the Tensor Memory Accelerator, a tile-wise online softmax, the
 splits merged through distributed shared memory) or raises. It is bound by
 the bytes of the cache. On a CPU tensor the wrapper runs the plain twin.
+The kernel has no backward: on CUDA tensors in grad mode the wrapper
+refuses a q, k or v that requires grad (``_build.refuse_grad``), where the
+twin would pass a gradient and the kernel would drop it.
 """
 from __future__ import annotations
 
@@ -100,6 +103,7 @@ def decode_attention(q, k, v, pos, idx):
     tensors = (q, k, v, pos)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_plain(q, k, v, pos, idx)
+    _build.refuse_grad("decode_attention", q, k, v)
     _build.require_cuda("decode_attention", *tensors)
     g = hq // hkv
     if g not in GROUPS or d not in HEAD_DIMS or s < 1:

@@ -26,7 +26,9 @@ f32, so identity rows return the dequantized weights bit for bit. The
 layer count and widths travel in a descriptor, so any trunk depth (up to
 ``MAX_LAYERS``) and width takes the same kernel. At the serving size (a
 thousand rows) it is bound by its critical path, not by work: 2 M 6144 is
-13 MFLOP at M = 1024.
+13 MFLOP at M = 1024. The kernel has no backward: on CUDA tensors in grad
+mode the wrapper refuses rows or biases that require grad
+(``_build.refuse_grad``), where the twin would pass a gradient.
 """
 from __future__ import annotations
 
@@ -169,6 +171,7 @@ def flat_trunk(x, codes, mns, mxs, bs, *, bits=8):
     tensors = (x, *codes, *bs)
     if all(t.device.type == "cpu" for t in tensors):
         return flat_trunk_plain(x, codes, mns, mxs, bs, bits=bits)
+    _build.refuse_grad("flat_trunk", x, *bs)
     x = x.to(torch.float32).contiguous()
     bs = [b.to(torch.float32).contiguous() for b in bs]
     _build.require_cuda("flat_trunk", x, *codes, *bs)

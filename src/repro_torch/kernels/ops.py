@@ -42,8 +42,10 @@ def bottleneck_encode(x, w, mn, mx, *, bits=8):
 
 
 def ssd_intra(xh, dt, la, Bm, Cm):
-    """Mamba-2 SSD intra-chunk contribution (see kernels/ssd_intra.py)."""
-    return _ssd.ssd_intra(*(t.contiguous() for t in (xh, dt, la, Bm, Cm)))
+    """Mamba-2 SSD intra-chunk contribution (see kernels/ssd_intra.py),
+    differentiable (``ssd_intra.SsdIntra``: the forward and backward kernels
+    on the card, the plain twin and formula on the CPU)."""
+    return _ssd.SsdIntra.apply(*(t.contiguous() for t in (xh, dt, la, Bm, Cm)))
 
 
 def decode_attention(q, k, v, pos, idx):

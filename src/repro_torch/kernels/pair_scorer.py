@@ -37,23 +37,26 @@ bound by its critical path, not by work: its least work is ~14 MFLOP and
 DIST_NORM, 1 / EDGE_SLOW_NORM].
 
 The backward (the reference has no kernel for it: it differentiates
-``pair_scorer_xla``) is ``csrc/pair_scorer_bwd.cu``: one launch on the same
-grid recomputes each pair's edge triple and hidden layer, forms da = g w2
-tanh'(a) (as sech^2 of the pre-activation, which keeps its digits where
-tanh rounds to 1) and reduces it, per UE into ``sum_e da`` (B, N, H) and per block
-into the server, edge-weight and bias partials; the last block of each env
-(an integer ticket, no float atomics) sums its env's partials in block
-order and runs the server side (W1s, the server tanh, w_srv, b_srv), and
-the envs' results are summed in a fixed-order tree of 16-way tails, so the
-same call gives the same bits. The two products with W1u, ``d ue = (sum_e
-da) W1u^T`` and ``dW1u = ue^T (sum_e da)``, are ``torch.matmul``.
-:class:`PairScorer` wires both into autograd; ``pair_scorer_backward_plain``
-is the same gradient as an explicit formula in plain PyTorch, which CPU
-tensors run.
+``pair_scorer_xla``) is ``csrc/pair_scorer_bwd.cu``, one cooperative launch
+of at most one block an SM. A block takes units of at most 32 UE rows
+(whole envs where N <= 32, laid out before the launch by
+``backward_units``), recomputes each pair's edge triple and hidden layer,
+forms da = g w2 tanh'(a) (as sech^2 of the pre-activation, which keeps its
+digits where tanh rounds to 1) and from it d ue = (sum_e da) W1u^T, the
+unit's dW1u = ue^T sum_e da, the edge-weight and bias sums and, for whole
+envs, the env's server side (W1s, the server tanh, w_srv, b_srv); after one
+grid barrier (two where an env spans units) every block sums a slice of the
+outputs over the blocks' partials in block order, so the same call gives
+the same bits. The call allocates only the returned gradients: the
+workspace (the blocks' partials and the barrier's words) is kept per card
+and stream. :class:`PairScorer` wires both kernels into autograd;
+``pair_scorer_backward_plain`` is the same gradient as an explicit formula
+in plain PyTorch, which CPU tensors run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -69,6 +72,8 @@ ROWS = 8            # UEs a block of the kernel
 UE_THREADS = 192    # its six ue-term warps
 TILE_ROWS = 2       # a thread's ue-term tile: 2 rows x 4 columns
 SMEM_MAX = 232448   # the shared memory a block may take on Hopper
+BWD_MAX_ROWS = 32   # UE rows a unit of the backward: one a lane of a warp
+BWD_MAX_PAIRS = 16  # servers x envs a unit of whole envs holds at most
 
 
 class Plan(NamedTuple):
@@ -79,6 +84,23 @@ class Plan(NamedTuple):
     blocks: int
     ue_split: int
     smem_bytes: int
+    route: str
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launch: units of ``envs_per_unit`` whole envs (0 where
+    envs span units) or ``chunk_rows`` rows of one env (0 for whole envs),
+    ``grid`` blocks (at most the blocks the card holds at once) walking
+    ``units`` units, ``smem_bytes`` of shared memory, the workspace's floats
+    (``part_floats`` a block, ``vpart_floats`` of the split envs' sums) and
+    the copy ``route``."""
+    envs_per_unit: int
+    chunk_rows: int
+    units: int
+    grid: int
+    smem_bytes: int
+    part_floats: int
+    vpart_floats: int
     route: str
 
 
@@ -276,6 +298,70 @@ def pair_scorer_backward_plain(g_logits, g_srv, ue_emb, d, work, active, geom, c
             torch.einsum("bne,bneh->h", g, h)[:, None], g.sum().reshape(1))
 
 
+def backward_units(batch, n, n_srv, n_sm):
+    """(envs a unit, chunk rows, units) of the backward for B envs of N UEs
+    and E servers on ``n_sm`` SMs. Where N <= 32 a unit holds whole envs:
+    as many as keep the grid within one wave, at most 32 rows and 16
+    (env, server) pairs (2 envs a unit at the fleet demo's (256, 4, 2): 128
+    units); else a chunk of one env, a multiple of 8 rows up to 32 that
+    spreads the fleet over the SMs (8 rows at (1, 1024, 3): 128 units)."""
+    if n <= BWD_MAX_ROWS:
+        envs = max(1, min(BWD_MAX_ROWS // n, BWD_MAX_PAIRS // n_srv, -(-batch // n_sm)))
+        return envs, 0, -(-batch // envs)
+    rows = min(BWD_MAX_ROWS, max(8, -(-(-(-batch * n // n_sm)) // 8) * 8))
+    return 0, rows, batch * -(-n // rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_query(index, n, n_srv, batch, d_ue, s_dim, hid, envs, rows):
+    """The library's layout and residency for a backward launch on card
+    ``index``: (shared bytes, partial floats a block, split sums' floats,
+    resident blocks), asked once a shape."""
+    lib = _build.library()
+    smem, part, vpart, resident = (ctypes.c_longlong(), ctypes.c_longlong(),
+                                   ctypes.c_longlong(), ctypes.c_int())
+    with torch.cuda.device(index):
+        _build.check(lib.repro_pair_scorer_backward_plan(
+            n, n_srv, batch, d_ue, s_dim, hid, envs, rows, ctypes.byref(smem),
+            ctypes.byref(part), ctypes.byref(vpart), ctypes.byref(resident)),
+            "pair_scorer_backward plan")
+    return smem.value, part.value, vpart.value, resident.value
+
+
+def backward_plan(batch, n, n_srv, d_ue, s_dim, hid, device, copy_route) -> BwdPlan:
+    """The backward's launch on ``device`` (its SM count and the kernel's
+    residency from the library); raises where the widths need more shared
+    memory than a block has."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    envs, rows, units = backward_units(batch, n, n_srv, _build.sm_count(device))
+    smem, part, vpart, resident = _bwd_query(index, n, n_srv, batch, d_ue, s_dim, hid, envs,
+                                             rows)
+    if smem > SMEM_MAX or resident < 1:
+        raise ValueError(f"pair_scorer backward: E={n_srv}, d_ue={d_ue}, S={s_dim}, H={hid} "
+                         f"need {smem} bytes of shared memory, more than a block's {SMEM_MAX}")
+    return BwdPlan(envs, rows, units, min(units, resident), smem, part, vpart, copy_route)
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, stream, floats):
+    """The backward's workspace on ``device`` for ``stream``: at least
+    ``floats`` floats (the blocks' partials, the split envs' sums) and the
+    grid barrier's two words, [count, generation], zero when made. Every
+    launch returns the count to zero; the generation only grows (one a
+    barrier), and the barrier compares it for equality, so its value and
+    its wrap-around do not matter. The workspace is reused as it is and
+    grows only when a larger launch needs it."""
+    key = (device, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < floats:
+        sync = ws[1] if ws is not None else torch.zeros(2, dtype=torch.int32, device=device)
+        ws = (torch.empty(floats, dtype=torch.float32, device=device), sync)
+        _WORKSPACE[key] = ws
+    return ws
+
+
 def pair_scorer_backward(g_logits, g_srv, ue_emb, d, work, active, geom, consts,
                          w_srv, b_srv, w1, b1, w2, b2, *, srv):
     """``pair_scorer_backward_plain``'s gradients by the backward kernel on
@@ -296,33 +382,24 @@ def pair_scorer_backward(g_logits, g_srv, ue_emb, d, work, active, geom, consts,
             or srv.shape != gs.shape:
         raise ValueError(f"pair_scorer_backward: gradients {tuple(g.shape)}, "
                          f"{tuple(gs.shape)} and srv {tuple(srv.shape)} do not agree")
-    lib = _build.library()
-    smem, floats, tickets = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
-    _build.check(lib.repro_pair_scorer_backward_plan(
-        n, n_srv, batch, d_ue, s_dim, hid, ctypes.byref(smem), ctypes.byref(floats),
-        ctypes.byref(tickets)), "pair_scorer_backward plan")
-    if smem.value > SMEM_MAX:
-        raise ValueError(f"pair_scorer backward: E={n_srv}, d_ue={d_ue}, S={s_dim}, H={hid} "
-                         f"need {smem.value} bytes of shared memory, more than a block's "
-                         f"{SMEM_MAX}")
     dev = ue.device
-    u = torch.empty((batch, n, hid), dtype=torch.float32, device=dev)
-    dw_srv = torch.empty_like(f32[6])
-    db_srv = torch.empty_like(f32[7])
+    pl = backward_plan(batch, n, n_srv, d_ue, s_dim, hid, dev, route(ue, w1f))
+    stream = _build.stream_of(ue)
+    ws, sync = _workspace(dev, stream.value, pl.grid * pl.part_floats + pl.vpart_floats)
+    due = torch.empty_like(ue)
+    dw_srv, db_srv = torch.empty_like(f32[6]), torch.empty_like(f32[7])
     dw1 = torch.empty_like(w1f)
     db1, dw2, db2 = torch.empty_like(f32[9]), torch.empty_like(f32[10]), torch.empty_like(f32[11])
-    ws = torch.empty((floats.value,), dtype=torch.float32, device=dev)
-    ticket_buf = torch.zeros((tickets.value,), dtype=torch.int32, device=dev)
+    lib = _build.library()
     _build.check(lib.repro_pair_scorer_backward(
-        *(a.data_ptr() for a in f32), srv.data_ptr(), g.data_ptr(), gs.data_ptr(), u.data_ptr(),
-        dw_srv.data_ptr(), db_srv.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-        db2.data_ptr(), ws.data_ptr(), ticket_buf.data_ptr(), n, n_srv, d_ue, s_dim, hid, batch,
-        smem.value, _build.stream_of(u)), "pair_scorer_backward")
+        *(a.data_ptr() for a in f32[:11]), srv.data_ptr(), g.data_ptr(), gs.data_ptr(),
+        due.data_ptr(), dw_srv.data_ptr(), db_srv.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(),
+        ws.data_ptr() + 4 * pl.grid * pl.part_floats, sync.data_ptr(), n, n_srv, d_ue, s_dim,
+        hid, batch, pl.envs_per_unit, pl.chunk_rows, pl.units, pl.grid,
+        int(pl.route == "bulk"), pl.smem_bytes, stream), "pair_scorer_backward")
     _build.LAUNCHES["pair_scorer_backward"] += 1
-    u2 = u.reshape(batch * n, hid)
-    torch.mm(ue.reshape(batch * n, d_ue).T, u2, out=dw1[:d_ue])
-    d_ue_grad = (u2 @ w1f[:d_ue].T).reshape(batch, n, d_ue).to(ue_emb.dtype)
-    return d_ue_grad, dw_srv, db_srv, dw1, db1, dw2, db2
+    return due.to(ue_emb.dtype), dw_srv, db_srv, dw1, db1, dw2, db2
 
 
 class PairScorer(torch.autograd.Function):

@@ -6,7 +6,10 @@ of ``csrc/quant.cu`` (bound by bytes on the H100: each takes four elements
 a thread with one vector load and one vector store, and a view at any
 element offset) or raise; on a CPU tensor they run the plain twins,
 which mirror ``quantize_xla`` / ``dequantize_xla`` op for op and give the
-kernels' results bit for bit.
+kernels' results bit for bit. Neither kernel has a backward: quantize
+returns integer codes, and on CUDA tensors in grad mode dequantize refuses
+an ``mn`` or ``mx`` tensor that requires grad (``_build.refuse_grad``),
+since Eq. 2 is differentiable in them (``ref.dequantize_ref``).
 """
 from __future__ import annotations
 
@@ -78,6 +81,7 @@ def dequantize_2d(y, mn, mx, *, bits=8, out_dtype=torch.float32):
         raise ValueError(f"dequantize_2d takes a 2-D tensor, got {tuple(y.shape)}")
     if y.device.type == "cpu":
         return dequantize_plain(y, mn, mx, bits=bits, out_dtype=out_dtype)
+    _build.refuse_grad("dequantize", mn, mx)
     _build.require_cuda("dequantize", y)
     _levels(bits)
     if y.dtype != code_dtype(bits):

@@ -27,6 +27,20 @@ With the products on the tensor cores the least time at the serving shape
 is set by bytes (x read and y written once dominate), not by f32
 operations; what holds the kernel above it is building the weights and
 splitting x, on 8 warps an SM (PERF.md).
+
+The backward (the reference has no kernel for it: it differentiates the
+einsum form of ``ssd_chunked``) is ``csrc/ssd_intra_bwd.cu``. With M_ij =
+G_ij W_ij dt_j, G = C B^T, W_ij = exp(la_i - la_j) on j <= i and dM_ij =
+dy_i . x_j, it gives dx = M^T dy, d dt_j = sum_i dM_ij G_ij W_ij, d la_i =
+sum_j S_ij - sum_k S_ki with S = dM o M, and dC = dG B, dB = dG^T C with
+dG_ij = sum_h dM_ij W_ij dt_j. Three SIMT f32 FMA launches: the (row tile,
+column tile) pairs of a chunk for a group of heads (the Gram tile, dM and
+every sum of it, dG summed over the group's heads in order), then dx
+(M^T dy, column tile by column tile), then the sums over tiles and head
+groups (d dt, d la, dB and dC), each in a fixed order with no float
+atomics, so the same call gives the same bits. :class:`SsdIntra` wires the
+forward and this backward into autograd; ``ssd_intra_backward_plain`` is
+the formula in plain PyTorch, which CPU tensors run.
 """
 from __future__ import annotations
 
@@ -54,11 +68,57 @@ class Plan(NamedTuple):
     blocks: int
 
 
+class BwdPlan(NamedTuple):
+    """The backward's launch: its pair kernel takes ``heads_per_block``
+    heads a block, ``n_groups`` groups a chunk's tile pairs."""
+    heads_per_block: int
+    n_groups: int
+    n_pairs: int
+    blocks: int
+
+
 def ssd_intra_plain(xh, dt, la, Bm, Cm):
     """The kernel's function in plain PyTorch: the reference's einsum form,
     in float32."""
     f = lambda t: t.to(torch.float32)
     return ssd_intra_ref(f(xh), f(dt), f(la), f(Bm), f(Cm))
+
+
+def _wide(*tensors):
+    """float64 where every input is float64 (the float64 twin of the
+    checks), else float32, the kernels' type."""
+    return torch.float64 if all(t.dtype == torch.float64 for t in tensors) else torch.float32
+
+
+def ssd_intra_backward_plain(dy, xh, dt, la, Bm, Cm):
+    """The gradients of ``ssd_intra`` for an incoming ``dy`` (B, NC, Q, H,
+    P), as the explicit formula in plain PyTorch (float32; float64 where
+    every input is). With M_ij = G_ij W_ij dt_j, G = C B^T and W_ij =
+    exp(la_i - la_j) on j <= i, and dM_ij = dy_i . x_j:
+    dx = M^T dy; d dt_j = sum_i dM_ij G_ij W_ij; d la_i = sum_j S_ij -
+    sum_k S_ki with S = dM o M (its diagonal, which cancels, left out); dG =
+    sum_h dM W dt; dC = dG B; dB = dG^T C. Returns (dx, d dt, d la, dB, dC)
+    in the dtypes of xh, dt, la, Bm and Cm."""
+    wt = _wide(dy, xh, dt, la, Bm, Cm)
+    f = lambda t: t.to(wt)
+    dyf, x, dtf, laf, b, c = map(f, (dy, xh, dt, la, Bm, Cm))
+    q = x.shape[2]
+    lower = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    strict = torch.tril(lower, diagonal=-1)
+    seg = laf[:, :, :, None, :] - laf[:, :, None, :, :]                 # (B,NC,i,j,H)
+    w = torch.exp(torch.where(lower[None, None, :, :, None], seg, -torch.inf))
+    g = torch.einsum("bcin,bcjn->bcij", c, b)
+    gw = g[..., None] * w
+    m = gw * dtf[:, :, None, :, :]
+    dm = torch.einsum("bcihp,bcjhp->bcijh", dyf, x) * lower[None, None, :, :, None]
+    dx = torch.einsum("bcijh,bcihp->bcjhp", m, dyf)
+    ddt = (dm * gw).sum(2)
+    s = dm * m * strict[None, None, :, :, None]
+    dla = s.sum(3) - s.sum(2)
+    dg = (dm * w * dtf[:, :, None, :, :]).sum(-1)
+    dc = torch.einsum("bcij,bcjn->bcin", dg, b)
+    db = torch.einsum("bcij,bcin->bcjn", dg, c)
+    return dx.to(xh.dtype), ddt.to(dt.dtype), dla.to(la.dtype), db.to(Bm.dtype), dc.to(Cm.dtype)
 
 
 def route(xh, Bm, Cm) -> str:
@@ -142,3 +202,81 @@ def ssd_intra(xh, dt, la, Bm, Cm):
         _build.stream_of(xh)), "ssd_intra")
     _build.LAUNCHES["ssd_intra"] += 1
     return out
+
+
+def backward_plan(bc, q, h, n_sm) -> BwdPlan:
+    """Heads a block of the backward's pair kernel: the smallest divisor of
+    H whose grid (chunks x tile pairs x head groups) still fits the two
+    blocks an SM holds (its launch bounds), else all H. Each group writes
+    its own copy of the chunk's dG, so fewer heads a block trade more
+    blocks (a finer spread of the per-head products over the SMs) for more
+    dG traffic. At the serving shape (8 chunks, Q 256, 64 heads) on 132
+    SMs: 8 x 10 pairs x 2 groups of 32 heads = 160 blocks."""
+    nt = math.ceil(q / TILE)
+    n_pairs = nt * (nt + 1) // 2
+    units = bc * n_pairs
+    divisors = [d for d in range(1, h + 1) if h % d == 0]
+    hpb = next((d for d in divisors if units * (h // d) <= 2 * n_sm), h)
+    return BwdPlan(hpb, h // hpb, n_pairs, units * (h // hpb))
+
+
+def ssd_intra_backward(dy, xh, dt, la, Bm, Cm):
+    """``ssd_intra_backward_plain``'s gradients by the backward kernel on
+    CUDA tensors, its formula on CPU tensors. dy: (B, NC, Q, H, P); the rest
+    as ``ssd_intra`` takes them. Returns (dx, d dt, d la, dB, dC) in the
+    dtypes of xh, dt, la, Bm and Cm."""
+    tensors = (dy, xh, dt, la, Bm, Cm)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ssd_intra_backward_plain(*tensors)
+    dy = dy.to(torch.float32).contiguous()
+    if dy.data_ptr() % 16:      # the kernel reads rows of dy as float4
+        dy = dy.clone()
+    _build.require_cuda("ssd_intra_backward", *tensors[1:], dy)
+    if dy.shape != xh.shape:
+        raise ValueError(f"ssd_intra_backward: dy {tuple(dy.shape)} is not the shape of "
+                         f"xh {tuple(xh.shape)}")
+    if dt.dtype != torch.float32 or la.dtype != torch.float32:
+        raise TypeError(f"ssd_intra_backward: dt and la must be float32, got {dt.dtype} and "
+                        f"{la.dtype}")
+    if xh.dtype not in _FLOAT_CODES or Bm.dtype not in _FLOAT_CODES or Cm.dtype != Bm.dtype:
+        raise TypeError(f"ssd_intra_backward: xh must be float32 or bfloat16 and Bm, Cm share "
+                        f"one of them, got {xh.dtype}, {Bm.dtype} and {Cm.dtype}")
+    b, nc, q, h, p = xh.shape
+    n = Bm.shape[-1]
+    dev = xh.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, ddt, dla = torch.empty(xh.shape, **f32), torch.empty(dt.shape, **f32), \
+        torch.empty(la.shape, **f32)
+    db, dc = torch.empty(Bm.shape, **f32), torch.empty(Cm.shape, **f32)
+    if dx.numel() and n:
+        bc, nt = b * nc, math.ceil(q / TILE)
+        pl = backward_plan(bc, q, h, _build.sm_count(dev))
+        gram = torch.empty((bc, q, q), **f32)
+        dg = torch.empty((bc, pl.n_groups, q, q), **f32)
+        sums = torch.empty((3, bc, nt, h, q), **f32)    # row and column sums of S, d dt
+        lib = _build.library()
+        _build.check(lib.repro_ssd_intra_backward(
+            xh.data_ptr(), dt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            dy.data_ptr(), gram.data_ptr(), dg.data_ptr(), sums.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dla.data_ptr(), db.data_ptr(), dc.data_ptr(), bc, q, h, p, n,
+            _FLOAT_CODES[xh.dtype], _FLOAT_CODES[Bm.dtype], pl.heads_per_block,
+            _build.stream_of(dy)), "ssd_intra_backward")
+        _build.LAUNCHES["ssd_intra_backward"] += 1
+    elif dx.numel():
+        raise ValueError("ssd_intra_backward: the state dim N is 0")
+    return dx.to(xh.dtype), ddt, dla, db.to(Bm.dtype), dc.to(Cm.dtype)
+
+
+class SsdIntra(torch.autograd.Function):
+    """``ssd_intra`` with its gradient: the forward kernel (the twin on CPU
+    tensors) and, backward, ``ssd_intra_backward`` (the backward kernel on
+    CUDA tensors, its formula on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, la, Bm, Cm):
+        ctx.save_for_backward(xh, dt, la, Bm, Cm)
+        return ssd_intra(xh, dt, la, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_intra_backward(dy, *ctx.saved_tensors)

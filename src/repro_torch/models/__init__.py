@@ -1,5 +1,6 @@
 """Models of the port: dense transformer and Mamba-2 stacks."""
 from repro_torch.models.model import (Model, apply_model, decode_step, init_params, layer_plan,
-                                      prefill)
+                                      loss_fn, prefill)
 
-__all__ = ["Model", "apply_model", "decode_step", "init_params", "layer_plan", "prefill"]
+__all__ = ["Model", "apply_model", "decode_step", "init_params", "layer_plan", "loss_fn",
+           "prefill"]

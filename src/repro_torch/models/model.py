@@ -3,7 +3,8 @@
 with the serving entry points ``prefill`` and ``decode_step``. The
 reference scans over layer-stacked parameters; the port keeps one module
 per layer, so a split forward can run layers ``lo..hi`` on their own
-(``Model.run_layers``), and its cache is a list of per-layer entries."""
+(``Model.run_layers``), and its cache is a list of per-layer entries.
+``loss_fn`` is the reference's training loss."""
 from __future__ import annotations
 
 import torch
@@ -91,6 +92,28 @@ def apply_model(model, tokens, *, positions=None, mode="train", cache=None, idx=
                               idx=idx, attn_len=attn_len)
     logits = model.logits(model.ln_f(x))
     return logits if mode == "train" else (logits, new_cache)
+
+
+def loss_fn(model, batch):
+    """batch: {"tokens": (B, S), "labels": (B, S) (-100 = ignore)}. Returns
+    (loss, metrics) as the reference's ``loss_fn``: the masked mean cross
+    entropy of the train-mode logits (in float32) plus ``aux``, which is 0
+    for the dense and mamba2 stacks the port has (the reference's comes from
+    MoE layers); metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the
+    card the mamba2 mixers run the ``ssd_intra`` forward and backward
+    kernels."""
+    if batch.get("aux_embeds") is not None:
+        raise NotImplementedError("aux_embeds (encoder / VLM stacks) come with the model zoo")
+    logits = apply_model(model, batch["tokens"]).to(torch.float32)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = ((lse - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
 
 def prefill(model, tokens, *, attn_len):

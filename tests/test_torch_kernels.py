@@ -330,10 +330,11 @@ def test_build_finds_nvcc_or_raises(monkeypatch, tmp_path):
 
 def test_build_commands_target_sm90a_without_fast_math(tmp_path):
     compiles, link = _build.compile_commands("nvcc", tmp_path, tmp_path / "lib.so")
-    assert len(compiles) == len(_build.SOURCES) == 7
+    assert len(compiles) == len(_build.SOURCES) == 8
     assert [s.name for s in _build.SOURCES] == ["quant.cu", "bottleneck.cu", "ssd_intra.cu",
-                                                 "pair_scorer.cu", "pair_scorer_bwd.cu",
-                                                 "flat_trunk.cu", "decode_attn.cu"]
+                                                 "ssd_intra_bwd.cu", "pair_scorer.cu",
+                                                 "pair_scorer_bwd.cu", "flat_trunk.cu",
+                                                 "decode_attn.cu"]
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)
