@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
            CSRC / "ssd_intra_bwd.cu", CSRC / "pair_scorer.cu", CSRC / "pair_scorer_bwd.cu",
            CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu")
-HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh", CSRC / "mbarrier.cuh")
+HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh", CSRC / "mbarrier.cuh",
+           CSRC / "wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # No --use_fast_math: the kernels' roundings must match the plain versions.
@@ -53,8 +54,9 @@ _SIGNATURES = {
     # ..., x and B/C dtypes, route (1 tensor cores, 0 SIMT), heads a block, stream
     "repro_ssd_intra": [_c] * 7 + [ctypes.c_int] * 9 + [_c],
     # x, dt, la, bm, cm, dy; gram, dG, sums scratch; dx, ddt, dla, db, dc;
-    # BC, Q, H, P, N, x and B/C dtypes, heads a pair block, stream
-    "repro_ssd_intra_backward": [_c] * 14 + [ctypes.c_int] * 8 + [_c],
+    # BC, Q, H, P, N, x and B/C dtypes, route (1 tensor cores, 0 SIMT),
+    # heads a block, stream
+    "repro_ssd_intra_backward": [_c] * 14 + [ctypes.c_int] * 9 + [_c],
     # ..., n, E, d_ue, S, H, envs, ue-term K split, route (1 bulk copy, 0
     # loads), shared bytes, stream
     "repro_pair_scorer": [_c] * 14 + [ctypes.c_int] * 8 + [ctypes.c_longlong, _c],

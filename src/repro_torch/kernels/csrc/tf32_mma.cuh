@@ -1,5 +1,5 @@
 // Device helpers for f32-grade products on Hopper's TF32 tensor cores
-// (3xTF32), shared by bottleneck.cu and ssd_intra.cu: cp.async copies into
+// (3xTF32), shared by the kernels that use them: cp.async copies into
 // shared memory, the explicit TF32 rounding and hi / lo split, the
 // mma.sync.m16n8k8 TF32 product and an ldmatrix load of A fragments.
 //
@@ -62,6 +62,16 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
 __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(a);
   lo = tf32_rna(__fsub_rn(a, __uint_as_float(hi)));
+}
+
+// v as TF32 hi, and lo when kSplit (a bf16 value is exact in TF32: hi is
+// v itself and lo is 0)
+template <bool kSplit>
+__device__ __forceinline__ void to_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kSplit)
+    split_tf32(v, hi, lo);
+  else
+    hi = __float_as_uint(v), lo = 0u;
 }
 
 // d += a b for one m16n8k8 TF32 tile, f32 accumulate

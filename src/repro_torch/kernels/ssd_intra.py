@@ -33,17 +33,32 @@ einsum form of ``ssd_chunked``) is ``csrc/ssd_intra_bwd.cu``. With M_ij =
 G_ij W_ij dt_j, G = C B^T, W_ij = exp(la_i - la_j) on j <= i and dM_ij =
 dy_i . x_j, it gives dx = M^T dy, d dt_j = sum_i dM_ij G_ij W_ij, d la_i =
 sum_j S_ij - sum_k S_ki with S = dM o M, and dC = dG B, dB = dG^T C with
-dG_ij = sum_h dM_ij W_ij dt_j. Three SIMT f32 FMA launches: the (row tile,
-column tile) pairs of a chunk for a group of heads (the Gram tile, dM and
-every sum of it, dG summed over the group's heads in order), then dx
-(M^T dy, column tile by column tile), then the sums over tiles and head
-groups (d dt, d la, dB and dC), each in a fixed order with no float
-atomics, so the same call gives the same bits. :class:`SsdIntra` wires the
-forward and this backward into autograd; ``ssd_intra_backward_plain`` is
-the formula in plain PyTorch, which CPU tensors run.
+dG_ij = sum_h dM_ij W_ij dt_j. Its route is chosen by shape and address
+before the launch (``backward_route``):
+
+* ``"mma"``, Q <= 256, P = 64 and N a multiple of 32 up to 256 with x, B
+  and C 16-byte aligned (mamba2-1.3b's shapes): a block owns one chunk,
+  one column tile j and a group of heads (``mma_backward_plan``). It keeps
+  the Gram tiles G_ij of its row tiles in shared memory, and for each head
+  its two warpgroups take the row tiles i >= j in turn: dM = dy_i x_j^T and
+  dx_j += M^T dy_i on ``wgmma`` in 3xTF32, the weights and every sum built
+  from dM's accumulators, dG summed over the group's heads in its scratch
+  slot, dx_j summed over i in the accumulators and written once. A short
+  finishing launch then sums d dt, d la, dB and dC.
+* ``"simt"``, anything else: three SIMT f32 FMA launches, the (row tile,
+  column tile) pairs of a chunk for a group of heads (the Gram tile, dM and
+  every sum of it), then dx (M^T dy, column tile by column tile), then the
+  same finishing launch.
+
+Every sum runs in a fixed order with no float atomics, so the same call
+gives the same bits. :class:`SsdIntra` wires the forward and this backward
+into autograd; ``ssd_intra_backward_plain`` is the formula in plain
+PyTorch, which CPU tensors run.
 """
 from __future__ import annotations
 
+import functools
+import heapq
 import math
 from typing import NamedTuple
 
@@ -69,12 +84,24 @@ class Plan(NamedTuple):
 
 
 class BwdPlan(NamedTuple):
-    """The backward's launch: its pair kernel takes ``heads_per_block``
+    """The backward's SIMT launch: its pair kernel takes ``heads_per_block``
     heads a block, ``n_groups`` groups a chunk's tile pairs."""
     heads_per_block: int
     n_groups: int
     n_pairs: int
     blocks: int
+
+
+class MmaBwdPlan(NamedTuple):
+    """The backward's tensor-core launch: blocks of ``heads_per_block``
+    heads, one per (column tile, chunk, head group); ``span`` is the
+    planner's estimate of the busiest SM's work, in head-tiles of one
+    warpgroup."""
+    heads_per_block: int
+    n_groups: int
+    n_col_tiles: int
+    blocks: int
+    span: int
 
 
 def ssd_intra_plain(xh, dt, la, Bm, Cm):
@@ -205,7 +232,7 @@ def ssd_intra(xh, dt, la, Bm, Cm):
 
 
 def backward_plan(bc, q, h, n_sm) -> BwdPlan:
-    """Heads a block of the backward's pair kernel: the smallest divisor of
+    """Heads a block of the SIMT backward's pair kernel: the smallest divisor of
     H whose grid (chunks x tile pairs x head groups) still fits the two
     blocks an SM holds (its launch bounds), else all H. Each group writes
     its own copy of the chunk's dG, so fewer heads a block trade more
@@ -218,6 +245,46 @@ def backward_plan(bc, q, h, n_sm) -> BwdPlan:
     divisors = [d for d in range(1, h + 1) if h % d == 0]
     hpb = next((d for d in divisors if units * (h // d) <= 2 * n_sm), h)
     return BwdPlan(hpb, h // hpb, n_pairs, units * (h // hpb))
+
+
+MMA_BWD_P = 64        # the tensor-core backward's P: one 64-column tile
+MMA_BWD_N_STEP = 32   # its N: whole stretches of 32 ...
+MMA_BWD_MAX_N = 256   # ... up to 256 (the Gram's B_j fits in shared memory)
+
+
+def backward_route(xh, Bm, Cm) -> str:
+    """``"mma"`` (the tensor-core backward) where Q <= 256, P is 64, N is a
+    multiple of 32 up to 256 and xh, Bm and Cm start on 16-byte boundaries
+    (rows of x, B and C come in as 16-byte loads); else ``"simt"``."""
+    q, p, n = xh.shape[2], xh.shape[4], Bm.shape[-1]
+    ok = (q <= MAX_Q and p == MMA_BWD_P and n % MMA_BWD_N_STEP == 0 and n <= MMA_BWD_MAX_N
+          and all(t.data_ptr() % 16 == 0 for t in (xh, Bm, Cm)))
+    return "mma" if ok else "simt"
+
+
+@functools.lru_cache(maxsize=None)
+def mma_backward_plan(bc, q, h, n_sm) -> MmaBwdPlan:
+    """Heads a block of the tensor-core backward. Blocks go out column tile
+    by column tile, tile 0 (the most row tiles) first, one block an SM; a
+    block's work is about (heads + 1) x ceil(row tiles / 2) head-tiles of
+    its busier warpgroup (the + 1 its Gram tiles). The planner places the
+    blocks in launch order on the least loaded SM and takes the divisor of H
+    with the least busiest SM, the larger group on a tie (fewer copies of
+    dG). At the serving shape (8 chunks, Q 256, 64 heads) on 132 SMs: groups
+    of 8 heads, 256 blocks. Cached: the wrappers call it on every launch."""
+    nt = math.ceil(q / TILE)
+    best = None
+    for d in (d for d in range(1, h + 1) if h % d == 0):
+        groups = h // d
+        loads = [0] * n_sm
+        for jt in range(nt):
+            cost = (d + 1) * math.ceil((nt - jt) / 2)
+            for _ in range(bc * groups):
+                heapq.heapreplace(loads, loads[0] + cost)
+        key = (max(loads), -d)
+        if best is None or key < best[0]:
+            best = (key, MmaBwdPlan(d, groups, nt, bc * nt * groups, max(loads)))
+    return best[1]
 
 
 def ssd_intra_backward(dy, xh, dt, la, Bm, Cm):
@@ -250,17 +317,21 @@ def ssd_intra_backward(dy, xh, dt, la, Bm, Cm):
     db, dc = torch.empty(Bm.shape, **f32), torch.empty(Cm.shape, **f32)
     if dx.numel() and n:
         bc, nt = b * nc, math.ceil(q / TILE)
-        pl = backward_plan(bc, q, h, _build.sm_count(dev))
-        gram = torch.empty((bc, q, q), **f32)
-        dg = torch.empty((bc, pl.n_groups, q, q), **f32)
+        mma = backward_route(xh, Bm, Cm) == "mma"
+        if mma:
+            hpb, gram = mma_backward_plan(bc, q, h, _build.sm_count(dev)).heads_per_block, None
+        else:
+            hpb = backward_plan(bc, q, h, _build.sm_count(dev)).heads_per_block
+            gram = torch.empty((bc, q, q), **f32)
+        dg = torch.empty((bc, math.ceil(h / hpb), q, q), **f32)
         sums = torch.empty((3, bc, nt, h, q), **f32)    # row and column sums of S, d dt
         lib = _build.library()
         _build.check(lib.repro_ssd_intra_backward(
             xh.data_ptr(), dt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            dy.data_ptr(), gram.data_ptr(), dg.data_ptr(), sums.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dla.data_ptr(), db.data_ptr(), dc.data_ptr(), bc, q, h, p, n,
-            _FLOAT_CODES[xh.dtype], _FLOAT_CODES[Bm.dtype], pl.heads_per_block,
-            _build.stream_of(dy)), "ssd_intra_backward")
+            dy.data_ptr(), None if gram is None else gram.data_ptr(), dg.data_ptr(),
+            sums.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dla.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), bc, q, h, p, n, _FLOAT_CODES[xh.dtype], _FLOAT_CODES[Bm.dtype],
+            int(mma), hpb, _build.stream_of(dy)), "ssd_intra_backward")
         _build.LAUNCHES["ssd_intra_backward"] += 1
     elif dx.numel():
         raise ValueError("ssd_intra_backward: the state dim N is 0")

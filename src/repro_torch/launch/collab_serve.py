@@ -13,9 +13,18 @@ taken from the UE-side hidden state x, not from z = x W_enc (so codes
 clip); x and W_enc go to the bottleneck in f32; x_hat is cast back to x's
 dtype.
 
+The example first pre-trains its backbone (the AE exploits the anisotropy
+of trained features): ``--pretrain N`` trains the model N steps on the
+synthetic Markov corpus (``make_train_step`` at base rate 3e-3, 20 steps of
+warmup, batches of 16), and the requests are then drawn from the same
+stream. ``--reduced`` is the example's own configuration: the arch cut to 4
+layers (``reduced``, a uniform ``("dense",)`` pattern where the arch's is
+not uniform) at ``--seq 32 --batch 4``.
+
   python -m repro_torch.launch.collab_serve            # qwen3-1.7b, 28 layers
   python -m repro_torch.launch.collab_serve --requests 8 --seq 512
   python -m repro_torch.launch.collab_serve --arch mamba2-1.3b --batch 2 --seq 1024
+  python -m repro_torch.launch.collab_serve --reduced --pretrain 150   # the example
 
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch twins of
 the kernels instead.
@@ -29,10 +38,12 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch import full_precision_matmuls, resolve_device
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core.compressor import pca_init_autoencoder
+from repro_torch.data.synthetic import TokenPipelineConfig, token_batch_stream
 from repro_torch.env.channel import channel_gain, uplink_rates
 from repro_torch.kernels import ops
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import default_positions, init_params, layer_plan
 
 
@@ -89,6 +100,26 @@ class ServeResult:
     bits: int
     requests: list = field(default_factory=list)   # token batches served
     stats: list = field(default_factory=list)      # one dict per request
+    train_losses: list = field(default_factory=list)   # one a pre-training step
+
+
+def example_config(cfg):
+    """The example's reduced configuration of an arch: 4 layers, and a
+    uniform ``("dense",)`` block pattern where the arch's is not uniform."""
+    cfg = reduced(cfg, n_layers=4)
+    return cfg if len(cfg.block_pattern) == 1 else cfg.replace(block_pattern=("dense",))
+
+
+def pretrain(model, cfg, stream, steps, lr):
+    """``steps`` training steps of ``make_train_step(cfg, base_lr=lr,
+    warmup=20, total=steps)`` on ``stream``'s batches, as the example
+    pre-trains its backbone. Returns the losses, one a step (tensors)."""
+    train_step, opt_init = make_train_step(cfg, base_lr=lr, warmup=20, total=steps)
+    opt, losses = opt_init(model), []
+    for _ in range(steps):
+        model, opt, m = train_step(model, opt, next(stream))
+        losses.append(m["loss"])
+    return losses
 
 
 def _sync(device):
@@ -96,20 +127,40 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-@torch.inference_mode()
-def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0,
-          log=print) -> ServeResult:
-    """Build ``cfg`` with seeded random weights, split it after half its
-    layers, calibrate a PCA AE (d -> d / bottleneck_ratio) on 8 sequences
-    at the split, and answer ``requests`` requests of (batch, seq) tokens
-    through the split forward with ``quant_bits``-bit codes."""
+def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0, pretrain_steps=0,
+          pretrain_batch=16, pretrain_lr=3e-3, log=print) -> ServeResult:
+    """Build ``cfg`` with seeded random weights, pre-train it for
+    ``pretrain_steps`` steps on the synthetic Markov corpus (batches of
+    ``pretrain_batch`` sequences of ``seq`` tokens, base rate
+    ``pretrain_lr``), split it after half its layers, calibrate a PCA AE (d
+    -> d / bottleneck_ratio) on 8 random sequences at the split, and answer
+    ``requests`` requests of (batch, seq) tokens through the split forward
+    with ``quant_bits``-bit codes: random tokens without pre-training, else
+    the first ``batch`` sequences of the corpus's next batches."""
     device = resolve_device(device)
     full_precision_matmuls()
-    split, ratio, bits = cfg.n_layers // 2, cfg.bottleneck_ratio, cfg.quant_bits
-    d = cfg.d_model
-
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    losses = []
+    if pretrain_steps:
+        stream = token_batch_stream(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, batch=pretrain_batch), seed=seed,
+            device=device)
+        losses = pretrain(model, cfg, stream, pretrain_steps, pretrain_lr)
+        _sync(device)
+        log(f"pre-trained {cfg.name} ({cfg.n_layers}L d={cfg.d_model}) for {pretrain_steps} steps in "
+            f"{time.perf_counter() - t0:.1f} s: final train loss {float(losses[-1]):.3f}")
+    with torch.inference_mode():
+        out = _serve(model, cfg, device, requests, batch, seq, seed,
+                     (lambda: next(stream)["tokens"][:batch]) if pretrain_steps else None,
+                     log, t0)
+    out.train_losses = losses
+    return out
+
+
+def _serve(model, cfg, device, requests, batch, seq, seed, corpus, log, t0) -> ServeResult:
+    split, ratio, bits = cfg.n_layers // 2, cfg.bottleneck_ratio, cfg.quant_bits
+    d = cfg.d_model
     host = torch.Generator().manual_seed(seed + 9)
     draw = lambda b: torch.randint(0, cfg.vocab_size, (b, seq), generator=host).to(device)
 
@@ -129,7 +180,7 @@ def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0,
 
     out = ServeResult(model, ae, split, bits)
     for i in range(requests):
-        tokens = draw(batch)
+        tokens = draw(batch) if corpus is None else corpus()
         ref_top1 = model(tokens).argmax(-1)
         _sync(device)
         t1 = time.perf_counter()
@@ -156,17 +207,35 @@ def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-1.7b", choices=ARCH_IDS)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the example's config: 4 layers, d_model 256 (default --seq 32 "
+                         "--batch 4)")
+    ap.add_argument("--pretrain", type=int, default=0, metavar="N",
+                    help="pre-train the backbone N steps first (the example: 150)")
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=None, help="default 4")
+    ap.add_argument("--seq", type=int, default=None, help="default 256, 32 with --reduced")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises when there is none)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    res = serve(get_config(args.arch), device=device, requests=args.requests,
-                batch=args.batch, seq=args.seq, seed=args.seed)
-    print("random weights: top-1 agreement is informative only")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = example_config(cfg)
+    res = serve(cfg, device=device, requests=args.requests,
+                batch=4 if args.batch is None else args.batch,
+                seq=(32 if args.reduced else 256) if args.seq is None else args.seq,
+                seed=args.seed, pretrain_steps=args.pretrain)
+    if args.pretrain:
+        st = res.stats
+        print(f"final train loss {float(res.train_losses[-1]):.3f}; payload "
+              f"{st[0]['payload_kbit']:.1f} kbit, R={st[0]['rate_R']:.0f}x; top-1 agreement with "
+              f"the uncompressed forward {100 * sum(x['top1_agree'] for x in st) / len(st):.1f}% "
+              f"over {len(st)} requests (PCA linear AE, ratio {cfg.bottleneck_ratio}x + "
+              f"{cfg.quant_bits}-bit codes)")
+    else:
+        print("random weights: top-1 agreement is informative only")
     return res
 
 

@@ -1,3 +1,5 @@
-from repro_torch.optim.optimizers import adamw_init, adamw_update, global_norm
+from repro_torch.optim.optimizers import (adamw_init, adamw_update, global_norm,
+                                         make_optimizer)
+from repro_torch.optim.schedule import cosine_schedule
 
-__all__ = ["adamw_init", "adamw_update", "global_norm"]
+__all__ = ["adamw_init", "adamw_update", "cosine_schedule", "global_norm", "make_optimizer"]

@@ -35,6 +35,8 @@ from repro_torch.rl.nets import MLP, Actor, EntityActor, Linear, StackedLinear
 
 
 def _tensor(a, dtype, device):
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
     # float32 first: numpy cannot hand bfloat16 arrays to torch directly,
     # and widening bf16 to f32 is exact.
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(
@@ -47,17 +49,55 @@ _SUBMODULES = {  # uniform pattern: the stacked subtrees of its block
 }
 
 
-@torch.no_grad()
-def from_jax_params(tree, cfg, device):
-    """The port's Model holding the reference parameters ``tree``. Each
-    parameter keeps its own dtype (the Mamba ``A_log``, ``D`` and
-    ``dt_bias`` stay float32 in a bfloat16 model)."""
+def _uniform_pattern(cfg):
     pattern, _, tail = layer_plan(cfg)
     if pattern not in _SUBMODULES or tail:
         later = sorted({_LATER[bt] for bt in pattern + tail if bt in _LATER})
         raise NotImplementedError(
             f"block pattern {pattern} (tail {tail}) is not carried yet; it comes "
             f"with {', '.join(later) or 'the model-zoo slice'}")
+    return pattern
+
+
+@torch.no_grad()
+def to_reference_tree(model):
+    """The port's Model as the reference's params tree: {"embed", "decoder":
+    {"blocks": [stacked subtrees], "ln_f"}, ("lm_head")}, each block
+    parameter stacked on a leading layer axis, as CPU tensors in their own
+    dtypes (``from_jax_params`` takes this tree back)."""
+    pattern = _uniform_pattern(model.cfg)
+    stacked = {sub: {name: torch.stack([getattr(getattr(blk, sub), name).detach().cpu()
+                                        for blk in model.blocks])
+                     for name, _ in getattr(model.blocks[0], sub).named_parameters()}
+               for sub in _SUBMODULES[pattern]}
+    tree = {"embed": model.embed.detach().cpu(),
+            "decoder": {"blocks": [stacked],
+                        "ln_f": {name: p.detach().cpu()
+                                 for name, p in model.ln_f.named_parameters()}}}
+    if model.lm_head is not None:
+        tree["lm_head"] = model.lm_head.detach().cpu()
+    return tree
+
+
+def reference_decay_mask(model):
+    """Which of ``model.parameters()`` the reference's AdamW decays: its
+    rule, rank >= 2, applied to the reference's leaves. The reference stacks
+    every block parameter on a layer axis, so all of them are decayed (the
+    per-layer norm scales, ``A_log``, ``D``, ``dt_bias`` and the conv bias
+    among them, 1-D in the port), as are ``embed`` and ``lm_head``; the
+    final norm's vectors are not."""
+    _uniform_pattern(model.cfg)
+    return [(p.dim() + 1 if name.startswith("blocks.") else p.dim()) >= 2
+            for name, p in model.named_parameters()]
+
+
+@torch.no_grad()
+def from_jax_params(tree, cfg, device):
+    """The port's Model holding the reference parameters ``tree`` (numpy
+    arrays, or tensors as ``to_reference_tree`` gives them). Each parameter
+    keeps its own dtype (the Mamba ``A_log``, ``D`` and ``dt_bias`` stay
+    float32 in a bfloat16 model)."""
+    pattern = _uniform_pattern(cfg)
     model = Model(cfg, device=device)
     load = lambda param, a: param.copy_(_tensor(a, param.dtype, device))
     load(model.embed, tree["embed"])

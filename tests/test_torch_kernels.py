@@ -346,9 +346,10 @@ def test_build_commands_target_sm90a_without_fast_math(tmp_path):
 
 def test_library_name_follows_every_source_and_header(monkeypatch, tmp_path):
     """The library is named by a hash of the sources and the headers they
-    include (tf32_mma.cuh and mbarrier.cuh among them), so an edit to a
-    header cannot leave a stale library under the same name."""
-    assert {h.name for h in _build.HEADERS} == {"quant.cuh", "tf32_mma.cuh", "mbarrier.cuh"}
+    include (tf32_mma.cuh, mbarrier.cuh and wgmma.cuh among them), so an
+    edit to a header cannot leave a stale library under the same name."""
+    assert {h.name for h in _build.HEADERS} == {"quant.cuh", "tf32_mma.cuh", "mbarrier.cuh",
+                                                "wgmma.cuh"}
     for f in _build.SOURCES:
         for inc in re.findall(r'#include "([^"]+)"', f.read_text()):
             assert _build.CSRC / inc in _build.HEADERS, (f.name, inc)

@@ -128,3 +128,29 @@ def test_backward_plan_fills_the_card_and_divides_the_heads():
     assert ssd_intra.backward_plan(1, 16, 4, 132) == ssd_intra.BwdPlan(1, 4, 1, 4)
     # a wide batch of short chunks: every head in one block
     assert ssd_intra.backward_plan(512, 64, 8, 132) == ssd_intra.BwdPlan(8, 1, 1, 512)
+
+
+def test_mma_backward_plan_balances_the_card_and_divides_the_heads():
+    # serving: 8 chunks x 4 column tiles x 8 groups of 8 heads; the busiest
+    # SM takes a column-tile-0 block (9 x 2 units) and a later one (9 x 1)
+    assert ssd_intra.mma_backward_plan(8, 256, 64, 132) == ssd_intra.MmaBwdPlan(8, 8, 4, 256, 27)
+    # the calibration batch: fewer, larger groups (each group copies dG once)
+    pl = ssd_intra.mma_backward_plan(32, 256, 64, 132)
+    assert 64 % pl.heads_per_block == 0 and pl.blocks == 32 * 4 * pl.n_groups
+    total = 32 * pl.n_groups * sum((pl.heads_per_block + 1) * -(-(4 - jt) // 2) for jt in range(4))
+    assert pl.span < total / 132 + 2 * (pl.heads_per_block + 1)
+    # a ragged Q of 200 rows still takes 4 column tiles
+    assert ssd_intra.mma_backward_plan(4, 200, 3, 132).n_col_tiles == 4
+
+
+def test_backward_route_takes_the_tensor_cores_only_where_the_kernel_can():
+    def args(q=256, p=64, n=128, off=0):
+        x = torch.zeros(2 * 1 * q * 2 * p + off)[off:].view(2, 1, q, 2, p)
+        bm = torch.zeros(2, 1, q, n)
+        return x, bm, bm
+    assert ssd_intra.backward_route(*args()) == "mma"
+    assert ssd_intra.backward_route(*args(q=200, n=32)) == "mma"
+    assert ssd_intra.backward_route(*args(q=300)) == "simt"     # more than 4 row tiles
+    assert ssd_intra.backward_route(*args(p=32)) == "simt"      # the reduced configs' P
+    assert ssd_intra.backward_route(*args(n=16)) == "simt"      # N not whole stretches of 32
+    assert ssd_intra.backward_route(*args(off=1)) == "simt"     # x off a 16-byte boundary
