@@ -112,6 +112,23 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    and no other kernel, MAHPPO against greedy, nearest, load-balanced and
    the zero-shot 3-server pool; then seconds per iteration, one profiled
    iteration, and one fused update on the card held to the CPU's;
+15b. a dynamic fleet through the scorer kernels, a main path:
+   ``fleet_demo --churn`` (join intensity 0.2, leave probability 0.1 a
+   frame; otherwise phase 15's run): exactly phase 15's scorer launches,
+   every reward and overhead finite, a 24-frame membership trace with a
+   leave and a join, a mean evaluated fleet strictly between 0 and N, and
+   greedy, nearest and load-balanced scored on the traced membership;
+15c. the trained compressor (paper §2, Eq. 4 and Fig. 4), a main path:
+   ResNet18 at full width, 101 classes, 224-px synthetic images,
+   pre-trained 150 steps (AdamW 3e-3, batch 32), then
+   ``measure_rate_distortion`` at the four split points (ratios 4, 8, 16,
+   30 AE steps each, 8 bits): every loss finite, the base accuracy at least
+   0.5, each row's rate Eq. 3 of its (ch, ch', bits) and the highest
+   qualifying ratio or the ch' = ch fallback; one two-stage AE from a random
+   init whose stage 1 lowers the loss; JALAD's size and a Huffman round trip
+   of one image's feature at point 2, within 5 % of the entropy estimate;
+   then the same sweep at bench_compression.py's size (width 0.5, 32 px);
+   no kernel launched, seconds and peak memory printed;
 16. the card's name and power limit again, the kernels as one JSON line,
    then the result as the last line.
 """
@@ -211,6 +228,27 @@ PRETRAIN_JAX = {"qwen3-1.7b": (3.576, 0.867), "mamba2-1.3b": (4.176, 0.781)}
 # (3.652: 1.07 x), above the JAX example's 4.176
 PRETRAIN_LIMITS = {"qwen3-1.7b": (3.9, 0.70), "mamba2-1.3b": (4.3, 0.70)}
 TRAIN_LM_STEPS = 100
+# the trained compressor at the paper's Caltech-101 input size: ResNet18 at
+# full width, 101 classes, 224-px synthetic images, the backbone pre-trained
+# as benchmarks/bench_compression.py does (AdamW 3e-3, batch 32, 150 steps),
+# then the Fig. 4 sweep at the four split points (ratios 4, 8 and 16, 30 AE
+# steps each, 8-bit codes), accuracies on 64-image batches; and
+# bench_compression.run(quick=True)'s own size (width 0.5, 32 px), the
+# yardstick beside the reference's run on a CPU host
+COMPRESS = dict(width=1.0, img=224, classes=101, batch=32, pretrain=150, lr=3e-3,
+                ratios=(4, 8, 16), steps=30, bits=8, eval_batch=64, acc_batches=4,
+                acc_drop=0.02)
+COMPRESS_BENCH = dict(COMPRESS, width=0.5, img=32)
+# one two-stage AE at point 2 (ratio 8) from a random init: 30 stage-1 steps
+# at the sweep's rate, 10 stage-2 steps at 1e-4
+COMPRESS_FINETUNE = dict(ratio=8, steps=30, finetune_steps=10, ft_lr=1e-4)
+# the base accuracy must stand at least this high, 50 x chance (1 / 101):
+# the 2 % rule compares accuracies 2 points apart on 64 images, and near
+# chance every ratio would pass on noise, so the rows would measure nothing
+COMPRESS_BASE_ACC = 0.5
+# a Huffman code is within one bit a symbol of the entropy and, on 8-bit
+# codes of a feature map (~3-6 bits a symbol), within a few percent of it
+HUFFMAN_GAP = 0.05
 
 
 class Failed(Exception):
@@ -1804,6 +1842,256 @@ def phase_fleet_timing(dev, fleet_demo, mahppo, optim, build_mod, res):
           f"fleet demo: the scorer's last bias moved {bias_step:.2e}")
 
 
+def phase_fleet_churn(dev, fleet_demo, build_mod):
+    """The fleet demo on a dynamic fleet, ``fleet_demo --churn`` (join
+    intensity 0.2, leave probability 0.1 a frame), the way a user runs it:
+    the scorer's launches exactly those of the static demo (churn adds
+    none), every reward and overhead finite, a membership trace with a leave
+    and a join, and a mean evaluated fleet strictly between 0 and N."""
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = fleet_demo.main(["--churn"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    cfg = fleet_demo.fleet_config(len(res["history"]), entity_policy=True, randomize_pool=True,
+                                  fused_scorer=True)
+    want = fleet_demo_launches(cfg)
+    check(launches == want, f"churned fleet demo: launches {launches}, expected {want}")
+    hist, env = res["history"], res["env"]
+    check(env.dynamic and len(hist) == 15
+          and all(math.isfinite(r["reward_mean"]) for r in hist),
+          f"churned fleet demo: rewards {[r['reward_mean'] for r in hist]}")
+    n = env.params.n_ue
+    rows = ["#" * n] + res["membership"]         # the reset's fleet is whole
+    leaves = sum(a == "#" and b == "." for r0, r1 in zip(rows, rows[1:]) for a, b in zip(r0, r1))
+    joins = sum(a == "." and b == "#" for r0, r1 in zip(rows, rows[1:]) for a, b in zip(r0, r1))
+    check(leaves >= 1 and joins >= 1,
+          f"churned fleet demo: {leaves} leaves and {joins} joins in {res['membership']}")
+    fleet = res["mahppo"]["n_active"]
+    check(0 < fleet < n, f"churned fleet demo: mean evaluated fleet {fleet} of {n}")
+    beta = env.params.beta
+    ovh = res["mahppo"]["t_task"] + beta * res["mahppo"]["e_task"]
+    values = [ovh, res["greedy"]["overhead"], res["nearest"]["overhead"],
+              res["loadbal"]["overhead"], res["zero_shot"]["overhead"]]
+    check(all(math.isfinite(v) for v in values), f"churned fleet demo: overheads {values}")
+    print(f"churned fleet demo: {len(hist)} iterations in {res['seconds']:.1f} s ({wall:.1f} s "
+          f"with the trace, evaluations and baselines; "
+          f"{1e3 * res['seconds'] / len(hist):.1f} ms an iteration), launches {launches} as "
+          f"expected; membership trace {leaves} leaves, {joins} joins; "
+          f"mean evaluated fleet {fleet:.2f} of {n}; reward {hist[0]['reward_mean']:.4f} -> "
+          f"{hist[-1]['reward_mean']:.4f}; overhead MAHPPO {ovh:.4f}, and on the traced "
+          f"membership {res['snapshot'].astype(int).tolist()} greedy {values[1]:.4f}, nearest "
+          f"{values[2]:.4f}, load-balanced {values[3]:.4f}; zero-shot on 3 servers "
+          f"{values[4]:.4f}", flush=True)
+    return launches, res
+
+
+def pretrain_cnn(dev, cnn_lib, optim, synthetic, cfg):
+    """ResNet18 of ``cfg``'s width on its synthetic images, pre-trained as
+    benchmarks/bench_compression.py does: AdamW at ``cfg["lr"]``, no weight
+    decay, ``cfg["pretrain"]`` steps of ``cfg["batch"]`` images, the model
+    from a seeded CPU generator and the images from a card one."""
+    model = cnn_lib.make_resnet18(cfg["classes"], width=cfg["width"])
+    params = cnn_lib.trainable_copy(model.init(torch.Generator().manual_seed(0), device=dev))
+    leaves = cnn_lib.param_leaves(params)
+    opt = optim.adamw_init(leaves)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = []
+    for _ in range(cfg["pretrain"]):
+        x, y = synthetic.synthetic_image_batch(gen, cfg["batch"], cfg["img"], cfg["classes"])
+        logits = cnn_lib.forward(model, params, x)
+        loss = torch.mean(torch.logsumexp(logits, -1) - logits.gather(-1, y[:, None])[:, 0])
+        opt = optim.adamw_update(torch.autograd.grad(loss, leaves), opt, leaves, cfg["lr"],
+                                 weight_decay=0.0)[1]
+        losses.append(loss.detach())
+    for t in leaves:
+        t.requires_grad_(False)
+    return model, params, torch.stack(losses).tolist()
+
+
+def compression_sweep(dev, label, cfg, cnn_lib, compressor, jalad, optim, synthetic):
+    """Pre-train, measure the base accuracy (4 batches of 64), run the
+    Fig. 4 sweep and JALAD's entropy rate at each point (16 images), and
+    check: every loss and accuracy finite, the base accuracy at least
+    COMPRESS_BASE_ACC, each row's rate Eq. 3 of its (ch, ch', bits), and
+    each row the highest qualifying ratio or the ch' = ch fallback, from
+    the accuracies the sweep measured."""
+    model, params, losses = pretrain_cnn(dev, cnn_lib, optim, synthetic, cfg)
+    img, ncls = cfg["img"], cfg["classes"]
+    check(all(math.isfinite(v) for v in losses), f"{label}: pre-training losses {losses}")
+
+    def batch(seed, n):
+        return synthetic.synthetic_image_batch(torch.Generator(device=dev).manual_seed(seed), n,
+                                               img, ncls)
+
+    def stream(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        while True:
+            yield synthetic.synthetic_image_batch(gen, cfg["batch"], img, ncls)
+
+    with torch.no_grad():
+        accs = []
+        for s in range(cfg["acc_batches"]):
+            x, y = batch(10_000 + s, 64)
+            accs.append(torch.mean((torch.argmax(cnn_lib.forward(model, params, x), -1) == y)
+                                   .to(torch.float32)))
+        base_acc = float(torch.stack(accs).mean())
+    check(COMPRESS_BASE_ACC <= base_acc <= 1.0,
+          f"{label}: base accuracy {base_acc:.4f} after {cfg['pretrain']} steps (at least "
+          f"{COMPRESS_BASE_ACC} needed for the 2 % rule to mean anything)")
+    trials, logs = [], []
+    train, accuracy = compressor.train_autoencoder, compressor.accuracy_with_ae
+
+    def train_logged(*args, **kw):
+        out = train(*args, **kw)
+        logs.append(out[2])
+        return out
+
+    def accuracy_logged(*args, **kw):
+        out = accuracy(*args, **kw)
+        trials.append(float(out))
+        return out
+
+    compressor.train_autoencoder, compressor.accuracy_with_ae = train_logged, accuracy_logged
+    try:
+        rows = compressor.measure_rate_distortion(
+            model, params, lambda pi: stream(500 + pi),
+            lambda pi: batch(20_000 + pi, cfg["eval_batch"]), ratios=cfg["ratios"],
+            bits=cfg["bits"], steps=cfg["steps"], lr=cfg["lr"], acc_drop=cfg["acc_drop"],
+            base_acc=base_acc)
+    finally:
+        compressor.train_autoencoder, compressor.accuracy_with_ae = train, accuracy
+    ratios, bits = cfg["ratios"], cfg["bits"]
+    check(len(rows) == 4 and len(trials) == len(logs) == 4 * len(ratios),
+          f"{label}: {len(rows)} rows, {len(trials)} accuracies, {len(logs)} trainings")
+    check(all(math.isfinite(r[k]) for log in logs for r in log for k in ("loss", "l2", "ce"))
+          and all(math.isfinite(a) for a in trials), f"{label}: a sweep loss or accuracy "
+          f"is not finite")
+    for pi, row in enumerate(rows):
+        ch, chp = row["channels"], row["ch_prime"]
+        check(row["rate"] == ch * 32.0 / (chp * bits),
+              f"{label}: point {pi + 1}: rate {row['rate']} is not Eq. 3 of ({ch}, {chp}, {bits})")
+        tried = list(zip([max(1, ch // rc) for rc in ratios],
+                         trials[pi * len(ratios):(pi + 1) * len(ratios)]))
+        passing = [(c, a) for c, a in tried if a >= base_acc - cfg["acc_drop"]]
+        want = min(passing) if passing else (ch, base_acc)
+        check((chp, row["acc"]) == want, f"{label}: point {pi + 1} took ch' {chp} (acc "
+              f"{row['acc']}), the rule gives {want} from {tried}")
+        with torch.no_grad():
+            x, _ = batch(30_000 + pi, 16)
+            feat = cnn_lib.forward(model, params, x, upto=model.split_after[pi] + 1)
+            row["jalad_rate"] = float(jalad.jalad_compress_size_bits(feat, bits)[1])
+        row["tried"] = tried
+    return model, params, rows, losses
+
+
+def two_stage_ae(dev, model, params, ch, cfg, cnn_lib, compressor, synthetic):
+    """COMPRESS_FINETUNE at point 2 from a random init: every loss finite,
+    and stage 1's last five losses below its first five."""
+    ft = COMPRESS_FINETUNE
+    k = model.split_after[1]
+
+    def stream():
+        g = torch.Generator(device=dev).manual_seed(900)
+        while True:
+            yield synthetic.synthetic_image_batch(g, cfg["batch"], cfg["img"], cfg["classes"])
+
+    t0 = time.perf_counter()
+    ae, bb, logs = compressor.train_autoencoder(
+        torch.Generator(device=dev).manual_seed(700), model, params, k, stream(), ch=ch,
+        ch_prime=ch // ft["ratio"], steps=ft["steps"], lr=cfg["lr"],
+        finetune_steps=ft["finetune_steps"], ft_lr=ft["ft_lr"], pca_init=False)
+    x, y = synthetic.synthetic_image_batch(torch.Generator(device=dev).manual_seed(40_000),
+                                           cfg["eval_batch"], cfg["img"], cfg["classes"])
+    acc = float(compressor.accuracy_with_ae(model, bb, ae, k, x, y, bits=cfg["bits"]))
+    torch.cuda.synchronize()
+    s1 = [r["loss"] for r in logs if r["stage"] == 1]
+    s2 = [r["loss"] for r in logs if r["stage"] == 2]
+    check(len(s1) == ft["steps"] and len(s2) == ft["finetune_steps"]
+          and all(math.isfinite(v) for v in s1 + s2 + [acc]),
+          f"compressor: two-stage losses {s1} {s2}, accuracy {acc}")
+    first, last = statistics.mean(s1[:5]), statistics.mean(s1[-5:])
+    check(last < first, f"compressor: stage 1 did not lower the loss ({first} -> {last})")
+    print(f"compressor: two-stage AE at point 2, {ch} -> {ch // ft['ratio']} ch from a random "
+          f"init: stage 1 loss {first:.4f} -> {last:.4f} (means of the first and last 5 of "
+          f"{ft['steps']}), stage 2 {s2[0]:.4f} -> {s2[-1]:.4f} ({ft['finetune_steps']} steps "
+          f"at {ft['ft_lr']}), accuracy at 8 bits {acc:.4f}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def huffman_roundtrip(dev, model, params, cfg, cnn_lib, compressor, huffman, jalad, synthetic):
+    """One image's feature at point 2: JALAD's size is its entropy times its
+    symbols, the Huffman codec decodes its codes back, and the coded size
+    lies within HUFFMAN_GAP of the entropy estimate."""
+    with torch.no_grad():
+        x, _ = synthetic.synthetic_image_batch(torch.Generator(device=dev).manual_seed(30_001),
+                                               1, cfg["img"], cfg["classes"])
+        feat = cnn_lib.forward(model, params, x, upto=model.split_after[1] + 1)
+        size, rate = jalad.jalad_compress_size_bits(feat, 8)
+        codes = compressor.quantize(feat, 8)[0].reshape(-1)
+        est = float(jalad.byte_entropy_bits(codes, 8)) * codes.numel()
+    sym = codes.cpu().numpy().astype("int64")
+    t0 = time.perf_counter()
+    stream, table, n = huffman.encode(sym)
+    back = huffman.decode(stream, table, n)
+    coded = huffman.coded_size_bits(sym)
+    check(bool((back == sym).all()) and n == sym.size,
+          "compressor: the Huffman round trip changed the codes")
+    check(abs(float(size) - est) <= 1e-6 * est,
+          f"compressor: JALAD size {float(size)} against entropy x symbols {est}")
+    gap = abs(coded - est) / est
+    check(gap <= HUFFMAN_GAP, f"compressor: Huffman {coded} bits against the entropy estimate "
+          f"{est:.0f} ({gap:.2%}, {HUFFMAN_GAP:.0%} allowed)")
+    print(f"compressor: one image's feature at point 2 {tuple(feat.shape[1:])}: JALAD "
+          f"{float(size):.0f} bits, rate {float(rate):.3f}; Huffman {coded} bits in "
+          f"{len(stream)} bytes, {gap:.2%} from the entropy estimate, decoded equal "
+          f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+
+
+def phase_compressor(dev, cnn_lib, compressor, huffman, jalad, optim, synthetic, build_mod):
+    """The trained compressor on the card: the sweep at full width and
+    224 px (COMPRESS), one two-stage AE, JALAD's size and a Huffman round
+    trip, then the sweep at bench_compression's size (COMPRESS_BENCH). No
+    kernel of the port's is on this path (the reference's is plain XLA
+    too), so none may launch. cuDNN's default convolution algorithms sum in
+    no fixed order, which moved the bench size's base accuracy by 0.11
+    between two runs; the phase asks for its deterministic ones so that a
+    run repeats."""
+    build_mod.reset_launches()
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for label, cfg in (("compressor", COMPRESS), ("compressor (bench size)", COMPRESS_BENCH)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, params, rows, losses = compression_sweep(dev, label, cfg, cnn_lib, compressor,
+                                                            jalad, optim, synthetic)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            base = rows[0]["base_acc"]
+            print(f"{label}: ResNet18 width {cfg['width']}, {cfg['classes']} classes, "
+                  f"{cfg['img']} px: pre-trained {cfg['pretrain']} steps (loss {losses[0]:.4f} "
+                  f"-> {losses[-1]:.4f}), base accuracy {base:.4f} (chance "
+                  f"{1 / cfg['classes']:.4f}); pre-training and sweep {seconds:.1f} s, peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+            for r in rows:
+                print(f"{label}: point {r['point']} (module {r['module']}, {r['channels']} ch): "
+                      f"ch' {r['ch_prime']}, rate {r['rate']:.1f}, acc {r['acc']:.4f} (ratios "
+                      f"tried, ch' and acc: {[(c, round(a, 4)) for c, a in r['tried']]}); JALAD "
+                      f"rate {r['jalad_rate']:.3f}", flush=True)
+            out[label] = dict(rows=rows, seconds=seconds, base_acc=base)
+            if cfg is COMPRESS:
+                two_stage_ae(dev, model, params, rows[1]["channels"], cfg, cnn_lib, compressor,
+                             synthetic)
+                huffman_roundtrip(dev, model, params, cfg, cnn_lib, compressor, huffman, jalad,
+                                  synthetic)
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    check(not launches, f"compressor: the path launched kernels: {launches}")
+    return out
+
+
 # ------------------------------------------------------------- KV-cache decode
 def decode_inputs(dev, g, b, s, hkv, grp, d, kv_dtype=torch.float32, q_dtype=torch.float32,
                   empty=True):
@@ -2202,7 +2490,10 @@ def main(argv=None):
         return 2
     from repro_torch import full_precision_matmuls
     from repro_torch.configs import get_config, reduced
+    from repro_torch.core import cnn as cnn_lib
+    from repro_torch.core import compressor, huffman, jalad
     from repro_torch.core.compressor import pca_init_autoencoder
+    from repro_torch.data import synthetic
     from repro_torch.kernels import (_build, bottleneck, decode_attn, flat_trunk, pair_scorer,
                                      quant, ssd_intra)
     from repro_torch.kernels import ref as kref
@@ -2306,6 +2597,10 @@ def main(argv=None):
     launches.update(counts)
     phase_fleet_timing(dev, fleet_demo, mahppo, optim, _build, res)
     del res
+    counts, _ = phase_fleet_churn(dev, fleet_demo, _build)
+    launches.update(counts)
+    phase_compressor(dev, cnn_lib, compressor, huffman, jalad, optim, synthetic, _build)
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

@@ -1,1 +1,3 @@
-"""Serving half of the paper's compressor, ported to PyTorch."""
+"""The paper's core, ported to PyTorch: the CNN backbones, the compressor
+(Eq. 1-4: serving and two-stage training), JALAD and its Huffman codec, the
+overhead model, split tables and fleets."""

@@ -37,6 +37,13 @@ def _bn_init(ch, device):
 
 
 def _bn(p, x, eps=1e-5):
+    if x.numel() == x.shape[1]:
+        # one value a channel (one image of 1 x 1 maps), which F.batch_norm
+        # refuses: the reference's formula, whose variance is 0 here
+        mu = x.mean(dim=(0, 2, 3), keepdim=True)
+        var = x.var(dim=(0, 2, 3), keepdim=True, correction=0)
+        return (x - mu) * torch.rsqrt(var + eps) * p["scale"][None, :, None, None] \
+            + p["bias"][None, :, None, None]
     return F.batch_norm(x, None, None, p["scale"], p["bias"], training=True, eps=eps)
 
 
@@ -315,3 +322,27 @@ def forward_from(model: CNNModel, params, feat, start):
     for i in range(start, model.n_modules):
         x = model.run_module(params[i], i, x)
     return x
+
+
+def param_leaves(tree):
+    """The tensors of a parameter tree (lists, tuples, dicts), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in param_leaves(v)]
+    return []
+
+
+def trainable_copy(tree):
+    """The tree with each tensor detached, copied and requiring grad; the
+    structural entries (VGG's layer kinds, MobileNetV2's block tuples)
+    kept as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone().requires_grad_(True)
+    if isinstance(tree, dict):
+        return {k: trainable_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(trainable_copy(v) for v in tree)
+    return tree

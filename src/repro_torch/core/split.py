@@ -9,8 +9,11 @@ A split decision b in {0, 1, ..., B+1} means:
            boundary feature with the AE (+ quantization), transmit
   b = B+1  full local inference
 
-The JALAD table comes with the port's ``jalad.py``, the measured and
-LLM-decode builders with later slices.
+``cnn_jalad_table`` is the JALAD baseline's table (8-bit codes, entropy
+coding, no channel reduction). The measured tables
+(``measured_cnn_split_table``) need FLOP counting of a compiled graph and
+come with the launch and sharding slice; the LLM-decode table with the
+``--llm`` slice.
 """
 from __future__ import annotations
 
@@ -168,6 +171,31 @@ def cnn_split_table(model: CNNModel, in_size: int, *,
     t, e = oh.module_time_energy(fl, fl / 8, dev)
     rows.append((t, e, 0.0, 0.0, 0.0, True))
     return _finalize(model.name, points, rows, device=dev.name)
+
+
+def cnn_jalad_table(model: CNNModel, in_size: int, *, dev=oh.JETSON_NANO,
+                    entropy_bits=5.0, batch=1) -> SplitPlan:
+    """JALAD baseline: 8-bit quantization and entropy coding, no channel
+    reduction; the coder's latency from its symbols/s throughput (the
+    paper's Fig. 7 point that entropy coding of large features
+    dominates)."""
+    from repro_torch.core.jalad import ENTROPY_CODER_SYMBOLS_PER_S as CPS
+    flops = model.module_flops(in_size)
+    shapes = model.feature_shapes(in_size)
+    points = list(model.split_after)
+    raw_bits = batch * 3 * in_size * in_size * 8
+    rows = [(0.0, 0.0, 0.0, 0.0, raw_bits, True)]
+    for k in points:
+        fl = sum(flops[:k + 1]) * batch
+        t, e = oh.module_time_energy(fl, fl / 8, dev)
+        c, h, w = shapes[k]
+        n = batch * c * h * w
+        tc = n / CPS
+        rows.append((t, e, tc, tc * dev.active_power, n * entropy_bits, True))
+    fl = sum(flops) * batch
+    t, e = oh.module_time_energy(fl, fl / 8, dev)
+    rows.append((t, e, 0.0, 0.0, 0.0, True))
+    return _finalize(model.name + "-jalad", points, rows, device=dev.name)
 
 
 def transformer_split_table(cfg: ModelConfig, *, seq_len=128,

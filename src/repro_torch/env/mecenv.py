@@ -15,9 +15,15 @@ transmit remainder below ``TX_EPS_BITS`` counts as sent and is reported in
 ``info["eps_bits"]``. With an edge pool each offloaded whole task also
 pays ``t_edge[n, b, e]`` times the number of UEs offloading to server e.
 
-The fleet is static in this port: churn (``churn_rate``/``leave_rate`` >
-0) raises ``NotImplementedError`` naming the slice that brings it. Tables
-are float32 where the reference casts them.
+Fleets may be dynamic: with ``churn_rate`` or ``leave_rate`` above 0 a
+standby UE joins with probability 1 - exp(-churn_rate) a frame and an
+active one leaves with probability ``leave_rate``; ``EnvState.active``
+holds the membership, N stays the largest fleet, and inactive UEs add no
+interference, energy, completions or reward. A leaver drops its queue, a
+joiner draws a fresh queue and distance, and the end of an episode makes
+the whole fleet active again. The four churn variates of a frame come from
+``_draw_churn``; a static env draws none of them, so its stream is the one
+it always was. Tables are float32 where the reference casts them.
 
 Pool geometry may be resampled per episode: an env built with
 ``pool_ranges`` (a multi-server pool) takes ``reset(gen,
@@ -55,8 +61,6 @@ from repro_torch.core.fleets import (BITS_NORM, DIST_NORM, EDGE_SLOW_NORM,
 from repro_torch.core.split import FleetPlan, SplitPlan
 from repro_torch.env.channel import channel_gain, slot_totals, uplink_rates
 from repro_torch.rl.actionspace import ContinuousHead, DiscreteHead, HybridActionSpace
-
-_CHURN = "UE churn comes with the port's churn slice (ROADMAP queue 1)"
 
 
 class EnvParams(NamedTuple):
@@ -140,12 +144,11 @@ def make_env_params(plan: Union[SplitPlan, FleetPlan], *, n_ue=5,
     gives per-UE tables and power draws. An EdgePool of more than one
     server (or one non-default server) gives the routed action space;
     ``pool_ranges``, a (low, high) pair of (E, 3) bounds, makes its
-    geometry resamplable (``reset(randomize=True)``). The
+    geometry resamplable (``reset(randomize=True)``). A nonzero
+    ``churn_rate`` or ``leave_rate`` makes the fleet dynamic. The
     tables are built in numpy (float64), cast to float32 as the reference
     casts them, and put on ``device`` (the card unless the caller passes
     one; raises when there is no card and none was given)."""
-    if churn_rate > 0.0 or leave_rate > 0.0:
-        raise NotImplementedError(_CHURN)
     device = resolve_device(device)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     if isinstance(plan, FleetPlan):
@@ -217,8 +220,9 @@ def _np(t):
 
 class MECEnv:
     """The env as plain functions on tensors, on the device of its params.
-    ``multi_server`` is fixed at construction: one paper-default server
-    runs without the routing machinery."""
+    ``multi_server`` and ``dynamic`` are fixed at construction: one
+    paper-default server runs without the routing machinery, and a static
+    fleet without the churn block (and its draws)."""
 
     def __init__(self, params: EnvParams):
         self.params = params
@@ -227,10 +231,10 @@ class MECEnv:
         self.n_channels = int(params.omega.shape[-1])
         self.multi_server = params.omega.dim() == 2
         self.n_servers = int(params.omega.shape[0]) if self.multi_server else 1
-        if params.churn_rate > 0.0 or params.leave_rate > 0.0:
-            raise NotImplementedError(_CHURN)
+        self.dynamic = params.churn_rate > 0.0 or params.leave_rate > 0.0
         self.ue_feat_dim = OBS_UE_DIM
-        self.obs_dim = 4 * params.n_ue      # observe: [k, l, n, d] per UE
+        # observe: [k, l, n, d] per UE, and activity and fleet size when dynamic
+        self.obs_dim = (6 if self.dynamic else 4) * params.n_ue
         dev = self.device
         self._ue_static = torch.as_tensor(ue_table_features(
             _np(params.l_new), _np(params.n_new), _np(params.feasible),
@@ -329,12 +333,25 @@ class MECEnv:
         u = torch.rand(shape, generator=gen, device=self.device)
         return k, p.d_low + u * (p.d_high - p.d_low)
 
+    def _draw_churn(self, gen, shape):
+        """A frame's churn variates: (u_join, u_leave) uniform in [0, 1), a
+        fresh queue ~ Poisson(lam_tasks) and a fresh distance ~ U(d_low,
+        d_high), each of ``shape``."""
+        u_join = torch.rand(shape, generator=gen, device=self.device)
+        u_leave = torch.rand(shape, generator=gen, device=self.device)
+        return (u_join, u_leave) + self._draw_tasks(gen, shape)
+
     def observe(self, s: EnvState):
-        """The per-UE actors' flat global observation, (..., 4N):
-        ``[k / lam, l / t0, n / 1e6, d / 100]``, each block over the UEs."""
+        """The per-UE actors' flat global observation, (..., obs_dim):
+        ``[k / lam, l / t0, n / 1e6, d / 100]``, each block over the UEs,
+        then for a dynamic fleet the activity flags and the active fraction
+        (repeated N times)."""
         p = self.params
-        return torch.cat([s.k / max(p.lam_tasks, 1.0), s.l / p.t0, s.n / 1e6, s.d / 100.0],
-                         dim=-1)
+        base = [s.k / max(p.lam_tasks, 1.0), s.l / p.t0, s.n / 1e6, s.d / 100.0]
+        if self.dynamic:
+            act = s.active.to(torch.float32)
+            base += [act, (act.sum(-1, keepdim=True) / p.n_ue).expand_as(act)]
+        return torch.cat(base, dim=-1)
 
     def _own_fleet(self, s: EnvState, min_dist_scale, n_slots):
         """The own block (..., N, 5) and the fleet aggregates (..., 4)
@@ -420,8 +437,16 @@ class MECEnv:
             "consts": self._scorer_consts.expand(*lead, -1)}}
 
     def action_masks(self, s: EnvState = None):
-        """{head: (N, n) bool}: the split head's per-UE table feasibility."""
-        return {"split": self.action_space.masks["split"]}
+        """{head: (N, n) bool}: the split head's per-UE table feasibility.
+        Given a state of a dynamic fleet, inactive UEs may take only
+        full-local (the last action), and the mask takes the state's leading
+        env axis: (..., N, n)."""
+        feas = self.action_space.masks["split"]
+        if s is None or not self.dynamic:
+            return {"split": feas}
+        local_only = torch.zeros_like(feas)
+        local_only[:, -1] = True
+        return {"split": torch.where(s.active[..., None], feas, local_only)}
 
     # ------------------------------------------------------------ physics
     def _rates(self, d, c, p_tx, route, transmitting, phys=None):
@@ -534,6 +559,24 @@ class MECEnv:
         # a tensor numerator: ``scalar / tensor`` would multiply by 1 / k
         reward = torch.full_like(k_div, -prm.t0) / k_div - prm.beta * e_t / k_div
 
+        # churn: leavers drop their queue, joiners draw a fresh queue and
+        # distance (a static fleet draws nothing here)
+        spawned = dropped = torch.zeros_like(k_t)
+        d_next, act_next = s.d, act
+        if self.dynamic:
+            u_join, u_leave, k_fresh, d_fresh = self._draw_churn(s.gen, k3.shape)
+            p_join = float(np.float32(1.0) - np.exp(np.float32(-prm.churn_rate)))  # float32
+            joins = ~act & (u_join < p_join)
+            leaves = act & (u_leave < prm.leave_rate)
+            dropped = (k3 * leaves).sum(-1)
+            spawned = (k_fresh * joins).sum(-1)
+            k3 = torch.where(leaves, 0.0, torch.where(joins, k_fresh, k3))
+            moved = leaves | joins
+            l_nxt = torch.where(moved, 0.0, l_nxt)
+            n_nxt = torch.where(moved, 0.0, n_nxt)
+            d_next = torch.where(joins, d_fresh, s.d)
+            act_next = (act & ~leaves) | joins
+
         done = torch.all(k3 <= 0, dim=-1)
         # auto-reset on termination, drawn every frame as the reference does
         fresh_k, fresh_d = self._draw_tasks(s.gen, k3.shape)
@@ -546,14 +589,14 @@ class MECEnv:
             k=torch.where(dn, fresh_k, k3),
             l=torch.where(dn, zeros, l_nxt),
             n=torch.where(dn, zeros, n_nxt),
-            d=torch.where(dn, fresh_d, s.d),
+            d=torch.where(dn, fresh_d, d_next),
             t=torch.where(done, torch.zeros_like(s.t), s.t + 1),
             gen=s.gen,
-            active=torch.where(dn, torch.ones_like(act), act), geom=geom)
-        zero = torch.zeros_like(k_t)
+            # the whole fleet is active again after an auto-reset
+            active=torch.where(dn, torch.ones_like(act), act_next), geom=geom)
         info = {"completed": k_t, "energy": e_t, "rate_mean": r.mean(-1),
                 "offloads": offloads.sum(-1), "n_active": act.sum(-1),
-                "spawned": zero, "dropped": zero, "eps_bits": eps_bits.sum(-1)}
+                "spawned": spawned, "dropped": dropped, "eps_bits": eps_bits.sum(-1)}
         if self.multi_server:
             info["server_load"] = server_load
         return nxt, reward, done, info

@@ -1,5 +1,5 @@
 """Mixed-fleet scheduling, the port's twin of ``examples/collaborative_serve.py
---fleet`` (``run_fleet_demo``) for a static fleet.
+--fleet`` (``run_fleet_demo``).
 
 Two ResNet18 UEs (on a Jetson and on an IoT SoC) and two qwen3-1.7b UEs
 (on phone NPUs) share 2 channels of each edge server; MAHPPO learns every
@@ -17,10 +17,14 @@ With no mode flag the demo is the example's ``--fleet --entity-policy
 geometry, its route scorer through the ``pair_scorer`` kernel forward and
 backward. The example's flags pick the other modes (``--fleet`` alone: the
 per-UE actors on one server; ``--shared-policy``; ``--entity-policy``
-without the kernel; ``--servers E``; ``--n-ue N``). Runs on the CUDA card
-unless ``--device cpu`` is given. ``--churn``, ``--llm``, ``--distill``
-and ``--n-shards`` > 1 raise ``NotImplementedError`` naming the slice that
-brings them.
+without the kernel; ``--servers E``; ``--n-ue N``). ``--churn`` (or
+``--churn-rate`` / ``--leave-rate``, defaults 0.2 and 0.1) makes the fleet
+dynamic: the demo prints a 24-frame full-local membership trace from a
+fixed seed, scores greedy, nearest and load-balanced on its last non-empty
+membership snapshot and reports the mean fleet size over the evaluation.
+Runs on the CUDA card unless ``--device cpu`` is given. ``--llm``,
+``--distill`` and ``--n-shards`` > 1 raise ``NotImplementedError`` naming
+the slice that brings them.
 """
 from __future__ import annotations
 
@@ -39,8 +43,7 @@ from repro_torch.rl.baselines import load_aware_eval, nearest_server_eval
 from repro_torch.rl.heuristics import greedy_eval
 from repro_torch.rl.mahppo import MAHPPOConfig, evaluate_policy, init_agent, train_mahppo
 
-_WAITS = {"churn": "dynamic fleets (--churn) come with the port's churn slice",
-          "llm": "the mixed CNN + LLM-decode fleet (--llm) comes with the port's --llm slice",
+_WAITS = {"llm": "the mixed CNN + LLM-decode fleet (--llm) comes with the port's --llm slice",
           "distill": "distillation (--distill) comes with the port's distillation and "
                      "streaming slice",
           "n_shards": "sharded rollouts (--n-shards > 1) come with the launch and sharding "
@@ -55,22 +58,51 @@ def fleet_config(iterations=15, *, shared_policy=False, entity_policy=False,
                         randomize_pool=randomize_pool, fused_scorer=fused_scorer)
 
 
-def fleet_env(arch="qwen3-1.7b", n_ue=4, n_servers=2, randomize=True, device=None):
+def fleet_env(arch="qwen3-1.7b", n_ue=4, n_servers=2, randomize=True, device=None,
+              churn_rate=0.0, leave_rate=0.0):
     """The demo's env: the mixed fleet on 2 channels, t0 = 0.5, the demo
     pool of ``n_servers`` (none for 1), its geometry resampled per episode
-    with ``randomize`` (ranges ``random_pool_ranges``)."""
+    with ``randomize`` (ranges ``random_pool_ranges``), dynamic with a
+    nonzero ``churn_rate`` or ``leave_rate``."""
     pool = make_edge_pool(n_servers) if n_servers > 1 else None
     return MECEnv(make_env_params(
-        make_mixed_fleet(arch, n_ue=n_ue), n_channels=2, t0=0.5, pool=pool,
+        make_mixed_fleet(arch, n_ue=n_ue), n_channels=2, t0=0.5, churn_rate=churn_rate,
+        leave_rate=leave_rate, pool=pool,
         pool_ranges=random_pool_ranges(n_servers) if randomize and pool else None,
         device=resolve_device(device)))
 
 
+def membership_trace(env, frames=24, seed=7):
+    """A full-local rollout from a random reset (generator seeded with
+    ``seed``) until the episode ends or ``frames`` frames: each frame's
+    membership after the step, as a string of '#' (active) and '.'
+    (standby), and the last non-empty membership (the reset's if none)."""
+    dev, n = env.device, env.params.n_ue
+    s = env.reset(torch.Generator(device=dev).manual_seed(seed))
+    acts = {"split": torch.full((n,), env.n_actions_b - 1, dtype=torch.int32, device=dev),
+            "channel": torch.zeros((n,), dtype=torch.int32, device=dev),
+            "power": torch.full((n,), 0.05, device=dev)}
+    if env.multi_server:
+        acts["route"] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    snapshot = s.active.cpu().numpy()
+    rows = []
+    for _ in range(frames):
+        s, _, done, _ = env.step(s, acts)
+        if bool(done):
+            break                      # the state after done is the auto-reset fleet
+        active = s.active.cpu().numpy()
+        rows.append("".join("#" if a else "." for a in active))
+        if active.any():
+            snapshot = active
+    return rows, snapshot
+
+
 def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_policy=False,
-                   entity_policy=False, n_ue=4, fused_scorer=False, device=None):
+                   entity_policy=False, n_ue=4, fused_scorer=False, device=None,
+                   churn_rate=0.0, leave_rate=0.0):
     """Train and score the demo. Returns {"history", "mahppo", "greedy",
-    "nearest", "loadbal", "zero_shot", "agent", "env", "seconds"} (entries
-    that do not apply are None)."""
+    "nearest", "loadbal", "zero_shot", "membership", "snapshot", "agent",
+    "env", "seconds"} (entries that do not apply are None)."""
     dev = resolve_device(device)
     fleet = make_mixed_fleet(arch, n_ue=n_ue)
     print("fleet:")
@@ -84,8 +116,16 @@ def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_poli
             print(f"  srv{e}: {srv.name:10s} dist x{srv.dist_scale:.1f}  bw x{srv.bw_scale:.1f}  "
                 f"edge_speed={srv.edge_speed / 1e12:.1f} TFLOP/s")
     randomize = entity_policy and pool is not None
-    env = fleet_env(arch, n_ue, n_servers, randomize, dev)
+    env = fleet_env(arch, n_ue, n_servers, randomize, dev, churn_rate, leave_rate)
     print(f"action space: {', '.join(env.action_space.names)}")
+    trace = snapshot = None          # the baselines' membership on a dynamic fleet
+    if env.dynamic:
+        print(f"dynamic fleet: join intensity {churn_rate}, leave prob {leave_rate}/frame")
+        trace, snapshot = membership_trace(env)
+        print("  membership (one column per UE, # active / . standby):")
+        for t, row in enumerate(trace):
+            if t % 4 == 0:
+                print(f"    frame {t:2d}: {row}")
     mode = "entity-set actor, per-server route scorer" if entity_policy \
         else "weight-shared actor" if shared_policy else "per-UE actors"
     extra = " over randomized pool geometries" if randomize else ""
@@ -100,17 +140,25 @@ def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_poli
         if r["iteration"] % 5 == 0 else None)
     seconds = time.perf_counter() - t0
     ev = evaluate_policy(env, agent, frames=64)
-    gr = greedy_eval(env)
+    # greedy on the traced membership snapshot, so both columns score a
+    # churned fleet
+    gr = greedy_eval(env, active=snapshot)
     beta = env.params.beta
     out = {"history": hist, "mahppo": ev, "greedy": gr, "nearest": None, "loadbal": None,
-           "zero_shot": None, "agent": agent, "env": env, "seconds": seconds}
+           "zero_shot": None, "membership": trace, "snapshot": snapshot, "agent": agent,
+           "env": env, "seconds": seconds}
+    if env.dynamic:
+        print(f"\nmean fleet size over eval: {ev['n_active']:.2f} of {env.params.n_ue} UEs"
+            + ("" if snapshot is None else
+               f"; greedy scored on {int(snapshot.sum())} active UEs"))
     print(f"\nMAHPPO : latency {1e3 * ev['t_task']:.1f} ms  energy {1e3 * ev['e_task']:.1f} mJ  "
         f"overhead {ev['t_task'] + beta * ev['e_task']:.4f}")
     print(f"greedy : latency {1e3 * gr['t_task']:.1f} ms  energy {1e3 * gr['e_task']:.1f} mJ  "
         f"overhead {gr['overhead']:.4f}  (per-UE b={gr['b']}"
         + (f", route={gr['route']}" if "route" in gr else "") + ")")
     if env.multi_server:
-        out["nearest"], out["loadbal"] = near, load = nearest_server_eval(env), load_aware_eval(env)
+        out["nearest"] = near = nearest_server_eval(env, active=snapshot)
+        out["loadbal"] = load = load_aware_eval(env, active=snapshot)
         print(f"nearest: overhead {near['overhead']:.4f}  (route={near['route']})")
         print(f"loadbal: overhead {load['overhead']:.4f}  (route={load['route']})")
 
@@ -177,14 +225,25 @@ def main(argv=None):
                          "(implies --entity-policy)")
     ap.add_argument("--n-ue", type=int, default=4, metavar="N")
     ap.add_argument("--iterations", type=int, default=15)
-    ap.add_argument("--churn", action="store_true")
+    ap.add_argument("--churn", action="store_true",
+                    help="a dynamic fleet: UEs join and leave mid-episode (also implied by "
+                         "--churn-rate / --leave-rate)")
+    ap.add_argument("--churn-rate", type=float, default=None,
+                    help="Poisson join intensity a standby slot a frame (default 0.2 when "
+                         "churning)")
+    ap.add_argument("--leave-rate", type=float, default=None,
+                    help="per-frame departure probability of an active UE (default 0.1 "
+                         "when churning)")
     ap.add_argument("--llm", action="store_true")
     ap.add_argument("--distill", action="store_true")
     ap.add_argument("--n-shards", type=int, default=1, metavar="K")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for the plain path)")
     args = ap.parse_args(argv)
-    for flag in ("churn", "llm", "distill"):
+    churn = args.churn or args.churn_rate is not None or args.leave_rate is not None
+    if args.distill and churn:
+        ap.error("--distill targets a fixed deployment fleet; it cannot combine with --churn")
+    for flag in ("llm", "distill"):
         if getattr(args, flag):
             raise NotImplementedError(_WAITS[flag])
     if args.n_shards > 1:
@@ -195,16 +254,19 @@ def main(argv=None):
         ap.error("--fused-scorer fuses the entity route scorer; it cannot combine with "
                  "--shared-policy")
     if not (args.fleet or args.servers > 1 or args.shared_policy or args.entity_policy
-            or args.fused_scorer or args.n_ue != 4):
+            or args.fused_scorer or args.n_ue != 4):     # --churn alone churns the slice's run
         args.fused_scorer, args.servers = True, 2          # the slice's run
     if args.fused_scorer:
         args.entity_policy = True
     if args.entity_policy and args.servers < 2:
         args.servers = 2           # the route scorer needs a pool to score
     full_precision_matmuls()
-    return run_fleet_demo(args.arch, args.iterations, n_servers=args.servers,
-                          shared_policy=args.shared_policy, entity_policy=args.entity_policy,
-                          n_ue=args.n_ue, fused_scorer=args.fused_scorer, device=args.device)
+    return run_fleet_demo(
+        args.arch, args.iterations, n_servers=args.servers, shared_policy=args.shared_policy,
+        entity_policy=args.entity_policy, n_ue=args.n_ue, fused_scorer=args.fused_scorer,
+        device=args.device,
+        churn_rate=(0.2 if args.churn_rate is None else args.churn_rate) if churn else 0.0,
+        leave_rate=(0.1 if args.leave_rate is None else args.leave_rate) if churn else 0.0)
 
 
 if __name__ == "__main__":

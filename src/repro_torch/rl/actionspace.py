@@ -8,7 +8,9 @@ mask) plus bounded :class:`ContinuousHead`\\ s. Actions travel as a dict
 
 The reference writes every function for ONE actor and vmaps it over the
 fleet; here the actor axis is written out: logits are ``(..., n)``, masks
-``{name: (..., n) bool}``, and every function works on the last axis.
+``{name: (..., n) bool}`` (broadcast against the logits, so a dynamic
+fleet's (E, N, n) masks take the env axis), and every function works on
+the last axis.
 Random draws take an explicit ``torch.Generator``.
 """
 from __future__ import annotations
@@ -96,14 +98,16 @@ class HybridActionSpace:
 
     def broadcast_masks(self, masks, n_actors, device=None):
         """Complete mask dict {head: (n_actors, n) bool} for EVERY discrete
-        head: heads without an entry get all-True rows."""
+        head: heads without an entry get all-True rows. A given mask keeps
+        its leading axes (a dynamic fleet's per-env masks, (E, N, n))."""
         out = {}
         for h in self.discrete:
             m = None if masks is None else masks.get(h.name)
             if m is None:
                 out[h.name] = torch.ones((n_actors, h.n), dtype=torch.bool, device=device)
             else:
-                out[h.name] = torch.as_tensor(m).broadcast_to((n_actors, h.n))
+                m = torch.as_tensor(m)
+                out[h.name] = m.broadcast_to((*m.shape[:-2], n_actors, h.n))
         return out
 
     # ------------------------------------------------------------ network

@@ -58,13 +58,16 @@ def random_policy_eval(env: MECEnv, *, frames=64, seed=0, actions=None, trace=No
     generator seeded with ``seed + 1`` (the env's, seeded with ``seed``,
     drives its auto-resets), so they are not the reference's; ``actions``,
     a list of per-frame action dicts, replaces them (so a test can feed the
-    reference's), and ``trace``, a list, receives each frame's actions."""
+    reference's), and ``trace``, a list, receives each frame's actions.
+    On a dynamic fleet the state's mask pins inactive UEs to full-local."""
     dev, n = env.device, env.params.n_ue
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     s = env.reset(torch.Generator(device=dev).manual_seed(seed), eval_mode=True)
     weights = env.action_masks(s)["split"].to(torch.float32)
     rows = []
     for t in range(frames):
+        if env.dynamic:      # inactive UEs take only full-local
+            weights = env.action_masks(s)["split"].to(torch.float32)
         if actions is not None:
             a = actions[t]
         else:

@@ -27,9 +27,12 @@ iteration's record once, as the reference's ``float(v)`` does. Random draws
 (actions, minibatch indices, the envs' auto-resets) come from
 ``torch.Generator``\\ s, so the streams are not the reference's.
 
-Still to come, each raising ``NotImplementedError``: sharded rollouts and
-batched or sharded evaluation (``n_shards``, ``n_envs`` > 1 in eval) and
-dynamic fleets (churn).
+On a dynamic fleet (churn) the rollout builds each env's masks from its
+state every frame, so inactive UEs take only full-local; the loss keeps
+the static masks and weighs each actor by the frames it was active, as
+the reference's does. Still to come, each raising ``NotImplementedError``:
+sharded rollouts and batched or sharded evaluation (``n_shards``,
+``n_envs`` > 1 in eval).
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ from repro_torch.rl.gae import gae
 
 _SUMMARY = ("reward", "t_sum", "e_sum", "w_sum", "completed", "n_active", "done")
 _SHARDS = "sharded rollouts (n_shards > 1) come with the launch and sharding slice"
-_CHURN = "dynamic fleets (churn) come with the port's churn slice (ROADMAP queue 1)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +94,6 @@ class MAHPPOConfig:
             raise ValueError("randomize_pool trains on resampled pool "
                              "geometry that only the entity observation "
                              "exposes — set entity_policy=True")
-
-
-def _refuse_what_waits(env: MECEnv, cfg: MAHPPOConfig):
-    if cfg.n_shards > 1:
-        raise NotImplementedError(_SHARDS)
-    if env.params.churn_rate > 0.0 or env.params.leave_rate > 0.0:
-        raise NotImplementedError(_CHURN)
 
 
 def init_agent(gen: torch.Generator, env: MECEnv, *, shared_policy=False,
@@ -152,7 +147,8 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
     ``cfg.horizon`` frames over the batched envs, then runs the minibatch
     updates, updating the agent and optimizer state in place; its metrics
     stay on the device."""
-    _refuse_what_waits(env, cfg)
+    if cfg.n_shards > 1:
+        raise NotImplementedError(_SHARDS)
     space = env.action_space
     n_ue = env.params.n_ue
     shared, entity = cfg.shared_policy, cfg.entity_policy
@@ -161,6 +157,15 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
     # masks only the split head, as the reference's vmap over actors does
     masks = space.broadcast_masks(masks0, n_ue, device=env.device) \
         if (shared or entity) else masks0
+
+    def state_masks(states):
+        """A dynamic fleet's per-env masks (E, N, n), complete for the shared
+        and entity actors; the static ones otherwise."""
+        if not env.dynamic:
+            return masks
+        m = env.action_masks(states)
+        return space.broadcast_masks(m, n_ue, device=env.device) if (shared or entity) else m
+
     observe = (env.observe_entities_raw if cfg.fused_scorer else env.observe_entities) \
         if entity else env.observe_per_ue if shared else env.observe
 
@@ -169,7 +174,7 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
             return nets.entity_value_forward(agent["entity_actor"], agent["critic"], obs)
         return nets.critic_forward(agent["critic"], obs.mean(dim=-2) if shared else obs)
 
-    def policy_value(agent, obs):
+    def policy_value(agent, obs, masks):
         """(per-head dist with an actor axis, value) for a batch of
         observations."""
         if entity:
@@ -182,8 +187,9 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
         """One frame of every env: states batched over E envs."""
         obs = observe(states)
         active = states.active.to(torch.float32)                      # (E, N)
-        dist, value = policy_value(agent, obs)
-        actions = space.sample(gen, dist, masks)
+        step_masks = state_masks(states)
+        dist, value = policy_value(agent, obs, step_masks)
+        actions = space.sample(gen, dist, step_masks)
         logp = space.log_prob(dist, actions, active)
         nstates, reward, done, info = env.step(states, space.execute(actions))
         tr = {"obs": obs, "actions": actions, "logp": logp, "reward": reward,
@@ -202,7 +208,7 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
 
     def loss_fn(agent, batch):
         act = batch["active"]                                          # (B, N)
-        dist, v = policy_value(agent, batch["obs"])
+        dist, v = policy_value(agent, batch["obs"], masks)
         logp = space.log_prob(dist, batch["actions"], act)
         ratio = torch.exp(logp - batch["logp"])                        # (B, N)
         a = batch["adv"][:, None]
@@ -311,7 +317,9 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
     the end. ``deterministic=False`` samples actions from a generator
     seeded with ``seed + 1`` (the env's, seeded with ``seed``, drives its
     auto-resets). ``trace``, a list, receives each frame's {"dist",
-    "actions"}."""
+    "actions", "active"}. On a dynamic fleet the masks are built from the
+    state every frame (inactive UEs take only full-local), and the per-task
+    overhead weighs active UEs only."""
     if n_envs != 1 or n_shards != 1:
         raise NotImplementedError("batched and sharded evaluation (n_envs, n_shards > 1) "
                                   "come with the launch and sharding slice")
@@ -325,11 +333,17 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
     obs_entities = env.observe_entities_raw if fused_scorer else env.observe_entities
     gen_act = torch.Generator(device=dev).manual_seed(seed + 1)
     s = env.reset(torch.Generator(device=dev).manual_seed(seed), eval_mode=True)
-    # the per-UE actors see the split mask only, as the reference's vmap
-    masks = env.action_masks(s) if kind == "actors" \
-        else space.broadcast_masks(env.action_masks(s), n_ue, device=dev)
+
+    def masks_of(s):
+        # the per-UE actors see the split mask only, as the reference's vmap
+        return env.action_masks(s) if kind == "actors" \
+            else space.broadcast_masks(env.action_masks(s), n_ue, device=dev)
+
+    masks = masks_of(s)          # a static fleet's masks do not change
     rows = []
     for _ in range(frames):
+        if env.dynamic:
+            masks = masks_of(s)
         if kind == "entity_actor":
             dist = nets.entity_actor_forward(agent[kind], space, obs_entities(s), masks)
         elif kind == "flat_trunk":
@@ -351,7 +365,7 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
                                  info["completed"], info["n_active"].to(torch.float32),
                                  done.to(torch.float32)]))
         if trace is not None:
-            trace.append({"dist": dist, "actions": actions})
+            trace.append({"dist": dist, "actions": actions, "active": s.active})
         s = s2
     out = torch.stack(rows).cpu().numpy()
     res = {k: float(out[:, i].mean()) for i, k in enumerate(_SUMMARY)}

@@ -150,8 +150,11 @@ def test_fleet_demo_runs_on_the_cpu(capsys):
         assert line in text, line
     assert len(out["history"]) == 1 and np.isfinite(out["history"][0]["reward_mean"])
     assert out["env"].randomizable and np.isfinite(out["zero_shot"]["overhead"])
-    for flag in ("--churn", "--llm", "--distill"):
+    for flag in ("--llm", "--distill"):
         with pytest.raises(NotImplementedError):
             fleet_demo.main(["--device", "cpu", flag])
+    # churn is accepted; the reference refuses it beside --distill
+    with pytest.raises(SystemExit):
+        fleet_demo.main(["--device", "cpu", "--churn", "--distill"])
     with pytest.raises(NotImplementedError, match="sharded"):
         fleet_demo.main(["--device", "cpu", "--n-shards", "2"])

@@ -216,8 +216,9 @@ def test_reset_and_what_waits():
     assert (s.k == 200.0).all() and (s.d == 50.0).all() and (s.l == 0).all()
     s = v.reset(torch.Generator().manual_seed(1))
     assert ((s.d >= 1.0) & (s.d <= 100.0)).all() and s.k.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="churn"):
-        mecenv.make_env_params(_fleets()[1], churn_rate=0.1)
+    # churn is accepted: the env is dynamic and observes 6 features a UE
+    dyn = mecenv.MECEnv(mecenv.make_env_params(_fleets()[1], churn_rate=0.1, device="cpu"))
+    assert dyn.dynamic and not v.dynamic and dyn.obs_dim == 6 * N
     # resampled geometry needs pool_ranges, as in the reference
     with pytest.raises(ValueError, match="pool_ranges"):
         v.reset(eval_mode=True, randomize=True)
@@ -234,12 +235,14 @@ def test_dispatch_env_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_make_env_params_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     """The public env constructor takes the card by default and raises when
-    there is none and no device was given; the cases it does not port yet
-    raise NotImplementedError before any device is chosen."""
+    there is none and no device was given, a dynamic fleet's as a static
+    one's."""
     fleet = _fleets()[1]
     assert mecenv.make_env_params(fleet, device="cpu").l_new.device == torch.device("cpu")
+    assert mecenv.make_env_params(fleet, leave_rate=0.1, device="cpu").leave_rate == \
+        pytest.approx(0.1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mecenv.make_env_params(fleet)
-    with pytest.raises(NotImplementedError, match="churn"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         mecenv.make_env_params(fleet, leave_rate=0.1)
