@@ -40,7 +40,8 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    the reference's shapes, the serving ones and ragged fleets (bitwise-equal
    logits for equal occupancy, bit-equal dequantized trunk weights, the same
    bits from the same call twice), then timed beside the launch floor (an
-   empty kernel timed the same way) and by the profiler, with their plans;
+   empty kernel timed the same way) and by the profiler, with their plans
+   (flat_trunk also at M = 8, a stream dispatch's rows);
 8. a small scheduling run (16 UEs, 3 servers, 8 frames, the entity agent
    through the fused scorer and the int8 trunk), card against CPU;
 9. dispatch serve, the scheduling main path: a 1024-UE fleet over the
@@ -118,7 +119,32 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    every reward and overhead finite, a 24-frame membership trace with a
    leave and a join, a mean evaluated fleet strictly between 0 and N, and
    greedy, nearest and load-balanced scored on the traced membership;
-15c. the trained compressor (paper §2, Eq. 4 and Fig. 4), a main path:
+15c. distillation into the int8 trunk, a main path: ``fleet_demo
+   --distill`` at the example's settings (its own teacher, phase 15's
+   training; then 2 DAgger rounds of 48 frames over 4 envs on the static
+   pool, 120 epochs a round, seed 1): exactly the scorer launches of the
+   training, 3 ``quantize`` and 64 + 21 ``flat_trunk`` (the int8
+   student's eval frames and the batch-1 readout's warm and 20 timed
+   calls); every loss and the int8-over-teacher overhead ratio finite;
+15d. the mixed CNN + LLM-decode fleet, a main path: ``fleet_demo --llm``
+   (two ResNet18 UEs and one qwen3-1.7b decode UE a context rung, 256,
+   1024 and 4096, on the thin v5e slice and the edge GPU, 2-second frames,
+   15 iterations through the scorer kernels): exactly their launches,
+   every reward and overhead finite, each UE's split and the
+   context-length shift printed;
+15e. the streaming runtime, a main path: the ``streaming_serve`` twin at
+   its defaults (8 UEs, 2 servers, MAHPPO 30 iterations, the streaming
+   fine-tune 14, then 10 s of Poisson arrivals at 8 tasks/s a UE through
+   the asyncio daemon for the tuned and zero-shot entity policy,
+   nearest-server and full-local; no kernel), the oracle on the same
+   arrivals, the daemon against the event heap on the card (identical
+   records), the tuned teacher distilled and quantized (3 ``quantize``),
+   and the same arrivals through the int8 trunk: exactly one
+   ``flat_trunk`` launch a dispatch; every ledger balanced and report well
+   formed; the seconds of each part, dispatches a second, host syncs a
+   dispatch and one profiled dispatch of the entity, oracle and int8
+   trunk dispatchers;
+15f. the trained compressor (paper §2, Eq. 4 and Fig. 4), a main path:
    ResNet18 at full width, 101 classes, 224-px synthetic images,
    pre-trained 150 steps (AdamW 3e-3, batch 32), then
    ``measure_rate_distortion`` at the four split points (ratios 4, 8, 16,
@@ -178,6 +204,13 @@ DISPATCH = dict(n_ue=1024, n_servers=3, frames=64, seed=0, bits=8)
 DECODE_SERVE = {"qwen3-1.7b": dict(requests=2, batch=4, prompt_len=2048, gen=32),
                 "mamba2-1.3b": dict(requests=2, batch=2, prompt_len=1024, gen=32)}
 TRUNK_DIMS = (19, 64, 64, 13)    # the flat trunk's published widths
+STREAM_M = 8                     # the trunk's rows on a stream dispatch: the 8-UE fleet
+# the streaming serve's distillation of its tuned teacher, the settings of
+# benchmarks/bench_policy_latency.py's quick run
+STREAM_DISTILL = dict(iterations=3, frames=64, n_envs=4, label_samples=4, epochs=150)
+STREAM_REPORT_KEYS = {"tasks", "completed", "dropped", "drop_rate", "miss_rate", "sojourn_mean",
+                      "energy_task", "sojourn_p50", "sojourn_p95", "sojourn_p99", "throughput",
+                      "arrivals"}
 TRAIN_TIMED = 3                  # iterations timed with a sync between rollout and update
 # the scorer's shapes on the fleet demo's path (envs, UEs, servers): the
 # rollout, the minibatch, the zero-shot pool, the dispatch fleet, a ragged
@@ -1439,7 +1472,8 @@ def phase_dispatch_timing(dev, kps, kft, kq):
     n, e = DISPATCH["n_ue"], DISPATCH["n_servers"]
     sargs = scorer_inputs(dev, g, n, e)
     targs = trunk_inputs(dev, g, kq, DISPATCH["bits"])
-    x = {m: torch.randn((m, TRUNK_DIMS[0]), generator=g, device=dev) for m in (n, 10 * n)}
+    x = {m: torch.randn((m, TRUNK_DIMS[0]), generator=g, device=dev)
+         for m in (n, 10 * n, STREAM_M)}
     rows = {f"pair_scorer (N,E)=({n},{e})": ("pair_scorer", lambda: kps.pair_scorer(*sargs),
                                              lambda: kps.pair_scorer_plain(*sargs),
                                              scorer_work(n, e))}
@@ -1459,7 +1493,7 @@ def phase_dispatch_timing(dev, kps, kft, kq):
         prof = "not measured" if prof_ms is None else f"{prof_ms:.5f} ms ({prof_names})"
         print(f"timing: {label}: kernel {ms:.5f} ms, {ms - floor_ms:.5f} ms above the launch "
               f"floor, profiler {prof} a call, plain {plain_ms:.5f} ms, library none, "
-              f"bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound",
+              f"bound {bound_ms:.7f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% of bound",
               flush=True)
         if label in plans:
             print(f"timing: {label}: {plans[label]}", flush=True)
@@ -1809,7 +1843,8 @@ def phase_fleet_timing(dev, fleet_demo, mahppo, optim, build_mod, res):
     profile_device("fleet demo update", lambda: fns.update(agent, opt, gen, traj, last_v),
                    wall_u, "update")
 
-    env_cpu = fleet_demo.fleet_env(device="cpu")
+    env_cpu = fleet_demo.fleet_env(fleet_demo.make_mixed_fleet(), fleet_demo.make_edge_pool(2),
+                                   randomize=True, device="cpu")
     small = mahppo.MAHPPOConfig(horizon=64, n_envs=2, batch=32, entity_policy=True,
                                 randomize_pool=True, fused_scorer=True)
     agent0 = mahppo.init_agent(torch.Generator().manual_seed(3), env, entity_policy=True)
@@ -1884,6 +1919,196 @@ def phase_fleet_churn(dev, fleet_demo, build_mod):
           f"membership {res['snapshot'].astype(int).tolist()} greedy {values[1]:.4f}, nearest "
           f"{values[2]:.4f}, load-balanced {values[3]:.4f}; zero-shot on 3 servers "
           f"{values[4]:.4f}", flush=True)
+    return launches, res
+
+
+def phase_fleet_distill(dev, fleet_demo, build_mod):
+    """``fleet_demo --distill`` at the example's settings, as a user runs
+    it: it trains its own teacher (the default demo's 15 iterations through
+    the scorer kernels; phase 15's agent is not reused), distills it on the
+    static pool, quantizes the student (exactly 3 ``quantize`` launches),
+    scores the int8 student (one ``flat_trunk`` launch an eval frame, 64)
+    and times the batch-1 forwards (one warm call and 20 timed of each);
+    every loss and the int8-over-teacher overhead ratio finite."""
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = fleet_demo.main(["--distill"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    d = res["distill"]
+    cfg = fleet_demo.fleet_config(len(res["history"]), entity_policy=True, randomize_pool=True,
+                                  fused_scorer=True)
+    want = fleet_demo_launches(cfg)
+    want.update(quantize=len(d["qstudent"]["qlayers"]),
+                flat_trunk=64 + 1 + fleet_demo.READOUT_CALLS)
+    check(launches == want, f"fleet demo --distill: launches {launches}, expected {want}")
+    hist = d["history"]
+    check(len(hist) == fleet_demo.DISTILL.iterations
+          and all(math.isfinite(h["loss"]) for h in hist), f"fleet demo --distill: {hist}")
+    ratio = d["overhead"]["int8"] / d["overhead"]["teacher"]
+    check(math.isfinite(ratio), f"fleet demo --distill: overheads {d['overhead']}")
+    rounds = "; ".join(f"round {h['iteration']}: {h['states']} states, loss {h['loss']:.4f}, "
+                       f"agreement {h['agreement']:.3f}" for h in hist)
+    fwd = ", ".join(f"{k} {v:.1f} us" for k, v in d["forward_us"].items())
+    print(f"fleet demo --distill: {len(res['history'])} teacher iterations in "
+          f"{res['seconds']:.1f} s, distillation in {d['seconds']:.1f} s ({wall:.1f} s in all), "
+          f"launches {launches} as expected; {rounds}; int8 overhead {d['overhead']['int8']:.4f} "
+          f"against the teacher's {d['overhead']['teacher']:.4f} (ratio {ratio:.3f}); "
+          f"parameters {d['params']}; batch-1 forward (best of {fleet_demo.READOUT_CALLS}): "
+          f"{fwd}", flush=True)
+    return launches, res
+
+
+def phase_fleet_llm(dev, fleet_demo, build_mod):
+    """``fleet_demo --llm`` at the example's settings: the mixed CNN +
+    LLM-decode fleet trained through the scorer kernels, exactly the
+    launches its iterations make, every reward and overhead finite; prints
+    each UE's split and the context-length shift."""
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = fleet_demo.main(["--llm"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    cfg = fleet_demo.fleet_config(len(res["history"]), entity_policy=True, fused_scorer=True)
+    want = fleet_demo_launches(cfg)
+    check(launches == want, f"fleet demo --llm: launches {launches}, expected {want}")
+    hist, env = res["history"], res["env"]
+    check(len(hist) == 15 and all(math.isfinite(r["reward_mean"]) for r in hist),
+          f"fleet demo --llm: rewards {[r['reward_mean'] for r in hist]}")
+    beta = env.params.beta
+    ovh = res["mahppo"]["t_task"] + beta * res["mahppo"]["e_task"]
+    values = [ovh, res["greedy"]["overhead"], res["nearest"]["overhead"],
+              res["loadbal"]["overhead"]]
+    check(all(math.isfinite(v) for v in values), f"fleet demo --llm: overheads {values}")
+    local = env.n_actions_b - 1
+    splits = ", ".join(f"ue{i} b={b}{' (local)' if b == local else ''}"
+                       for i, b in enumerate(res["splits"].tolist()))
+    print(f"fleet demo --llm: {len(hist)} iterations in {res['seconds']:.1f} s ({wall:.1f} s in "
+          f"all), launches {launches} as expected; reward {hist[0]['reward_mean']:.4f} -> "
+          f"{hist[-1]['reward_mean']:.4f}; overhead MAHPPO {ovh:.4f}, greedy {values[1]:.4f}, "
+          f"nearest {values[2]:.4f}, load-balanced {values[3]:.4f}; splits {splits}; "
+          f"context-length shift {'YES' if res['llm_shift'] else 'not yet at this budget'}",
+          flush=True)
+    return launches, res
+
+
+def stream_report_ok(name, rep, core):
+    """A well-formed report of a drained stream."""
+    led = core.ledger()
+    check(set(rep) == STREAM_REPORT_KEYS, f"streaming {name}: report keys {sorted(rep)}")
+    check(led["queued"] == led["in_flight"] == 0
+          and led["arrivals"] == led["completed"] + led["dropped"] == rep["tasks"]
+          == rep["arrivals"] > 0, f"streaming {name}: ledger {led}, report {rep}")
+    check(0.0 <= rep["miss_rate"] <= 1.0 and 0.0 <= rep["drop_rate"] <= 1.0
+          and math.isfinite(rep["throughput"]), f"streaming {name}: {rep}")
+
+
+def dispatch_wall_ms(disp, core, calls=20):
+    """Median wall time of one dispatch decision on ``core``'s state."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        disp(core, 0)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_streaming(dev, streaming_serve, distill, adapter, dispatcher, events, build_mod):
+    """The streaming runtime, a main path: the ``streaming_serve`` twin at
+    its defaults (8 UEs, 2 servers, MAHPPO 30 iterations, the fine-tune 14,
+    then 10 s of Poisson arrivals at 8 tasks/s a UE through the asyncio
+    daemon for the tuned entity policy, its zero-shot form, nearest-server
+    and full-local), then the oracle on the same arrivals, then the tuned
+    teacher distilled on the static pool and quantized (3 ``quantize``
+    launches), and the same arrivals through ``TrunkDispatcher(int8)``:
+    exactly one ``flat_trunk`` launch a dispatch and no other kernel. Every
+    ledger balanced and every report well formed; the daemon and the event
+    heap give identical records on the card for the full-local and greedy
+    dispatchers. Prints each report, the seconds of each part, dispatches a
+    second, host syncs a dispatch, and one profiled dispatch of the entity,
+    oracle and int8 trunk dispatchers (device time and idle share)."""
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    res = streaming_serve.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    check(not launches, f"streaming serve: kernels launched {launches}, expected none")
+    env, sp, seed = res["env"], res["sp"], 0
+    tune = res["tune_history"]
+    check(len(res["history"]) == 30 and len(tune) == 14
+          and all(math.isfinite(h["reward_mean"]) for h in res["history"] + tune),
+          f"streaming serve: {len(res['history'])} MAHPPO and {len(tune)} tune iterations")
+    reports, cores, secs = dict(res["reports"]), dict(res["cores"]), dict(res["seconds"])
+    oracle = adapter.StreamOracleDispatcher(env)
+    t1 = time.perf_counter()
+    reports["oracle"], cores["oracle"] = dispatcher.run_daemon(env, oracle, sp, seed=seed)
+    secs["oracle"] = time.perf_counter() - t1
+    print(f"streaming serve: MAHPPO {secs['train']:.1f} s, fine-tune {secs['tune']:.1f} s "
+          f"({wall:.1f} s with the four streams); fine-tune reward "
+          f"{tune[0]['reward_mean']:.3f} -> {tune[-1]['reward_mean']:.3f}, miss "
+          f"{tune[0]['miss_rate']:.3f} -> {tune[-1]['miss_rate']:.3f}", flush=True)
+
+    # the reference's own cross-runtime check, on the card
+    for mk in (adapter.LocalDispatcher, adapter.GreedyDispatcher):
+        sim = events.StreamSim(env, mk(env), sp, seed=seed)
+        rep = sim.run()
+        rep_d, core = dispatcher.run_daemon(env, mk(env), sp, seed=seed)
+        stream_report_ok(mk.__name__, rep, sim)
+        key = lambda recs: sorted((r.tid, r.ue, r.cls, r.t_arrive, r.t_start, r.t_done,
+                                   r.dropped, r.b, r.channel, r.server, r.rate, r.energy)
+                                  for r in recs)
+        check(key(sim.monitor.records) == key(core.monitor.records) and rep == rep_d,
+              f"streaming: the daemon and the event heap differ under {mk.__name__}")
+    print("streaming: the daemon and the event heap give identical records for "
+          "LocalDispatcher and GreedyDispatcher on the card", flush=True)
+
+    t1 = time.perf_counter()
+    student, hist = distill.distill_entity_policy(env, res["tuned"],
+                                                  distill.DistillConfig(**STREAM_DISTILL), seed=0)
+    secs["distill"] = time.perf_counter() - t1
+    build_mod.reset_launches()
+    q = distill.quantize_flat_trunk(student)
+    torch.cuda.synchronize()
+    launches["quantize"] = build_mod.LAUNCHES["quantize"]
+    check(dict((k, v) for k, v in build_mod.LAUNCHES.items() if v) == {"quantize": 3},
+          f"streaming: quantizing the trunk launched {dict(build_mod.LAUNCHES)}")
+    print(f"streaming: distilled the tuned teacher in {secs['distill']:.1f} s: "
+          + "; ".join(f"round {h['iteration']}: {h['states']} states, loss {h['loss']:.4f}, "
+                      f"agreement {h['agreement']:.3f}" for h in hist), flush=True)
+    trunk = adapter.TrunkDispatcher(env, q, seed=seed)
+    build_mod.reset_launches()
+    t1 = time.perf_counter()
+    reports["int8 trunk"], cores["int8 trunk"] = dispatcher.run_daemon(env, trunk, sp, seed=seed)
+    torch.cuda.synchronize()
+    secs["int8 trunk"] = time.perf_counter() - t1
+    got = {k: v for k, v in build_mod.LAUNCHES.items() if v}
+    dispatches = reports["int8 trunk"]["completed"]
+    check(got == {"flat_trunk": dispatches},
+          f"streaming: the trunk stream launched {got}, expected flat_trunk {dispatches}")
+    launches["flat_trunk"] = dispatches
+    policies = {"entity (tuned)", "entity zero-shot", "int8 trunk"}
+    for name, rep in reports.items():
+        core = cores[name]
+        stream_report_ok(name, rep, core)
+        n = rep["completed"]             # every started task completes: one dispatch each
+        syncs = core.phys.rate_calls / max(n, 1) + (1 if name in policies else 0)
+        print(f"streaming: {name:16s} throughput={rep['throughput']:6.1f}/s "
+              f"miss={rep['miss_rate']:6.1%} drop={rep['drop_rate']:6.1%} sojourn "
+              f"p50={rep['sojourn_p50']:.3f}s p95={rep['sojourn_p95']:.3f}s "
+              f"p99={rep['sojourn_p99']:.3f}s; {n} dispatches in {secs[name]:.2f} s "
+              f"({n / secs[name]:.0f} dispatches/s), {syncs:.2f} host syncs a dispatch",
+              flush=True)
+    print(f"streaming: server task counts of the tuned policy {res['per_server']}", flush=True)
+    for name, disp in (("entity", adapter.EntityDispatcher(env, res["tuned"],
+                                                            deterministic=False,
+                                                            live_channel=True)),
+                       ("oracle", oracle), ("int8 trunk", trunk)):
+        core = cores[name if name != "entity" else "entity (tuned)"]
+        profile_device(f"stream dispatch {name}", lambda: disp(core, 0),
+                       dispatch_wall_ms(disp, core), "dispatch")
     return launches, res
 
 
@@ -2542,7 +2767,11 @@ def main(argv=None):
         phase_decode_timing(dev, decode_attn, decode_shape)
         return 0
     from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
-    from repro_torch.launch import train_lm
+    from repro_torch.launch import streaming_serve, train_lm
+    from repro_torch.rl import distill
+    from repro_torch.stream import adapter as stream_adapter
+    from repro_torch.stream import dispatcher as stream_dispatcher
+    from repro_torch.stream import events as stream_events
     err = phase_kernels(dev, quant, bottleneck, kref)
     err["ssd_intra"] = phase_ssd_kernel(dev, ssd_intra, kref, ssd_shape, calib_shape)
     err["ssd_intra_backward"] = phase_ssd_backward(dev, ssd_intra, _build, ssd_shape,
@@ -2598,6 +2827,13 @@ def main(argv=None):
     phase_fleet_timing(dev, fleet_demo, mahppo, optim, _build, res)
     del res
     counts, _ = phase_fleet_churn(dev, fleet_demo, _build)
+    launches.update(counts)
+    counts, _ = phase_fleet_distill(dev, fleet_demo, _build)
+    launches.update(counts)
+    counts, _ = phase_fleet_llm(dev, fleet_demo, _build)
+    launches.update(counts)
+    counts, _ = phase_streaming(dev, streaming_serve, distill, stream_adapter, stream_dispatcher,
+                                stream_events, _build)
     launches.update(counts)
     phase_compressor(dev, cnn_lib, compressor, huffman, jalad, optim, synthetic, _build)
     torch.cuda.empty_cache()

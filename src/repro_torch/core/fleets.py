@@ -1,8 +1,7 @@
 """Fleet and edge-pool helpers, the port's copy of the analytic half of
 ``src/repro/core/fleets.py`` (numpy only): the normalisers and feature
 builders the env serves to the policies, the demo edge pools and the
-mixed CNN + transformer fleet. The mixed CNN + LLM-decode fleet comes
-with the port's ``--llm`` slice.
+mixed CNN + transformer fleet and the mixed CNN + LLM-decode one.
 
 Every per-UE feature is a normalized scalar summary, never a raw table, so
 feature widths do not depend on the fleet size N, the action width B_max
@@ -18,7 +17,8 @@ import numpy as np
 from repro_torch.core import overhead as oh
 from repro_torch.core.cnn import make_resnet18
 from repro_torch.core.split import (FleetPlan, build_fleet, cnn_split_table,
-                                    transformer_split_table)
+                                    llm_decode_split_table, transformer_split_table)
+
 
 def make_mixed_fleet(arch: str = "qwen3-1.7b", n_ue: int = 4) -> FleetPlan:
     """ResNet18 on a Jetson, ResNet18 on an IoT-class SoC, and two
@@ -32,6 +32,30 @@ def make_mixed_fleet(arch: str = "qwen3-1.7b", n_ue: int = 4) -> FleetPlan:
             (transformer_split_table(tcfg, ue_dev=oh.PHONE_NPU), oh.PHONE_NPU),
             (transformer_split_table(tcfg, ue_dev=oh.PHONE_NPU), oh.PHONE_NPU)]
     picks = [base[i % len(base)] for i in range(n_ue)]
+    return build_fleet([p for p, _ in picks], [d for _, d in picks])
+
+
+# The context lengths of the LLM-decode fleet, each its own task class (its
+# own SplitPlan: f_bits curve and full-local seconds).
+LLM_CTX_RUNGS = (256, 1024, 4096)
+
+
+def make_llm_mixed_fleet(arch: str = "qwen3-1.7b", n_cnn: int = 2, ctx_rungs=LLM_CTX_RUNGS, *,
+                         gen_tokens: int = 16, kv_bits: int = 8) -> FleetPlan:
+    """``n_cnn`` ResNet18 UEs (Jetson and IoT SoC alternating, the device
+    mix of ``make_mixed_fleet``) and one LLM-decode UE (``arch``) a context
+    rung on a phone NPU (``core.split.llm_decode_split_table``): CNN
+    payloads shrink with depth, KV-cache payloads grow with context, and
+    both compete for the same channels and servers."""
+    from repro_torch.configs import get_config
+    cnn = make_resnet18(101)
+    cnn_devs = (oh.JETSON_NANO, oh.IOT_SOC)
+    picks = [(cnn_split_table(cnn, 224, dev=cnn_devs[i % 2]), cnn_devs[i % 2])
+             for i in range(n_cnn)]
+    cfg = get_config(arch)
+    for ctx in ctx_rungs:
+        picks.append((llm_decode_split_table(cfg, ctx, gen_tokens=gen_tokens, ue_dev=oh.PHONE_NPU,
+                                             kv_bits=kv_bits), oh.PHONE_NPU))
     return build_fleet([p for p, _ in picks], [d for _, d in picks])
 
 

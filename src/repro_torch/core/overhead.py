@@ -132,6 +132,45 @@ def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
     return out
 
 
+def decode_layer_costs(cfg: ModelConfig, ctx_len: int) -> List[dict]:
+    """Per-layer {flops, bytes, param_bytes} of one decode step at context
+    length ``ctx_len`` for the port's block types: s = 1 projections,
+    attention scores over the context and the layer's serving-cache bytes
+    read a token (decode is memory-bound, so the cache traffic is the term
+    that grows with context); a mamba2 layer updates O(1) state."""
+    d, dh = cfg.d_model, cfg.head_dim
+    hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    act = 2 * d * 2  # in and out hidden of the one token, bf16
+    kv_el = 1 if cfg.kv_quant_bits else 2   # int8 codes or bf16
+    out = []
+    for bt in cfg.block_types():
+        if bt == "mamba2":
+            ss = cfg.ssm
+            di = ss.expand * d
+            h = di // ss.head_dim
+            n = ss.d_state
+            proj = 2 * d * (2 * di + 2 * n + h) + 2 * di * d
+            step = 2 * h * ss.head_dim * n * 3
+            pbytes = (d * (2 * di + 2 * n + h) + di * d) * 2
+            state_b = h * ss.head_dim * n * 4 + (ss.d_conv - 1) * (di + 2 * n) * 2
+            out.append({"flops": proj + step, "bytes": pbytes + state_b + act,
+                        "param_bytes": pbytes})
+        elif bt == "dense":
+            attn_proj = 2 * d * (hq + 2 * hkv) * dh + 2 * hq * dh * d
+            attn_qk = 4 * ctx_len * hq * dh
+            a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
+            cache_b = 2 * ctx_len * hkv * dh * kv_el \
+                + (2 * ctx_len * hkv * 4 if cfg.kv_quant_bits else 0)
+            mult = 3 if cfg.act == "swiglu" else 2
+            fp = mult * d * f * 2
+            out.append({"flops": attn_proj + attn_qk + mult * 2 * d * f,
+                        "bytes": a_params + fp + cache_b + act,
+                        "param_bytes": a_params + fp})
+        else:
+            raise NotImplementedError(f"costs of {bt!r} blocks come with the model-zoo slice")
+    return out
+
+
 def embed_costs(cfg: ModelConfig, seq_len: int) -> dict:
     pb = cfg.vocab_size * cfg.d_model * 2
     return {"flops": 2 * seq_len * cfg.d_model * cfg.vocab_size,

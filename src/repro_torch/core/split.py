@@ -10,10 +10,10 @@ A split decision b in {0, 1, ..., B+1} means:
   b = B+1  full local inference
 
 ``cnn_jalad_table`` is the JALAD baseline's table (8-bit codes, entropy
-coding, no channel reduction). The measured tables
-(``measured_cnn_split_table``) need FLOP counting of a compiled graph and
-come with the launch and sharding slice; the LLM-decode table with the
-``--llm`` slice.
+coding, no channel reduction); ``llm_decode_split_table`` the LLM-decode
+offloading table, whose payload carries the UE-side serving cache. The
+measured CNN tables (``measured_cnn_split_table``) need FLOP counting of a
+compiled graph and come with the launch and sharding slice.
 """
 from __future__ import annotations
 
@@ -238,6 +238,61 @@ def transformer_split_table(cfg: ModelConfig, *, seq_len=128,
     total_pb = embed_pb + cum_pb[-1] + (emb["param_bytes"] - embed_pb)
     rows.append((t, e, 0.0, 0.0, 0.0, total_pb <= ue_dev.mem_bytes))
     return _finalize(cfg.name, points, rows, device=ue_dev.name)
+
+
+def llm_decode_split_table(cfg: ModelConfig, ctx_len: int, *, gen_tokens=32,
+                           ue_dev=oh.PHONE_NPU, n_points=4, ae_ratio=None, quant_bits=None,
+                           kv_bits=None, batch=1) -> SplitPlan:
+    """LLM decode offloading, where the intermediate feature is the serving
+    state and its size grows with the context length.
+
+    A task serves one request of ``ctx_len`` context tokens and
+    ``gen_tokens`` generated ones. b = 0 ships the raw token ids; b = k
+    prefills layers [0, k) on the UE, then ships the AE-compressed boundary
+    hidden states (ctx_len x d') and the UE-side layers' serving cache
+    (``models.cache.entry_payload_bits``: KV at ``kv_bits``, 0 for 16-bit;
+    O(1) SSM state), so the edge finishes the prefill at layer k and
+    decodes through the whole stack; b = B+1 prefills and decodes
+    ``gen_tokens`` steps on the UE. A split is feasible when the UE-side
+    parameters and cache fit UE memory."""
+    from repro_torch.models.cache import entry_payload_bits
+
+    ctx_len = int(ctx_len)
+    if kv_bits is not None:
+        cfg = cfg.replace(kv_quant_bits=kv_bits)
+    ae_ratio = ae_ratio or cfg.bottleneck_ratio
+    quant_bits = quant_bits or cfg.quant_bits
+    btypes = cfg.block_types()
+    L = len(btypes)
+    pre = oh.layer_costs(cfg, ctx_len)
+    dec = oh.decode_layer_costs(cfg, ctx_len)
+    points = [max(1, round(L * (i + 1) / (n_points + 1))) for i in range(n_points)]
+
+    embed_pb = cfg.vocab_size * cfg.d_model * 2
+    cum_fl = np.cumsum([l["flops"] for l in pre]) * batch
+    cum_by = np.cumsum([l["bytes"] for l in pre]) * batch
+    cum_pb = np.cumsum([l["param_bytes"] for l in pre])
+    cum_kv = np.cumsum([entry_payload_bits(cfg, bt, batch, ctx_len) for bt in btypes])
+
+    d = cfg.d_model
+    dprime = max(1, d // ae_ratio)
+    rows = [(0.0, 0.0, 0.0, 0.0, ctx_len * 32 * batch, True)]   # b = 0: raw token ids
+    for k in points:
+        t, e = oh.module_time_energy(cum_fl[k - 1], cum_by[k - 1], ue_dev)
+        enc_fl = 2 * ctx_len * d * dprime * batch
+        tc, ec = oh.module_time_energy(enc_fl, enc_fl / 4, ue_dev)
+        bits = ctx_len * dprime * quant_bits * batch + cum_kv[k - 1]
+        ue_bytes = embed_pb + cum_pb[k - 1] + cum_kv[k - 1] / 8
+        rows.append((t, e, tc, ec, bits, ue_bytes <= ue_dev.mem_bytes))
+    # b = B+1: prefill and decode on the UE (several frames on a seconds scale)
+    emb = oh.embed_costs(cfg, 1)
+    dec_fl = sum(l["flops"] for l in dec) * batch + emb["flops"] * batch
+    dec_by = sum(l["bytes"] for l in dec) * batch + emb["bytes"]
+    t, e = oh.module_time_energy(cum_fl[-1] + gen_tokens * dec_fl,
+                                 cum_by[-1] + gen_tokens * dec_by, ue_dev)
+    total_pb = embed_pb + cum_pb[-1] + (emb["param_bytes"] - embed_pb)
+    rows.append((t, e, 0.0, 0.0, 0.0, total_pb + cum_kv[-1] / 8 <= ue_dev.mem_bytes))
+    return _finalize(f"{cfg.name}-decode-ctx{ctx_len}", points, rows, device=ue_dev.name)
 
 
 def split_table(target, **kw) -> SplitPlan:

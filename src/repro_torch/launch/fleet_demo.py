@@ -22,9 +22,23 @@ without the kernel; ``--servers E``; ``--n-ue N``). ``--churn`` (or
 dynamic: the demo prints a 24-frame full-local membership trace from a
 fixed seed, scores greedy, nearest and load-balanced on its last non-empty
 membership snapshot and reports the mean fleet size over the evaluation.
-Runs on the CUDA card unless ``--device cpu`` is given. ``--llm``,
-``--distill`` and ``--n-shards`` > 1 raise ``NotImplementedError`` naming
-the slice that brings them.
+
+``--llm`` schedules the mixed CNN + LLM-decode fleet (two ResNet18 UEs and
+one qwen3-1.7b decode UE a context rung, 256 / 1024 / 4096, whose payload
+carries the UE-side KV cache) against a thin multi-tenant v5e slice and an
+edge-GPU tier, with 2-second frames and no pool randomization, and prints
+whether the context-length shift (short rungs offload, the long rung stays
+local or splits later) has emerged. ``--distill`` then distills the entity
+teacher into the flat trunk on the static pool (``rl.distill``), quantizes
+it to int8 (three ``quantize`` launches), scores it through the
+``flat_trunk`` kernel (one launch an eval frame) against the teacher, and
+closes with a batch-1 forward readout of the teacher, the f32 student and
+the int8 student (best of 20 after one warm call). Runs on the CUDA card
+unless ``--device cpu`` is given. ``--n-shards`` > 1 raises
+``NotImplementedError`` naming the slice that brings it.
+
+  PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1 --distill
+  PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1 --llm
 """
 from __future__ import annotations
 
@@ -36,18 +50,19 @@ import torch
 
 from repro_torch import full_precision_matmuls, resolve_device
 from repro_torch.configs import ARCH_IDS
-from repro_torch.core.fleets import make_edge_pool, make_mixed_fleet, random_pool_ranges
+from repro_torch.core import overhead as oh
+from repro_torch.core.fleets import (LLM_CTX_RUNGS, EdgePool, make_edge_pool,
+                                     make_llm_mixed_fleet, make_mixed_fleet, random_pool_ranges)
 from repro_torch.env.mecenv import MECEnv, make_env_params
 from repro_torch.rl import nets
 from repro_torch.rl.baselines import load_aware_eval, nearest_server_eval
+from repro_torch.rl.distill import DistillConfig, distill_entity_policy, quantize_flat_trunk
 from repro_torch.rl.heuristics import greedy_eval
 from repro_torch.rl.mahppo import MAHPPOConfig, evaluate_policy, init_agent, train_mahppo
 
-_WAITS = {"llm": "the mixed CNN + LLM-decode fleet (--llm) comes with the port's --llm slice",
-          "distill": "distillation (--distill) comes with the port's distillation and "
-                     "streaming slice",
-          "n_shards": "sharded rollouts (--n-shards > 1) come with the launch and sharding "
-                      "slice"}
+_SHARDS = "sharded rollouts (--n-shards > 1) come with the launch and sharding slice"
+DISTILL = DistillConfig(iterations=2, frames=48, epochs=120)   # the example's
+READOUT_CALLS = 20                 # timed batch-1 forwards a network, after one warm call
 
 
 def fleet_config(iterations=15, *, shared_policy=False, entity_policy=False,
@@ -58,18 +73,24 @@ def fleet_config(iterations=15, *, shared_policy=False, entity_policy=False,
                         randomize_pool=randomize_pool, fused_scorer=fused_scorer)
 
 
-def fleet_env(arch="qwen3-1.7b", n_ue=4, n_servers=2, randomize=True, device=None,
-              churn_rate=0.0, leave_rate=0.0):
-    """The demo's env: the mixed fleet on 2 channels, t0 = 0.5, the demo
-    pool of ``n_servers`` (none for 1), its geometry resampled per episode
-    with ``randomize`` (ranges ``random_pool_ranges``), dynamic with a
-    nonzero ``churn_rate`` or ``leave_rate``."""
-    pool = make_edge_pool(n_servers) if n_servers > 1 else None
+def fleet_env(fleet, pool, *, t0=0.5, randomize=False, device=None, churn_rate=0.0,
+              leave_rate=0.0):
+    """The demo's env: ``fleet`` on 2 channels of ``pool`` (None: the
+    paper's one server), frames of ``t0`` seconds, the pool's geometry
+    resampled per episode with ``randomize`` (ranges
+    ``random_pool_ranges``), dynamic with a nonzero ``churn_rate`` or
+    ``leave_rate``."""
     return MECEnv(make_env_params(
-        make_mixed_fleet(arch, n_ue=n_ue), n_channels=2, t0=0.5, churn_rate=churn_rate,
-        leave_rate=leave_rate, pool=pool,
-        pool_ranges=random_pool_ranges(n_servers) if randomize and pool else None,
+        fleet, n_channels=2, t0=t0, churn_rate=churn_rate, leave_rate=leave_rate, pool=pool,
+        pool_ranges=random_pool_ranges(pool.n_servers) if randomize else None,
         device=resolve_device(device)))
+
+
+def llm_pool():
+    """The ``--llm`` pool: a thin multi-tenant v5e slice (2.5 % of its
+    peak) at the cell center and an edge GPU at 1.4 x the distance."""
+    return EdgePool((oh.ServerProfile.from_device(oh.TPU_V5E, utilization=0.025),
+                     oh.ServerProfile.from_device(oh.EDGE_GPU, dist_scale=1.4)))
 
 
 def membership_trace(env, frames=24, seed=7):
@@ -99,24 +120,33 @@ def membership_trace(env, frames=24, seed=7):
 
 def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_policy=False,
                    entity_policy=False, n_ue=4, fused_scorer=False, device=None,
-                   churn_rate=0.0, leave_rate=0.0):
+                   churn_rate=0.0, leave_rate=0.0, llm=False, distill=False):
     """Train and score the demo. Returns {"history", "mahppo", "greedy",
     "nearest", "loadbal", "zero_shot", "membership", "snapshot", "agent",
-    "env", "seconds"} (entries that do not apply are None)."""
+    "env", "seconds", "splits", "llm_shift", "distill"} (entries that do
+    not apply are None)."""
     dev = resolve_device(device)
-    fleet = make_mixed_fleet(arch, n_ue=n_ue)
+    frame_s = 0.5
+    if llm:
+        # 2-second frames, so the ctx-4096 rung's full-local run spans frames
+        fleet, pool, frame_s = make_llm_mixed_fleet(arch), llm_pool(), 2.0
+        print(f"LLM context rungs: {LLM_CTX_RUNGS} (f_bits grows with context: the KV cache "
+              f"rides the boundary payload)")
+    else:
+        fleet = make_mixed_fleet(arch, n_ue=n_ue)
+        pool = make_edge_pool(n_servers) if n_servers > 1 else None
     print("fleet:")
     for i, (name, prof) in enumerate(zip(fleet.names, fleet.profiles)):
         print(f"  ue{i}: {name:14s} on {prof.name:12s} (P_compute={prof.p_compute:.1f} W, "
             f"{int(fleet.feasible[i].sum())}/{fleet.n_actions} feasible actions)")
-    pool = make_edge_pool(n_servers) if n_servers > 1 else None
     if pool is not None:
         print("edge pool:")
         for e, srv in enumerate(pool.servers):
             print(f"  srv{e}: {srv.name:10s} dist x{srv.dist_scale:.1f}  bw x{srv.bw_scale:.1f}  "
                 f"edge_speed={srv.edge_speed / 1e12:.1f} TFLOP/s")
-    randomize = entity_policy and pool is not None
-    env = fleet_env(arch, n_ue, n_servers, randomize, dev, churn_rate, leave_rate)
+    randomize = entity_policy and pool is not None and not llm
+    env = fleet_env(fleet, pool, t0=frame_s, randomize=randomize, device=dev,
+                    churn_rate=churn_rate, leave_rate=leave_rate)
     print(f"action space: {', '.join(env.action_space.names)}")
     trace = snapshot = None          # the baselines' membership on a dynamic fleet
     if env.dynamic:
@@ -146,7 +176,7 @@ def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_poli
     beta = env.params.beta
     out = {"history": hist, "mahppo": ev, "greedy": gr, "nearest": None, "loadbal": None,
            "zero_shot": None, "membership": trace, "snapshot": snapshot, "agent": agent,
-           "env": env, "seconds": seconds}
+           "env": env, "seconds": seconds, "llm_shift": None, "distill": None}
     if env.dynamic:
         print(f"\nmean fleet size over eval: {ev['n_active']:.2f} of {env.params.n_ue} UEs"
             + ("" if snapshot is None else
@@ -192,14 +222,23 @@ def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_poli
         where = f" -> srv{int(a_star['route'][i])}" \
             if env.multi_server and b != env.n_actions_b - 1 else ""
         print(f"  ue{i} ({fleet.names[i]}): {kind}{where}")
+    out["splits"] = a_star["split"]
     if env.multi_server:
         counts = np.bincount(a_star["route"], minlength=env.n_servers)
         print("  learned route distribution: "
             + ", ".join(f"srv{e}={int(c)}" for e, c in enumerate(counts)))
+    if llm:
+        b_llm = a_star["split"][-len(LLM_CTX_RUNGS):]
+        local = env.n_actions_b - 1
+        offl = b_llm[:-1][b_llm[:-1] != local]
+        out["llm_shift"] = shift = bool(offl.size > 0 and (b_llm[-1] == local
+                                                             or b_llm[-1] > offl.min()))
+        print(f"  context-length shift (short rungs offload, ctx{LLM_CTX_RUNGS[-1]} stays "
+              f"local/later): {'YES' if shift else 'not yet at this budget'}")
 
     # the entity policy's parameters do not depend on the pool size: the
     # same agent on an E + 1-server pool, zero-shot
-    if entity_policy and env.multi_server and n_servers < 3:
+    if entity_policy and env.multi_server and n_servers < 3 and not llm:
         env_big = MECEnv(make_env_params(fleet, n_channels=2, pool=make_edge_pool(n_servers + 1),
                                          device=dev))
         ev_big = evaluate_policy(env_big, agent, frames=64)
@@ -209,7 +248,74 @@ def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_poli
         print(f"\nzero-shot on an UNSEEN {n_servers + 1}-server pool (route head is E-free): "
             f"entity overhead {ovh_big:.4f} vs nearest-server {near_big['overhead']:.4f} "
             f"[{'BEATS' if ovh_big <= near_big['overhead'] else 'LOSES'}]")
+    if distill:
+        # the deployment serves one pool: the static one
+        env_d = fleet_env(fleet, pool, t0=frame_s, device=dev) if randomize else env
+        out["distill"] = distill_demo(env_d, agent)
     return out
+
+
+def distill_demo(env, agent):
+    """Distill the entity ``agent`` into the flat trunk on the static
+    ``env`` (``DISTILL``, seed 1), quantize it, score the int8 student
+    against the teacher over 64 eval frames and time one batch-1 forward
+    of each network. Returns {"history", "student", "qstudent", "params",
+    "overhead", "forward_us", "seconds"}."""
+    print("\ndistilling into the serve-small flat trunk (rl.distill; fixed fleet, fixed pool)...")
+    t0 = time.perf_counter()
+    student, hist = distill_entity_policy(
+        env, agent, DISTILL, seed=1, log_cb=lambda r: print(
+            f"  round {r['iteration']}: dataset {r['states']} states  loss {r['loss']:.4f}  "
+            f"mode agreement {r['agreement']:.2f}"))
+    seconds = time.perf_counter() - t0
+    qstudent = quantize_flat_trunk(student)
+    params = {"teacher": nets.param_count(agent["entity_actor"]),
+              "student": nets.param_count(student),
+              "teacher_bytes": nets.param_bytes(agent["entity_actor"]),
+              "f32_bytes": nets.param_bytes(student), "int8_bytes": nets.param_bytes(qstudent)}
+    print(f"  teacher {params['teacher']} params ({params['teacher_bytes'] / 1e3:.1f} kB) -> "
+          f"student {params['student']} ({100 * params['student'] / params['teacher']:.1f}%); "
+          f"int8 serving weights {params['int8_bytes'] / 1e3:.1f} kB vs f32 "
+          f"{params['f32_bytes'] / 1e3:.1f} kB")
+    beta = env.params.beta
+    ev_t = evaluate_policy(env, agent, frames=64)
+    ev_q = evaluate_policy(env, {"flat_trunk": qstudent}, frames=64)
+    ovh = {"teacher": ev_t["t_task"] + beta * ev_t["e_task"],
+           "int8": ev_q["t_task"] + beta * ev_q["e_task"]}
+    print(f"  int8 student overhead {ovh['int8']:.4f} vs teacher {ovh['teacher']:.4f} "
+          f"(ratio {ovh['int8'] / ovh['teacher']:.2f})")
+
+    # the per-task cost the dispatcher pays on the streaming path: one
+    # batch-1 policy forward
+    space, dev = env.action_space, env.device
+    s0 = env.reset(eval_mode=True)
+    masks = space.broadcast_masks(env.action_masks(), env.params.n_ue, device=dev)
+    rows, ents = env.observe_per_ue(s0), env.observe_entities(s0)
+    cells = (("entity teacher", lambda: nets.entity_actor_forward(agent["entity_actor"], space,
+                                                                  ents, masks)),
+             ("distilled f32", lambda: nets.flat_trunk_forward(student, space, rows, masks)),
+             ("distilled int8", lambda: nets.flat_trunk_forward(qstudent, space, rows, masks)))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def best_us(fn):
+        fn()
+        sync()                     # warm
+        best = float("inf")
+        for _ in range(READOUT_CALLS):
+            t1 = time.perf_counter()
+            fn()
+            sync()
+            best = min(best, time.perf_counter() - t1)
+        return best * 1e6
+
+    print(f"  batch-1 dispatch forward (best of {READOUT_CALLS}):")
+    forward_us = {}
+    with torch.inference_mode():
+        for name, fn in cells:
+            forward_us[name] = best_us(fn)
+            print(f"    {name:14s}: {forward_us[name]:8.1f} us")
+    return {"history": hist, "student": student, "qstudent": qstudent, "params": params,
+            "overhead": ovh, "forward_us": forward_us, "seconds": seconds}
 
 
 def main(argv=None):
@@ -234,8 +340,13 @@ def main(argv=None):
     ap.add_argument("--leave-rate", type=float, default=None,
                     help="per-frame departure probability of an active UE (default 0.1 "
                          "when churning)")
-    ap.add_argument("--llm", action="store_true")
-    ap.add_argument("--distill", action="store_true")
+    ap.add_argument("--llm", action="store_true",
+                    help="the mixed CNN + LLM-decode fleet on the thin v5e + edge-GPU pool "
+                         "(implies --entity-policy)")
+    ap.add_argument("--distill", action="store_true",
+                    help="after training, distill the entity teacher into the int8 flat "
+                         "trunk and time a batch-1 forward (implies --entity-policy; not "
+                         "with --churn)")
     ap.add_argument("--n-shards", type=int, default=1, metavar="K")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for the plain path)")
@@ -243,20 +354,20 @@ def main(argv=None):
     churn = args.churn or args.churn_rate is not None or args.leave_rate is not None
     if args.distill and churn:
         ap.error("--distill targets a fixed deployment fleet; it cannot combine with --churn")
-    for flag in ("llm", "distill"):
-        if getattr(args, flag):
-            raise NotImplementedError(_WAITS[flag])
     if args.n_shards > 1:
-        raise NotImplementedError(_WAITS["n_shards"])
+        raise NotImplementedError(_SHARDS)
     if args.entity_policy and args.shared_policy:
         ap.error("pick one of --entity-policy / --shared-policy")
     if args.fused_scorer and args.shared_policy:
         ap.error("--fused-scorer fuses the entity route scorer; it cannot combine with "
                  "--shared-policy")
     if not (args.fleet or args.servers > 1 or args.shared_policy or args.entity_policy
-            or args.fused_scorer or args.n_ue != 4):     # --churn alone churns the slice's run
-        args.fused_scorer, args.servers = True, 2          # the slice's run
-    if args.fused_scorer:
+            or args.fused_scorer or args.n_ue != 4):     # --churn, --llm and --distill alone
+        args.fused_scorer, args.servers = True, 2          # run the slice's mode
+    if (args.llm or args.distill) and args.shared_policy:
+        ap.error("--llm and --distill need the entity policy; they cannot combine with "
+                 "--shared-policy")
+    if args.fused_scorer or args.llm or args.distill:
         args.entity_policy = True
     if args.entity_policy and args.servers < 2:
         args.servers = 2           # the route scorer needs a pool to score
@@ -266,7 +377,8 @@ def main(argv=None):
         entity_policy=args.entity_policy, n_ue=args.n_ue, fused_scorer=args.fused_scorer,
         device=args.device,
         churn_rate=(0.2 if args.churn_rate is None else args.churn_rate) if churn else 0.0,
-        leave_rate=(0.1 if args.leave_rate is None else args.leave_rate) if churn else 0.0)
+        leave_rate=(0.1 if args.leave_rate is None else args.leave_rate) if churn else 0.0,
+        llm=args.llm, distill=args.distill)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,11 @@ and ``actor_stack_from_jax`` carry the scheduler's policy nets
 also ``vmap``-stacked over the per-UE actors) the same way, as numpy
 trees; ``agent_from_jax`` carries a whole MAHPPO agent.
 
+``env_state_from_jax`` carries an env state (the reference's
+``EnvState``, e.g. a stream snapshot a ``_DaggerDispatcher`` recorded)
+and ``action_from_jax`` an action dict, so a test can feed the
+reference's records to the port.
+
 ``cnn_from_jax`` carries a CNN backbone's parameters (``core.cnn``'s
 ``model.init`` output): the same nesting of lists, tuples and dicts, with
 float32 tensors in place of the arrays.
@@ -28,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.env.mecenv import EnvState
 from repro_torch.kernels.ref import code_dtype
 from repro_torch.models.blocks import _LATER
 from repro_torch.models.model import Model, layer_plan
@@ -116,7 +122,7 @@ def from_jax_params(tree, cfg, device):
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
-           "int32": torch.int32, "int8": torch.int8}
+           "int32": torch.int32, "int8": torch.int8, "bool": torch.bool}
 
 
 def _leaf(a, device):
@@ -233,3 +239,17 @@ def cnn_from_jax(tree, device):
     if a.ndim == 0 and a.dtype.kind in "USiub":
         return a.item()
     return _tensor(a, torch.float32, device)
+
+
+def env_state_from_jax(state, device):
+    """A reference ``EnvState`` (numpy or JAX leaves) -> the port's, each
+    leaf in its own dtype; the reference's PRNG key becomes ``gen=None``."""
+    leaf = lambda a: None if a is None else _leaf(np.asarray(a), device)
+    return EnvState(k=leaf(state.k), l=leaf(state.l), n=leaf(state.n), d=leaf(state.d),
+                    t=leaf(state.t), gen=None, active=leaf(state.active),
+                    geom=leaf(getattr(state, "geom", None)))
+
+
+def action_from_jax(actions, device):
+    """{head: array} (numpy or JAX) -> {head: tensor}, dtypes kept."""
+    return {k: _leaf(np.asarray(v), device) for k, v in actions.items()}

@@ -33,6 +33,8 @@ from repro_torch.rl.gae import gae
 from test_torch_env import N, TOL, _actions, _envs, _jstate, _states, _tstate
 from test_torch_policy import _dist_close, _np_tree
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 E = 3
 
 

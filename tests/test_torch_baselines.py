@@ -34,6 +34,8 @@ from repro_torch.env import mecenv
 from repro_torch.launch import fleet_demo
 from repro_torch.rl import baselines, heuristics
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 FLEETS = ["mixed-1", "mixed-2", "cnn-1"]
 DECISIONS = ("b", "c", "route")
 VALUES = ("t_task", "e_task", "overhead")
@@ -150,9 +152,11 @@ def test_fleet_demo_runs_on_the_cpu(capsys):
         assert line in text, line
     assert len(out["history"]) == 1 and np.isfinite(out["history"][0]["reward_mean"])
     assert out["env"].randomizable and np.isfinite(out["zero_shot"]["overhead"])
-    for flag in ("--llm", "--distill"):
-        with pytest.raises(NotImplementedError):
-            fleet_demo.main(["--device", "cpu", flag])
+    # --llm and --distill run, here together: the LLM fleet's pool is static,
+    # so the student is distilled on the env the teacher trained on
+    both = fleet_demo.main(["--device", "cpu", "--iterations", "1", "--llm", "--distill"])
+    assert isinstance(both["llm_shift"], bool) and both["env"].params.t0 == 2.0
+    assert [h["states"] for h in both["distill"]["history"]] == [192, 384]
     # churn is accepted; the reference refuses it beside --distill
     with pytest.raises(SystemExit):
         fleet_demo.main(["--device", "cpu", "--churn", "--distill"])

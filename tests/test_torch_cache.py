@@ -12,6 +12,8 @@ from repro.models import cache as jcache
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import cache
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 GQA = dict(n_heads=4, n_kv_heads=2, d_head=64)
 
 

@@ -35,6 +35,8 @@ from repro_torch.rl import mahppo
 from test_torch_env import N, TOL, _actions, _fleets, _states
 from test_torch_policy import SCALE, _entity, _margin
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 CHURN, LEAVE = 0.3, 0.2
 
 

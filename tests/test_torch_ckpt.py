@@ -18,6 +18,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models.model import init_params
 from repro_torch.weights import from_jax_params, to_reference_tree
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 def _tree(rng):
     return {"w": [torch.from_numpy(rng.normal(size=(3, 4)).astype(np.float32)),

@@ -2,8 +2,10 @@
 fleet with the JAX reference.
 
 The backbones run at width 0.25 with 7 classes on (2, 3, 32, 32) inputs
-made with numpy, the reference's parameters carried across by
-``weights.cnn_from_jax``; forward and the split forward at every split
+made with numpy, from the port's init given to the reference as numpy and
+to the port through ``weights.cnn_from_jax`` (the reference's own init
+compiles op by op for ~15 s a model; its tree is held to the port's by
+shape and structure); forward and the split forward at every split
 point are held to the reference's own tolerance, rtol = atol = 1e-4
 (``tests/test_cnn_compressor.py``). ResNet18's last stage is 1 x 1 at 32
 px, where BatchNorm over a batch of 2 divides by the spread of two
@@ -30,6 +32,8 @@ from repro_torch.core import cnn, fleets, split
 from repro_torch.core import overhead as oh
 from repro_torch.configs import get_config
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 NAMES = ["resnet18", "vgg11", "mobilenetv2"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -40,11 +44,33 @@ def _wide(tree):
         lambda a: np.asarray(a, np.float64) if np.asarray(a).dtype.kind == "f" else a, tree)
 
 
+def _reference_init_shapes(jm):
+    """The reference's ``jm.init`` tree with every array as its shape,
+    from one trace (``jax.eval_shape``, nothing compiled: run eagerly the
+    init compiles op by op, ~15 s a model); the structural entries (layer
+    kinds, block descriptors), which the trace keeps as Python values, in
+    their places."""
+    box = {}
+
+    def arrays(k):
+        leaves, box["treedef"] = jax.tree_util.tree_flatten(jm.init(k))
+        box["static"] = [None if isinstance(a, jax.core.Tracer) else a for a in leaves]
+        return [a for a in leaves if isinstance(a, jax.core.Tracer)]
+
+    shapes = iter(jax.eval_shape(arrays, jax.random.PRNGKey(0)))
+    return jax.tree_util.tree_unflatten(box["treedef"], [
+        tuple(next(shapes).shape) if a is None else a for a in box["static"]])
+
+
 @functools.lru_cache(maxsize=None)
 def _models(name):
-    """The reference's model and parameters, the port's, and the input."""
+    """The reference's model, the parameters both packages run (the port's
+    init as numpy: the same distribution as the reference's, whose
+    structure ``test_walkers_and_init_match_the_reference`` holds to the
+    reference's), the port's model, and the input."""
     jm, m = jcnn.CNN_FACTORY[name](7, width=0.25), cnn.CNN_FACTORY[name](7, width=0.25)
-    jp = jm.init(jax.random.PRNGKey(0))
+    jp = jax.tree_util.tree_map(lambda t: t.numpy() if isinstance(t, torch.Tensor) else t,
+                                m.init(torch.Generator().manual_seed(0)))
     x = np.random.default_rng(1).standard_normal((2, 3, 32, 32)).astype(np.float32)
     return jm, jp, m, x
 
@@ -127,7 +153,7 @@ def test_walkers_and_init_match_the_reference(name):
     # the port's own init: the reference's shapes and structure
     mine = m.init(torch.Generator().manual_seed(0))
     shape = lambda t: tuple(t.shape) if hasattr(t, "shape") else t
-    assert jax.tree_util.tree_map(shape, jp) == jax.tree_util.tree_map(shape, mine)
+    assert _reference_init_shapes(jm) == jax.tree_util.tree_map(shape, mine)
 
 
 def _tables_equal(got, want):

@@ -24,6 +24,8 @@ from repro_torch.core.compressor import compression_rate
 from repro_torch.launch import collab_serve
 from repro_torch.weights import ae_from_numpy, from_jax_params
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -54,7 +56,8 @@ def test_split_forward_matches_the_reference_example(kind, seq, monkeypatch):
     ex = _example()
     jcfg, cfg = _cfgs(kind)
     split, bits = 2, 8
-    params = jinit_params(jcfg, jax.random.PRNGKey(0))
+    # one compiled init (eagerly every op compiles alone)
+    params = jax.jit(lambda k: jinit_params(jcfg, k))(jax.random.PRNGKey(0))
     model = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg, "cpu")
     tokens = np.random.default_rng(11).integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
 

@@ -28,6 +28,8 @@ from repro.core import cnn as jcnn
 from repro.core import compressor as jcomp
 from repro_torch.core import cnn, compressor
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 NCLS, B, IMG, WIDTH = 7, 4, 32, 0.25
 SPLIT = 1          # ResNet18's first split point: (16, 8, 8) boundary features
 

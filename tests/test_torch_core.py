@@ -10,6 +10,8 @@ from repro.env import channel as jchan
 from repro_torch.core import compressor as comp
 from repro_torch.env import channel as chan
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 def _x(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)

@@ -18,6 +18,8 @@ from scipy.stats import chi2
 from repro.data import synthetic as jsyn
 from repro_torch.data import synthetic as syn
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 @pytest.mark.parametrize("vocab,n_modes", [(512, 64), (8192, 64), (100, 7)])
 def test_markov_table_is_the_reference_bit_for_bit(vocab, n_modes):

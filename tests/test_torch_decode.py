@@ -24,6 +24,8 @@ from repro_torch.launch.serve import cache_bytes, serve
 from repro_torch.models import apply_model, cache, decode_step, prefill
 from repro_torch.weights import cache_from_jax, from_jax_params
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 GQA = dict(n_heads=4, n_kv_heads=2, d_head=64)
 HKV_G = [(2, 4), (1, 8), (4, 1)]           # tests/test_kernels.py:59
 

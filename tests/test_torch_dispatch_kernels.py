@@ -20,6 +20,8 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build, flat_trunk, ops, pair_scorer, ref
 from repro_torch.kernels.ref import code_dtype
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -25,6 +25,8 @@ from repro_torch.core import overhead as oh
 from repro_torch.env import mecenv
 from repro_torch.launch.dispatch_serve import dispatch_env
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 N = 16
 KINDS = [("qwen3-1.7b", "PHONE_NPU"), ("mamba2-1.3b", "JETSON_NANO")]
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -25,6 +25,8 @@ from repro_torch.env import mecenv
 
 from test_torch_env import N, _actions, _fleets, _states
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 E = 3
 TOL = dict(rtol=1e-6, atol=1e-6)
 

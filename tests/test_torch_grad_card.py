@@ -19,6 +19,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import _build, decode_attn, flat_trunk, pair_scorer, quant, ssd_intra
 from repro_torch.models import init_params, loss_fn
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 BF16_STEP = 2.0 ** -7     # one bf16 step of an element, relative
 
 

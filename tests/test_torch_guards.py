@@ -9,6 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 

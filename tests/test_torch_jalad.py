@@ -21,6 +21,8 @@ from repro.core import split as jsplit
 from repro.core.compressor import quantize as jquantize
 from repro_torch.core import cnn, huffman, jalad, split
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 def _features(kind, seed=0):
     """float32 feature maps: a cubed Gaussian (peaky codes), a uniform one

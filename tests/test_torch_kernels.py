@@ -18,6 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, bottleneck, ops, quant, ref, ssd_intra
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -14,6 +14,8 @@ from repro_torch.kernels import (_build, bottleneck, decode_attn, flat_trunk, op
                                  pair_scorer, quant, ssd_intra)
 from repro_torch.kernels.ref import code_dtype, decode_attention_ref
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 @pytest.fixture
 def card():

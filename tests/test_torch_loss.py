@@ -27,6 +27,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import loss_fn, model as model_lib
 from repro_torch.weights import from_jax_params
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 _jvalue_and_grad = jax.jit(jax.value_and_grad(jmodel.loss_fn, has_aux=True), static_argnums=1)
 _CACHE = {}
 

@@ -30,6 +30,8 @@ from repro_torch.models import layers
 from repro_torch.models.blocks import make_block
 from repro_torch.weights import from_jax_params
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 GQA = dict(n_heads=4, n_kv_heads=2, d_head=64)
 
 

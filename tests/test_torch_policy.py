@@ -28,6 +28,8 @@ from repro_torch.rl import distill, mahppo, nets
 
 from test_torch_env import _envs, _jstate, _states, _tstate
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 N, FRAMES, SCALE = 16, 16, 300.0
 
 

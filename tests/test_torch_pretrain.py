@@ -12,6 +12,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch import collab_serve, train_lm
 from repro_torch.weights import from_jax_params, to_reference_tree
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 def test_example_config_is_the_examples():
     cfg = collab_serve.example_config(get_config("qwen3-1.7b"))

@@ -19,6 +19,8 @@ from repro_torch.core import compressor
 
 from test_torch_compressor import _batches, _jit, _models, _port_params, _ref_pca, _tit
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 def test_rate_distortion_rows_match_the_reference(monkeypatch):
     """2 points x 2 ratios x 3 steps from the reference's PCA AEs on the

@@ -37,6 +37,8 @@ from repro_torch.rl import mahppo
 from test_torch_policy import _np_tree
 from test_torch_train import CFG, _cells, _flat_batch, _jpaths, _paths, _torch
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 GRADS = (0, 6, 7, 8, 9, 10, 11)        # ue_emb and the weights take gradients
 FLAGS = dict(entity_policy=True, fused_scorer=True, randomize_pool=True)
 

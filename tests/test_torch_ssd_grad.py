@@ -23,6 +23,8 @@ from repro.models import ssm as jssm
 from repro_torch.kernels import ssd_intra
 from repro_torch.models import ssm
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 _jssd_chunked = jax.jit(jssm.ssd_chunked, static_argnums=5, static_argnames="use_pallas")
 BF16_STEP = 2.0 ** -7     # one bf16 step of an element, relative
 

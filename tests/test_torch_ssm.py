@@ -26,6 +26,8 @@ from repro_torch.kernels import ref, ssd_intra
 from repro_torch.models import apply_model, init_params, ssm
 from repro_torch.weights import from_jax_params
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 
 def _x(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)

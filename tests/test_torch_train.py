@@ -39,6 +39,8 @@ from repro_torch.rl import baselines, mahppo
 from test_torch_env import _envs
 from test_torch_policy import _np_tree
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 CFG = dict(horizon=64, n_envs=2, batch=32)      # T = 32 steps, M = 64, 20 updates
 FLAGS = {"actors": {}, "shared": dict(shared_policy=True),
          "entity": dict(entity_policy=True)}
@@ -150,23 +152,30 @@ def test_sample_step_agrees(mode):
         nxt, tr = fns.sample_step(agent, torch.Generator().manual_seed(0),
                                   _port_states(jstates))
     c = _cells(ref["sample_step"])
-    jobs = c["_observe"](jstates)
-    if mode == "entity":
-        jdist, jval = jax.vmap(lambda o: c["_policy_value"](jagent, o, c["masks0_full"]))(jobs)
-    else:
-        masks = c["masks0_full"] if mode == "shared" else c["masks0"]
-        jdist = jax.vmap(lambda o: c["_dist"](jagent, o, masks))(jobs)
-        jval = jax.vmap(lambda o: c["_value"](jagent, o))(jobs)
+    space = jv.action_space
+
+    @jax.jit         # one compiled call: eager, every op of the step compiles alone
+    def reference(jstates, jact, active):
+        jobs = c["_observe"](jstates)
+        if mode == "entity":
+            jdist, jval = jax.vmap(lambda o: c["_policy_value"](jagent, o, c["masks0_full"]))(
+                jobs)
+        else:
+            masks = c["masks0_full"] if mode == "shared" else c["masks0"]
+            jdist = jax.vmap(lambda o: c["_dist"](jagent, o, masks))(jobs)
+            jval = jax.vmap(lambda o: c["_value"](jagent, o))(jobs)
+        jlp = jax.vmap(jax.vmap(space.log_prob))(jdist, jact, active)
+        return jobs, jval, jlp, jax.vmap(jv.step)(jstates, space.execute(jact))
+
+    jact = {k: jnp.asarray(x.numpy()) for k, x in tr["actions"].items()}
+    jobs, jval, jlp, (jn, jr, jdone, jinfo) = reference(jstates, jact,
+                                                         jnp.asarray(tr["active"].numpy()))
     for key, want in _jpaths({"obs": jobs}).items():
         got = tr["obs"][key[1]] if mode == "entity" else tr["obs"]
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tr["value"].numpy(), np.asarray(jval), rtol=1e-5, atol=1e-5)
-    space = jv.action_space
-    jact = {k: jnp.asarray(x.numpy()) for k, x in tr["actions"].items()}
     assert bool(v.params.feasible.gather(1, tr["actions"]["split"].T).all())
-    jlp = jax.vmap(jax.vmap(space.log_prob))(jdist, jact, jnp.asarray(tr["active"].numpy()))
     np.testing.assert_allclose(tr["logp"].numpy(), np.asarray(jlp), rtol=1e-5, atol=1e-5)
-    jn, jr, jdone, jinfo = jax.vmap(jv.step)(jstates, space.execute(jact))
     np.testing.assert_array_equal(tr["done"].numpy(), np.asarray(jdone))
     assert not bool(tr["done"].any())
     np.testing.assert_allclose(tr["reward"].numpy(), np.asarray(jr), rtol=1e-5)

@@ -31,6 +31,8 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, make_optimizer
 from repro_torch.weights import from_jax_params, reference_decay_mask
 
+torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
+
 STEPS = 3
 _JSTEP = {}
 
