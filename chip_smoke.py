@@ -33,7 +33,8 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    (2, 1024) tokens) at their published widths with seeded random weights,
    through the split forward; the launch counts, reset before each and
    read after it, equal the number the path makes, and one request's
-   boundary codes are held to the oracle;
+   boundary codes are held to the oracle; later (phase 12z) the zoo's
+   dense archs the same way;
 6. profile: one request's device time by kernel, for each model
    (informative);
 7. scheduling kernels: pair_scorer and flat_trunk against their twins at
@@ -55,16 +56,38 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    split planner's edges (S = 1, a tile and either side of it, B Hkv not
    dividing the SM count, a split with every slot empty), on a row with no
    valid slot, at the benchmark's shape and at the serving shape (and
-   there against a float64 twin), then timed beside
-   scaled_dot_product_attention and the bound, and at a short cache
-   (informative);
-11. small prefill + decode serving: reduced f32 qwen3-1.7b (GQA kept) and
-   mamba2-1.3b, 80 prompt tokens and 8 decode steps, card against CPU;
+   there against a float64 twin); then at the zoo's G and D (G 3, 7 and
+   16 at D 256, f32 and bf16 caches, windows 0 and 64, a wrapped ring),
+   each zoo arch's serving shape (bf16 caches: stablelm-1.6b's
+   (4, 2080, 32, 1, 64), phi4-mini-3.8b's (4, 2080, 8, 3, 128), qwen2-7b's
+   (4, 2080, 4, 7, 128); qwen2-7b-kv8's int8 cache with its scales at that
+   shape; recurrentgemma-9b's local attention (4, 2048, 1, 16, 256) with
+   its 2048 window), a 1000 window there, and an f32 cache at D 256, each
+   serving shape also against float64; then timed beside
+   scaled_dot_product_attention and the bound, at the serving shape, a
+   short cache (informative) and the zoo's five serving shapes (SDPA
+   for the float caches; no library call for int8);
+11. small prefill + decode serving: reduced f32 qwen3-1.7b (GQA kept),
+   mamba2-1.3b, recurrentgemma-9b (5 layers: a tail, and an 80-token
+   prompt over its 64-slot window) and qwen2-7b (G 7), 80 prompt tokens
+   and 8 decode steps, card against CPU;
 12. decode serve, the KV-cache main path: qwen3-1.7b (28 layers, bf16, 2
    requests of a (4, 2048) prefill and 31 decode steps) and mamba2-1.3b
    (48 layers, bf16, 2 requests of (2, 1024) and 31 steps), launch counts
    reset before each and read after it, decode against the full forward,
    then one profiled qwen3 decode step;
+12z. the model zoo, main paths at full width with seeded random bf16
+   weights: the split forward of stablelm-1.6b, phi4-mini-3.8b and
+   qwen2-7b (one request of (4, 256) each, exactly one bottleneck_encode
+   and one dequantize); then the KV-cache serve of stablelm-1.6b,
+   phi4-mini-3.8b, qwen2-7b, qwen2-7b-kv8 (int8 cache) and
+   recurrentgemma-9b (RG-LRU and local attention), one request of a (4,
+   2048) prefill and 31 decode steps each, exactly attention layers x 31
+   decode_attention launches and no other kernel, prefill ms, decode ms a
+   token, tokens/s, cache bytes and peak memory, each model freed before
+   the next; recurrentgemma-9b's decode over a wrapped ring (a 2100-token
+   prompt) against its full forward, and one profiled decode step of it;
+   the phase's seconds;
 12b. the loss gradient, a main path: one loss-and-gradient pass of
    mamba2-1.3b (48 layers, bf16, (2, 1024)) through ``models.loss_fn`` and
    autograd, exactly 48 ssd_intra and 48 ssd_intra_backward launches, its
@@ -188,7 +211,7 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
                     "src/repro/kernels/pair_scorer.py:112"),
     "flat_trunk": ("src/repro_torch/kernels/csrc/flat_trunk.cu",
                    "src/repro/kernels/flat_trunk.py:54"),
-    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attn.cuh",
                          "src/repro/kernels/decode_attn.py:59"),
     # no TPU kernel: the reference differentiates pair_scorer_xla
     "pair_scorer_backward": ("src/repro_torch/kernels/csrc/pair_scorer_bwd.cu",
@@ -199,10 +222,30 @@ ROUTES = {  # name: (source, the TPU kernel it replaces)
 }
 SERVE = {"qwen3-1.7b": dict(requests=4, batch=4, seq=256),
          "mamba2-1.3b": dict(requests=4, batch=2, seq=1024)}
+# the zoo's dense archs through the split forward: one request each
+ZOO_SPLIT = ("stablelm-1.6b", "phi4-mini-3.8b", "qwen2-7b")
+SERVE.update({name: dict(requests=1, batch=4, seq=256) for name in ZOO_SPLIT})
 CALIB_BATCH = 8      # collab_serve.serve calibrates the AE on 8 sequences
 DISPATCH = dict(n_ue=1024, n_servers=3, frames=64, seed=0, bits=8)
 DECODE_SERVE = {"qwen3-1.7b": dict(requests=2, batch=4, prompt_len=2048, gen=32),
                 "mamba2-1.3b": dict(requests=2, batch=2, prompt_len=1024, gen=32)}
+# the model zoo through the KV-cache path at full width: one request of a
+# (4, 2048) prefill and 31 decode steps each
+ZOO = ("stablelm-1.6b", "phi4-mini-3.8b", "qwen2-7b", "qwen2-7b-kv8", "recurrentgemma-9b")
+DECODE_SERVE.update({name: dict(requests=1, batch=4, prompt_len=2048, gen=32) for name in ZOO})
+# recurrentgemma-9b's decode against its full forward: a prompt longer than
+# its 2048-slot window, so the decode reads a ring that has wrapped
+RG_CONSISTENCY_PROMPT = 2100
+# decode_attention at each zoo arch's serving shape (b, S, Hkv, G, D, cache,
+# window), as DECODE_SERVE serves it (main checks them against the configs):
+# stablelm-1.6b's MHA at D 64, phi4-mini-3.8b's G 3, qwen2-7b's G 7 over a
+# bf16 cache and over qwen2-7b-kv8's int8 cache with its scales, and
+# recurrentgemma-9b's local attention (MQA over a 2048-slot ring)
+ZOO_DECODE_SHAPES = {"stablelm-1.6b": (4, 2080, 32, 1, 64, torch.bfloat16, 0),
+                     "phi4-mini-3.8b": (4, 2080, 8, 3, 128, torch.bfloat16, 0),
+                     "qwen2-7b": (4, 2080, 4, 7, 128, torch.bfloat16, 0),
+                     "qwen2-7b-kv8": (4, 2080, 4, 7, 128, torch.int8, 0),
+                     "recurrentgemma-9b": (4, 2048, 1, 16, 256, torch.bfloat16, 2048)}
 TRUNK_DIMS = (19, 64, 64, 13)    # the flat trunk's published widths
 STREAM_M = 8                     # the trunk's rows on a stream dispatch: the 8-UE fleet
 # the streaming serve's distillation of its tuned teacher, the settings of
@@ -2340,9 +2383,10 @@ def phase_decode_kernel(dev, kda, kref, serve_shape):
     g = torch.Generator(device=dev).manual_seed(7)
     worst = 0.0
 
-    def hold(label, args, idx, tol):
+    def hold(label, args, idx, tol, **kw):
         nonlocal worst
-        got, want = kda.decode_attention(*args, idx), kda.decode_attention_plain(*args, idx)
+        got = kda.decode_attention(*args, idx, **kw)
+        want = kda.decode_attention_plain(*args, idx, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"decode_attention {label}: non-finite output")
         for lim in sorted({tol, 2e-5}):
@@ -2405,6 +2449,90 @@ def phase_decode_kernel(dev, kda, kref, serve_shape):
     print(f"kernels: decode_attention serving shape q ({b},{hkv * grp},{d}) bf16, k/v "
           f"({b},{s},{hkv},{d}) bf16: max abs err {err:.3e} against the twin; against "
           f"float64: kernel {k64:.3e}, plain {p64:.3e} (allowed 1e-5)", flush=True)
+    return max(worst, phase_decode_zoo_kernel(dev, kda, kref, g, hold))
+
+
+def zoo_decode_inputs(dev, g, b, s, hkv, grp, d, kv_dtype, q_dtype=torch.float32, empty=True):
+    """Decode attention's inputs over a ring of S slots that has wrapped
+    (idx = 3 S + 5, slot j holding the last position = j mod S), with
+    ``empty`` the slots with pos % 5 == 2 empty; an int8 cache of random
+    codes comes with per-(slot, kv head) scales in [0.01, 0.05). Returns
+    (q, k, v, pos), idx and the scales as keyword arguments."""
+    q = torch.randn((b, hkv * grp, d), generator=g, device=dev).to(q_dtype)
+    scales = {}
+    if kv_dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=dev)
+                .to(torch.int8) for _ in range(2))
+        scales = {n: 0.01 + 0.04 * torch.rand((b, s, hkv), generator=g, device=dev)
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(kv_dtype)
+                for _ in range(2))
+    idx = 3 * s + 5
+    p = torch.arange(idx - s + 1, idx + 1, device=dev)
+    pos = torch.empty((b, s), dtype=torch.int32, device=dev)
+    pos[:, p % s] = p.to(torch.int32)
+    if empty:
+        pos[pos % 5 == 2] = -1
+    return (q, k, v, pos), idx, scales
+
+
+def zoo_decode_shape(cfg, run):
+    """decode_attention's (b, S, Hkv, G, D, cache, window) on ``cfg``'s
+    decode serve ``run``: a local-attention layer's ring holds its window,
+    a dense layer's the prompt and the generated tokens."""
+    local = "lattn" in cfg.block_types()
+    s = cfg.window if local else run["prompt_len"] + run["gen"]
+    kv_dtype = torch.int8 if cfg.kv_quant_bits else getattr(torch, cfg.compute_dtype)
+    return (run["batch"], s, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+            kv_dtype, cfg.window if local else 0)
+
+
+def phase_decode_zoo_kernel(dev, kda, kref, g, hold):
+    """decode_attention at the zoo's G and D: G 3, 7 and 16 at D 256 (f32
+    and bf16 caches, the reference's bounds, and 2e-5 + 2e-5 |plain|
+    whatever the cache), each zoo arch's serving shape (ZOO_DECODE_SHAPES:
+    bf16 caches at G 1 / D 64, G 3 and G 7 at D 128, an int8 cache with its
+    scales at qwen2-7b-kv8's, recurrentgemma-9b's local attention with its
+    2048 window on a wrapped ring), a 1000 window that masks half that
+    ring, an f32 cache at D 256 (one stage a consumer warp), each serving
+    shape also against float64 (1e-5 + 1e-5 |exact|)."""
+    errs = []
+    for kv_dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-2)):
+        for grp in (3, 7, 16):
+            for window in (0, 64):
+                args, idx, _ = zoo_decode_inputs(dev, g, 2, 300, 2, grp, 256, kv_dtype)
+                errs.append(hold(f"G {grp} D 256 window {window} {str(kv_dtype)[6:]}", args,
+                                 idx, tol, window=window))
+    print(f"kernels: decode_attention G 3, 7, 16 at D 256 (b 2, S 300, hkv 2, wrapped ring, "
+          f"window 0 and 64), f32 and bf16 caches: max abs err {max(errs):.3e}", flush=True)
+    worst = max(errs)
+    cases = [(f"{name} {str(shape[5])[6:]}", shape, 2e-5 if shape[5] == torch.int8 else 5e-2)
+             for name, shape in ZOO_DECODE_SHAPES.items()]
+    cases += [("recurrentgemma-9b window 1000 bf16",
+              ZOO_DECODE_SHAPES["recurrentgemma-9b"][:6] + (1000,), 5e-2),
+             ("f32 cache at D 256", ZOO_DECODE_SHAPES["recurrentgemma-9b"][:5]
+              + (torch.float32, 2048), 2e-5)]
+    for label, (b, s, hkv, grp, d, kv_dtype, window), tol in cases:
+        q_dtype = torch.float32 if kv_dtype == torch.float32 else torch.bfloat16
+        args, idx, scales = zoo_decode_inputs(dev, g, b, s, hkv, grp, d, kv_dtype, q_dtype,
+                                              empty=False)
+        err = hold(f"{label} {(b, s, hkv, grp, d)}", args, idx, tol, window=window, **scales)
+        wide = [a.double() for a in args[:3]]
+        exact = kref.decode_attention_ref(*wide, args[3], idx, window=window,
+                                          **{n: t.double() for n, t in scales.items()})
+        got = kda.decode_attention(*args, idx, window=window, **scales).double()
+        plain = kda.decode_attention_plain(*args, idx, window=window, **scales).double()
+        k64 = float((got - exact).abs().max())
+        excess = float(((got - exact).abs() - 1e-5 * exact.abs()).max())
+        check(excess <= 1e-5, f"decode_attention {label}: {k64:.3e} from float64 exceeds "
+              f"1e-5 + 1e-5|exact|")
+        worst = max(worst, err)
+        print(f"kernels: decode_attention {label} q ({b},{hkv * grp},{d}) k/v ({b},{s},{hkv},"
+              f"{d}) window {window}: max abs err {err:.3e} against the twin (allowed {tol} + "
+              f"{tol}|plain| and 2e-05 + 2e-05|plain|); against float64: kernel {k64:.3e}, "
+              f"plain {float((plain - exact).abs().max()):.3e} (allowed 1e-5 + 1e-5|exact|)",
+              flush=True)
     return worst
 
 
@@ -2453,8 +2581,56 @@ def phase_decode_timing(dev, kda, serve_shape):
           f"{short_ms:.5f} ms, library (SDPA) {short_lib:.5f} ms, bound "
           f"{bound(short_bytes, 0)[0]:.5f} ms; planner (n_split, slots) "
           f"{kda.plan_splits(b * hkv, s_short, resident)}", flush=True)
+    if hasattr(kda, "block_rows"):             # a parent tree's kernel may not take them
+        for name, shape in ZOO_DECODE_SHAPES.items():
+            time_zoo_decode(dev, kda, g, name, shape)
     return {"decode_attention": dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                      bound_ms=bound_ms, bound_by=bound_by)}
+
+
+def time_zoo_decode(dev, kda, g, name, shape):
+    """Kernel, plain and library times at a zoo arch's serving shape beside
+    the bound: q (bf16), k, v, pos (and an int8 cache's two scales) read
+    once and the f32 output written once, over the HBM rate. The library
+    time is SDPA over the cache transposed to (B, H, S, D) outside the timed
+    region, with the window in its mask; no one PyTorch call computes the
+    int8 cache's function (its scales enter the scores and the
+    probabilities), so there it is none."""
+    b, s, hkv, grp, d, kv_dtype, window = shape
+    args, idx, scales = zoo_decode_inputs(dev, g, b, s, hkv, grp, d, kv_dtype, torch.bfloat16,
+                                          empty=False)
+    q, k, v, pos = args
+    n_bytes = sum(t.numel() * t.element_size() for t in args + tuple(scales.values())) \
+        + 4 * b * hkv * grp * d
+    bound_ms, bound_by = bound(n_bytes, 4 * b * hkv * grp * s * d)
+    ms = device_ms(lambda: kda.decode_attention(q, k, v, pos, idx, window=window, **scales))
+    plain_ms = device_ms(lambda: kda.decode_attention_plain(q, k, v, pos, idx, window=window,
+                                                            **scales))
+    library_ms = None
+    if kv_dtype != torch.int8:
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        valid = (pos >= 0) & (pos <= idx)
+        if window:
+            valid = valid & (pos > idx - window)
+        mask = valid[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = device_ms(lambda: sdpa(q[:, :, None], kt, vt, attn_mask=mask,
+                                            enable_gqa=True))
+    rows, groups = kda.block_rows(grp, d)
+    resident = kda.resident_blocks(dev, kv_dtype, grp, d)
+    plan = kda.plan_splits(b * hkv * groups, s, resident)
+    lib = "none (no one call computes it)" if library_ms is None else f"{library_ms:.5f} ms"
+    print(f"timing: decode_attention {name} q ({b},{hkv * grp},{d}) bf16 k/v ({b},{s},{hkv},{d}) "
+          f"{str(kv_dtype)[6:]} window {window}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+          f"library (SDPA) {lib}, bound {bound_ms:.5f} ms ({bound_by}, {n_bytes / 1e6:.2f} MB), "
+          f"{100 * bound_ms / ms:.1f}% of bound; {rows} rows a block in {groups} row group(s), "
+          f"grid {b * hkv * groups} x {plan[0]} blocks, planner (n_split, slots) {plan}, "
+          f"resident blocks {resident}", flush=True)
+
+
+def attention_layers(cfg):
+    """The layers whose decode runs decode_attention: dense and local."""
+    return sum(bt in ("dense", "lattn") for bt in cfg.block_types())
 
 
 def phase_small_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, steps=8):
@@ -2491,7 +2667,7 @@ def phase_small_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, s
             out = {cpu: model_lib.decode_step(models[cpu], cache_c, tok[:, None], prompt + i),
                    dev: model_lib.decode_step(models[dev], cache_d, tok[:, None].to(dev), prompt + i)}
     torch.cuda.synchronize()
-    n_attn = sum(bt == "dense" for bt in cfg.block_types())
+    n_attn = attention_layers(cfg)
     check(build_mod.LAUNCHES["decode_attention"] == n_attn * steps,
           f"small decode {cfg.name}: decode_attention launched "
           f"{build_mod.LAUNCHES['decode_attention']} times, expected {n_attn * steps}")
@@ -2512,7 +2688,7 @@ def phase_decode_serve(dev, sv, cfg, build_mod, cache_lib):
     launches = dict(build_mod.LAUNCHES)
     wall = time.perf_counter() - t0
     steps, n = run["gen"] - 1, run["requests"]
-    n_attn = sum(bt == "dense" for bt in cfg.block_types())
+    n_attn = attention_layers(cfg)
     n_ssd = sum(bt == "mamba2" for bt in cfg.block_types())
     want = {name: 0 for name in ROUTES}
     want.update(decode_attention=n_attn * steps * n, ssd_intra=n_ssd * n)
@@ -2542,7 +2718,8 @@ def phase_decode_consistency(dev, model, model_lib, prompt=256):
     """At full width: decoding token s from the cache against position s of
     the full forward, within 5e-2 x max|logit| (bf16: the prefill's
     attention rounds q * scale and the probabilities to bf16, the decode
-    kernel keeps them f32)."""
+    kernel keeps them f32). With a prompt longer than a local-attention
+    window, the decode reads a ring that has wrapped."""
     g = torch.Generator().manual_seed(11)
     toks = torch.randint(0, model.cfg.vocab_size, (2, prompt + 1), generator=g).to(dev)
     with torch.inference_mode():
@@ -2757,6 +2934,10 @@ def main(argv=None):
     run = DECODE_SERVE[qwen.name]
     decode_shape = (run["batch"], run["prompt_len"] + run["gen"], qwen.n_kv_heads,
                     qwen.n_heads // qwen.n_kv_heads, qwen.head_dim)
+    for name in ZOO:
+        want = zoo_decode_shape(get_config(name), DECODE_SERVE[name])
+        check(ZOO_DECODE_SHAPES[name] == want, f"ZOO_DECODE_SHAPES[{name!r}] is "
+              f"{ZOO_DECODE_SHAPES[name]}, its decode serve runs {want}")
     if args.timing_only:
         phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
         phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant)
@@ -2791,7 +2972,14 @@ def main(argv=None):
     phase_small_split(dev, collab_serve, reduced(mamba, n_layers=4), 40, init_params,
                       pca_init_autoencoder)
     phase_small_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk)
-    for cfg in (qwen_small, reduced(mamba, n_layers=4)):
+    # the zoo's decode paths: recurrentgemma (a tail, a 64-slot window
+    # wrapped by the 80-token prompt) and qwen2-7b (G 7, QKV bias); the
+    # int8 cache is held to its twin above (card and CPU may round a code
+    # of the same k apart, which moves logits past this phase's 1e-4)
+    rg_small = reduced(get_config("recurrentgemma-9b"), n_layers=5)
+    q2_small = reduced(get_config("qwen2-7b"), n_layers=3).replace(
+        n_heads=7, n_kv_heads=1, d_head=32)
+    for cfg in (qwen_small, reduced(mamba, n_layers=4), rg_small, q2_small):
         phase_small_decode(dev, cfg, init_params, model_lib, _build)
 
     launches = collections.Counter()
@@ -2813,6 +3001,22 @@ def main(argv=None):
             phase_decode_profile(model_lib, res)
         del res
         torch.cuda.empty_cache()
+    t_zoo = time.perf_counter()
+    for name in ZOO_SPLIT:
+        counts, res = phase_serve(dev, collab_serve, get_config(name), _build, kref)
+        launches.update(counts)
+        del res
+        torch.cuda.empty_cache()
+    for name in ZOO:
+        counts, res = phase_decode_serve(dev, serve_lib, get_config(name), _build, cache_lib)
+        launches.update(counts)
+        if name == "recurrentgemma-9b":
+            phase_decode_consistency(dev, res.model, model_lib, prompt=RG_CONSISTENCY_PROMPT)
+            phase_decode_profile(model_lib, res)
+        del res
+        torch.cuda.empty_cache()
+    print(f"zoo: split serve of {', '.join(ZOO_SPLIT)} and KV-cache serve of {', '.join(ZOO)} "
+          f"in {time.perf_counter() - t_zoo:.1f} s", flush=True)
     launches.update(phase_loss_grad(dev, model_lib, init_params, mamba, _build))
     torch.cuda.empty_cache()
     launches.update(phase_train_step(dev, steps_lib, model_lib, init_params, mamba, _build))

@@ -8,8 +8,16 @@ from repro_torch.configs.base import ModelConfig, SSMConfig, reduced
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen2-7b": "qwen2_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 ARCH_IDS = tuple(_MODULES)
+
+# extra variants (selectable by name, outside ARCH_IDS), as in the reference
+_MODULES["qwen2-7b-kv8"] = "qwen2_7b_kv8"
+ALL_ARCHS = tuple(_MODULES)     # ARCH_IDS and the variants
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -18,4 +26,4 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").CONFIG
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "SSMConfig", "get_config", "reduced"]
+__all__ = ["ALL_ARCHS", "ARCH_IDS", "ModelConfig", "SSMConfig", "get_config", "reduced"]

@@ -100,8 +100,8 @@ def task_latency_energy(l_b, n_b, rate, p_compute, p_tx, t_edge=None):
 
 def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
     """Per-layer {flops, bytes, param_bytes} for a seq_len-token forward of
-    the port's block types (dense attention + MLP, mamba2). bytes = params
-    read once + activations in/out (bf16)."""
+    the port's block types (dense and local attention + MLP, RG-LRU + MLP,
+    mamba2). bytes = params read once + activations in/out (bf16)."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     s = seq_len
@@ -119,9 +119,16 @@ def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
             pbytes = (d * (2 * di + 2 * n + h) + di * d) * 2
             out.append({"flops": proj + ssd, "bytes": pbytes + act,
                         "param_bytes": pbytes})
-        elif bt == "dense":
+        elif bt == "rec":
+            drnn = d
+            fl = 2 * s * d * drnn * 2 + 2 * s * drnn * drnn * 2 \
+                + 2 * s * drnn * d + 6 * s * d * f
+            pbytes = (2 * d * drnn + 2 * drnn * drnn + drnn * d + 3 * d * f) * 2
+            out.append({"flops": fl, "bytes": pbytes + act, "param_bytes": pbytes})
+        elif bt in ("dense", "lattn"):
+            ctx = min(s, cfg.window) if bt == "lattn" else s
             attn = 2 * s * d * (hq + 2 * hkv) * dh + 2 * s * hq * dh * d \
-                + 4 * s * s * hq * dh
+                + 4 * s * ctx * hq * dh
             a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
             mult = 3 if cfg.act == "swiglu" else 2
             fp = mult * d * f * 2
@@ -135,9 +142,10 @@ def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
 def decode_layer_costs(cfg: ModelConfig, ctx_len: int) -> List[dict]:
     """Per-layer {flops, bytes, param_bytes} of one decode step at context
     length ``ctx_len`` for the port's block types: s = 1 projections,
-    attention scores over the context and the layer's serving-cache bytes
-    read a token (decode is memory-bound, so the cache traffic is the term
-    that grows with context); a mamba2 layer updates O(1) state."""
+    attention scores over the context (capped at the window for a
+    ``"lattn"`` layer) and the layer's serving-cache bytes read a token
+    (decode is memory-bound, so the cache traffic is the term that grows
+    with context); mamba2 and RG-LRU layers update O(1) state."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     act = 2 * d * 2  # in and out hidden of the one token, bf16
@@ -155,12 +163,19 @@ def decode_layer_costs(cfg: ModelConfig, ctx_len: int) -> List[dict]:
             state_b = h * ss.head_dim * n * 4 + (ss.d_conv - 1) * (di + 2 * n) * 2
             out.append({"flops": proj + step, "bytes": pbytes + state_b + act,
                         "param_bytes": pbytes})
-        elif bt == "dense":
+        elif bt == "rec":
+            drnn = d
+            fl = 2 * d * drnn * 2 + 2 * drnn * drnn * 2 + 2 * drnn * d + 6 * d * f
+            pbytes = (2 * d * drnn + 2 * drnn * drnn + drnn * d + 3 * d * f) * 2
+            out.append({"flops": fl, "bytes": pbytes + drnn * 4 + act,
+                        "param_bytes": pbytes})
+        elif bt in ("dense", "lattn"):
+            ctx = min(ctx_len, cfg.window) if bt == "lattn" else ctx_len
             attn_proj = 2 * d * (hq + 2 * hkv) * dh + 2 * hq * dh * d
-            attn_qk = 4 * ctx_len * hq * dh
+            attn_qk = 4 * ctx * hq * dh
             a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
-            cache_b = 2 * ctx_len * hkv * dh * kv_el \
-                + (2 * ctx_len * hkv * 4 if cfg.kv_quant_bits else 0)
+            cache_b = 2 * ctx * hkv * dh * kv_el \
+                + (2 * ctx * hkv * 4 if cfg.kv_quant_bits else 0)
             mult = 3 if cfg.act == "swiglu" else 2
             fp = mult * d * f * 2
             out.append({"flops": attn_proj + attn_qk + mult * 2 * d * f,

@@ -202,7 +202,7 @@ def transformer_split_table(cfg: ModelConfig, *, seq_len=128,
                             ue_dev=oh.PHONE_NPU, n_points=4,
                             ae_ratio=None, quant_bits=None,
                             batch=1) -> SplitPlan:
-    """The split table of a decoder-only stack (dense or mamba2): b = 0
+    """The split table of a decoder-only stack (dense, hybrid or mamba2): b = 0
     ships the token ids, b = k runs layers [0, k) on the UE and ships the
     AE-compressed boundary sequence (recurrent state does not cross the
     boundary: edge-side layers rebuild their own), b = B+1 runs the whole

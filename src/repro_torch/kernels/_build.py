@@ -28,9 +28,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "quant.cu", CSRC / "bottleneck.cu", CSRC / "ssd_intra.cu",
            CSRC / "ssd_intra_bwd.cu", CSRC / "pair_scorer.cu", CSRC / "pair_scorer_bwd.cu",
-           CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu")
+           CSRC / "flat_trunk.cu", CSRC / "decode_attn.cu", CSRC / "decode_attn_f32.cu",
+           CSRC / "decode_attn_bf16.cu", CSRC / "decode_attn_i8.cu")
 HEADERS = (CSRC / "quant.cuh", CSRC / "tf32_mma.cuh", CSRC / "mbarrier.cuh",
-           CSRC / "wgmma.cuh")
+           CSRC / "wgmma.cuh", CSRC / "decode_attn.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # No --use_fast_math: the kernels' roundings must match the plain versions.
@@ -81,8 +82,12 @@ _SIGNATURES = {
     "repro_flat_trunk_plan": [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                               ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
                               ctypes.POINTER(ctypes.c_int)],
-    "repro_decode_attention": [_c, ctypes.c_int, _c, _c, ctypes.c_int, _c, ctypes.c_longlong,
-                               _c] + [ctypes.c_int] * 7 + [ctypes.c_float, _c],
+    # q, q bf16, k, v, kv type (0 f32, 1 bf16, 2 int8), k_scale, v_scale,
+    # pos, idx, window, out, b, S, Hkv, G, rows a block, D, n_split, per,
+    # scale, stream
+    "repro_decode_attention": [_c, ctypes.c_int, _c, _c, ctypes.c_int, _c, _c, _c,
+                               ctypes.c_longlong, ctypes.c_int, _c] + [ctypes.c_int] * 8
+    + [ctypes.c_float, _c],
     "repro_decode_attention_max_clusters": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
 }
 

@@ -48,11 +48,14 @@ def ssd_intra(xh, dt, la, Bm, Cm):
     return _ssd.SsdIntra.apply(*(t.contiguous() for t in (xh, dt, la, Bm, Cm)))
 
 
-def decode_attention(q, k, v, pos, idx):
+def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0):
     """GQA flash-decode over a (ring) KV cache (see kernels/decode_attn.py).
-    q: (B, Hq, D); k, v: (B, S, Hkv, D); pos: (B, S) int32, -1 = empty;
-    idx: int. Returns (B, Hq, D) float32."""
-    return _da.decode_attention(*(t.contiguous() for t in (q, k, v, pos)), idx)
+    q: (B, Hq, D); k, v: (B, S, Hkv, D), float or int8 codes with k_scale,
+    v_scale (B, S, Hkv); pos: (B, S) int32, -1 = empty; idx: int; window:
+    int (0 = none). Returns (B, Hq, D) float32."""
+    c = lambda t: None if t is None else t.contiguous()
+    return _da.decode_attention(*(t.contiguous() for t in (q, k, v, pos)), idx,
+                                k_scale=c(k_scale), v_scale=c(v_scale), window=window)
 
 
 def flat_trunk(rows, qlayers, *, bits=8):

@@ -43,11 +43,15 @@ def ssd_intra_ref(xh, dt, la, Bm, Cm):
     return torch.einsum("bcijh,bcjhp->bcihp", w, xh)
 
 
-def decode_attention_ref(q, k, v, pos, idx):
+def decode_attention_ref(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0):
     """GQA decode attention over a (ring) KV cache.
 
-    q: (B, Hq, D) single query token; k, v: (B, S, Hkv, D);
-    pos: (B, S) absolute positions (-1 = empty slot); idx: scalar int.
+    q: (B, Hq, D) single query token; k, v: (B, S, Hkv, D) floats, or int8
+    codes with k_scale, v_scale (B, S, Hkv): a slot's scores are multiplied
+    by its k_scale and its probabilities, after the softmax's sum, by its
+    v_scale (the reference model's ``_flash_decode``);
+    pos: (B, S) absolute positions (-1 = empty slot); idx: scalar int;
+    window > 0 also masks ``pos <= idx - window``.
     Returns (B, Hq, D) f32 (float64 for float64 inputs, so the kernel can be
     held to an exact version of the same function)."""
     wide = lambda t: t.to(torch.promote_types(t.dtype, torch.float32))
@@ -56,9 +60,15 @@ def decode_attention_ref(q, k, v, pos, idx):
     g = hq // hkv
     qf = wide(q).reshape(b, hkv, g, d) * (d ** -0.5)
     s = torch.einsum("bhgd,bshd->bhgs", qf, wide(k))
+    if k_scale is not None:
+        s = s * wide(k_scale).permute(0, 2, 1)[:, :, None, :]
     valid = (pos >= 0) & (pos <= idx)
+    if window:
+        valid = valid & (pos > idx - window)
     s = torch.where(valid[:, None, None, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * wide(v_scale).permute(0, 2, 1)[:, :, None, :]
     o = torch.einsum("bhgs,bshd->bhgd", p, wide(v))
     return o.reshape(b, hq, d)
 

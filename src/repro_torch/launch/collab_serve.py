@@ -24,10 +24,14 @@ not uniform) at ``--seq 32 --batch 4``.
   python -m repro_torch.launch.collab_serve            # qwen3-1.7b, 28 layers
   python -m repro_torch.launch.collab_serve --requests 8 --seq 512
   python -m repro_torch.launch.collab_serve --arch mamba2-1.3b --batch 2 --seq 1024
+  python -m repro_torch.launch.collab_serve --arch qwen2-7b --requests 1
   python -m repro_torch.launch.collab_serve --reduced --pretrain 150   # the example
 
-Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch twins of
-the kernels instead.
+The split forward takes the uniform-pattern archs (qwen3-1.7b,
+stablelm-1.6b, phi4-mini-3.8b, qwen2-7b, mamba2-1.3b); recurrentgemma-9b's
+(rec, rec, lattn) pattern is refused, as the reference example asserts,
+and serves through ``launch/serve.py``. Runs on the CUDA card;
+``--device cpu`` runs the plain PyTorch twins of the kernels instead.
 """
 from __future__ import annotations
 

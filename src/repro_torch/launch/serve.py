@@ -1,12 +1,18 @@
 """Serving launcher of the port (``src/repro/launch/serve.py``): a batched
-prefill builds the KV cache (or the Mamba-2 state), then a greedy decode
-loop appends one token per step, for each request, reporting per-phase
-times and cache sizes. It is the edge half of the paper's
+prefill builds the KV cache (or the Mamba-2 or RG-LRU state), then a
+greedy decode loop appends one token per step, for each request, reporting
+per-phase times and cache sizes. It is the edge half of the paper's
 collaborative-inference pipeline.
 
   python -m repro_torch.launch.serve        # qwen3-1.7b, 28 layers, 4 x 2048 + 32
   python -m repro_torch.launch.serve --arch mamba2-1.3b --batch 2 --prompt-len 1024
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --requests 1
+  python -m repro_torch.launch.serve --arch qwen2-7b-kv8 --requests 1   # int8 KV cache
   python -m repro_torch.launch.serve --device cpu --reduce --prompt-len 64
+
+``--arch`` takes every arch of the registry (stablelm-1.6b, phi4-mini-3.8b,
+qwen2-7b, recurrentgemma-9b, qwen3-1.7b, mamba2-1.3b) and the qwen2-7b-kv8
+variant.
 
 Runs on the CUDA card at the arch's full width by default; ``--device cpu``
 runs the plain PyTorch twins of the kernels instead, and ``--reduce``
@@ -23,7 +29,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch import full_precision_matmuls, resolve_device
-from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.configs import ALL_ARCHS, get_config, reduced
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import init_params
 
@@ -95,7 +101,7 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-1.7b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=ALL_ARCHS)
     ap.add_argument("--reduce", action=argparse.BooleanOptionalAction, default=False,
                     help="shrink the config (4 layers, d_model 256) for a CPU rehearsal")
     ap.add_argument("--batch", type=int, default=4)

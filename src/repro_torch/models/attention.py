@@ -15,10 +15,13 @@ and rounding differ.
 
 Decode (one token against the cache) goes through ``ops.decode_attention``
 (the CUDA kernel on the card, its plain twin on the CPU), which computes
-the reference's decode attention in f32: where the reference's
-``_flash_decode`` rounds q * scale and the probabilities to a bf16 cache's
-dtype, the kernel keeps them f32. The new token's k and v are written into
-the cache in place (the reference returns an updated copy).
+the reference's decode attention in f32, over a float or an int8 cache
+(``kv_quant_bits``: codes with per-(slot, kv head) scales) and with or
+without a window: where the reference's ``_flash_decode`` rounds q * scale
+and the probabilities to a bf16 cache's (or an int8 cache's q's) dtype,
+the kernel keeps them f32. The new token's k and v (or their codes and
+scales) are written into the cache in place (the reference returns an
+updated copy).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.models.cache import quantize_kv
 from repro_torch.models.layers import apply_rope, dtype_of, rms_head_norm
 
 NEG_INF = -1e30
@@ -131,12 +135,15 @@ def self_attention(p, x, cfg, positions, *, causal=True, window=0, kv_cache=None
     """Self-attention for train/prefill (kv_cache None) or decode.
 
     Decode: x is one token (B, 1, d); kv_cache = {"k", "v"} each
-    (B, L, Hkv, D); the new token's k/v are written at ``cache_slot`` (an
-    int, already modulo L); cache_positions: (B, L) int32 slot ->
+    (B, L, Hkv, D), int8 codes with {"k_scale", "v_scale"} (B, L, Hkv)
+    where ``cfg.kv_quant_bits``; the new token's k/v (quantized, with their
+    scales, as ``quantize_kv`` gives them) are written at ``cache_slot``
+    (an int, already modulo L); cache_positions: (B, L) int32 slot ->
     absolute-position map (-1 invalid), already holding ``idx`` (an int,
-    the token's position) at the slot.
+    the token's position) at the slot; ``window`` > 0 masks the positions
+    at or before ``idx - window``.
     Returns (out (B, S, d), new_kv): the roped (k, v) to cache (prefill) or
-    the updated cache {"k", "v"} (decode)."""
+    the updated cache {"k", "v"(, "k_scale", "v_scale")} (decode)."""
     q, k, v = qkv(p, x, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -146,16 +153,21 @@ def self_attention(p, x, cfg, positions, *, causal=True, window=0, kv_cache=None
                         causal=causal, window=window, chunk=cfg.attn_chunk)
         new_kv = (k, v)
     else:
-        if cfg.kv_quant_bits:
-            raise NotImplementedError("decode over a quantized cache (kv_quant_bits > 0) is "
-                                      "not ported yet; it comes with a later model-zoo slice")
-        if window:
-            raise NotImplementedError("windowed (lattn) ring decode is not ported yet; it "
-                                      "comes with the hybrid (RG-LRU) slice")
         ck, cv = kv_cache["k"], kv_cache["v"]
-        ck[:, cache_slot] = k[:, 0]
-        cv[:, cache_slot] = v[:, 0]
-        out = ops.decode_attention(q[:, 0], ck, cv, cache_positions, idx)
+        scales = {}
+        if cfg.kv_quant_bits:
+            # the token's codes and per-(token, kv head) scales, in place
+            kq, ksc = quantize_kv(k, cfg.kv_quant_bits)
+            vq, vsc = quantize_kv(v, cfg.kv_quant_bits)
+            ck[:, cache_slot], cv[:, cache_slot] = kq[:, 0], vq[:, 0]
+            kv_cache["k_scale"][:, cache_slot] = ksc[:, 0]
+            kv_cache["v_scale"][:, cache_slot] = vsc[:, 0]
+            scales = {"k_scale": kv_cache["k_scale"], "v_scale": kv_cache["v_scale"]}
+        else:
+            ck[:, cache_slot] = k[:, 0]
+            cv[:, cache_slot] = v[:, 0]
+        out = ops.decode_attention(q[:, 0], ck, cv, cache_positions, idx, window=window,
+                                   **scales)
         out = out.to(q.dtype)[:, None]
-        new_kv = {"k": ck, "v": cv}
+        new_kv = dict({"k": ck, "v": cv}, **scales)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo, new_kv

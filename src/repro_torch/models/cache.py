@@ -1,5 +1,6 @@
 """Serving caches of the port (``src/repro/models/cache.py``): full and
-ring-buffer KV caches and the Mamba-2 state.
+ring-buffer KV caches (a ``"lattn"`` layer's ring holds ``cfg.window``
+slots), the Mamba-2 state and the RG-LRU state.
 
 Slot semantics are the reference's: an entry with absolute position p lives
 at slot ``p % cache_len``; ``pos`` maps slot -> absolute position (-1 =
@@ -70,12 +71,16 @@ def entry_shape(cfg, btype, batch, attn_len):
         return {"conv_x": ((batch, d_conv - 1, d_inner), cdt),
                 "conv_bc": ((batch, d_conv - 1, 2 * n), cdt),
                 "h": ((batch, h, pdim, n), torch.float32)}
-    if btype != "dense":
+    if btype == "rec":
+        return {"conv": ((batch, 3, cfg.d_model), cdt),
+                "h": ((batch, cfg.d_model), torch.float32)}
+    if btype not in ("dense", "lattn"):
         from repro_torch.models.blocks import _LATER   # blocks imports this module
         raise NotImplementedError(
             f"the cache of block type {btype!r} is not ported yet; it comes with "
             f"{_LATER.get(btype, 'the model-zoo slice')}")
-    hkv, dh, lc = cfg.n_kv_heads, cfg.head_dim, attn_len
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    lc = cfg.window if btype == "lattn" else attn_len
     kv_dt = torch.int8 if cfg.kv_quant_bits else cdt
     e = {"k": ((batch, lc, hkv, dh), kv_dt),
          "v": ((batch, lc, hkv, dh), kv_dt),
@@ -89,12 +94,15 @@ def entry_shape(cfg, btype, batch, attn_len):
 def entry_payload_bits(cfg, btype, batch, ctx_len):
     """Bits to ship one layer's serving-cache state for a ``ctx_len``-token
     context: ``entry_shape``'s leaves with the sequence axis at the filled
-    length, honoring ``kv_quant_bits`` (int8 codes + f32 per-(slot, head)
-    scales). Mamba-2 layers carry O(1) state. ``core.split.
+    length (min(ctx_len, window) for a ``"lattn"`` layer: its ring never
+    holds more), honoring ``kv_quant_bits`` (int8 codes + f32 per-(slot,
+    head) scales). Mamba-2 and RG-LRU layers carry O(1) state. ``core.split.
     llm_decode_split_table`` sums this over the UE-side layers."""
     ctx_len = int(ctx_len)
     if ctx_len < 1:
         raise ValueError("ctx_len must be >= 1")
+    if btype == "lattn" and cfg.window:
+        cfg = cfg.replace(window=min(ctx_len, cfg.window))
     total = 0
     for shape, dtype in entry_shape(cfg, btype, batch, ctx_len).values():
         n = 1

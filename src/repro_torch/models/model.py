@@ -98,8 +98,8 @@ def loss_fn(model, batch):
     """batch: {"tokens": (B, S), "labels": (B, S) (-100 = ignore)}. Returns
     (loss, metrics) as the reference's ``loss_fn``: the masked mean cross
     entropy of the train-mode logits (in float32) plus ``aux``, which is 0
-    for the dense and mamba2 stacks the port has (the reference's comes from
-    MoE layers); metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the
+    for the dense, hybrid and mamba2 stacks the port has (the reference's
+    comes from MoE layers); metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the
     card the mamba2 mixers run the ``ssd_intra`` forward and backward
     kernels."""
     if batch.get("aux_embeds") is not None:
@@ -139,9 +139,10 @@ def decode_step(model, cache, token, idx):
 def init_params(cfg, generator, device):
     """A model with the reference's initializers, drawn from ``generator``
     (which must live on ``device``): normal(0, 1/sqrt(fan_in)) matrices
-    (the Mamba conv kernels included: fan-in d_conv), normal(0, 0.02)
-    embeddings, unit norm, qk-norm and Mamba ``D`` / ``norm_scale``, zero
-    biases, ``A_log`` and ``dt_bias``."""
+    (the Mamba and RG-LRU conv kernels included: fan-in d_conv = 4),
+    normal(0, 0.02) embeddings, unit norm, qk-norm and Mamba ``D`` /
+    ``norm_scale``, the RG-LRU's ``lam`` at 0.3, zero biases, ``A_log`` and
+    ``dt_bias``."""
     model = Model(cfg, device=device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -151,6 +152,8 @@ def init_params(cfg, generator, device):
             p.copy_(dense_init(generator, p.shape, p.dtype, device))
         elif leaf in ("scale", "q_scale", "k_scale", "D", "norm_scale"):
             p.fill_(1.0)
+        elif leaf == "lam":
+            p.fill_(0.3)
         else:
             p.zero_()
     return model

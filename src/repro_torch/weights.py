@@ -3,10 +3,12 @@
 ``from_jax_params`` takes the output of the reference's
 ``models.init_params`` as a tree of numpy arrays (the caller does the
 ``np.asarray`` on the JAX side; this module imports no JAX) and returns the
-port's ``Model``. The reference stacks each block parameter on a leading
-layer axis (``params["decoder"]["blocks"][0][...]`` has shape
-``(n_layers, ...)``); the port keeps one module per layer, in the same
-(d_in, d_out) layouts, so the stacks are only unstacked.
+port's ``Model``. The reference stacks each block parameter of a pattern
+position on a leading group axis (``params["decoder"]["blocks"][j][...]``
+has shape ``(n_groups, ...)``) and keeps the layers past the last whole
+group unstacked (``params["decoder"]["tail"]``); the port keeps one module
+per layer, in the same (d_in, d_out) layouts, so the stacks are only
+unstacked.
 
 ``cache_from_jax`` carries a serving cache the reference built (its
 ``prefill`` output, numpy leaves) into the port's per-layer list, so a
@@ -35,7 +37,6 @@ import torch
 
 from repro_torch.env.mecenv import EnvState
 from repro_torch.kernels.ref import code_dtype
-from repro_torch.models.blocks import _LATER
 from repro_torch.models.model import Model, layer_plan
 from repro_torch.rl.nets import MLP, Actor, EntityActor, Linear, StackedLinear
 
@@ -49,35 +50,50 @@ def _tensor(a, dtype, device):
         device=device, dtype=dtype)
 
 
-_SUBMODULES = {  # uniform pattern: the stacked subtrees of its block
-    ("dense",): ("ln1", "ln2", "attn", "mlp"),
-    ("mamba2",): ("ln1", "mixer"),
-}
+def _block_tree(blk):
+    """One block's parameters as the reference's subtree: {sub: {leaf:
+    tensor}} from the port's ``sub.leaf`` names."""
+    tree = {}
+    for name, p in blk.named_parameters():
+        sub, leaf = name.split(".", 1)
+        tree.setdefault(sub, {})[leaf] = p
+    return tree
 
 
-def _uniform_pattern(cfg):
-    pattern, _, tail = layer_plan(cfg)
-    if pattern not in _SUBMODULES or tail:
-        later = sorted({_LATER[bt] for bt in pattern + tail if bt in _LATER})
-        raise NotImplementedError(
-            f"block pattern {pattern} (tail {tail}) is not carried yet; it comes "
-            f"with {', '.join(later) or 'the model-zoo slice'}")
-    return pattern
+def _layer_leaves(tree, cfg):
+    """For layer i of ``cfg``, the reference tree's subtree of its block
+    and how to take the layer from a leaf: the pattern position's stack
+    (``"blocks"``, one group a row) or the unstacked tail layer
+    (``"tail"``)."""
+    pattern, n_groups, _ = layer_plan(cfg)
+    n = len(pattern)
+    dec = tree["decoder"]
+    out = []
+    for i in range(cfg.n_layers):
+        if i < n_groups * n:
+            out.append((dec["blocks"][i % n], lambda a, g=i // n: a[g]))
+        else:
+            out.append((dec["tail"][i - n_groups * n], lambda a: a))
+    return out
 
 
 @torch.no_grad()
 def to_reference_tree(model):
     """The port's Model as the reference's params tree: {"embed", "decoder":
-    {"blocks": [stacked subtrees], "ln_f"}, ("lm_head")}, each block
-    parameter stacked on a leading layer axis, as CPU tensors in their own
-    dtypes (``from_jax_params`` takes this tree back)."""
-    pattern = _uniform_pattern(model.cfg)
-    stacked = {sub: {name: torch.stack([getattr(getattr(blk, sub), name).detach().cpu()
-                                        for blk in model.blocks])
-                     for name, _ in getattr(model.blocks[0], sub).named_parameters()}
-               for sub in _SUBMODULES[pattern]}
+    {"blocks": one subtree a pattern position, each parameter stacked over
+    the groups on a leading axis; "tail": one subtree a layer past the last
+    whole group; "ln_f"}, ("lm_head")}, as CPU tensors in their own dtypes
+    (``from_jax_params`` takes this tree back)."""
+    pattern, n_groups, _ = layer_plan(model.cfg)
+    n = len(pattern)
+    trees = [_block_tree(blk) for blk in model.blocks]
+    stack = lambda ts: {sub: {leaf: torch.stack([t[sub][leaf].detach().cpu() for t in ts])
+                              for leaf in ts[0][sub]} for sub in ts[0]}
+    blocks = [stack(trees[j:n_groups * n:n]) for j in range(n)] if n_groups else []
+    tail = [{sub: {leaf: p.detach().cpu() for leaf, p in leaves.items()}
+             for sub, leaves in t.items()} for t in trees[n_groups * n:]]
     tree = {"embed": model.embed.detach().cpu(),
-            "decoder": {"blocks": [stacked],
+            "decoder": {"blocks": blocks, "tail": tail,
                         "ln_f": {name: p.detach().cpu()
                                  for name, p in model.ln_f.named_parameters()}}}
     if model.lm_head is not None:
@@ -88,11 +104,18 @@ def to_reference_tree(model):
 def reference_decay_mask(model):
     """Which of ``model.parameters()`` the reference's AdamW decays: its
     rule, rank >= 2, applied to the reference's leaves. The reference stacks
-    every block parameter on a layer axis, so all of them are decayed (the
-    per-layer norm scales, ``A_log``, ``D``, ``dt_bias`` and the conv bias
-    among them, 1-D in the port), as are ``embed`` and ``lm_head``; the
-    final norm's vectors are not."""
-    _uniform_pattern(model.cfg)
+    every block parameter on a group axis, so all of them are decayed (the
+    per-layer norm scales, ``A_log``, ``D``, ``dt_bias``, the RG-LRU's
+    ``lam`` and the biases among them, 1-D in the port), as are ``embed``
+    and ``lm_head``; the final norm's vectors are not. A pattern that
+    leaves a tail (recurrentgemma-9b's two ``"rec"`` layers past its 12
+    groups) keeps those layers unstacked; their mask comes with the slice
+    that trains the hybrid stack, and until then it raises."""
+    _, _, tail = layer_plan(model.cfg)
+    if tail:
+        raise NotImplementedError(
+            f"the decay mask of a pattern with a tail ({model.cfg.name}: tail {tail}) comes "
+            f"with the slice that trains the hybrid (recurrentgemma) stack")
     return [(p.dim() + 1 if name.startswith("blocks.") else p.dim()) >= 2
             for name, p in model.named_parameters()]
 
@@ -100,23 +123,20 @@ def reference_decay_mask(model):
 @torch.no_grad()
 def from_jax_params(tree, cfg, device):
     """The port's Model holding the reference parameters ``tree`` (numpy
-    arrays, or tensors as ``to_reference_tree`` gives them). Each parameter
-    keeps its own dtype (the Mamba ``A_log``, ``D`` and ``dt_bias`` stay
-    float32 in a bfloat16 model)."""
-    pattern = _uniform_pattern(cfg)
+    arrays, or tensors as ``to_reference_tree`` gives them), for any block
+    pattern, with or without a tail. Each parameter keeps its own dtype
+    (the Mamba ``A_log``, ``D`` and ``dt_bias`` and the RG-LRU's ``ba``,
+    ``bi`` and ``lam`` stay float32 in a bfloat16 model)."""
     model = Model(cfg, device=device)
     load = lambda param, a: param.copy_(_tensor(a, param.dtype, device))
     load(model.embed, tree["embed"])
     if model.lm_head is not None:
         load(model.lm_head, tree["lm_head"])
-    dec = tree["decoder"]
-    stacked = dec["blocks"][0]
-    for i, blk in enumerate(model.blocks):
-        for sub in _SUBMODULES[pattern]:
-            mod = getattr(blk, sub)
-            for name, arr in stacked[sub].items():
-                load(getattr(mod, name), arr[i])
-    for name, arr in dec["ln_f"].items():
+    for blk, (sub_tree, take) in zip(model.blocks, _layer_leaves(tree, cfg)):
+        for name, param in blk.named_parameters():
+            sub, leaf = name.split(".", 1)
+            load(param, take(sub_tree[sub][leaf]))
+    for name, arr in tree["decoder"]["ln_f"].items():
         load(getattr(model.ln_f, name), arr)
     return model
 

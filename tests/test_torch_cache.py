@@ -73,6 +73,10 @@ def _cfg_pair(arch, **kw):
     ("qwen3-1.7b", "dense", dict(GQA, kv_quant_bits=8)),
     ("qwen3-1.7b", "dense", dict(compute_dtype="bfloat16")),
     ("mamba2-1.3b", "mamba2", {}),
+    ("recurrentgemma-9b", "rec", {}),
+    ("recurrentgemma-9b", "lattn", {}),
+    ("recurrentgemma-9b", "lattn", dict(compute_dtype="bfloat16", kv_quant_bits=8)),
+    ("qwen2-7b-kv8", "dense", {}),
 ])
 def test_entry_shape_and_payload_bits_match(arch, btype, kw):
     jcfg, cfg = _cfg_pair(arch, **kw)
@@ -101,8 +105,11 @@ def test_other_block_types_name_their_slice():
     _, cfg = _cfg_pair("qwen3-1.7b")
     with pytest.raises(NotImplementedError, match="MoE slice"):
         cache.entry_shape(cfg, "moe", 1, 8)
-    with pytest.raises(NotImplementedError, match="RG-LRU"):
-        cache.entry_shape(cfg, "lattn", 1, 8)
+    for btype in ("enc", "decx"):
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            cache.entry_shape(cfg, btype, 1, 8)
+    with pytest.raises(NotImplementedError, match="VLM"):
+        cache.entry_shape(cfg, "xattn", 1, 8)
 
 
 @pytest.mark.parametrize("arch,kw", [("qwen3-1.7b", GQA), ("mamba2-1.3b", {})])

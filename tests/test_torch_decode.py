@@ -21,7 +21,7 @@ from repro.models import model as jmodel
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import _build, decode_attn, ops
 from repro_torch.launch.serve import cache_bytes, serve
-from repro_torch.models import apply_model, cache, decode_step, prefill
+from repro_torch.models import apply_model, cache, decode_step, init_params, prefill
 from repro_torch.weights import cache_from_jax, from_jax_params
 
 torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
@@ -175,36 +175,55 @@ def _merge(parts):
             sum(wc[..., None] * a for wc, (_, _, a) in zip(w, parts)))
 
 
-def _kernel_schedule(q, k, v, pos, idx, resident, warps=2):
-    """The CUDA kernel's order of work, in float64: the planner's splits;
-    in each, 32-slot tiles dealt to ``warps`` consumer warps, one max and one
-    rescale a tile (invalid slots -1e30, nothing past the split); the warps
-    merged, then the splits."""
+def _kernel_schedule(q, k, v, pos, idx, resident, warps=2, k_scale=None, v_scale=None,
+                     window=0):
+    """The CUDA kernel's order of work, in float64: a kv head's G query rows
+    in ``block_rows`` row groups, each padded with zero rows to the block's
+    rows; the planner's splits over the pairs times the groups; in each,
+    32-slot tiles dealt to ``warps`` consumer warps, one max and one
+    rescale a tile (invalid slots -1e30, nothing past the split; an int8
+    cache's scores times k_scale, its probabilities added into l, then
+    times v_scale); the warps merged, then the splits; the padding rows
+    dropped."""
     b, hq, d = q.shape
     s, hkv = k.shape[1:3]
     g = hq // hkv
-    n, per = decode_attn.plan_splits(b * hkv, s, resident)
-    qg = q.double().reshape(b, hkv, g, d) * d ** -0.5
+    rows, groups = decode_attn.block_rows(g, d)
+    n, per = decode_attn.plan_splits(b * hkv * groups, s, resident)
+    qg = torch.zeros((b, hkv, groups * rows, d), dtype=torch.float64)
+    qg[:, :, :g] = q.double().reshape(b, hkv, g, d) * d ** -0.5
     kk, vv = (t.double().permute(0, 2, 1, 3) for t in (k, v))       # (B, Hkv, S, D)
-    valid = ((pos >= 0) & (pos <= idx))[:, None, None, :]
-    splits = []
-    for c in range(n):
-        lo, hi = c * per, min(s, (c + 1) * per)
-        states = [(torch.full((b, hkv, g), -1e30, dtype=torch.float64),
-                   torch.zeros((b, hkv, g), dtype=torch.float64),
-                   torch.zeros((b, hkv, g, d), dtype=torch.float64)) for _ in range(warps)]
-        for t, t0 in enumerate(range(lo, hi, decode_attn.TILE)):
-            t1 = min(t0 + decode_attn.TILE, hi)
-            m, l, acc = states[t % warps]
-            sc = torch.einsum("bhgd,bhsd->bhgs", qg, kk[:, :, t0:t1])
-            sc = torch.where(valid[..., t0:t1], sc, torch.tensor(-1e30, dtype=torch.float64))
-            m_new = torch.maximum(m, sc.amax(-1))
-            alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new[..., None])
-            states[t % warps] = (m_new, l * alpha + p.sum(-1), acc * alpha[..., None]
-                                 + torch.einsum("bhgs,bhsd->bhgd", p, vv[:, :, t0:t1]))
-        splits.append(_merge(states))
-    _, l, acc = _merge(splits)
-    return (acc / torch.clamp(l, min=1e-20)[..., None]).reshape(b, hq, d)
+    ones = torch.ones((b, s, hkv), dtype=torch.float64)
+    ksc, vsc = ((ones if t is None else t.double()).permute(0, 2, 1)[:, :, None, :]
+                for t in (k_scale, v_scale))                           # (B, Hkv, 1, S)
+    valid = (pos >= 0) & (pos <= idx)
+    if window:
+        valid = valid & (pos > idx - window)
+    valid = valid[:, None, None, :]
+    outs = []
+    for r0 in range(0, groups * rows, rows):
+        qr = qg[:, :, r0:r0 + rows]
+        splits = []
+        for c in range(n):
+            lo, hi = c * per, min(s, (c + 1) * per)
+            states = [(torch.full((b, hkv, rows), -1e30, dtype=torch.float64),
+                       torch.zeros((b, hkv, rows), dtype=torch.float64),
+                       torch.zeros((b, hkv, rows, d), dtype=torch.float64))
+                      for _ in range(warps)]
+            for t, t0 in enumerate(range(lo, hi, decode_attn.TILE)):
+                t1 = min(t0 + decode_attn.TILE, hi)
+                m, l, acc = states[t % warps]
+                sc = torch.einsum("bhgd,bhsd->bhgs", qr, kk[:, :, t0:t1]) * ksc[..., t0:t1]
+                sc = torch.where(valid[..., t0:t1], sc, torch.tensor(-1e30, dtype=torch.float64))
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new[..., None])
+                states[t % warps] = (m_new, l * alpha + p.sum(-1), acc * alpha[..., None]
+                                     + torch.einsum("bhgs,bhsd->bhgd", p * vsc[..., t0:t1],
+                                                    vv[:, :, t0:t1]))
+            splits.append(_merge(states))
+        _, l, acc = _merge(splits)
+        outs.append(acc / torch.clamp(l, min=1e-20)[..., None])
+    return torch.cat(outs, dim=2)[:, :, :g].reshape(b, hq, d)
 
 
 @pytest.mark.parametrize("b,s,hkv,g,d", [(2, 1, 2, 4, 32), (2, 31, 1, 8, 32), (2, 32, 2, 2, 64),
@@ -225,6 +244,81 @@ def test_the_kernels_schedule_matches_the_reference_oracle(b, s, hkv, g, d):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got[0].numpy(), np.repeat(v[0].mean(0), g, 0),
                                rtol=2e-5, atol=2e-5)
+
+
+def _scaled_inputs(b, s, hkv, g, d, seed, codes):
+    """Decode inputs over a ring that has wrapped (idx = 3 S + 5: slot j
+    holds the last position = j mod S), pos % 5 == 2 empty; with ``codes``
+    the cache is int8 codes with per-(slot, kv head) scales."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    idx = 3 * s + 5
+    p = np.arange(idx - s + 1, idx + 1)
+    pos = np.empty((b, s), dtype=np.int32)
+    pos[:, p % s] = p
+    pos[pos % 5 == 2] = -1
+    if not codes:
+        k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32) for _ in range(2))
+        return (q, k, v, pos), idx, {}
+    k, v = (rng.integers(-127, 128, (b, s, hkv, d)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.01, 0.05, (b, s, hkv)).astype(np.float32) for _ in range(2))
+    return (q, k, v, pos), idx, {"k_scale": ks, "v_scale": vs}
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("codes", [False, True])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("g", [3, 7, 16])
+def test_the_twin_matches_the_models_flash_decode_with_scales_and_window(g, d, codes, window):
+    """The twin against the reference model's ``_flash_decode`` (two 64-slot
+    chunks, the last padded) over an f32 or an int8 cache with its scales,
+    with and without a window, on a wrapped ring, at the zoo's G and D
+    (phi4-mini's 3, qwen2's 7, recurrentgemma's 16 at D 256), within the
+    reference's 2e-5; and the kernel's schedule against the twin."""
+    b, s, hkv = 2, 100, 2
+    args, idx, scales = _scaled_inputs(b, s, hkv, g, d, seed=g * d + window, codes=codes)
+    q, k, v, pos = args
+    jsc = {n: jnp.asarray(a) for n, a in scales.items()}
+    want = jattn._flash_decode(jnp.asarray(q[:, None]), jnp.asarray(k), jnp.asarray(v),
+                               q_positions=jnp.full((b, 1), idx), k_positions=jnp.asarray(pos),
+                               causal=True, window=window, chunk=64, **jsc)
+    tsc = {n: torch.from_numpy(a) for n, a in scales.items()}
+    t = [torch.from_numpy(a) for a in args]
+    got = ops.decode_attention(*t, idx, window=window, **tsc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 0], rtol=2e-5, atol=2e-5)
+    sched = _kernel_schedule(*t, idx, _TABLES["gpc-132x3"], window=window, **tsc)
+    np.testing.assert_allclose(sched.numpy(), got.numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,hkv,g,d,codes,window", [
+    (2, 33, 2, 3, 64, False, 0), (1, 257, 1, 7, 128, True, 0), (2, 300, 1, 16, 256, False, 64),
+    (2, 70, 2, 24, 32, True, 40), (3, 65, 1, 17, 256, True, 0), (2, 2080, 4, 7, 128, True, 0)])
+def test_the_kernels_schedule_covers_rows_scales_and_windows(b, s, hkv, g, d, codes, window):
+    """The schedule with padded row groups (G 3 and 7 in blocks of 4 and
+    8, 16 at D 256 in two blocks of 8, 17 in three, 24 in two of 16), an
+    int8 cache's scales and a window, against the reference's oracle in
+    float64 (``repro.kernels.ref`` has no scales or window: the twin is
+    compared with ``_flash_decode`` above)."""
+    args, idx, scales = _scaled_inputs(b, s, hkv, g, d, seed=s + g, codes=codes)
+    t = [torch.from_numpy(a) for a in args]
+    tsc = {n: torch.from_numpy(a) for n, a in scales.items()}
+    resident = _TABLES["132x1"]
+    want = decode_attn.decode_attention_plain(
+        *(x.double() if i < 3 else x for i, x in enumerate(t)), idx, window=window,
+        **{n: x.double() for n, x in tsc.items()})
+    got = _kernel_schedule(*t, idx, resident, window=window, **tsc)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    rows, groups = decode_attn.block_rows(g, d)
+    assert rows * groups >= g > rows * (groups - 1) and rows <= (8 if d > 128 else 16)
+
+
+def test_block_rows_pads_each_g_to_a_template():
+    assert [decode_attn.block_rows(g, 128) for g in (1, 2, 3, 5, 7, 8, 9, 16, 17, 28)] == [
+        (1, 1), (2, 1), (4, 1), (8, 1), (8, 1), (8, 1), (16, 1), (16, 1), (16, 2), (16, 2)]
+    assert [decode_attn.block_rows(g, 256) for g in (1, 3, 8, 16)] == [
+        (1, 1), (4, 1), (8, 1), (8, 2)]
+    with pytest.raises(ValueError):
+        decode_attn.block_rows(0, 64)
 
 
 # ------------------------------------------------------------------ the slice
@@ -349,6 +443,9 @@ def test_bf16_decode_stays_near_the_reference(arch):
 
 
 def test_decode_names_what_is_not_ported():
+    """Decode needs its cache and position, takes the three modes, and
+    names the slice of each block type still to come (moe, enc, decx,
+    xattn) rather than running it."""
     _, cfg, _, model = _setup("qwen3-1.7b")
     toks = torch.zeros((1, 4), dtype=torch.long)
     with torch.inference_mode():
@@ -357,6 +454,13 @@ def test_decode_names_what_is_not_ported():
             apply_model(model, toks[:, :1], mode="decode", cache=tc)
         with pytest.raises(ValueError, match="mode"):
             apply_model(model, toks, mode="serve")
+    for btype, slice_ in (("moe", "MoE"), ("enc", "encoder-decoder"),
+                          ("decx", "encoder-decoder"), ("xattn", "VLM")):
+        with pytest.raises(NotImplementedError, match=slice_):
+            cache.entry_shape(cfg, btype, 1, 6)
+        with pytest.raises(NotImplementedError, match=slice_):
+            init_params(cfg.replace(block_pattern=(btype,)), torch.Generator().manual_seed(0),
+                        "cpu")
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])

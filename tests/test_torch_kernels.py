@@ -332,11 +332,12 @@ def test_build_finds_nvcc_or_raises(monkeypatch, tmp_path):
 
 def test_build_commands_target_sm90a_without_fast_math(tmp_path):
     compiles, link = _build.compile_commands("nvcc", tmp_path, tmp_path / "lib.so")
-    assert len(compiles) == len(_build.SOURCES) == 8
+    assert len(compiles) == len(_build.SOURCES) == 11
     assert [s.name for s in _build.SOURCES] == ["quant.cu", "bottleneck.cu", "ssd_intra.cu",
                                                  "ssd_intra_bwd.cu", "pair_scorer.cu",
                                                  "pair_scorer_bwd.cu", "flat_trunk.cu",
-                                                 "decode_attn.cu"]
+                                                 "decode_attn.cu", "decode_attn_f32.cu",
+                                                 "decode_attn_bf16.cu", "decode_attn_i8.cu"]
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)
@@ -348,11 +349,12 @@ def test_build_commands_target_sm90a_without_fast_math(tmp_path):
 
 def test_library_name_follows_every_source_and_header(monkeypatch, tmp_path):
     """The library is named by a hash of the sources and the headers they
-    include (tf32_mma.cuh, mbarrier.cuh and wgmma.cuh among them), so an
-    edit to a header cannot leave a stale library under the same name."""
+    include (tf32_mma.cuh, mbarrier.cuh, wgmma.cuh and decode_attn.cuh among
+    them), so an edit to a header cannot leave a stale library under the
+    same name."""
     assert {h.name for h in _build.HEADERS} == {"quant.cuh", "tf32_mma.cuh", "mbarrier.cuh",
-                                                "wgmma.cuh"}
-    for f in _build.SOURCES:
+                                                "wgmma.cuh", "decode_attn.cuh"}
+    for f in _build.SOURCES + _build.HEADERS:
         for inc in re.findall(r'#include "([^"]+)"', f.read_text()):
             assert _build.CSRC / inc in _build.HEADERS, (f.name, inc)
     src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"

@@ -464,6 +464,45 @@ def test_decode_attention_matches_its_plain_twin_on_card(card, dtype):
                  decode_attn.decode_attention_plain(q.bfloat16(), k, v, pos, 2079), tol)
 
 
+def _ring(card, b, s):
+    """pos of a ring of S slots that has wrapped: idx = 3 S + 5 and slot j
+    holds the last position = j mod S; slots with pos % 5 == 2 empty."""
+    idx = 3 * s + 5
+    p = torch.arange(idx - s + 1, idx + 1, device=card)
+    pos = torch.empty((b, s), dtype=torch.int32, device=card)
+    pos[:, p % s] = p.to(torch.int32)
+    pos[pos % 5 == 2] = -1
+    return pos, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_decode_attention_takes_every_g_d_cache_and_window_on_card(card, kv, d):
+    """Any G (padded to a block's rows, or in row groups past 16, 8 at D
+    256), each D of the registry and the reference's kernel, f32, bf16 and
+    int8 caches (the last with its scales), with and without a window on a
+    wrapped ring: within 2e-5 + 2e-5 |plain| of the twin."""
+    g = torch.Generator(device=card).manual_seed(d)
+    for grp in (1, 3, 5, 7, 16, 17, 24):
+        for s, window in ((33, 0), (300, 0), (300, 64)):
+            b, hkv = 2, 2
+            q = torch.randn(b, hkv * grp, d, generator=g, device=card)
+            if kv == "int8":
+                k, v = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=card)
+                        .to(torch.int8) for _ in range(2))
+                scales = {n: 0.01 + 0.04 * torch.rand(b, s, hkv, generator=g, device=card)
+                          for n in ("k_scale", "v_scale")}
+            else:
+                k, v = (torch.randn(b, s, hkv, d, generator=g, device=card)
+                        .to(getattr(torch, kv)) for _ in range(2))
+                scales = {}
+            pos, idx = _ring(card, b, s)
+            _assert_twin(decode_attn.decode_attention(q, k, v, pos, idx, window=window, **scales),
+                         decode_attn.decode_attention_plain(q, k, v, pos, idx, window=window,
+                                                            **scales), 2e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_at_the_planners_edges_on_card(card, dtype):
@@ -507,8 +546,11 @@ def test_decode_attention_counts_launches_and_refuses_what_it_does_not_take(card
     assert _build.LAUNCHES["decode_attention"] == 1 and out.dtype == torch.float32
     torch.testing.assert_close(out, decode_attention_ref(q.double(), k.double(), v.double(),
                                                          pos, 60).float(), rtol=2e-5, atol=2e-5)
-    with pytest.raises(ValueError):                                           # G 3
-        decode_attn.decode_attention(torch.randn(2, 6, 64, device=card), k, v, pos, 60)
+    with pytest.raises(TypeError):                        # a float cache with scales
+        decode_attn.decode_attention(q, k, v, pos, 60, k_scale=pos.float()[..., None],
+                                     v_scale=pos.float()[..., None])
+    with pytest.raises(TypeError):                        # int8 codes without scales
+        decode_attn.decode_attention(q, k.to(torch.int8), v.to(torch.int8), pos, 60)
     with pytest.raises(ValueError):
         decode_attn.decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                                      v[..., :48].contiguous(), pos, 60)            # D 48

@@ -327,13 +327,17 @@ def test_init_params_shapes_and_scales_match_the_reference():
 
 def test_other_block_types_and_modes_name_their_slice():
     _, cfg = _cfgs("reduced")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        make_block(cfg, "moe")
-    # decode over an int8 KV cache is still unported (prefill packs it)
+    for btype, slice_ in (("moe", "MoE slice"), ("enc", "encoder-decoder slice"),
+                          ("decx", "encoder-decoder slice"), ("xattn", "VLM slice")):
+        with pytest.raises(NotImplementedError, match=slice_):
+            make_block(cfg, btype)
+    # decode over an int8 KV cache is ported: prefill packs codes and
+    # scales, decode writes the token's and reads them back
     model = init_params(cfg.replace(kv_quant_bits=8), torch.Generator().manual_seed(0), "cpu")
     tokens = torch.zeros(1, 4, dtype=torch.long)
     with torch.inference_mode():
         _, cache = apply_model(model, tokens, mode="prefill", attn_len=6)
         assert cache[0]["k"].dtype == torch.int8
-        with pytest.raises(NotImplementedError, match="kv_quant_bits"):
-            apply_model(model, tokens[:, :1], mode="decode", cache=cache, idx=4)
+        logits, cache = apply_model(model, tokens[:, :1], mode="decode", cache=cache, idx=4)
+        assert bool(torch.isfinite(logits).all()) and int(cache[0]["pos"][0, 4]) == 4
+        assert float(cache[0]["k_scale"][0, 4].min()) > 0
