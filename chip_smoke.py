@@ -62,15 +62,25 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    (4, 2080, 32, 1, 64), phi4-mini-3.8b's (4, 2080, 8, 3, 128), qwen2-7b's
    (4, 2080, 4, 7, 128); qwen2-7b-kv8's int8 cache with its scales at that
    shape; recurrentgemma-9b's local attention (4, 2048, 1, 16, 256) with
-   its 2048 window), a 1000 window there, and an f32 cache at D 256, each
-   serving shape also against float64; then timed beside
-   scaled_dot_product_attention and the bound, at the serving shape, a
-   short cache (informative) and the zoo's five serving shapes (SDPA
-   for the float caches; no library call for int8);
+   its 2048 window; the MoE archs' G 8, qwen3-moe-30b-a3b's
+   (4, 2080, 4, 8, 128) and kimi-k2-1t-a32b's (4, 2080, 8, 8, 128)), a
+   1000 window there, and an f32 cache at D 256, each serving shape also
+   against float64; then timed beside scaled_dot_product_attention and the
+   bound, at the serving shape, a short cache (informative) and the zoo's
+   seven serving shapes (SDPA for the float caches; no library call for
+   int8);
 11. small prefill + decode serving: reduced f32 qwen3-1.7b (GQA kept),
    mamba2-1.3b, recurrentgemma-9b (5 layers: a tail, and an 80-token
    prompt over its 64-slot window) and qwen2-7b (G 7), 80 prompt tokens
-   and 8 decode steps, card against CPU;
+   and 8 decode steps, card against CPU; reduced qwen2-7b-kv8 (G 7) over
+   its int8 cache (codes within one step and equal at 99.9 % or more,
+   logits within 5e-2 x max|logit|); reduced qwen3-moe-30b-a3b (G 8,
+   capacity factor 1.25: drops at prefill and at a batch of 4's decode)
+   and kimi-k2-1t-a32b (a shared expert), the routing first (equal top-k
+   sets wherever a token's k-th and (k+1)-th probabilities differ by more
+   than 1e-4, equal kept masks and ranks where no set differs; near-ties
+   and flips counted), then the logits within 1e-4 + 1e-4 |cpu| at every
+   step before a flip;
 12. decode serve, the KV-cache main path: qwen3-1.7b (28 layers, bf16, 2
    requests of a (4, 2048) prefill and 31 decode steps) and mamba2-1.3b
    (48 layers, bf16, 2 requests of (2, 1024) and 31 steps), launch counts
@@ -88,6 +98,17 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    the next; recurrentgemma-9b's decode over a wrapped ring (a 2100-token
    prompt) against its full forward, and one profiled decode step of it;
    the phase's seconds;
+12m. the mixture-of-experts stack, main paths at full width with seeded
+   random bf16 weights: the split forward of qwen3-moe-30b-a3b (one
+   request of (4, 256), split after layer 24: exactly one
+   bottleneck_encode and one dequantize, codes within one of the oracle),
+   its KV-cache serve at its full 48 layers (one request of a (4, 2048)
+   prefill and 31 decode steps, exactly 1 488 decode_attention launches)
+   and one profiled decode step, then kimi-k2-1t-a32b's KV-cache serve at
+   1 of its 61 layers (31 launches); each prints the seconds to build its
+   weights, prefill ms, decode ms a token, cache bytes, peak memory and the
+   share of expert assignments dropped at prefill and at decode; the
+   phase's seconds;
 12b. the loss gradient, a main path: one loss-and-gradient pass of
    mamba2-1.3b (48 layers, bf16, (2, 1024)) through ``models.loss_fn`` and
    autograd, exactly 48 ssd_intra and 48 ssd_intra_backward launches, its
@@ -184,6 +205,7 @@ port under ``--src``, so two trees' kernels can be timed in one session):
 import argparse
 import collections
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -236,16 +258,31 @@ DECODE_SERVE.update({name: dict(requests=1, batch=4, prompt_len=2048, gen=32) fo
 # recurrentgemma-9b's decode against its full forward: a prompt longer than
 # its 2048-slot window, so the decode reads a ring that has wrapped
 RG_CONSISTENCY_PROMPT = 2100
+# the mixture-of-experts stack at full width: qwen3-moe-30b-a3b split after
+# layer 24 (one request of (4, 256)) and KV-cache served at its full 48
+# layers; kimi-k2-1t-a32b KV-cache served at 1 of its 61 layers (one layer's
+# 384 experts take 33.8 GB of bf16, two would not fit beside the embedding
+# and head); one request of a (4, 2048) prefill and 31 decode steps each
+MOE = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
+MOE_LAYERS = {"kimi-k2-1t-a32b": 1}
+SERVE["qwen3-moe-30b-a3b"] = dict(requests=1, batch=4, seq=256)
+DECODE_SERVE.update({name: dict(requests=1, batch=4, prompt_len=2048, gen=32) for name in MOE})
 # decode_attention at each zoo arch's serving shape (b, S, Hkv, G, D, cache,
 # window), as DECODE_SERVE serves it (main checks them against the configs):
 # stablelm-1.6b's MHA at D 64, phi4-mini-3.8b's G 3, qwen2-7b's G 7 over a
-# bf16 cache and over qwen2-7b-kv8's int8 cache with its scales, and
-# recurrentgemma-9b's local attention (MQA over a 2048-slot ring)
+# bf16 cache and over qwen2-7b-kv8's int8 cache with its scales,
+# recurrentgemma-9b's local attention (MQA over a 2048-slot ring), and the
+# MoE archs' G 8: qwen3-moe-30b-a3b's 32 query on 4 KV heads, kimi's 64 on 8
 ZOO_DECODE_SHAPES = {"stablelm-1.6b": (4, 2080, 32, 1, 64, torch.bfloat16, 0),
                      "phi4-mini-3.8b": (4, 2080, 8, 3, 128, torch.bfloat16, 0),
                      "qwen2-7b": (4, 2080, 4, 7, 128, torch.bfloat16, 0),
                      "qwen2-7b-kv8": (4, 2080, 4, 7, 128, torch.int8, 0),
-                     "recurrentgemma-9b": (4, 2048, 1, 16, 256, torch.bfloat16, 2048)}
+                     "recurrentgemma-9b": (4, 2048, 1, 16, 256, torch.bfloat16, 2048),
+                     "qwen3-moe-30b-a3b": (4, 2080, 4, 8, 128, torch.bfloat16, 0),
+                     "kimi-k2-1t-a32b": (4, 2080, 8, 8, 128, torch.bfloat16, 0)}
+# the small MoE decodes, card against CPU: a router gap above this between
+# a token's k-th and (k+1)-th probability cannot flip on either device
+ROUTE_GAP = 1e-4
 TRUNK_DIMS = (19, 64, 64, 13)    # the flat trunk's published widths
 STREAM_M = 8                     # the trunk's rows on a stream dispatch: the 8-UE fleet
 # the streaming serve's distillation of its tuned teacher, the settings of
@@ -1294,6 +1331,10 @@ def phase_serve(dev, cs, cfg, build_mod, kref):
           f"({100 * share:.4f}% differ), logits finite {tuple(res.stats[0]['logits_shape'])}, "
           f"payload exact, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if cfg.moe is not None:
+        print(f"serve: {cfg.name} split forward: MoE assignments dropped "
+              f"{100 * res.stats[0]['moe_dropped']:.3f}% (capacity "
+              f"{moe_capacity(cfg, serve['batch'] * serve['seq'])})", flush=True)
     return launches, res
 
 
@@ -2629,8 +2670,8 @@ def time_zoo_decode(dev, kda, g, name, shape):
 
 
 def attention_layers(cfg):
-    """The layers whose decode runs decode_attention: dense and local."""
-    return sum(bt in ("dense", "lattn") for bt in cfg.block_types())
+    """The layers whose decode runs decode_attention: dense, local and MoE."""
+    return sum(bt in ("dense", "lattn", "moe") for bt in cfg.block_types())
 
 
 def phase_small_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, steps=8):
@@ -2705,13 +2746,25 @@ def phase_decode_serve(dev, sv, cfg, build_mod, cache_lib):
         check(st["cache_bytes"] == want_bytes,
               f"decode serve {cfg.name}: cache {st['cache_bytes']} bytes, expected {want_bytes}")
     med = lambda key: statistics.median(st[key] for st in res.stats)
+    drops = ""
+    if cfg.moe is not None:
+        drops = (f"; MoE assignments dropped {100 * med('moe_dropped_prefill'):.3f}% at prefill "
+                 f"(capacity {moe_capacity(cfg, run['batch'] * run['prompt_len'])}), "
+                 f"{100 * med('moe_dropped_decode'):.3f}% at decode (capacity "
+                 f"{moe_capacity(cfg, run['batch'])})")
     print(f"decode serve: {cfg.name} ({cfg.n_layers} layers, {cfg.param_dtype}), {n} requests of "
           f"a ({run['batch']}, {run['prompt_len']}) prefill + {steps} decode steps in {wall:.1f} s "
-          f"(weights included): prefill {med('prefill_ms'):.2f} ms, cache "
-          f"{want_bytes / 1e6:.2f} MB, decode {med('decode_ms_per_token'):.3f} ms/token, "
-          f"{med('tokens_per_s'):.1f} tokens/s (medians); launches {launches} as expected; "
+          f"(weights built in {res.build_s:.2f} s, included): prefill {med('prefill_ms'):.2f} ms, "
+          f"cache {want_bytes / 1e6:.2f} MB, decode {med('decode_ms_per_token'):.3f} ms/token, "
+          f"{med('tokens_per_s'):.1f} tokens/s (medians){drops}; launches {launches} as expected; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return launches, res
+
+
+def moe_capacity(cfg, tokens):
+    """An MoE layer's slots an expert for a call of ``tokens`` tokens."""
+    from repro_torch.models.moe import capacity
+    return capacity(tokens, cfg.moe)
 
 
 def phase_decode_consistency(dev, model, model_lib, prompt=256):
@@ -2744,6 +2797,178 @@ def phase_decode_profile(model_lib, res):
             model_lib.decode_step(res.model, res.cache, tok, res.attn_len - 1)
     wall = statistics.median(st["decode_ms_per_token"] for st in res.stats)
     profile_device(f"{res.model.cfg.name} decode", step, wall, "decode step")
+
+
+def routing_flips(calls_cpu, calls_dev, label):
+    """Hold one step's routing, layer by layer, card against CPU: wherever
+    a token's k-th and (k+1)-th probability (on the CPU) differ by more
+    than ROUTE_GAP its top-k set must be equal, and where no token's set
+    differs the kept masks must be equal. Returns (near-tied tokens,
+    tokens whose set differs)."""
+    check(len(calls_cpu) == len(calls_dev), f"{label}: {len(calls_cpu)} MoE calls on the CPU, "
+          f"{len(calls_dev)} on the card")
+    ties = flips = 0
+    for layer, (rc, rd) in enumerate(zip(calls_cpu, calls_dev)):
+        k = rc.top_e.shape[1]
+        top = torch.topk(rc.probs, k + 1, dim=-1).values
+        sure = (top[:, k - 1] - top[:, k]) > ROUTE_GAP
+        same = (rc.top_e.sort(-1).values == rd.top_e.cpu().sort(-1).values).all(-1)
+        check(bool(same[sure].all()), f"{label} layer {layer}: the card routes a token with a "
+              f"gap above {ROUTE_GAP} to other experts than the CPU")
+        ties += int((~sure).sum())
+        flips += int((~same).sum())
+        if bool(same.all()):
+            check(torch.equal(rc.kept, rd.kept.cpu()) and torch.equal(rc.rank, rd.rank.cpu()),
+                  f"{label} layer {layer}: kept masks or ranks differ on the same routing")
+    return ties, flips
+
+
+def phase_small_moe_decode(dev, cfg, init_params, model_lib, moe_lib, build_mod, batch=4,
+                           prompt=80, steps=8):
+    """Prefill + greedy decode of a small f32 MoE config, card against CPU,
+    both on the CPU's tokens. The routing first (``routing_flips``); then
+    the logits within 1e-4 + 1e-4 |cpu| at every step before the first
+    flipped token (a flipped token moves a whole expert's contribution, and
+    its k / v stay in the cache); the flips and near-ties are counted."""
+    cpu = torch.device("cpu")
+    models = {cpu: init_params(cfg, torch.Generator().manual_seed(3), cpu),
+              dev: init_params(cfg, torch.Generator().manual_seed(3), cpu).to(dev)}
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=torch.Generator().manual_seed(4))
+
+    def both(fn):
+        outs, calls = {}, {}
+        for d in (cpu, dev):
+            with moe_lib.routing_log() as log:
+                outs[d] = fn(d)
+            calls[d] = log.calls
+        return outs, calls
+
+    build_mod.reset_launches()
+    worst, ties, flips, held, dropped = 0.0, 0, 0, 0, [0, 0]
+    with torch.inference_mode():
+        out, calls = both(lambda d: model_lib.prefill(models[d], tokens.to(d),
+                                                       attn_len=prompt + steps))
+        for i in range(steps + 1):
+            t, f = routing_flips(calls[cpu], calls[dev], f"small MoE decode {cfg.name} step {i}")
+            ties, flips = ties + t, flips + f
+            dropped[i > 0] += sum(int((~r.kept).sum()) for r in calls[cpu])
+            (lc, cache_c), (ld, cache_d) = out[cpu], out[dev]
+            if flips == 0:
+                ld = ld.cpu()
+                err = float((ld - lc).abs().max())
+                excess = float(((ld - lc).abs() - 1e-4 * lc.abs()).max())
+                check(excess <= 1e-4, f"small MoE decode {cfg.name} step {i}: logits differ by "
+                      f"{err:.3e}")
+                worst, held = max(worst, err), held + 1
+            if i == steps:
+                break
+            tok = lc.argmax(-1)[:, None]
+            caches = {cpu: cache_c, dev: cache_d}
+            out, calls = both(lambda d: model_lib.decode_step(models[d], caches[d], tok.to(d),
+                                                              prompt + i))
+    torch.cuda.synchronize()
+    n_attn = attention_layers(cfg)
+    check(build_mod.LAUNCHES["decode_attention"] == n_attn * steps,
+          f"small MoE decode {cfg.name}: decode_attention launched "
+          f"{build_mod.LAUNCHES['decode_attention']} times, expected {n_attn * steps}")
+    m = cfg.moe
+    assigned = (batch * prompt * m.top_k * cfg.n_layers, batch * m.top_k * cfg.n_layers * steps)
+    print(f"small MoE decode ({cfg.name}, {cfg.n_layers}L d={cfg.d_model}, {m.n_experts} experts "
+          f"top-{m.top_k}, {m.n_shared_experts} shared, capacity factor {m.capacity_factor}, batch "
+          f"{batch}, prompt {prompt}, {steps} steps): routing equal wherever the gap exceeds "
+          f"{ROUTE_GAP} ({ties} near-tied tokens, {flips} flipped); dropped "
+          f"{dropped[0]}/{assigned[0]} assignments at prefill, {dropped[1]}/{assigned[1]} at "
+          f"decode; card vs CPU logits max abs diff {worst:.3e} over {held}/{steps + 1} steps "
+          f"(bound 1e-4 + 1e-4|cpu|); decode_attention launches {n_attn * steps}", flush=True)
+
+
+def phase_small_kv8_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, steps=8):
+    """Prefill + greedy decode over the int8 KV cache at a small f32 config,
+    card against CPU, through ``models/attention.py``'s ``quantize_kv``
+    path, both on the CPU's tokens: at every step each layer's codes within
+    one step and equal at 99.9 % or more (a value half a code from a level
+    may round either way), positions equal, and the logits within 5e-2 x
+    max|logit| (the zoo's bf16 bound: a code one step off moves them by
+    more than the float cache's 1e-4)."""
+    cpu = torch.device("cpu")
+    models = {cpu: init_params(cfg, torch.Generator().manual_seed(3), cpu),
+              dev: init_params(cfg, torch.Generator().manual_seed(3), cpu).to(dev)}
+    tokens = torch.randint(0, cfg.vocab_size, (2, prompt), generator=torch.Generator().manual_seed(4))
+    build_mod.reset_launches()
+    worst, code_max, unequal, codes, scale_rel = 0.0, 0, 0, 0, 0.0
+    with torch.inference_mode():
+        out = {d: model_lib.prefill(m, tokens.to(d), attn_len=prompt + steps)
+               for d, m in models.items()}
+        for i in range(steps + 1):
+            (lc, cache_c), (ld, cache_d) = out[cpu], out[dev]
+            for layer, (ec, ed) in enumerate(zip(cache_c, cache_d)):
+                check(ed["k"].dtype == torch.int8 and sorted(ec) == sorted(ed),
+                      f"small kv8 decode step {i} layer {layer}: not an int8 cache")
+                check(torch.equal(ec["pos"], ed["pos"].cpu()),
+                      f"small kv8 decode step {i} layer {layer}: positions differ")
+                for name in ("k", "v"):
+                    diff = (ed[name].cpu().to(torch.int32) - ec[name].to(torch.int32)).abs()
+                    code_max = max(code_max, int(diff.max()))
+                    unequal += int((diff > 0).sum())
+                    codes += diff.numel()
+                    check(int(diff.max()) <= 1, f"small kv8 decode step {i} layer {layer}: {name} "
+                          f"codes differ by {int(diff.max())}")
+                    sc = ec[f"{name}_scale"]
+                    scale_rel = max(scale_rel, float(((ed[f"{name}_scale"].cpu() - sc).abs()
+                                                      / sc).max()))
+            ld = ld.cpu()
+            err = float((ld - lc).abs().max())
+            bound_ = 5e-2 * float(lc.abs().max())
+            check(err <= bound_, f"small kv8 decode step {i}: logits differ by {err:.3e} > "
+                  f"{bound_:.3e}")
+            worst = max(worst, err / float(lc.abs().max()))
+            if i == steps:
+                break
+            tok = lc.argmax(-1)[:, None]
+            out = {cpu: model_lib.decode_step(models[cpu], cache_c, tok, prompt + i),
+                   dev: model_lib.decode_step(models[dev], cache_d, tok.to(dev), prompt + i)}
+    torch.cuda.synchronize()
+    check(unequal <= 1e-3 * codes, f"small kv8 decode: {unequal} of {codes} codes differ")
+    n_attn = attention_layers(cfg)
+    check(build_mod.LAUNCHES["decode_attention"] == n_attn * steps,
+          f"small kv8 decode: decode_attention launched {build_mod.LAUNCHES['decode_attention']} "
+          f"times, expected {n_attn * steps}")
+    print(f"small kv8 decode ({cfg.name}, {cfg.n_layers}L d={cfg.d_model}, G "
+          f"{cfg.n_heads // cfg.n_kv_heads}, int8 cache, prompt {prompt}, {steps} steps): card vs "
+          f"CPU codes max diff {code_max} ({unequal} of {codes} differ, allowed 0.1 %), scales "
+          f"max rel diff {scale_rel:.3e} (informative), logits max abs diff {worst:.3e} x "
+          f"max|logit| (bound 5e-2); decode_attention launches {n_attn * steps}", flush=True)
+
+
+def phase_moe(dev, cs, sv, model_lib, build_mod, cache_lib, kref, get_config):
+    """The MoE stack's main paths at full width: qwen3-moe-30b-a3b split
+    served (exactly one bottleneck_encode and one dequantize, codes within
+    one of the oracle), then KV-cache served at its full depth (exactly 48
+    x 31 decode_attention launches) with one profiled decode step, then
+    kimi-k2-1t-a32b KV-cache served at its cut depth (31 launches). Each
+    model is freed before the next. Returns the launch counts."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    qwen = get_config("qwen3-moe-30b-a3b")
+    counts, res = phase_serve(dev, cs, qwen, build_mod, kref)
+    launches.update(counts)
+    del res
+    torch.cuda.empty_cache()
+    for name in MOE:
+        cfg = get_config(name)
+        cfg = cfg.replace(n_layers=MOE_LAYERS.get(name, cfg.n_layers))
+        counts, res = phase_decode_serve(dev, sv, cfg, build_mod, cache_lib)
+        launches.update(counts)
+        if name == qwen.name:
+            phase_decode_profile(model_lib, res)
+        del res
+        torch.cuda.empty_cache()
+    cuts = ", ".join(f"{n} cut to {k} of {get_config(n).n_layers} layers"
+                     for n, k in MOE_LAYERS.items())
+    print(f"moe: split and KV-cache serve of {', '.join(MOE)} ({cuts}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 # ------------------------------------------------------------- training
@@ -2905,6 +3130,7 @@ def main(argv=None):
     from repro_torch.models import cache as cache_lib
     from repro_torch.models import init_params, ssm
     from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
     from repro_torch.rl import mahppo
     from repro_torch.rl.distill import quantize_flat_trunk
 
@@ -2934,7 +3160,7 @@ def main(argv=None):
     run = DECODE_SERVE[qwen.name]
     decode_shape = (run["batch"], run["prompt_len"] + run["gen"], qwen.n_kv_heads,
                     qwen.n_heads // qwen.n_kv_heads, qwen.head_dim)
-    for name in ZOO:
+    for name in ZOO_DECODE_SHAPES:
         want = zoo_decode_shape(get_config(name), DECODE_SERVE[name])
         check(ZOO_DECODE_SHAPES[name] == want, f"ZOO_DECODE_SHAPES[{name!r}] is "
               f"{ZOO_DECODE_SHAPES[name]}, its decode serve runs {want}")
@@ -2981,6 +3207,17 @@ def main(argv=None):
         n_heads=7, n_kv_heads=1, d_head=32)
     for cfg in (qwen_small, reduced(mamba, n_layers=4), rg_small, q2_small):
         phase_small_decode(dev, cfg, init_params, model_lib, _build)
+    # the int8 KV cache at model level: reduced qwen2-7b-kv8 with its G 7
+    phase_small_kv8_decode(dev, reduced(get_config("qwen2-7b-kv8"), n_layers=3).replace(
+        n_heads=7, n_kv_heads=1, d_head=32), init_params, model_lib, _build)
+    # the MoE decodes: reduced qwen3-moe with its G 8 and the capacity factor
+    # set back to 1.25 (decode drops at batch 4), and reduced kimi with its
+    # shared expert
+    qmoe = reduced(get_config("qwen3-moe-30b-a3b"), n_layers=3)
+    qmoe = qmoe.replace(n_heads=8, n_kv_heads=1, d_head=32,
+                        moe=dataclasses.replace(qmoe.moe, capacity_factor=1.25))
+    for cfg in (qmoe, reduced(get_config("kimi-k2-1t-a32b"), n_layers=3)):
+        phase_small_moe_decode(dev, cfg, init_params, model_lib, moe_lib, _build)
 
     launches = collections.Counter()
     for cfg in (qwen, mamba):
@@ -3017,6 +3254,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
     print(f"zoo: split serve of {', '.join(ZOO_SPLIT)} and KV-cache serve of {', '.join(ZOO)} "
           f"in {time.perf_counter() - t_zoo:.1f} s", flush=True)
+    launches.update(phase_moe(dev, collab_serve, serve_lib, model_lib, _build, cache_lib, kref,
+                              get_config))
     launches.update(phase_loss_grad(dev, model_lib, init_params, mamba, _build))
     torch.cuda.empty_cache()
     launches.update(phase_train_step(dev, steps_lib, model_lib, init_params, mamba, _build))

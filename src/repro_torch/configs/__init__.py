@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, SSMConfig, reduced
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig, reduced
 
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
@@ -12,6 +12,8 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2-7b": "qwen2_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 ARCH_IDS = tuple(_MODULES)
 
@@ -26,4 +28,5 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").CONFIG
 
 
-__all__ = ["ALL_ARCHS", "ARCH_IDS", "ModelConfig", "SSMConfig", "get_config", "reduced"]
+__all__ = ["ALL_ARCHS", "ARCH_IDS", "ModelConfig", "MoEConfig", "SSMConfig", "get_config",
+           "reduced"]

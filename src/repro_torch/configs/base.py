@@ -2,16 +2,26 @@
 ``ModelConfig`` and ``reduced`` (``src/repro/configs/base.py``).
 
 The fields are the reference's, one for one, so a configuration can be
-compared field by field with its JAX twin. The port runs dense
-transformers and Mamba-2 SSMs; the MoE and encoder sub-configs of the
-reference are kept as opaque optional fields and ``reduced`` refuses
-configs that set them until the slices that port those families.
+compared field by field with its JAX twin. The port runs dense, MoE,
+hybrid and Mamba-2 stacks; the reference's encoder sub-config is kept as
+an opaque optional field and ``reduced`` refuses configs that set it
+until the slice that ports the encoder-decoder family.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int            # per-expert FFN hidden dim
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -44,7 +54,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     block_pattern: Tuple[str, ...] = ("dense",)
     window: int = 0
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     encoder: Optional[Any] = None
     n_aux_tokens: int = 0
@@ -79,16 +89,21 @@ class ModelConfig:
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
             vocab: int = 512) -> ModelConfig:
     """Reduced variant of the same family for CPU tests, as the reference's
-    ``reduced``: at most 4 heads (so qwen3-1.7b loses its GQA), f32, and an
-    SSM of d_state 16, head_dim 32, chunk 16."""
-    if cfg.moe is not None or cfg.encoder is not None:
+    ``reduced``: at most 4 heads (so qwen3-1.7b loses its GQA), f32, an
+    SSM of d_state 16, head_dim 32, chunk 16, and an MoE of 4 experts,
+    top-2, ``d_expert = d_model // 2``, at most one shared expert and a
+    capacity factor of 4.0 (capacity T k: no assignment is ever dropped)."""
+    if cfg.encoder is not None:
         raise NotImplementedError(
-            "MoE and encoder configs come with the model-zoo slice")
+            "encoder configs come with the encoder-decoder slice")
     d_model = min(d_model, 512)
     n_heads = max(2, min(cfg.n_heads, 4))
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
     ssm = (None if cfg.ssm is None else
            dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16))
+    moe = (None if cfg.moe is None else dataclasses.replace(
+        cfg.moe, n_experts=4, top_k=2, d_expert=d_model // 2,
+        n_shared_experts=min(cfg.moe.n_shared_experts, 1), capacity_factor=4.0))
     return cfg.replace(
         n_layers=max(n_layers, len(cfg.block_pattern)), d_model=d_model,
         n_heads=n_heads, n_kv_heads=n_kv, d_head=d_model // n_heads,
@@ -96,4 +111,4 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
         compute_dtype="float32", fsdp=False, attn_chunk=64,
         window=min(cfg.window, 64) if cfg.window else 0,
         long_context_window=128,
-        n_aux_tokens=16 if cfg.n_aux_tokens else 0, ssm=ssm)
+        n_aux_tokens=16 if cfg.n_aux_tokens else 0, ssm=ssm, moe=moe)

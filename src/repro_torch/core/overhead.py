@@ -98,10 +98,28 @@ def task_latency_energy(l_b, n_b, rate, p_compute, p_tx, t_edge=None):
     return t, e
 
 
+def _ffn_costs(cfg: ModelConfig, bt: str, s: int):
+    """(flops, param_bytes, bytes read) of an attention block's FFN over
+    ``s`` tokens: the MLP, or for ``"moe"`` the router and the top-k and
+    shared experts, whose weights alone stream from memory, as the
+    reference counts them."""
+    d = cfg.d_model
+    if bt == "moe":
+        m = cfg.moe
+        active = m.top_k + m.n_shared_experts
+        flops = 2 * s * d * m.n_experts + 6 * s * d * m.d_expert * active
+        return (flops, (m.n_experts + m.n_shared_experts) * 3 * d * m.d_expert * 2,
+                3 * d * m.d_expert * active * 2)
+    mult = 3 if cfg.act == "swiglu" else 2
+    fp = mult * d * cfg.d_ff * 2
+    return mult * 2 * s * d * cfg.d_ff, fp, fp
+
+
 def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
     """Per-layer {flops, bytes, param_bytes} for a seq_len-token forward of
-    the port's block types (dense and local attention + MLP, RG-LRU + MLP,
-    mamba2). bytes = params read once + activations in/out (bf16)."""
+    the port's block types (dense, local attention and MoE, RG-LRU + MLP,
+    mamba2). bytes = params read once (of an MoE, the activated experts')
+    + activations in/out (bf16)."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     s = seq_len
@@ -125,15 +143,14 @@ def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
                 + 2 * s * drnn * d + 6 * s * d * f
             pbytes = (2 * d * drnn + 2 * drnn * drnn + drnn * d + 3 * d * f) * 2
             out.append({"flops": fl, "bytes": pbytes + act, "param_bytes": pbytes})
-        elif bt in ("dense", "lattn"):
+        elif bt in ("dense", "lattn", "moe"):
             ctx = min(s, cfg.window) if bt == "lattn" else s
             attn = 2 * s * d * (hq + 2 * hkv) * dh + 2 * s * hq * dh * d \
                 + 4 * s * ctx * hq * dh
             a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
-            mult = 3 if cfg.act == "swiglu" else 2
-            fp = mult * d * f * 2
-            out.append({"flops": attn + mult * 2 * s * d * f,
-                        "bytes": a_params + fp + act, "param_bytes": a_params + fp})
+            ffl, fp, fbytes = _ffn_costs(cfg, bt, s)
+            out.append({"flops": attn + ffl, "bytes": a_params + fbytes + act,
+                        "param_bytes": a_params + fp})
         else:
             raise NotImplementedError(f"costs of {bt!r} blocks come with the model-zoo slice")
     return out
@@ -141,7 +158,8 @@ def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
 
 def decode_layer_costs(cfg: ModelConfig, ctx_len: int) -> List[dict]:
     """Per-layer {flops, bytes, param_bytes} of one decode step at context
-    length ``ctx_len`` for the port's block types: s = 1 projections,
+    length ``ctx_len`` for the port's block types (an MoE layer reads the
+    activated experts' weights only): s = 1 projections,
     attention scores over the context (capped at the window for a
     ``"lattn"`` layer) and the layer's serving-cache bytes read a token
     (decode is memory-bound, so the cache traffic is the term that grows
@@ -169,17 +187,16 @@ def decode_layer_costs(cfg: ModelConfig, ctx_len: int) -> List[dict]:
             pbytes = (2 * d * drnn + 2 * drnn * drnn + drnn * d + 3 * d * f) * 2
             out.append({"flops": fl, "bytes": pbytes + drnn * 4 + act,
                         "param_bytes": pbytes})
-        elif bt in ("dense", "lattn"):
+        elif bt in ("dense", "lattn", "moe"):
             ctx = min(ctx_len, cfg.window) if bt == "lattn" else ctx_len
             attn_proj = 2 * d * (hq + 2 * hkv) * dh + 2 * hq * dh * d
             attn_qk = 4 * ctx * hq * dh
             a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
             cache_b = 2 * ctx * hkv * dh * kv_el \
                 + (2 * ctx * hkv * 4 if cfg.kv_quant_bits else 0)
-            mult = 3 if cfg.act == "swiglu" else 2
-            fp = mult * d * f * 2
-            out.append({"flops": attn_proj + attn_qk + mult * 2 * d * f,
-                        "bytes": a_params + fp + cache_b + act,
+            ffl, fp, fbytes = _ffn_costs(cfg, bt, 1)
+            out.append({"flops": attn_proj + attn_qk + ffl,
+                        "bytes": a_params + fbytes + cache_b + act,
                         "param_bytes": a_params + fp})
         else:
             raise NotImplementedError(f"costs of {bt!r} blocks come with the model-zoo slice")

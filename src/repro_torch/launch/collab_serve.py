@@ -25,10 +25,12 @@ not uniform) at ``--seq 32 --batch 4``.
   python -m repro_torch.launch.collab_serve --requests 8 --seq 512
   python -m repro_torch.launch.collab_serve --arch mamba2-1.3b --batch 2 --seq 1024
   python -m repro_torch.launch.collab_serve --arch qwen2-7b --requests 1
+  python -m repro_torch.launch.collab_serve --arch qwen3-moe-30b-a3b --requests 1
   python -m repro_torch.launch.collab_serve --reduced --pretrain 150   # the example
 
 The split forward takes the uniform-pattern archs (qwen3-1.7b,
-stablelm-1.6b, phi4-mini-3.8b, qwen2-7b, mamba2-1.3b); recurrentgemma-9b's
+stablelm-1.6b, phi4-mini-3.8b, qwen2-7b, mamba2-1.3b, qwen3-moe-30b-a3b;
+kimi-k2-1t-a32b too, on a card that holds it); recurrentgemma-9b's
 (rec, rec, lattn) pattern is refused, as the reference example asserts,
 and serves through ``launch/serve.py``. Runs on the CUDA card;
 ``--device cpu`` runs the plain PyTorch twins of the kernels instead.
@@ -49,6 +51,7 @@ from repro_torch.env.channel import channel_gain, uplink_rates
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import default_positions, init_params, layer_plan
+from repro_torch.models.moe import routing_log
 
 
 @dataclass
@@ -140,7 +143,10 @@ def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0, pretrain_st
     -> d / bottleneck_ratio) on 8 random sequences at the split, and answer
     ``requests`` requests of (batch, seq) tokens through the split forward
     with ``quant_bits``-bit codes: random tokens without pre-training, else
-    the first ``batch`` sequences of the corpus's next batches."""
+    the first ``batch`` sequences of the corpus's next batches. Each
+    request's stats carry, for an MoE arch, the share of the split
+    forward's expert assignments that capacity dropped (None without MoE
+    layers)."""
     device = resolve_device(device)
     full_precision_matmuls()
     t0 = time.perf_counter()
@@ -188,7 +194,8 @@ def _serve(model, cfg, device, requests, batch, seq, seed, corpus, log, t0) -> S
         ref_top1 = model(tokens).argmax(-1)
         _sync(device)
         t1 = time.perf_counter()
-        logits, payload_bits = run_split_forward(model, cfg, tokens, split, ae, bits)
+        with routing_log() as moe_log:
+            logits, payload_bits = run_split_forward(model, cfg, tokens, split, ae, bits)
         _sync(device)
         ms = 1e3 * (time.perf_counter() - t1)
         st = {
@@ -197,14 +204,16 @@ def _serve(model, cfg, device, requests, batch, seq, seed, corpus, log, t0) -> S
             "uplink_mbps": rate / 1e6, "tx_ms": 1e3 * payload_bits / rate,
             "top1_agree": float((logits.argmax(-1) == ref_top1).float().mean()),
             "split_forward_ms": ms, "logits_finite": bool(torch.isfinite(logits).all()),
-            "logits_shape": tuple(logits.shape),
+            "logits_shape": tuple(logits.shape), "moe_dropped": moe_log.dropped_share(),
         }
         out.requests.append(tokens)
         out.stats.append(st)
         log(f"request {i}: payload {st['payload_kbit']:.1f} kbit, R={st['rate_R']:.0f}x, "
             f"uplink {st['uplink_mbps']:.2f} Mb/s -> tx {st['tx_ms']:.1f} ms, "
             f"top-1 agreement {100 * st['top1_agree']:.1f}%, "
-            f"split forward {ms:.1f} ms")
+            f"split forward {ms:.1f} ms"
+            + ("" if st["moe_dropped"] is None else
+               f", MoE assignments dropped {100 * st['moe_dropped']:.2f}%"))
     return out
 
 

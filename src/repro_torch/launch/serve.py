@@ -8,11 +8,15 @@ collaborative-inference pipeline.
   python -m repro_torch.launch.serve --arch mamba2-1.3b --batch 2 --prompt-len 1024
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --requests 1
   python -m repro_torch.launch.serve --arch qwen2-7b-kv8 --requests 1   # int8 KV cache
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --requests 1
+  python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b --layers 1 --requests 1
   python -m repro_torch.launch.serve --device cpu --reduce --prompt-len 64
 
 ``--arch`` takes every arch of the registry (stablelm-1.6b, phi4-mini-3.8b,
-qwen2-7b, recurrentgemma-9b, qwen3-1.7b, mamba2-1.3b) and the qwen2-7b-kv8
-variant.
+qwen2-7b, recurrentgemma-9b, qwen3-1.7b, mamba2-1.3b, qwen3-moe-30b-a3b,
+kimi-k2-1t-a32b) and the qwen2-7b-kv8 variant; ``--layers`` cuts the
+depth (kimi-k2-1t-a32b's bf16 weights take ~34 GB a layer, so one card
+holds one layer).
 
 Runs on the CUDA card at the arch's full width by default; ``--device cpu``
 runs the plain PyTorch twins of the kernels instead, and ``--reduce``
@@ -32,12 +36,14 @@ from repro_torch import full_precision_matmuls, resolve_device
 from repro_torch.configs import ALL_ARCHS, get_config, reduced
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import init_params
+from repro_torch.models.moe import routing_log
 
 
 @dataclass
 class ServeResult:
     model: torch.nn.Module
     attn_len: int
+    build_s: float                              # seconds to build the seeded weights
     stats: list = field(default_factory=list)   # one dict per request
     cache: list = None                          # the last request's final cache
 
@@ -59,43 +65,55 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
     prefill and ``gen - 1`` greedy decode steps (the prefill's argmax is
     generated token 0), into caches of ``prompt_len + gen`` slots. Each
     request's stats: prefill ms, cache bytes, decode ms per token, decode
-    tokens per second (batch x steps over the decode time) and the
-    generated tokens (batch, gen)."""
+    tokens per second (batch x steps over the decode time), the generated
+    tokens (batch, gen) and, for an MoE arch, the share of expert
+    assignments its capacity dropped at prefill and at decode (None
+    without MoE layers)."""
     device = resolve_device(device)
     full_precision_matmuls()
+    t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    _sync(device)
+    build_s = time.perf_counter() - t0
     host = torch.Generator().manual_seed(seed + 1)
     attn_len = prompt_len + gen
     prefill_step = make_prefill_step(cfg, attn_len)
     serve_step = make_serve_step(cfg)
-    out = ServeResult(model, attn_len)
+    out = ServeResult(model, attn_len, build_s)
     n_steps = max(gen - 1, 0)
     for r in range(requests):
         tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=host).to(device)
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill_step(model, tokens)
+        with routing_log() as pre:
+            logits, cache = prefill_step(model, tokens)
         _sync(device)
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         nbytes = cache_bytes(cache)
         tok = logits.argmax(-1)[:, None]
         outs = [tok]
         t0 = time.perf_counter()
-        for i in range(n_steps):
-            logits, cache = serve_step(model, cache, tok, prompt_len + i)
-            tok = logits.argmax(-1)[:, None]
-            outs.append(tok)
+        with routing_log() as dec:
+            for i in range(n_steps):
+                logits, cache = serve_step(model, cache, tok, prompt_len + i)
+                tok = logits.argmax(-1)[:, None]
+                outs.append(tok)
         _sync(device)
         decode_s = time.perf_counter() - t0
         st = {"request": r, "prefill_ms": prefill_ms, "cache_bytes": nbytes,
               "decode_ms_per_token": 1e3 * decode_s / max(n_steps, 1),
               "tokens_per_s": batch * n_steps / decode_s if n_steps else 0.0,
-              "tokens": torch.cat(outs, dim=1), "logits_finite": bool(torch.isfinite(logits).all())}
+              "tokens": torch.cat(outs, dim=1), "logits_finite": bool(torch.isfinite(logits).all()),
+              "moe_dropped_prefill": pre.dropped_share(),
+              "moe_dropped_decode": dec.dropped_share()}
         out.stats.append(st)
         out.cache = cache
+        drops = ("" if st["moe_dropped_prefill"] is None else
+                 f"; MoE assignments dropped {100 * st['moe_dropped_prefill']:.2f}% at prefill, "
+                 f"{100 * (st['moe_dropped_decode'] or 0.0):.2f}% at decode")
         log(f"request {r}: prefill {batch}x{prompt_len} {prefill_ms:.1f} ms, cache "
             f"{nbytes / 1e6:.1f} MB; {n_steps} decode steps {st['decode_ms_per_token']:.2f} "
-            f"ms/token, {st['tokens_per_s']:.0f} tokens/s (batch {batch})")
+            f"ms/token, {st['tokens_per_s']:.0f} tokens/s (batch {batch}){drops}")
     return out
 
 
@@ -104,6 +122,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen3-1.7b", choices=ALL_ARCHS)
     ap.add_argument("--reduce", action=argparse.BooleanOptionalAction, default=False,
                     help="shrink the config (4 layers, d_model 256) for a CPU rehearsal")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch to this many layers (default: its full depth)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--gen", type=int, default=32)
@@ -116,6 +136,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduced(cfg, n_layers=4, d_model=256)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     res = serve(cfg, device=device, batch=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, requests=args.requests, seed=args.seed)
     print(f"sample continuation (seq 0): {res.stats[-1]['tokens'][0][:16].tolist()}")

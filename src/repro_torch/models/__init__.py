@@ -1,5 +1,5 @@
-"""Models of the port: dense transformer, hybrid (RG-LRU + local attention)
-and Mamba-2 stacks."""
+"""Models of the port: dense transformer, mixture-of-experts, hybrid (RG-LRU
++ local attention) and Mamba-2 stacks."""
 from repro_torch.models.model import (Model, apply_model, decode_step, init_params, layer_plan,
                                       loss_fn, prefill)
 

@@ -1,6 +1,7 @@
 """Serving caches of the port (``src/repro/models/cache.py``): full and
 ring-buffer KV caches (a ``"lattn"`` layer's ring holds ``cfg.window``
-slots), the Mamba-2 state and the RG-LRU state.
+slots; a ``"moe"`` layer's is a dense layer's), the Mamba-2 state and the
+RG-LRU state.
 
 Slot semantics are the reference's: an entry with absolute position p lives
 at slot ``p % cache_len``; ``pos`` maps slot -> absolute position (-1 =
@@ -74,7 +75,7 @@ def entry_shape(cfg, btype, batch, attn_len):
     if btype == "rec":
         return {"conv": ((batch, 3, cfg.d_model), cdt),
                 "h": ((batch, cfg.d_model), torch.float32)}
-    if btype not in ("dense", "lattn"):
+    if btype not in ("dense", "lattn", "moe"):
         from repro_torch.models.blocks import _LATER   # blocks imports this module
         raise NotImplementedError(
             f"the cache of block type {btype!r} is not ported yet; it comes with "

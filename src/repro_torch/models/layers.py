@@ -85,10 +85,13 @@ class MLP(nn.Module):
 
     def forward(self, x):
         if self.act == "swiglu":
-            h = F.silu(x @ self.wg) * (x @ self.wi)
-        else:
-            h = F.gelu(x @ self.wi, approximate="tanh")
-        return h @ self.wo
+            return swiglu(x, self.wi, self.wg, self.wo)
+        return F.gelu(x @ self.wi, approximate="tanh") @ self.wo
+
+
+def swiglu(x, wi, wg, wo):
+    """``(silu(x wg) * (x wi)) wo``, in x's dtype."""
+    return (F.silu(x @ wg) * (x @ wi)) @ wo
 
 
 # ---------------------------------------------------------------- RoPE

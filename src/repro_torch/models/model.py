@@ -4,9 +4,11 @@ with the serving entry points ``prefill`` and ``decode_step``. The
 reference scans over layer-stacked parameters; the port keeps one module
 per layer, so a split forward can run layers ``lo..hi`` on their own
 (``Model.run_layers``), and its cache is a list of per-layer entries.
-``loss_fn`` is the reference's training loss."""
+``loss_fn`` is the reference's training loss, the MoE layers' load-balance
+loss included."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,9 +42,11 @@ class Model(nn.Module):
         """Token embeddings, in the parameters' dtype (no cast)."""
         return self.embed[tokens]
 
-    def run_layers(self, x, lo, hi, positions):
+    def run_layers(self, x, lo, hi, positions, aux=None):
+        """Train-mode layers ``lo..hi``; each MoE layer appends its aux
+        loss to the list ``aux`` when one is given."""
         for blk in self.blocks[lo:hi]:
-            x = blk(x, positions)
+            x = blk(x, positions, aux=aux)
         return x
 
     def logits(self, x):
@@ -58,9 +62,10 @@ def default_positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len):
+def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None):
     """Embedding and every block; returns (x before the final norm, the new
-    cache: one entry per layer, or None in train mode)."""
+    cache: one entry per layer, or None in train mode). The MoE layers
+    append their aux losses to the list ``aux`` when one is given."""
     cfg = model.cfg
     b, s = tokens.shape
     if mode == "decode" and (cache is None or idx is None):
@@ -72,11 +77,11 @@ def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len):
             positions = default_positions(b, s, tokens.device)
     x = model.embed_tokens(tokens).to(dtype_of(cfg.compute_dtype))
     if mode == "train":
-        return model.run_layers(x, 0, cfg.n_layers, positions), None
+        return model.run_layers(x, 0, cfg.n_layers, positions, aux=aux), None
     new_cache = []
     for i, blk in enumerate(model.blocks):
         x, entry = blk(x, positions, mode=mode, cache=None if cache is None else cache[i],
-                       idx=idx, attn_len=attn_len)
+                       idx=idx, attn_len=attn_len, aux=aux)
         new_cache.append(entry)
     return x, new_cache
 
@@ -97,21 +102,23 @@ def apply_model(model, tokens, *, positions=None, mode="train", cache=None, idx=
 def loss_fn(model, batch):
     """batch: {"tokens": (B, S), "labels": (B, S) (-100 = ignore)}. Returns
     (loss, metrics) as the reference's ``loss_fn``: the masked mean cross
-    entropy of the train-mode logits (in float32) plus ``aux``, which is 0
-    for the dense, hybrid and mamba2 stacks the port has (the reference's
-    comes from MoE layers); metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the
-    card the mamba2 mixers run the ``ssd_intra`` forward and backward
-    kernels."""
+    entropy of the train-mode logits (in float32) plus ``aux``, the sum of
+    the MoE layers' load-balance losses (0 for a stack without MoE);
+    metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the card the
+    mamba2 mixers run the ``ssd_intra`` forward and backward kernels."""
     if batch.get("aux_embeds") is not None:
         raise NotImplementedError("aux_embeds (encoder / VLM stacks) come with the model zoo")
-    logits = apply_model(model, batch["tokens"]).to(torch.float32)
+    auxes = []
+    x, _ = _run_stack(model, batch["tokens"], positions=None, mode="train", cache=None,
+                      idx=None, attn_len=0, aux=auxes)
+    logits = model.logits(model.ln_f(x)).to(torch.float32)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     safe = torch.clamp(labels, min=0).long()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
     ce = ((lse - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    aux = sum(auxes, torch.zeros((), dtype=torch.float32, device=logits.device))
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
@@ -135,14 +142,20 @@ def decode_step(model, cache, token, idx):
     return logits[:, 0], new_cache
 
 
+SLAB_ELEMENTS = 1 << 28     # f32 elements drawn at once for a 3-D leaf (1 GiB)
+
+
 @torch.no_grad()
 def init_params(cfg, generator, device):
     """A model with the reference's initializers, drawn from ``generator``
     (which must live on ``device``): normal(0, 1/sqrt(fan_in)) matrices
-    (the Mamba and RG-LRU conv kernels included: fan-in d_conv = 4),
-    normal(0, 0.02) embeddings, unit norm, qk-norm and Mamba ``D`` /
-    ``norm_scale``, the RG-LRU's ``lam`` at 0.3, zero biases, ``A_log`` and
-    ``dt_bias``."""
+    (the Mamba and RG-LRU conv kernels included: fan-in d_conv = 4; the
+    MoE router in f32), normal(0, 0.02) embeddings, unit norm, qk-norm and
+    Mamba ``D`` / ``norm_scale``, the RG-LRU's ``lam`` at 0.3, zero biases,
+    ``A_log`` and ``dt_bias``. An (E, d, f) expert leaf takes the
+    reference's fan-in, its first axis E, and is drawn in slabs of experts
+    of at most ``SLAB_ELEMENTS``, so no f32 copy of a whole leaf is made
+    (kimi-k2's ``wi`` would take 22.5 GB)."""
     model = Model(cfg, device=device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -150,6 +163,13 @@ def init_params(cfg, generator, device):
             p.copy_(embed_init(generator, p.shape, p.dtype, device))
         elif p.dim() == 2:
             p.copy_(dense_init(generator, p.shape, p.dtype, device))
+        elif p.dim() == 3:
+            std = 1.0 / np.sqrt(p.shape[0])
+            step = max(1, SLAB_ELEMENTS // (p.shape[1] * p.shape[2]))
+            for i in range(0, p.shape[0], step):
+                slab = p[i:i + step]
+                slab.copy_(torch.randn(slab.shape, generator=generator, dtype=torch.float32,
+                                       device=device).mul_(float(std)))
         elif leaf in ("scale", "q_scale", "k_scale", "D", "norm_scale"):
             p.fill_(1.0)
         elif leaf == "lam":

@@ -125,8 +125,10 @@ def from_jax_params(tree, cfg, device):
     """The port's Model holding the reference parameters ``tree`` (numpy
     arrays, or tensors as ``to_reference_tree`` gives them), for any block
     pattern, with or without a tail. Each parameter keeps its own dtype
-    (the Mamba ``A_log``, ``D`` and ``dt_bias`` and the RG-LRU's ``ba``,
-    ``bi`` and ``lam`` stay float32 in a bfloat16 model)."""
+    (the Mamba ``A_log``, ``D`` and ``dt_bias``, the RG-LRU's ``ba``,
+    ``bi`` and ``lam`` and the MoE router stay float32 in a bfloat16
+    model); stacked MoE leaves are (G, E, d, f) experts and the (G, d, E)
+    router."""
     model = Model(cfg, device=device)
     load = lambda param, a: param.copy_(_tensor(a, param.dtype, device))
     load(model.embed, tree["embed"])

@@ -103,8 +103,10 @@ def test_full_width_qwen_cache_size():
 
 def test_other_block_types_name_their_slice():
     _, cfg = _cfg_pair("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        cache.entry_shape(cfg, "moe", 1, 8)
+    # the MoE block is ported: its cache is a dense layer's KV entry
+    assert cache.entry_shape(cfg, "moe", 1, 8) == cache.entry_shape(cfg, "dense", 1, 8)
+    moe_cache = cache.make_cache(cfg.replace(block_pattern=("moe",)), 1, 8)
+    assert len(moe_cache) == cfg.n_layers and int(moe_cache[0]["pos"].max()) == -1
     for btype in ("enc", "decx"):
         with pytest.raises(NotImplementedError, match="encoder-decoder"):
             cache.entry_shape(cfg, btype, 1, 8)

@@ -18,7 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.models import model as jmodel
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import MoEConfig, get_config, reduced
 from repro_torch.kernels import _build, decode_attn, ops
 from repro_torch.launch.serve import cache_bytes, serve
 from repro_torch.models import apply_model, cache, decode_step, init_params, prefill
@@ -443,9 +443,9 @@ def test_bf16_decode_stays_near_the_reference(arch):
 
 
 def test_decode_names_what_is_not_ported():
-    """Decode needs its cache and position, takes the three modes, and
-    names the slice of each block type still to come (moe, enc, decx,
-    xattn) rather than running it."""
+    """Decode needs its cache and position, takes the three modes, runs
+    the ported moe block, and names the slice of each block type still to
+    come (enc, decx, xattn) rather than running it."""
     _, cfg, _, model = _setup("qwen3-1.7b")
     toks = torch.zeros((1, 4), dtype=torch.long)
     with torch.inference_mode():
@@ -454,8 +454,16 @@ def test_decode_names_what_is_not_ported():
             apply_model(model, toks[:, :1], mode="decode", cache=tc)
         with pytest.raises(ValueError, match="mode"):
             apply_model(model, toks, mode="serve")
-    for btype, slice_ in (("moe", "MoE"), ("enc", "encoder-decoder"),
-                          ("decx", "encoder-decoder"), ("xattn", "VLM")):
+    moe_cfg = cfg.replace(block_pattern=("moe",), moe=MoEConfig(n_experts=4, top_k=2,
+                                                                d_expert=32))
+    moe_model = init_params(moe_cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.inference_mode():
+        _, mc = prefill(moe_model, toks, attn_len=6)
+        logits, mc = decode_step(moe_model, mc, toks[:, :1], 4)
+    assert logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert int(mc[0]["pos"][0, 4]) == 4 and sorted(mc[0]) == ["k", "pos", "v"]
+    for btype, slice_ in (("enc", "encoder-decoder"), ("decx", "encoder-decoder"),
+                          ("xattn", "VLM")):
         with pytest.raises(NotImplementedError, match=slice_):
             cache.entry_shape(cfg, btype, 1, 6)
         with pytest.raises(NotImplementedError, match=slice_):

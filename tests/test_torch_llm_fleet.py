@@ -43,7 +43,7 @@ def test_decode_layer_costs_match_reference(arch):
                 assert g.keys() == w.keys()
                 _close([g[k] for k in w], [w[k] for k in w])
     with pytest.raises(NotImplementedError):
-        oh.decode_layer_costs(get_config(arch).replace(block_pattern=("moe",)), 16)
+        oh.decode_layer_costs(get_config(arch).replace(block_pattern=("xattn",)), 16)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -23,7 +23,7 @@ from repro.models import attention as jattn
 from repro.models import init_params as jinit_params
 from repro.models import layers as jlayers
 from repro.models.blocks import apply_block as japply_block
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import MoEConfig, get_config, reduced
 from repro_torch.models import apply_model, init_params, layer_plan
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
@@ -327,10 +327,20 @@ def test_init_params_shapes_and_scales_match_the_reference():
 
 def test_other_block_types_and_modes_name_their_slice():
     _, cfg = _cfgs("reduced")
-    for btype, slice_ in (("moe", "MoE slice"), ("enc", "encoder-decoder slice"),
+    for btype, slice_ in (("enc", "encoder-decoder slice"),
                           ("decx", "encoder-decoder slice"), ("xattn", "VLM slice")):
         with pytest.raises(NotImplementedError, match=slice_):
             make_block(cfg, btype)
+    # the moe block is ported: it builds, and its train mode runs and
+    # appends its load-balance loss
+    moe_cfg = cfg.replace(moe=MoEConfig(n_experts=4, top_k=2, d_expert=32))
+    blk = make_block(moe_cfg, "moe")
+    for p in blk.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    aux = []
+    x = torch.randn(2, 5, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    out = blk(x, torch.arange(5).expand(2, 5), aux=aux)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all()) and len(aux) == 1
     # decode over an int8 KV cache is ported: prefill packs codes and
     # scales, decode writes the token's and reads them back
     model = init_params(cfg.replace(kv_quant_bits=8), torch.Generator().manual_seed(0), "cpu")

@@ -187,8 +187,8 @@ def test_configs_match_the_reference_field_for_field():
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jssm.dims(jc) == ssm.dims(tc) and jc.block_types() == tc.block_types()
     assert ssm.dims(get_config("mamba2-1.3b")) == (4096, 64, 64, 128, 4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        reduced(get_config("qwen3-1.7b").replace(moe=object()))
+    with pytest.raises(NotImplementedError, match="encoder"):
+        reduced(get_config("qwen3-1.7b").replace(encoder=object()))
 
 
 def test_from_jax_params_carries_every_mamba_parameter():

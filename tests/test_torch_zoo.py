@@ -45,7 +45,8 @@ N_LAYERS = {"recurrentgemma-9b": 5}   # one (rec, rec, lattn) group and a (rec, 
 
 def test_the_registry_holds_the_zoo():
     assert set(ZOO) <= set(ALL_ARCHS) and "qwen2-7b-kv8" not in ARCH_IDS
-    assert set(ARCH_IDS) == {"qwen3-1.7b", "mamba2-1.3b"} | set(ZOO) - {"qwen2-7b-kv8"}
+    assert set(ARCH_IDS) == ({"qwen3-1.7b", "mamba2-1.3b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"}
+                             | set(ZOO) - {"qwen2-7b-kv8"})
 
 
 @pytest.mark.parametrize("arch", ZOO)
