@@ -63,7 +63,9 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    (4, 2080, 4, 7, 128); qwen2-7b-kv8's int8 cache with its scales at that
    shape; recurrentgemma-9b's local attention (4, 2048, 1, 16, 256) with
    its 2048 window; the MoE archs' G 8, qwen3-moe-30b-a3b's
-   (4, 2080, 4, 8, 128) and kimi-k2-1t-a32b's (4, 2080, 8, 8, 128)), a
+   (4, 2080, 4, 8, 128) and kimi-k2-1t-a32b's (4, 2080, 8, 8, 128);
+   seamless-m4t-large-v2's (4, 2080, 16, 1, 64) and
+   llama-3.2-vision-90b's (4, 2080, 8, 8, 128)), a
    1000 window there, and an f32 cache at D 256, each serving shape also
    against float64; then timed beside scaled_dot_product_attention and the
    bound, at the serving shape, a short cache (informative) and the zoo's
@@ -80,7 +82,10 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    sets wherever a token's k-th and (k+1)-th probabilities differ by more
    than 1e-4, equal kept masks and ranks where no set differs; near-ties
    and flips counted), then the logits within 1e-4 + 1e-4 |cpu| at every
-   step before a flip;
+   step before a flip; reduced seamless-m4t-large-v2 (2 encoder and 3
+   decx layers) and llama-3.2-vision-90b (4 dense and one xattn layer,
+   G 8) with their cross-attention gates and aux_embeds drawn from
+   N(0, 1), within 1e-4 + 1e-4 |cpu|;
 12. decode serve, the KV-cache main path: qwen3-1.7b (28 layers, bf16, 2
    requests of a (4, 2048) prefill and 31 decode steps) and mamba2-1.3b
    (48 layers, bf16, 2 requests of (2, 1024) and 31 steps), launch counts
@@ -109,6 +114,16 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    weights, prefill ms, decode ms a token, cache bytes, peak memory and the
    share of expert assignments dropped at prefill and at decode; the
    phase's seconds;
+12e. the encoder-decoder and VLM stacks, main paths at full width with
+   seeded random bf16 weights and the reference's zero aux_embeds: the
+   KV-cache serve of seamless-m4t-large-v2 at its full 24 + 24 layers and
+   of llama-3.2-vision-90b cut to 30 of its 100 layers (6 whole groups:
+   its bf16 weights take 1.75 GB a layer), one request of a (4, 2048)
+   prefill and 31 decode steps each, exactly 24 x 31 decode_attention
+   launches each (the decx and dense layers; the xattn layers read their
+   cached context and launch none), the seconds to build the weights,
+   prefill ms, decode ms a token, cache bytes and peak memory, and one
+   profiled decode step each; the phase's seconds;
 12b. the loss gradient, a main path: one loss-and-gradient pass of
    mamba2-1.3b (48 layers, bf16, (2, 1024)) through ``models.loss_fn`` and
    autograd, exactly 48 ssd_intra and 48 ssd_intra_backward launches, its
@@ -125,6 +140,16 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    its leaf's largest change, and the step less its weight decay within
    1e-3 of its leaf's largest, which the same card steps with the
    intra-chunk gradient dropped must fail;
+12t. the --arch training launcher, a main path: ``launch.train --reduce``
+   for every arch of ARCH_IDS, 3 steps of (2, 64) each into a temporary
+   --out (Adafactor for llama-3.2-vision-90b and kimi-k2-1t-a32b, the
+   tail's decay mask for recurrentgemma-9b): every loss finite, the final
+   checkpoint written, exactly 12 ssd_intra and 12 ssd_intra_backward
+   launches for mamba2-1.3b's 4 layers and none elsewhere; then one
+   full-width train step of llama-3.2-vision-90b at one 5-layer group
+   (Adafactor) and of seamless-m4t-large-v2 at full depth (AdamW) at
+   (2, 512) with drawn aux_embeds, split as 12c's, the optimizer's share
+   and peak memory;
 12d. the example's pre-training, a main path: ``collab_serve --reduced
    --pretrain 150`` for qwen3-1.7b (final loss at most 3.9, top-1
    agreement at least 70 %, beside the JAX example's 3.576 and 86.7 %) and
@@ -267,19 +292,39 @@ MOE = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
 MOE_LAYERS = {"kimi-k2-1t-a32b": 1}
 SERVE["qwen3-moe-30b-a3b"] = dict(requests=1, batch=4, seq=256)
 DECODE_SERVE.update({name: dict(requests=1, batch=4, prompt_len=2048, gen=32) for name in MOE})
+# the encoder-decoder and VLM stacks at full width, fed the reference's zero
+# aux_embeds: seamless-m4t-large-v2 at its full 24 + 24 layers (1.63 B
+# parameters); llama-3.2-vision-90b cut from 100 layers to 30, 6 whole groups
+# of its 5-layer pattern (24 dense and 6 xattn layers: 55.5 GB of bf16
+# weights with the embedding and head; all 100 would take 175 GB); one
+# request of a (4, 2048) prefill and 31 decode steps each
+ENCDEC = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
+ENCDEC_LAYERS = {"llama-3.2-vision-90b": 30}
+DECODE_SERVE.update({name: dict(requests=1, batch=4, prompt_len=2048, gen=32) for name in ENCDEC})
+# one full-width train step each at (2, 512) with drawn aux_embeds:
+# llama-3.2-vision-90b at one 5-layer group (Adafactor), seamless-m4t-large-v2
+# at its full depth (AdamW)
+ENCDEC_TRAIN_LAYERS = {"llama-3.2-vision-90b": 5}
+ENCDEC_TRAIN_BATCH = (2, 512)
+# the --arch training launcher on the card: every arch of ARCH_IDS reduced
+LAUNCHER = dict(steps=3, batch=2, seq=64)
 # decode_attention at each zoo arch's serving shape (b, S, Hkv, G, D, cache,
 # window), as DECODE_SERVE serves it (main checks them against the configs):
 # stablelm-1.6b's MHA at D 64, phi4-mini-3.8b's G 3, qwen2-7b's G 7 over a
 # bf16 cache and over qwen2-7b-kv8's int8 cache with its scales,
-# recurrentgemma-9b's local attention (MQA over a 2048-slot ring), and the
-# MoE archs' G 8: qwen3-moe-30b-a3b's 32 query on 4 KV heads, kimi's 64 on 8
+# recurrentgemma-9b's local attention (MQA over a 2048-slot ring), the MoE
+# archs' G 8: qwen3-moe-30b-a3b's 32 query on 4 KV heads, kimi's 64 on 8;
+# seamless-m4t-large-v2's MHA at D 64 (16 heads) and llama-3.2-vision-90b's
+# 64 query on 8 KV heads
 ZOO_DECODE_SHAPES = {"stablelm-1.6b": (4, 2080, 32, 1, 64, torch.bfloat16, 0),
                      "phi4-mini-3.8b": (4, 2080, 8, 3, 128, torch.bfloat16, 0),
                      "qwen2-7b": (4, 2080, 4, 7, 128, torch.bfloat16, 0),
                      "qwen2-7b-kv8": (4, 2080, 4, 7, 128, torch.int8, 0),
                      "recurrentgemma-9b": (4, 2048, 1, 16, 256, torch.bfloat16, 2048),
                      "qwen3-moe-30b-a3b": (4, 2080, 4, 8, 128, torch.bfloat16, 0),
-                     "kimi-k2-1t-a32b": (4, 2080, 8, 8, 128, torch.bfloat16, 0)}
+                     "kimi-k2-1t-a32b": (4, 2080, 8, 8, 128, torch.bfloat16, 0),
+                     "seamless-m4t-large-v2": (4, 2080, 16, 1, 64, torch.bfloat16, 0),
+                     "llama-3.2-vision-90b": (4, 2080, 8, 8, 128, torch.bfloat16, 0)}
 # the small MoE decodes, card against CPU: a router gap above this between
 # a token's k-th and (k+1)-th probability cannot flip on either device
 ROUTE_GAP = 1e-4
@@ -844,12 +889,16 @@ def phase_ssd_backward_timing(dev, kssd, shape, calib_shape=None):
 
 def loss_batch(cfg, b, s, gen, dev):
     """Next-token labels of random tokens, the first 16 positions and the
-    last ignored (-100)."""
+    last ignored (-100); for an encoder-decoder or VLM arch aux_embeds
+    drawn from N(0, 1)."""
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
     labels = tokens.roll(-1, dims=1)
     labels[:, -1] = -100
     labels[:, :16] = -100
-    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    if cfg.n_aux_tokens:
+        batch["aux_embeds"] = torch.randn((b, cfg.n_aux_tokens, cfg.d_model), generator=gen).to(dev)
+    return batch
 
 
 def phase_loss_grad(dev, model_lib, init_params, cfg, build_mod):
@@ -1056,11 +1105,14 @@ def phase_train_step(dev, steps_lib, model_lib, init_params, cfg, build_mod):
     return launches
 
 
-def phase_train_step_timing(dev, steps_lib, model_lib, init_params, cfg, build_mod):
+def phase_train_step_timing(dev, steps_lib, model_lib, init_params, cfg, build_mod,
+                            shape=LOSS_BATCH):
     """A full-width train step of a model no hand-written kernel runs in
-    (qwen3-1.7b, bf16, LOSS_BATCH): one step to warm, then a timed one
-    split as ``step_split`` splits it; no kernel launches."""
-    b, s = LOSS_BATCH
+    (qwen3-1.7b, bf16, LOSS_BATCH; the encoder-decoder and VLM stacks at
+    ENCDEC_TRAIN_BATCH): one step to warm, then a timed one split as
+    ``step_split`` splits it, and the optimizer's share of it; no kernel
+    launches."""
+    b, s = shape
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(7), dev)
     batch = loss_batch(cfg, b, s, torch.Generator().manual_seed(8), dev)
     train_step, opt_init = steps_lib.make_train_step(cfg, **TRAIN_STEP_LR)
@@ -1074,9 +1126,13 @@ def phase_train_step_timing(dev, steps_lib, model_lib, init_params, cfg, build_m
     check(got == {}, f"train step {cfg.name}: launches {got}, expected none")
     loss = float(metrics["loss"])
     check(math.isfinite(loss), f"train step {cfg.name}: loss {loss}")
-    step_split(train_step, model, opt, batch, model_lib, f"{cfg.name} at ({b}, {s})", top=8)
-    print(f"train step: {cfg.name} ({cfg.n_layers} layers, {cfg.param_dtype}) at ({b}, {s}): loss "
-          f"{loss:.6f}, no kernel launched, peak memory "
+    wall, device = step_split(train_step, model, opt, batch, model_lib,
+                              f"{cfg.name} at ({b}, {s})", top=8)
+    share = lambda d: (f"{100 * (d['step'] - d['forward+backward']) / d['step']:.1f}%"
+                       if d["step"] > 0 else "not measured")
+    print(f"train step: {cfg.name} ({cfg.n_layers} layers, {cfg.param_dtype}, {cfg.optimizer}) at "
+          f"({b}, {s}): loss {loss:.6f}, no kernel launched; the optimizer {share(wall)} of "
+          f"the wall and {share(device)} of the device time of a step; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del model, opt, batch
     torch.cuda.empty_cache()
@@ -2670,8 +2726,10 @@ def time_zoo_decode(dev, kda, g, name, shape):
 
 
 def attention_layers(cfg):
-    """The layers whose decode runs decode_attention: dense, local and MoE."""
-    return sum(bt in ("dense", "lattn", "moe") for bt in cfg.block_types())
+    """The layers whose decode runs decode_attention: dense, local, MoE and
+    the encoder-decoder's decoder layers (their self-attention); an image
+    layer's cross-attention over its cached context launches none."""
+    return sum(bt in ("dense", "lattn", "moe", "decx") for bt in cfg.block_types())
 
 
 def phase_small_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, steps=8):
@@ -2679,15 +2737,28 @@ def phase_small_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, s
     take the CPU's tokens, so each step compares the same inputs: logits
     within 1e-4 + 1e-4 |cpu| (the slice's f32 parity bound), and the card's
     token equal to the CPU's wherever the CPU's top-2 margin exceeds the
-    step's logit error."""
+    step's logit error. An encoder-decoder or VLM config is prefilled with
+    aux_embeds drawn from N(0, 1), its cross-attention gates drawn from
+    N(0, 1) too (zero gates and a zero context would test nothing)."""
     cpu = torch.device("cpu")
-    models = {cpu: init_params(cfg, torch.Generator().manual_seed(3), cpu),
-              dev: init_params(cfg, torch.Generator().manual_seed(3), cpu).to(dev)}
+    models = {cpu: init_params(cfg, torch.Generator().manual_seed(3), cpu)}
+    aux, gates = None, 0
+    if cfg.n_aux_tokens:
+        g = torch.Generator().manual_seed(5)
+        aux = torch.randn((2, cfg.n_aux_tokens, cfg.d_model), generator=g)
+        with torch.no_grad():
+            for name, p in models[cpu].named_parameters():
+                if name.endswith(".gate"):
+                    p.copy_(torch.randn((), generator=g))
+                    gates += 1
+    models[dev] = copy.deepcopy(models[cpu]).to(dev)
     tokens = torch.randint(0, cfg.vocab_size, (2, prompt), generator=torch.Generator().manual_seed(4))
     build_mod.reset_launches()
     worst, least_margin, equal = 0.0, float("inf"), 0
     with torch.inference_mode():
-        out = {d: model_lib.prefill(m, tokens.to(d), attn_len=prompt + steps) for d, m in models.items()}
+        out = {d: model_lib.prefill(m, tokens.to(d), attn_len=prompt + steps,
+                                    aux_embeds=None if aux is None else aux.to(d))
+               for d, m in models.items()}
         for i in range(steps + 1):
             (lc, cache_c), (ld, cache_d) = out[cpu], out[dev]
             ld = ld.cpu()
@@ -2712,8 +2783,10 @@ def phase_small_decode(dev, cfg, init_params, model_lib, build_mod, prompt=80, s
     check(build_mod.LAUNCHES["decode_attention"] == n_attn * steps,
           f"small decode {cfg.name}: decode_attention launched "
           f"{build_mod.LAUNCHES['decode_attention']} times, expected {n_attn * steps}")
+    context = ("" if aux is None else f", {cfg.n_aux_tokens} drawn aux tokens, {gates} drawn "
+               f"gates")
     print(f"small decode ({cfg.name}, {cfg.n_layers}L d={cfg.d_model}, prompt {prompt}, {steps} "
-          f"steps): card vs CPU logits max abs diff {worst:.3e} (bound 1e-4 + 1e-4|cpu|), "
+          f"steps{context}): card vs CPU logits max abs diff {worst:.3e} (bound 1e-4 + 1e-4|cpu|), "
           f"{equal}/{2 * (steps + 1)} tokens equal (least top-2 margin {least_margin:.3e}), "
           f"decode_attention launches {n_attn * steps}", flush=True)
 
@@ -2971,6 +3044,68 @@ def phase_moe(dev, cs, sv, model_lib, build_mod, cache_lib, kref, get_config):
     return launches
 
 
+def phase_encdec(dev, sv, model_lib, build_mod, cache_lib, get_config):
+    """The encoder-decoder and VLM stacks' KV-cache serving at full width:
+    seamless-m4t-large-v2 at its full depth and llama-3.2-vision-90b at its
+    cut depth (ENCDEC_LAYERS), one request each (exactly 24 x 31
+    decode_attention launches each: the decx and dense layers' self-
+    attention; the xattn layers launch none), with one profiled decode
+    step; each model freed before the next. Returns the launch counts."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    for name in ENCDEC:
+        cfg = get_config(name)
+        cfg = cfg.replace(n_layers=ENCDEC_LAYERS.get(name, cfg.n_layers))
+        counts, res = phase_decode_serve(dev, sv, cfg, build_mod, cache_lib)
+        launches.update(counts)
+        phase_decode_profile(model_lib, res)
+        del res
+        torch.cuda.empty_cache()
+    cuts = ", ".join(f"{n} cut to {k} of {get_config(n).n_layers} layers"
+                     for n, k in ENCDEC_LAYERS.items())
+    print(f"encdec: KV-cache serve of {', '.join(ENCDEC)} ({cuts}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def phase_launcher(dev, train_lib, build_mod, arch_ids):
+    """A main path: the --arch training launcher (``launch.train``) at
+    ``--reduce`` for every arch of ARCH_IDS, LAUNCHER's steps into a
+    temporary --out: every step's loss finite, the final checkpoint
+    written, and exactly the launches the path makes (mamba2-1.3b's 4
+    layers one ssd_intra and one ssd_intra_backward each a step, no other
+    kernel anywhere). Returns the launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as out:
+        for arch in arch_ids:
+            build_mod.reset_launches()
+            t1 = time.perf_counter()
+            model, _, losses = train_lib.train(arch, reduce=True, out=out, log=lambda *_: None,
+                                               **LAUNCHER)
+            torch.cuda.synchronize()
+            got = {n: v for n, v in build_mod.LAUNCHES.items() if v}
+            n_ssd = LAUNCHER["steps"] * sum(bt == "mamba2" for bt in model.cfg.block_types())
+            want = {"ssd_intra": n_ssd, "ssd_intra_backward": n_ssd} if n_ssd else {}
+            check(got == want, f"launcher {arch}: launches {got}, expected {want}")
+            launches.update(got)
+            losses = [float(v) for v in losses]
+            check(len(losses) == LAUNCHER["steps"] and all(math.isfinite(v) for v in losses),
+                  f"launcher {arch}: losses {losses}")
+            check(Path(out, f"{arch}_final.npz").exists(), f"launcher {arch}: no checkpoint")
+            print(f"launcher: {arch} --reduce ({model.cfg.n_layers}L d={model.cfg.d_model}, "
+                  f"{model.cfg.optimizer}), {LAUNCHER['steps']} steps of ({LAUNCHER['batch']}, "
+                  f"{LAUNCHER['seq']}) in {time.perf_counter() - t1:.1f} s: losses "
+                  f"{', '.join(f'{v:.4f}' for v in losses)}; launches {got}", flush=True)
+            del model
+    torch.cuda.empty_cache()
+    print(f"launcher: every arch of ARCH_IDS trained at --reduce in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 # ------------------------------------------------------------- training
 def _tree(fn, tree):
     if isinstance(tree, dict):
@@ -3116,7 +3251,7 @@ def main(argv=None):
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
     from repro_torch import full_precision_matmuls
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
     from repro_torch.core import cnn as cnn_lib
     from repro_torch.core import compressor, huffman, jalad
     from repro_torch.core.compressor import pca_init_autoencoder
@@ -3175,6 +3310,7 @@ def main(argv=None):
         return 0
     from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
     from repro_torch.launch import streaming_serve, train_lm
+    from repro_torch.launch import train as train_lib
     from repro_torch.rl import distill
     from repro_torch.stream import adapter as stream_adapter
     from repro_torch.stream import dispatcher as stream_dispatcher
@@ -3218,6 +3354,13 @@ def main(argv=None):
                         moe=dataclasses.replace(qmoe.moe, capacity_factor=1.25))
     for cfg in (qmoe, reduced(get_config("kimi-k2-1t-a32b"), n_layers=3)):
         phase_small_moe_decode(dev, cfg, init_params, model_lib, moe_lib, _build)
+    # the encoder-decoder and VLM decodes: reduced seamless (2 encoder and 3
+    # decx layers, MHA) and reduced llama-vision (one 5-layer group: 4 dense,
+    # one xattn; G 8 by a head override), drawn gates and aux_embeds
+    for cfg in (reduced(get_config("seamless-m4t-large-v2"), n_layers=3),
+                reduced(get_config("llama-3.2-vision-90b")).replace(n_heads=8, n_kv_heads=1,
+                                                                    d_head=32)):
+        phase_small_decode(dev, cfg, init_params, model_lib, _build)
 
     launches = collections.Counter()
     for cfg in (qwen, mamba):
@@ -3256,10 +3399,20 @@ def main(argv=None):
           f"in {time.perf_counter() - t_zoo:.1f} s", flush=True)
     launches.update(phase_moe(dev, collab_serve, serve_lib, model_lib, _build, cache_lib, kref,
                               get_config))
+    launches.update(phase_encdec(dev, serve_lib, model_lib, _build, cache_lib, get_config))
     launches.update(phase_loss_grad(dev, model_lib, init_params, mamba, _build))
     torch.cuda.empty_cache()
     launches.update(phase_train_step(dev, steps_lib, model_lib, init_params, mamba, _build))
     phase_train_step_timing(dev, steps_lib, model_lib, init_params, qwen, _build)
+    t_train = time.perf_counter()
+    launches.update(phase_launcher(dev, train_lib, _build, ARCH_IDS))
+    for name in ENCDEC:
+        cfg = get_config(name)
+        cfg = cfg.replace(n_layers=ENCDEC_TRAIN_LAYERS.get(name, cfg.n_layers))
+        phase_train_step_timing(dev, steps_lib, model_lib, init_params, cfg, _build,
+                                shape=ENCDEC_TRAIN_BATCH)
+    print(f"encdec: the launcher over ARCH_IDS and the full-width train steps of "
+          f"{', '.join(ENCDEC)} in {time.perf_counter() - t_train:.1f} s", flush=True)
     phase_train_check(dev, steps_lib, init_params, mamba, _build, ssd_intra)
     launches.update(phase_pretrain(dev, collab_serve, _build))
     phase_train_lm(dev, train_lm)

@@ -1,17 +1,16 @@
 """Model configuration of the port: its own copy of the reference's
-``ModelConfig`` and ``reduced`` (``src/repro/configs/base.py``).
+``ModelConfig``, ``EncoderConfig``, ``InputShape`` / ``INPUT_SHAPES`` and
+``reduced`` (``src/repro/configs/base.py``).
 
 The fields are the reference's, one for one, so a configuration can be
 compared field by field with its JAX twin. The port runs dense, MoE,
-hybrid and Mamba-2 stacks; the reference's encoder sub-config is kept as
-an opaque optional field and ``reduced`` refuses configs that set it
-until the slice that ports the encoder-decoder family.
+hybrid, Mamba-2, encoder-decoder and cross-attention (VLM) stacks.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -32,6 +31,16 @@ class SSMConfig:
     head_dim: int = 64       # P;  n_heads = d_inner // head_dim
     chunk: int = 256         # SSD chunk length
     n_groups: int = 1        # B/C groups
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack of an encoder-decoder (audio) arch. Its frontend is
+    stubbed: the encoder reads precomputed frame embeddings
+    (``aux_embeds``, (B, n_frames, d_model))."""
+    n_layers: int = 24
+    n_frames: int = 1024     # stub frontend output length
+    d_frontend: int = 0      # 0 => frames already at d_model
 
 
 @dataclass(frozen=True)
@@ -56,7 +65,7 @@ class ModelConfig:
     window: int = 0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    encoder: Optional[Any] = None
+    encoder: Optional[EncoderConfig] = None
     n_aux_tokens: int = 0
     long_context_window: int = 8192
     param_dtype: str = "bfloat16"
@@ -86,16 +95,30 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
             vocab: int = 512) -> ModelConfig:
     """Reduced variant of the same family for CPU tests, as the reference's
     ``reduced``: at most 4 heads (so qwen3-1.7b loses its GQA), f32, an
     SSM of d_state 16, head_dim 32, chunk 16, and an MoE of 4 experts,
     top-2, ``d_expert = d_model // 2``, at most one shared expert and a
-    capacity factor of 4.0 (capacity T k: no assignment is ever dropped)."""
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            "encoder configs come with the encoder-decoder slice")
+    capacity factor of 4.0 (capacity T k: no assignment is ever dropped),
+    an encoder of 2 layers over 16 frames and 16 aux tokens."""
     d_model = min(d_model, 512)
     n_heads = max(2, min(cfg.n_heads, 4))
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
@@ -104,6 +127,8 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
     moe = (None if cfg.moe is None else dataclasses.replace(
         cfg.moe, n_experts=4, top_k=2, d_expert=d_model // 2,
         n_shared_experts=min(cfg.moe.n_shared_experts, 1), capacity_factor=4.0))
+    encoder = (None if cfg.encoder is None else
+               dataclasses.replace(cfg.encoder, n_layers=2, n_frames=16))
     return cfg.replace(
         n_layers=max(n_layers, len(cfg.block_pattern)), d_model=d_model,
         n_heads=n_heads, n_kv_heads=n_kv, d_head=d_model // n_heads,
@@ -111,4 +136,4 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
         compute_dtype="float32", fsdp=False, attn_chunk=64,
         window=min(cfg.window, 64) if cfg.window else 0,
         long_context_window=128,
-        n_aux_tokens=16 if cfg.n_aux_tokens else 0, ssm=ssm, moe=moe)
+        n_aux_tokens=16 if cfg.n_aux_tokens else 0, ssm=ssm, moe=moe, encoder=encoder)

@@ -1,8 +1,8 @@
 """kimi-k2-1t-a32b [trillion-parameter MoE] at its published widths: 61
 layers, d_model 7168, 64 query on 8 KV heads, 384 experts top-8 with
 d_expert 2048 plus one shared expert, vocab 163840. The reference's XL
-settings (FSDP, Adafactor) are kept field for field; the port has no
-Adafactor yet, so it serves this config and does not train it."""
+settings (FSDP, Adafactor) are kept field for field; the port trains it
+with Adafactor (one card holds one of its layers)."""
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(

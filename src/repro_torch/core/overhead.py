@@ -117,9 +117,10 @@ def _ffn_costs(cfg: ModelConfig, bt: str, s: int):
 
 def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
     """Per-layer {flops, bytes, param_bytes} for a seq_len-token forward of
-    the port's block types (dense, local attention and MoE, RG-LRU + MLP,
-    mamba2). bytes = params read once (of an MoE, the activated experts')
-    + activations in/out (bf16)."""
+    every block type (dense, local and bidirectional attention, MoE, RG-LRU
+    + MLP, mamba2, the cross-attention layers ``"xattn"`` and ``"decx"``).
+    bytes = params read once (of an MoE, the activated experts') +
+    activations in/out (bf16)."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     s = seq_len
@@ -143,27 +144,50 @@ def layer_costs(cfg: ModelConfig, seq_len: int) -> List[dict]:
                 + 2 * s * drnn * d + 6 * s * d * f
             pbytes = (2 * d * drnn + 2 * drnn * drnn + drnn * d + 3 * d * f) * 2
             out.append({"flops": fl, "bytes": pbytes + act, "param_bytes": pbytes})
-        elif bt in ("dense", "lattn", "moe"):
-            ctx = min(s, cfg.window) if bt == "lattn" else s
-            attn = 2 * s * d * (hq + 2 * hkv) * dh + 2 * s * hq * dh * d \
-                + 4 * s * ctx * hq * dh
-            a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
-            ffl, fp, fbytes = _ffn_costs(cfg, bt, s)
-            out.append({"flops": attn + ffl, "bytes": a_params + fbytes + act,
-                        "param_bytes": a_params + fp})
         else:
-            raise NotImplementedError(f"costs of {bt!r} blocks come with the model-zoo slice")
+            fl, a_params = _attention_costs(cfg, bt, s)
+            ffl, fp, fbytes = _ffn_costs(cfg, bt, s)
+            out.append({"flops": fl + ffl, "bytes": a_params + fbytes + act,
+                        "param_bytes": a_params + fp})
     return out
+
+
+def _attention_costs(cfg: ModelConfig, bt: str, s: int, ctx=None):
+    """(flops, param_bytes) of an attention block's attention over ``s``
+    tokens against ``ctx`` keys (default ``s``, capped at the window for a
+    ``"lattn"`` layer), as the reference counts them: an ``"xattn"``
+    layer's query and output projections, its scores over the
+    ``n_aux_tokens`` context and the context's K/V projections; a
+    ``"decx"`` layer's self-attention plus its cross-attention's query and
+    output projections and scores over the encoder's ``n_frames`` (its
+    parameters twice)."""
+    d, dh = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    ctx = s if ctx is None else ctx
+    if bt == "lattn":
+        ctx = min(ctx, cfg.window)
+    a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
+    fl = 2 * s * d * (hq + 2 * hkv) * dh + 2 * s * hq * dh * d + 4 * s * ctx * hq * dh
+    if bt == "xattn":
+        fl = 2 * s * d * hq * dh + 2 * s * hq * dh * d \
+            + 4 * s * cfg.n_aux_tokens * hq * dh \
+            + 2 * cfg.n_aux_tokens * d * 2 * hkv * dh
+    elif bt == "decx":
+        nf = cfg.encoder.n_frames if cfg.encoder else 0
+        fl += 2 * s * d * hq * dh + 2 * s * hq * dh * d + 4 * s * nf * hq * dh
+        a_params *= 2
+    return fl, a_params
 
 
 def decode_layer_costs(cfg: ModelConfig, ctx_len: int) -> List[dict]:
     """Per-layer {flops, bytes, param_bytes} of one decode step at context
-    length ``ctx_len`` for the port's block types (an MoE layer reads the
+    length ``ctx_len`` for every block type (an MoE layer reads the
     activated experts' weights only): s = 1 projections,
     attention scores over the context (capped at the window for a
-    ``"lattn"`` layer) and the layer's serving-cache bytes read a token
-    (decode is memory-bound, so the cache traffic is the term that grows
-    with context); mamba2 and RG-LRU layers update O(1) state."""
+    ``"lattn"`` layer; an ``"xattn"`` layer's over its image context, a
+    ``"decx"`` layer's over both) and the layer's serving-cache bytes read
+    a token (decode is memory-bound, so the cache traffic is the term that
+    grows with context); mamba2 and RG-LRU layers update O(1) state."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     act = 2 * d * 2  # in and out hidden of the one token, bf16
@@ -187,19 +211,20 @@ def decode_layer_costs(cfg: ModelConfig, ctx_len: int) -> List[dict]:
             pbytes = (2 * d * drnn + 2 * drnn * drnn + drnn * d + 3 * d * f) * 2
             out.append({"flops": fl, "bytes": pbytes + drnn * 4 + act,
                         "param_bytes": pbytes})
-        elif bt in ("dense", "lattn", "moe"):
+        else:
             ctx = min(ctx_len, cfg.window) if bt == "lattn" else ctx_len
-            attn_proj = 2 * d * (hq + 2 * hkv) * dh + 2 * hq * dh * d
-            attn_qk = 4 * ctx * hq * dh
-            a_params = (d * (hq + 2 * hkv) * dh + hq * dh * d) * 2
+            fl, a_params = _attention_costs(cfg, bt, 1, ctx)
             cache_b = 2 * ctx * hkv * dh * kv_el \
                 + (2 * ctx * hkv * 4 if cfg.kv_quant_bits else 0)
+            if bt == "xattn":   # the context's K / V are read from the cache, not projected
+                fl = 2 * d * hq * dh + 2 * hq * dh * d + 4 * cfg.n_aux_tokens * hq * dh
+                cache_b = 2 * cfg.n_aux_tokens * hkv * dh * 2
+            elif bt == "decx":
+                cache_b += 2 * cfg.encoder.n_frames * hkv * dh * 2
             ffl, fp, fbytes = _ffn_costs(cfg, bt, 1)
-            out.append({"flops": attn_proj + attn_qk + ffl,
+            out.append({"flops": fl + ffl,
                         "bytes": a_params + fbytes + cache_b + act,
                         "param_bytes": a_params + fp})
-        else:
-            raise NotImplementedError(f"costs of {bt!r} blocks come with the model-zoo slice")
     return out
 
 

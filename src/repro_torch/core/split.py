@@ -202,19 +202,22 @@ def transformer_split_table(cfg: ModelConfig, *, seq_len=128,
                             ue_dev=oh.PHONE_NPU, n_points=4,
                             ae_ratio=None, quant_bits=None,
                             batch=1) -> SplitPlan:
-    """The split table of a decoder-only stack (dense, hybrid or mamba2): b = 0
-    ships the token ids, b = k runs layers [0, k) on the UE and ships the
-    AE-compressed boundary sequence (recurrent state does not cross the
-    boundary: edge-side layers rebuild their own), b = B+1 runs the whole
-    model. A split is feasible when the UE-side parameters fit UE memory.
-    The VLM and encoder-decoder extras come with the model-zoo slice."""
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(f"{cfg.family} split tables come with the model-zoo slice")
+    """The split table of a transformer stack: b = 0 ships the raw input
+    (the token ids; for a VLM also the raw image patches, for an
+    encoder-decoder arch the stub mel frames), b = k runs layers [0, k) on
+    the UE (an encoder-decoder arch's whole encoder too, costed as dense
+    layers over its frames) and ships the AE-compressed boundary sequence
+    (recurrent state does not cross the boundary: edge-side layers rebuild
+    their own; a VLM also ships its AE'd image embeddings while an image
+    layer lies at or past the split, an encoder-decoder arch its encoder's
+    output at every split), b = B+1 runs the whole model. A split is
+    feasible when the UE-side parameters fit UE memory."""
     ae_ratio = ae_ratio or cfg.bottleneck_ratio
     quant_bits = quant_bits or cfg.quant_bits
     layers = oh.layer_costs(cfg, seq_len)
     L = len(layers)
     emb = oh.embed_costs(cfg, seq_len)
+    btypes = cfg.block_types()
     points = [max(1, round(L * (i + 1) / (n_points + 1)))
               for i in range(n_points)]
 
@@ -222,18 +225,44 @@ def transformer_split_table(cfg: ModelConfig, *, seq_len=128,
     cum_fl = np.cumsum([l["flops"] for l in layers]) * batch
     cum_pb = np.cumsum([l["param_bytes"] for l in layers])
 
-    rows = [(0.0, 0.0, 0.0, 0.0, seq_len * 32 * batch, True)]
+    # family extras
+    last_x = max((i for i, bt in enumerate(btypes) if bt == "xattn"), default=-1)
+    aux_bits_raw = 0
+    if cfg.family == "vlm":
+        aux_bits_raw = cfg.n_aux_tokens * cfg.d_model * 16 * batch
+    enc_flops = 0
+    if cfg.family == "encdec":
+        enc_layers = oh.layer_costs(
+            cfg.replace(block_pattern=("dense",), n_layers=cfg.encoder.n_layers),
+            cfg.encoder.n_frames)
+        enc_flops = sum(l["flops"] for l in enc_layers) * batch
+        aux_bits_raw = cfg.encoder.n_frames * cfg.d_model * 16 * batch
+
+    if cfg.family == "encdec":
+        raw_bits = cfg.encoder.n_frames * 80 * 32 * batch + seq_len * 32 * batch
+    elif cfg.family == "vlm":
+        # raw pixels of the patches (14 x 14 x 3 at 8 bits each)
+        raw_bits = cfg.n_aux_tokens * 14 * 14 * 3 * 8 * batch + seq_len * 32 * batch
+    else:
+        raw_bits = seq_len * 32 * batch
+    rows = [(0.0, 0.0, 0.0, 0.0, raw_bits, True)]
     d = cfg.d_model
     dprime = max(1, d // ae_ratio)
+    rate = (d * 32.0) / (dprime * quant_bits)
     for k in points:
-        fl = cum_fl[k - 1]
+        fl = cum_fl[k - 1] + (enc_flops if cfg.family == "encdec" else 0)
         t, e = oh.module_time_energy(fl, fl / 4, ue_dev)
         enc_fl = 2 * seq_len * d * dprime * batch
         tc, ec = oh.module_time_energy(enc_fl, enc_fl / 4, ue_dev)
         bits = seq_len * dprime * quant_bits * batch
+        if cfg.family == "vlm" and k <= last_x:
+            bits += aux_bits_raw * 32 / (16 * rate)   # the embeddings, AE'd and quantized
+        if cfg.family == "encdec":
+            bits += cfg.encoder.n_frames * dprime * quant_bits * batch
         ue_pb = embed_pb + cum_pb[k - 1]
         rows.append((t, e, tc, ec, bits, ue_pb <= ue_dev.mem_bytes))
-    fl_full = cum_fl[-1] + emb["flops"] * batch
+    fl_full = cum_fl[-1] + emb["flops"] * batch \
+        + (enc_flops if cfg.family == "encdec" else 0)
     t, e = oh.module_time_energy(fl_full, fl_full / 4, ue_dev)
     total_pb = embed_pb + cum_pb[-1] + (emb["param_bytes"] - embed_pb)
     rows.append((t, e, 0.0, 0.0, 0.0, total_pb <= ue_dev.mem_bytes))

@@ -87,13 +87,22 @@ def edge_side(model, boundary: Boundary, split_layer, ae, bits=8):
     return model.logits(model.ln_f(x))
 
 
+def check_split(cfg):
+    """The split forward takes uniform-pattern decoder-only archs: the
+    cross-attention layers of an encoder-decoder or VLM arch attend to
+    ``aux_embeds``, which it does not carry."""
+    if cfg.family in ("encdec", "vlm"):
+        raise ValueError(f"the split forward takes decoder-only archs; {cfg.name}'s "
+                         f"cross-attention layers attend to aux_embeds")
+    if len(layer_plan(cfg)[0]) != 1:
+        raise ValueError("the split forward takes uniform-pattern archs")
+
+
 @torch.inference_mode()
 def run_split_forward(model, cfg, tokens, split_layer, ae, bits=8):
     """UE part -> compress -> (channel) -> decompress -> edge part.
     Returns (logits, payload_bits)."""
-    pattern, _, _ = layer_plan(cfg)
-    if len(pattern) != 1:
-        raise ValueError("the split forward takes uniform-pattern archs")
+    check_split(cfg)
     boundary = ue_side(model, tokens, split_layer, ae, bits)
     payload_bits = boundary.codes.numel() * bits
     return edge_side(model, boundary, split_layer, ae, bits), payload_bits
@@ -147,6 +156,7 @@ def serve(cfg, *, device=None, requests=4, batch=4, seq=256, seed=0, pretrain_st
     request's stats carry, for an MoE arch, the share of the split
     forward's expert assignments that capacity dropped (None without MoE
     layers)."""
+    check_split(cfg)
     device = resolve_device(device)
     full_precision_matmuls()
     t0 = time.perf_counter()

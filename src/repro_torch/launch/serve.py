@@ -10,13 +10,16 @@ collaborative-inference pipeline.
   python -m repro_torch.launch.serve --arch qwen2-7b-kv8 --requests 1   # int8 KV cache
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --requests 1
   python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b --layers 1 --requests 1
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --requests 1
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --layers 30 --requests 1
   python -m repro_torch.launch.serve --device cpu --reduce --prompt-len 64
 
-``--arch`` takes every arch of the registry (stablelm-1.6b, phi4-mini-3.8b,
-qwen2-7b, recurrentgemma-9b, qwen3-1.7b, mamba2-1.3b, qwen3-moe-30b-a3b,
-kimi-k2-1t-a32b) and the qwen2-7b-kv8 variant; ``--layers`` cuts the
-depth (kimi-k2-1t-a32b's bf16 weights take ~34 GB a layer, so one card
-holds one layer).
+``--arch`` takes every arch of the registry (the reference's ten
+``ARCH_IDS``) and the qwen2-7b-kv8 variant; ``--layers`` cuts the depth
+(kimi-k2-1t-a32b's bf16 weights take ~34 GB a layer, so one card holds
+one layer; llama-3.2-vision-90b's 1.7 GB a layer, so it holds 30). An
+encoder-decoder or VLM arch is fed the reference's zero ``aux_embeds``
+(B, n_aux_tokens, d_model), the stubbed frontend's output.
 
 Runs on the CUDA card at the arch's full width by default; ``--device cpu``
 runs the plain PyTorch twins of the kernels instead, and ``--reduce``
@@ -59,7 +62,7 @@ def cache_bytes(cache):
 
 @torch.inference_mode()
 def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, seed=0,
-          log=print) -> ServeResult:
+          aux_embeds=None, log=print) -> ServeResult:
     """Build ``cfg`` with seeded random weights and answer ``requests``
     requests of (batch, prompt_len) random prompt tokens, each with a
     prefill and ``gen - 1`` greedy decode steps (the prefill's argmax is
@@ -68,7 +71,9 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
     tokens per second (batch x steps over the decode time), the generated
     tokens (batch, gen) and, for an MoE arch, the share of expert
     assignments its capacity dropped at prefill and at decode (None
-    without MoE layers)."""
+    without MoE layers). An arch with ``n_aux_tokens`` (encoder-decoder,
+    VLM) is prefilled with ``aux_embeds``, by default the reference's zeros
+    (B, n_aux_tokens, d_model)."""
     device = resolve_device(device)
     full_precision_matmuls()
     t0 = time.perf_counter()
@@ -81,12 +86,14 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
     serve_step = make_serve_step(cfg)
     out = ServeResult(model, attn_len, build_s)
     n_steps = max(gen - 1, 0)
+    if cfg.n_aux_tokens and aux_embeds is None:
+        aux_embeds = torch.zeros((batch, cfg.n_aux_tokens, cfg.d_model), device=device)
     for r in range(requests):
         tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=host).to(device)
         _sync(device)
         t0 = time.perf_counter()
         with routing_log() as pre:
-            logits, cache = prefill_step(model, tokens)
+            logits, cache = prefill_step(model, tokens, aux_embeds)
         _sync(device)
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         nbytes = cache_bytes(cache)

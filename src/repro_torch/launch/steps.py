@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.models import model as model_lib
 from repro_torch.optim import cosine_schedule, global_norm, make_optimizer
-from repro_torch.weights import reference_decay_mask
+from repro_torch.weights import reference_decay_mask, reference_leaves
 
 
 def _check(model, cfg):
@@ -33,10 +33,12 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=200, total=10000, clip=1.0):
     model's device: the step makes no host sync."""
     opt_init_fn, opt_update = make_optimizer(cfg.optimizer)
     lr_fn = cosine_schedule(base_lr, warmup, total)
+    factored = cfg.optimizer == "adafactor"
 
     def opt_init(model):
         _check(model, cfg)
-        return opt_init_fn(list(model.parameters()))
+        params = list(model.parameters())
+        return opt_init_fn(params, reference_leaves(model)) if factored else opt_init_fn(params)
 
     def train_step(model, opt_state, batch):
         _check(model, cfg)
@@ -47,8 +49,9 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=200, total=10000, clip=1.0):
         scale = torch.clamp(torch.full_like(gn, clip) / torch.clamp(gn, min=1e-9), max=1.0)
         grads = [g * scale.to(g.dtype) for g in grads]
         lr = lr_fn(opt_state["step"])
-        _, opt_state = opt_update(grads, opt_state, params, lr,
-                                  decay=reference_decay_mask(model))
+        layout = ({"leaves": reference_leaves(model)} if factored else
+                  {"decay": reference_decay_mask(model)})
+        _, opt_state = opt_update(grads, opt_state, params, lr, **layout)
         metrics = dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach(),
                        grad_norm=gn, lr=lr)
         return model, opt_state, metrics
@@ -57,11 +60,13 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=200, total=10000, clip=1.0):
 
 
 def make_prefill_step(cfg, attn_len: int):
-    """``prefill_step(model, tokens) -> (last_logits, cache)``, the cache of
-    ``attn_len`` slots per attention layer."""
-    def prefill_step(model, tokens):
+    """``prefill_step(model, tokens, aux_embeds=None) -> (last_logits,
+    cache)``, the cache of ``attn_len`` slots per attention layer; an
+    encoder-decoder or VLM arch needs ``aux_embeds`` (B, n_aux_tokens,
+    d_model)."""
+    def prefill_step(model, tokens, aux_embeds=None):
         _check(model, cfg)
-        return model_lib.prefill(model, tokens, attn_len=attn_len)
+        return model_lib.prefill(model, tokens, attn_len=attn_len, aux_embeds=aux_embeds)
     return prefill_step
 
 

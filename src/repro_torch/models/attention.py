@@ -1,6 +1,7 @@
-"""GQA self-attention for train, prefill and decode
+"""GQA self-attention for train, prefill and decode, and cross-attention
 (``src/repro/models/attention.py``: ``_qkv``, ``_flash_inner``,
-``_flash_decode`` and ``self_attention``).
+``_flash_decode``, ``self_attention``, ``cross_attention`` and
+``project_cross_kv``).
 
 Numerics follow the reference: the softmax scale multiplies q in q's dtype
 before the dot; scores and the output accumulate in f32 (operands upcast,
@@ -22,6 +23,11 @@ and the probabilities to a bf16 cache's (or an int8 cache's q's) dtype,
 the kernel keeps them f32. The new token's k and v (or their codes and
 scales) are written into the cache in place (the reference returns an
 updated copy).
+
+Cross-attention (the VLM's image layers, the encoder-decoder's decoder)
+is the plain ``attention`` in every mode, as the reference's is its plain
+``flash_attention``: no RoPE, every position 0, not causal; at decode it
+reads the context's K/V from the cache.
 """
 from __future__ import annotations
 
@@ -36,11 +42,15 @@ NEG_INF = -1e30
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, *, device=None):
+    """The projections of one attention layer; ``cross`` adds the VLM's
+    scalar ``gate`` (zero at init), through which ``cross_attention`` scales
+    its output by ``tanh(gate)``."""
+
+    def __init__(self, cfg, *, cross=False, device=None):
         super().__init__()
         d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dt = dtype_of(cfg.param_dtype)
-        p = lambda *shape: nn.Parameter(torch.empty(*shape, dtype=dt, device=device))
+        p = lambda *shape: nn.Parameter(torch.empty(shape, dtype=dt, device=device))
         self.cfg = cfg
         self.wq, self.wk, self.wv = p(d, hq * dh), p(d, hkv * dh), p(d, hkv * dh)
         self.wo = p(hq * dh, d)
@@ -48,6 +58,7 @@ class Attention(nn.Module):
             self.bq, self.bk, self.bv = p(hq * dh), p(hkv * dh), p(hkv * dh)
         if cfg.qk_norm:
             self.q_scale, self.k_scale = p(dh), p(dh)
+        self.gate = p() if cross else None
 
     def forward(self, x, positions, *, causal=True, window=0):
         """Train-mode self-attention; x: (B, S, d) -> (B, S, d)."""
@@ -58,19 +69,30 @@ class Attention(nn.Module):
 def qkv(p, x, xc, cfg):
     """x: (B, S, d) query source; xc: kv source (x for self-attention).
     Returns q (B, S, Hq, D), k and v (B, Sk, Hkv, D), qk-normed per head."""
+    k, v = project_cross_kv(p, xc, cfg)
+    return query(p, x, cfg), k, v
+
+
+def query(p, x, cfg):
+    """q (B, S, Hq, D) of x (B, S, d), qk-normed per head."""
     b, s, _ = x.shape
-    sk = xc.shape[1]
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = x @ p.wq, xc @ p.wk, xc @ p.wv
+    q = x @ p.wq
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, hq, dh)
-    k = k.reshape(b, sk, hkv, dh)
-    v = v.reshape(b, sk, hkv, dh)
-    if cfg.qk_norm:
-        q = rms_head_norm(p.q_scale, q)
-        k = rms_head_norm(p.k_scale, k)
-    return q, k, v
+        q = q + p.bq
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return rms_head_norm(p.q_scale, q) if cfg.qk_norm else q
+
+
+def project_cross_kv(p, context, cfg):
+    """k, v (B, Sc, Hkv, D) of ``context`` (B, Sc, d), qk-normed per head,
+    not roped."""
+    b, sk, _ = context.shape
+    k, v = context @ p.wk, context @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    k = k.reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    return (rms_head_norm(p.k_scale, k) if cfg.qk_norm else k), v
 
 
 def attention(q, k, v, *, q_positions, k_positions, causal=True, window=0, chunk=1024,
@@ -171,3 +193,29 @@ def self_attention(p, x, cfg, positions, *, causal=True, window=0, kv_cache=None
         out = out.to(q.dtype)[:, None]
         new_kv = dict({"k": ck, "v": cv}, **scales)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo, new_kv
+
+
+def cross_attention(p, x, cfg, *, kv=None, context=None):
+    """Cross-attention of x (B, S, d) over ``context`` (B, Sc, d), projected
+    here, or over its precomputed ``kv`` = (k, v), each (B, Sc, Hkv, D).
+    No RoPE; every query sees every context position. Gated by
+    ``tanh(gate)`` where ``p`` has a gate. Returns (out (B, S, d), (k, v))."""
+    if kv is None:
+        if context is None:
+            raise ValueError("cross-attention needs its context: pass aux_embeds, the "
+                             "(B, n_aux_tokens, d_model) frame or patch embeddings")
+        k, v = project_cross_kv(p, context, cfg)
+    else:
+        k, v = kv
+    b, s, _ = x.shape
+    hq, dh = cfg.n_heads, cfg.head_dim
+    q = query(p, x, cfg)
+    qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = attention(q, k, v, q_positions=qpos, k_positions=kpos, causal=False,
+                    chunk=cfg.attn_chunk)
+    out = out.reshape(b, s, hq * dh) @ p.wo
+    if p.gate is not None:
+        out = torch.tanh(p.gate.to(out.dtype)) * out
+    return out, (k, v)
+

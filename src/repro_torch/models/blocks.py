@@ -1,29 +1,30 @@
 """Residual blocks of the port (``src/repro/models/blocks.py``): the
 ``"dense"`` block (attention + MLP), the ``"lattn"`` block (the same with
-local attention over a ``cfg.window`` ring), the ``"moe"`` block
-(attention + the MoE FFN), the ``"rec"`` block (RG-LRU + MLP, Griffin) and
-the ``"mamba2"`` block (SSD mixer), each in the modes ``"train"`` (no
-cache), ``"prefill"`` (build the layer's cache entry) and ``"decode"``
-(one token: consume and update it). Every block takes ``aux``, a list
-into which an MoE block appends its load-balance loss; the others add
-nothing.
+local attention over a ``cfg.window`` ring), the ``"enc"`` block (the same
+with bidirectional attention: the encoder's, train mode only), the
+``"moe"`` block (attention + the MoE FFN), the ``"rec"`` block (RG-LRU +
+MLP, Griffin), the ``"mamba2"`` block (SSD mixer), the ``"xattn"`` block
+(gated cross-attention + MLP, the VLM's image layers) and the ``"decx"``
+block (self-attention, ungated cross-attention over the encoder's output,
+MLP), each in the modes ``"train"`` (no cache), ``"prefill"`` (build the
+layer's cache entry) and ``"decode"`` (one token: consume and update it).
+Every block takes ``aux``, a list into which an MoE block appends its
+load-balance loss (the others add nothing), and ``context``, the (B, Sc,
+d) sequence the cross-attention blocks attend to in train and prefill
+mode (the others ignore it); at decode those read the context's K/V from
+their cache entry.
 """
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models.attention import Attention, self_attention
+from repro_torch.models.attention import Attention, cross_attention, self_attention
 from repro_torch.models.cache import pack_full_kv
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.rglru import RGLRU, apply_rglru, decode_rglru
 from repro_torch.models.ssm import Mamba, apply_mamba, decode_mamba
 
-_LATER = {
-    "enc": "the encoder-decoder slice",
-    "decx": "the encoder-decoder slice",
-    "xattn": "the VLM slice",
-}
 MODES = ("train", "prefill", "decode")
 
 
@@ -36,12 +37,14 @@ class DenseBlock(nn.Module):
     """``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``; with ``window`` > 0
     (the ``"lattn"`` block) the attention is local: a key at position p
     serves the queries at p .. p + window - 1, and the cache is a ring of
-    ``window`` slots."""
+    ``window`` slots; with ``causal`` False (the ``"enc"`` block) every
+    query sees every key."""
 
-    def __init__(self, cfg, *, window=0, device=None):
+    def __init__(self, cfg, *, window=0, causal=True, device=None):
         super().__init__()
         self.cfg = cfg
         self.window = window
+        self.causal = causal
         self.ln1 = Norm(cfg, device=device)
         self.attn = Attention(cfg, device=device)
         self.ln2 = Norm(cfg, device=device)
@@ -51,11 +54,17 @@ class DenseBlock(nn.Module):
         return self.mlp(h)
 
     def forward(self, x, positions, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None):
+                aux=None, context=None):
         """Train mode returns x; prefill and decode return (x, cache entry).
         Decode writes the token's position into the entry's ``pos`` at slot
         ``idx % L`` before the attention, and its k/v in place."""
         _check_mode(mode)
+        x, entry = self.attend(x, positions, mode, cache, idx, attn_len)
+        x = x + self.ffn(self.ln2(x), aux)
+        return x if mode == "train" else (x, entry)
+
+    def attend(self, x, positions, mode, cache, idx, attn_len):
+        """The first residual half: (x + attn(ln1(x)), cache entry)."""
         h = self.ln1(x)
         if mode == "decode":
             slot = idx % cache["k"].shape[1]
@@ -66,12 +75,67 @@ class DenseBlock(nn.Module):
                                      idx=idx)
             entry = dict(kv, pos=pos_buf)
         else:
-            out, (k, v) = self_attention(self.attn, h, self.cfg, positions, window=self.window)
-            entry = (None if mode == "train" else
+            out, (k, v) = self_attention(self.attn, h, self.cfg, positions, causal=self.causal,
+                                         window=self.window)
+            entry = (None if mode == "train" or not self.causal else
                      pack_full_kv(k, v, positions, attn_len, window=self.window,
                                   kv_bits=self.cfg.kv_quant_bits))
+        return x + out, entry
+
+
+def attend_context(attn, h, cfg, mode, cache, context):
+    """Cross-attention of ``h`` over ``context`` (train and prefill) or over
+    the context's K/V in the layer's cache entry (decode). Returns (out,
+    {"ck", "cv"} for the layer's entry; None in train mode)."""
+    if mode == "decode":
+        out, _ = cross_attention(attn, h, cfg, kv=(cache["ck"], cache["cv"]))
+        return out, {"ck": cache["ck"], "cv": cache["cv"]}
+    out, (ck, cv) = cross_attention(attn, h, cfg, context=context)
+    return out, (None if mode == "train" else {"ck": ck, "cv": cv})
+
+
+class DecXBlock(DenseBlock):
+    """The encoder-decoder's decoder layer: ``x + attn(ln1(x))``, then ``x +
+    xattn(lnx(x))`` over the encoder's output (ungated), then ``x +
+    mlp(ln2(x))``. Its cache entry is the dense entry plus the context's
+    ``ck``, ``cv`` (B, n_frames, Hkv, D), made at prefill and carried into
+    every decode entry."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__(cfg, device=device)
+        self.lnx = Norm(cfg, device=device)
+        self.xattn = Attention(cfg, device=device)
+
+    def forward(self, x, positions, *, mode="train", cache=None, idx=None, attn_len=0,
+                aux=None, context=None):
+        _check_mode(mode)
+        x, entry = self.attend(x, positions, mode, cache, idx, attn_len)
+        out, ctx_kv = attend_context(self.xattn, self.lnx(x), self.cfg, mode, cache, context)
         x = x + out
         x = x + self.ffn(self.ln2(x), aux)
+        return x if mode == "train" else (x, dict(entry, **ctx_kv))
+
+
+class XAttnBlock(nn.Module):
+    """The VLM's image layer: ``x + tanh(gate) xattn(ln1(x))`` over the
+    context, then ``x + mlp(ln2(x))``; the positions are not used. Its cache
+    entry is the context's ``ck``, ``cv`` (B, n_aux_tokens, Hkv, D), made at
+    prefill and read, unchanged, at decode."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = Norm(cfg, device=device)
+        self.xattn = Attention(cfg, cross=True, device=device)
+        self.ln2 = Norm(cfg, device=device)
+        self.mlp = MLP(cfg, device=device)
+
+    def forward(self, x, positions=None, *, mode="train", cache=None, idx=None, attn_len=0,
+                aux=None, context=None):
+        _check_mode(mode)
+        out, entry = attend_context(self.xattn, self.ln1(x), self.cfg, mode, cache, context)
+        x = x + out
+        x = x + self.mlp(self.ln2(x))
         return x if mode == "train" else (x, entry)
 
 
@@ -86,6 +150,7 @@ class MoEBlock(DenseBlock):
         nn.Module.__init__(self)
         self.cfg = cfg
         self.window = 0
+        self.causal = True
         self.ln1 = Norm(cfg, device=device)
         self.attn = Attention(cfg, device=device)
         self.ln2 = Norm(cfg, device=device)
@@ -112,7 +177,7 @@ class RecBlock(nn.Module):
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions=None, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None):
+                aux=None, context=None):
         """Train mode returns x; prefill and decode return (x, state)."""
         _check_mode(mode)
         h = self.ln1(x)
@@ -136,7 +201,7 @@ class Mamba2Block(nn.Module):
         self.mixer = Mamba(cfg, device=device)
 
     def forward(self, x, positions=None, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None):
+                aux=None, context=None):
         """Train mode returns x; prefill and decode return (x, state)."""
         _check_mode(mode)
         h = self.ln1(x)
@@ -159,7 +224,10 @@ def make_block(cfg, btype, *, device=None):
         return RecBlock(cfg, device=device)
     if btype == "mamba2":
         return Mamba2Block(cfg, device=device)
-    if btype in _LATER:
-        raise NotImplementedError(
-            f"block type {btype!r} is not ported yet; it comes with {_LATER[btype]}")
+    if btype == "enc":
+        return DenseBlock(cfg, causal=False, device=device)
+    if btype == "xattn":
+        return XAttnBlock(cfg, device=device)
+    if btype == "decx":
+        return DecXBlock(cfg, device=device)
     raise ValueError(f"unknown block type {btype}")

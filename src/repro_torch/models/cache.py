@@ -1,7 +1,10 @@
 """Serving caches of the port (``src/repro/models/cache.py``): full and
 ring-buffer KV caches (a ``"lattn"`` layer's ring holds ``cfg.window``
-slots; a ``"moe"`` layer's is a dense layer's), the Mamba-2 state and the
-RG-LRU state.
+slots; a ``"moe"`` layer's is a dense layer's), the Mamba-2 state, the
+RG-LRU state, and the context's K/V of the cross-attention layers (an
+``"xattn"`` layer's ``ck``, ``cv`` over the ``n_aux_tokens`` image
+patches; a ``"decx"`` layer's dense entry plus ``ck``, ``cv`` over the
+encoder's ``n_frames``).
 
 Slot semantics are the reference's: an entry with absolute position p lives
 at slot ``p % cache_len``; ``pos`` maps slot -> absolute position (-1 =
@@ -75,12 +78,12 @@ def entry_shape(cfg, btype, batch, attn_len):
     if btype == "rec":
         return {"conv": ((batch, 3, cfg.d_model), cdt),
                 "h": ((batch, cfg.d_model), torch.float32)}
-    if btype not in ("dense", "lattn", "moe"):
-        from repro_torch.models.blocks import _LATER   # blocks imports this module
-        raise NotImplementedError(
-            f"the cache of block type {btype!r} is not ported yet; it comes with "
-            f"{_LATER.get(btype, 'the model-zoo slice')}")
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    if btype == "xattn":
+        return {"ck": ((batch, cfg.n_aux_tokens, hkv, dh), cdt),
+                "cv": ((batch, cfg.n_aux_tokens, hkv, dh), cdt)}
+    if btype not in ("dense", "lattn", "moe", "enc", "decx"):
+        raise ValueError(f"unknown block type {btype}")
     lc = cfg.window if btype == "lattn" else attn_len
     kv_dt = torch.int8 if cfg.kv_quant_bits else cdt
     e = {"k": ((batch, lc, hkv, dh), kv_dt),
@@ -89,6 +92,10 @@ def entry_shape(cfg, btype, batch, attn_len):
     if cfg.kv_quant_bits:
         e["k_scale"] = ((batch, lc, hkv), torch.float32)
         e["v_scale"] = ((batch, lc, hkv), torch.float32)
+    if btype == "decx":
+        nf = cfg.encoder.n_frames
+        e["ck"] = ((batch, nf, hkv, dh), cdt)
+        e["cv"] = ((batch, nf, hkv, dh), cdt)
     return e
 
 
@@ -97,7 +104,8 @@ def entry_payload_bits(cfg, btype, batch, ctx_len):
     context: ``entry_shape``'s leaves with the sequence axis at the filled
     length (min(ctx_len, window) for a ``"lattn"`` layer: its ring never
     holds more), honoring ``kv_quant_bits`` (int8 codes + f32 per-(slot,
-    head) scales). Mamba-2 and RG-LRU layers carry O(1) state. ``core.split.
+    head) scales). Mamba-2 and RG-LRU layers carry O(1) state, a
+    cross-attention layer its whole context's K/V. ``core.split.
     llm_decode_split_table`` sums this over the UE-side layers."""
     ctx_len = int(ctx_len)
     if ctx_len < 1:

@@ -5,7 +5,15 @@ reference scans over layer-stacked parameters; the port keeps one module
 per layer, so a split forward can run layers ``lo..hi`` on their own
 (``Model.run_layers``), and its cache is a list of per-layer entries.
 ``loss_fn`` is the reference's training loss, the MoE layers' load-balance
-loss included."""
+loss included.
+
+An encoder-decoder arch (``family == "encdec"``) has an encoder stack of
+``"enc"`` layers with its own final norm, run over ``aux_embeds`` (the
+stubbed frontend's frame embeddings) in train mode, roped at positions
+0..n_frames-1; its output is the context the ``"decx"`` layers attend to.
+A VLM (``family == "vlm"``) attends to ``aux_embeds`` (the stubbed image
+patches) itself. Both read the context in train and prefill mode only: at
+decode the cross-attention layers read its K/V from the cache."""
 from __future__ import annotations
 
 import numpy as np
@@ -37,24 +45,59 @@ class Model(nn.Module):
         self.ln_f = Norm(cfg, device=device)
         self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, dtype=dt, device=device)))
+        self.encoder = Encoder(cfg, device=device) if cfg.family == "encdec" else None
 
     def embed_tokens(self, tokens):
         """Token embeddings, in the parameters' dtype (no cast)."""
         return self.embed[tokens]
 
-    def run_layers(self, x, lo, hi, positions, aux=None):
+    def run_layers(self, x, lo, hi, positions, aux=None, context=None):
         """Train-mode layers ``lo..hi``; each MoE layer appends its aux
-        loss to the list ``aux`` when one is given."""
+        loss to the list ``aux`` when one is given; the cross-attention
+        layers attend to ``context``."""
         for blk in self.blocks[lo:hi]:
-            x = blk(x, positions, aux=aux)
+            x = blk(x, positions, aux=aux, context=context)
         return x
+
+    def context(self, aux_embeds, dtype):
+        """What the cross-attention layers attend to: for an encoder-decoder
+        arch the encoder's output over ``aux_embeds``, for a VLM
+        ``aux_embeds`` itself, in ``dtype``; None for the other families,
+        which ignore ``aux_embeds``."""
+        cfg = self.cfg
+        if cfg.family not in ("encdec", "vlm"):
+            return None
+        if aux_embeds is None:
+            raise ValueError(f"{cfg.name} ({cfg.family}) needs aux_embeds, the (B, "
+                             f"{cfg.n_aux_tokens}, {cfg.d_model}) embeddings of its stubbed "
+                             f"{'audio frontend' if cfg.family == 'encdec' else 'vision encoder'}")
+        ctx = aux_embeds.to(dtype)
+        return self.encoder(ctx) if self.encoder is not None else ctx
 
     def logits(self, x):
         """The head: the tied embedding or ``lm_head``."""
         return x @ (self.embed.T if self.lm_head is None else self.lm_head)
 
-    def forward(self, tokens, positions=None):
-        return apply_model(self, tokens, positions=positions)
+    def forward(self, tokens, positions=None, aux_embeds=None):
+        return apply_model(self, tokens, positions=positions, aux_embeds=aux_embeds)
+
+
+class Encoder(nn.Module):
+    """The encoder stack of an encoder-decoder arch: ``cfg.encoder.n_layers``
+    bidirectional ``"enc"`` layers and their own final norm, in train mode
+    over frames (B, F, d) at positions 0..F-1."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(make_block(cfg, "enc", device=device)
+                                    for _ in range(cfg.encoder.n_layers))
+        self.ln_f = Norm(cfg, device=device)
+
+    def forward(self, x):
+        positions = default_positions(x.shape[0], x.shape[1], x.device)
+        for blk in self.blocks:
+            x = blk(x, positions)
+        return self.ln_f(x)
 
 
 def default_positions(b, s, device):
@@ -62,10 +105,13 @@ def default_positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None):
+def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None,
+               aux_embeds=None):
     """Embedding and every block; returns (x before the final norm, the new
     cache: one entry per layer, or None in train mode). The MoE layers
-    append their aux losses to the list ``aux`` when one is given."""
+    append their aux losses to the list ``aux`` when one is given; the
+    cross-attention layers attend to ``model.context(aux_embeds)`` in train
+    and prefill mode."""
     cfg = model.cfg
     b, s = tokens.shape
     if mode == "decode" and (cache is None or idx is None):
@@ -76,41 +122,43 @@ def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None
         else:
             positions = default_positions(b, s, tokens.device)
     x = model.embed_tokens(tokens).to(dtype_of(cfg.compute_dtype))
+    context = None if mode == "decode" else model.context(aux_embeds, x.dtype)
     if mode == "train":
-        return model.run_layers(x, 0, cfg.n_layers, positions, aux=aux), None
+        return model.run_layers(x, 0, cfg.n_layers, positions, aux=aux, context=context), None
     new_cache = []
     for i, blk in enumerate(model.blocks):
         x, entry = blk(x, positions, mode=mode, cache=None if cache is None else cache[i],
-                       idx=idx, attn_len=attn_len, aux=aux)
+                       idx=idx, attn_len=attn_len, aux=aux, context=context)
         new_cache.append(entry)
     return x, new_cache
 
 
-def apply_model(model, tokens, *, positions=None, mode="train", cache=None, idx=None,
-                attn_len=0):
-    """tokens: (B, S) int. mode "train" returns logits (B, S, vocab);
+def apply_model(model, tokens, *, positions=None, aux_embeds=None, mode="train", cache=None,
+                idx=None, attn_len=0):
+    """tokens: (B, S) int; aux_embeds: (B, n_aux, d_model), the stubbed
+    frontend's output, which an encoder-decoder or VLM arch needs in train
+    and prefill mode. mode "train" returns logits (B, S, vocab);
     "prefill" (cache entries of ``attn_len`` slots) and "decode" (``cache``,
     ``idx`` the int position of the token) return (logits, new cache), the
     cache a list with one entry per layer. Default positions are 0..S-1, or
     ``idx`` in decode, as the reference's."""
     x, new_cache = _run_stack(model, tokens, positions=positions, mode=mode, cache=cache,
-                              idx=idx, attn_len=attn_len)
+                              idx=idx, attn_len=attn_len, aux_embeds=aux_embeds)
     logits = model.logits(model.ln_f(x))
     return logits if mode == "train" else (logits, new_cache)
 
 
 def loss_fn(model, batch):
-    """batch: {"tokens": (B, S), "labels": (B, S) (-100 = ignore)}. Returns
+    """batch: {"tokens": (B, S), "labels": (B, S) (-100 = ignore), and
+    "aux_embeds" (B, n_aux, d_model) for an encoder-decoder or VLM arch}. Returns
     (loss, metrics) as the reference's ``loss_fn``: the masked mean cross
     entropy of the train-mode logits (in float32) plus ``aux``, the sum of
     the MoE layers' load-balance losses (0 for a stack without MoE);
     metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the card the
     mamba2 mixers run the ``ssd_intra`` forward and backward kernels."""
-    if batch.get("aux_embeds") is not None:
-        raise NotImplementedError("aux_embeds (encoder / VLM stacks) come with the model zoo")
     auxes = []
     x, _ = _run_stack(model, batch["tokens"], positions=None, mode="train", cache=None,
-                      idx=None, attn_len=0, aux=auxes)
+                      idx=None, attn_len=0, aux=auxes, aux_embeds=batch.get("aux_embeds"))
     logits = model.logits(model.ln_f(x)).to(torch.float32)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
@@ -123,14 +171,15 @@ def loss_fn(model, batch):
     return loss, {"ce": ce, "aux": aux, "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
 
-def prefill(model, tokens, *, attn_len):
-    """Full forward building the decode cache. Returns (last_logits (B,
-    vocab), cache). The head runs at the last position only: the norm and
-    the head are per position, so the logits are the reference's
+def prefill(model, tokens, *, attn_len, aux_embeds=None):
+    """Full forward building the decode cache (an encoder-decoder or VLM
+    arch reads ``aux_embeds``). Returns (last_logits (B, vocab), cache).
+    The head runs at the last position only: the norm and the head are per
+    position, so the logits are the reference's
     ``logits[:, -1]`` (up to the product's rounding) and the (B, S, vocab)
     logits, 2.49 GB at (4, 2048) in bf16, are never formed."""
     x, cache = _run_stack(model, tokens, positions=None, mode="prefill", cache=None,
-                          idx=None, attn_len=attn_len)
+                          idx=None, attn_len=attn_len, aux_embeds=aux_embeds)
     return model.logits(model.ln_f(x[:, -1])), cache
 
 
@@ -152,7 +201,7 @@ def init_params(cfg, generator, device):
     (the Mamba and RG-LRU conv kernels included: fan-in d_conv = 4; the
     MoE router in f32), normal(0, 0.02) embeddings, unit norm, qk-norm and
     Mamba ``D`` / ``norm_scale``, the RG-LRU's ``lam`` at 0.3, zero biases,
-    ``A_log`` and ``dt_bias``. An (E, d, f) expert leaf takes the
+    ``A_log``, ``dt_bias`` and cross-attention gates. An (E, d, f) expert leaf takes the
     reference's fan-in, its first axis E, and is drawn in slabs of experts
     of at most ``SLAB_ELEMENTS``, so no f32 copy of a whole leaf is made
     (kimi-k2's ``wi`` would take 22.5 GB)."""

@@ -8,7 +8,8 @@ position on a leading group axis (``params["decoder"]["blocks"][j][...]``
 has shape ``(n_groups, ...)``) and keeps the layers past the last whole
 group unstacked (``params["decoder"]["tail"]``); the port keeps one module
 per layer, in the same (d_in, d_out) layouts, so the stacks are only
-unstacked.
+unstacked. ``reference_leaves`` describes the reference's leaves once, in
+the port's terms; the tree carriers, the decay mask and Adafactor read it.
 
 ``cache_from_jax`` carries a serving cache the reference built (its
 ``prefill`` output, numpy leaves) into the port's per-layer list, so a
@@ -38,6 +39,7 @@ import torch
 from repro_torch.env.mecenv import EnvState
 from repro_torch.kernels.ref import code_dtype
 from repro_torch.models.model import Model, layer_plan
+from repro_torch.optim import Leaf
 from repro_torch.rl.nets import MLP, Actor, EntityActor, Linear, StackedLinear
 
 
@@ -50,31 +52,57 @@ def _tensor(a, dtype, device):
         device=device, dtype=dtype)
 
 
-def _block_tree(blk):
-    """One block's parameters as the reference's subtree: {sub: {leaf:
-    tensor}} from the port's ``sub.leaf`` names."""
-    tree = {}
-    for name, p in blk.named_parameters():
-        sub, leaf = name.split(".", 1)
-        tree.setdefault(sub, {})[leaf] = p
-    return tree
-
-
-def _layer_leaves(tree, cfg):
-    """For layer i of ``cfg``, the reference tree's subtree of its block
-    and how to take the layer from a leaf: the pattern position's stack
-    (``"blocks"``, one group a row) or the unstacked tail layer
-    (``"tail"``)."""
-    pattern, n_groups, _ = layer_plan(cfg)
-    n = len(pattern)
-    dec = tree["decoder"]
+def _stack_leaves(prefix, blocks, pattern_len, n_groups, ln_f, pos):
+    """The leaves of one layer stack (the decoder's or the encoder's): a
+    pattern position's parameters stacked over the groups, the tail layers'
+    and the final norm's unstacked."""
     out = []
-    for i in range(cfg.n_layers):
-        if i < n_groups * n:
-            out.append((dec["blocks"][i % n], lambda a, g=i // n: a[g]))
-        else:
-            out.append((dec["tail"][i - n_groups * n], lambda a: a))
+    whole = n_groups * pattern_len
+    for j in range(pattern_len if n_groups else 0):
+        group = [dict(b.named_parameters()) for b in blocks[j:whole:pattern_len]]
+        for name, p in group[0].items():
+            sub, leaf = name.split(".", 1)
+            out.append(Leaf(tuple(pos[id(g[name])] for g in group), True, p.dim() + 1,
+                            prefix + ("blocks", j, sub, leaf)))
+    for t, blk in enumerate(blocks[whole:]):
+        for name, p in blk.named_parameters():
+            sub, leaf = name.split(".", 1)
+            out.append(Leaf((pos[id(p)],), False, p.dim(), prefix + ("tail", t, sub, leaf)))
+    for name, p in ln_f.named_parameters():
+        out.append(Leaf((pos[id(p)],), False, p.dim(), prefix + ("ln_f", name)))
     return out
+
+
+def reference_leaves(model):
+    """Every leaf of the reference's params tree as an ``optim.Leaf``:
+    ``embed``, ``lm_head`` (untied), the decoder's stack (``decoder/blocks/
+    j/...`` stacked over the groups of pattern position j, ``decoder/tail/
+    t/...`` and ``decoder/ln_f``) and, for an encoder-decoder arch, the
+    encoder's (``encoder/blocks/0/...`` stacked over its layers and its own
+    ``encoder/ln_f``). ``to_reference_tree``, ``from_jax_params``,
+    ``reference_decay_mask`` and Adafactor read the reference's layout from
+    here."""
+    pos = {id(p): i for i, p in enumerate(model.parameters())}
+    leaves = [Leaf((pos[id(model.embed)],), False, 2, ("embed",))]
+    if model.lm_head is not None:
+        leaves.append(Leaf((pos[id(model.lm_head)],), False, 2, ("lm_head",)))
+    pattern, n_groups, _ = layer_plan(model.cfg)
+    leaves += _stack_leaves(("decoder",), model.blocks, len(pattern), n_groups, model.ln_f, pos)
+    if model.encoder is not None:
+        enc = model.encoder
+        leaves += _stack_leaves(("encoder",), enc.blocks, 1, len(enc.blocks), enc.ln_f, pos)
+    return leaves
+
+
+def _stack_skeleton(pattern_len, n_groups, n_tail):
+    return {"blocks": [{} for _ in range(pattern_len if n_groups else 0)],
+            "tail": [{} for _ in range(n_tail)], "ln_f": {}}
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 @torch.no_grad()
@@ -82,64 +110,55 @@ def to_reference_tree(model):
     """The port's Model as the reference's params tree: {"embed", "decoder":
     {"blocks": one subtree a pattern position, each parameter stacked over
     the groups on a leading axis; "tail": one subtree a layer past the last
-    whole group; "ln_f"}, ("lm_head")}, as CPU tensors in their own dtypes
-    (``from_jax_params`` takes this tree back)."""
-    pattern, n_groups, _ = layer_plan(model.cfg)
-    n = len(pattern)
-    trees = [_block_tree(blk) for blk in model.blocks]
-    stack = lambda ts: {sub: {leaf: torch.stack([t[sub][leaf].detach().cpu() for t in ts])
-                              for leaf in ts[0][sub]} for sub in ts[0]}
-    blocks = [stack(trees[j:n_groups * n:n]) for j in range(n)] if n_groups else []
-    tail = [{sub: {leaf: p.detach().cpu() for leaf, p in leaves.items()}
-             for sub, leaves in t.items()} for t in trees[n_groups * n:]]
-    tree = {"embed": model.embed.detach().cpu(),
-            "decoder": {"blocks": blocks, "tail": tail,
-                        "ln_f": {name: p.detach().cpu()
-                                 for name, p in model.ln_f.named_parameters()}}}
-    if model.lm_head is not None:
-        tree["lm_head"] = model.lm_head.detach().cpu()
+    whole group; "ln_f"}, ("lm_head"), ("encoder": the same for the encoder
+    stack)}, as CPU tensors in their own dtypes (``from_jax_params`` takes
+    this tree back)."""
+    params = list(model.parameters())
+    pattern, n_groups, tail = layer_plan(model.cfg)
+    tree = {"decoder": _stack_skeleton(len(pattern), n_groups, len(tail))}
+    if model.encoder is not None:
+        tree["encoder"] = _stack_skeleton(1, len(model.encoder.blocks), 0)
+    for leaf in reference_leaves(model):
+        ts = [params[i].detach().cpu() for i in leaf.index]
+        node = tree
+        for key in leaf.path[:-1]:
+            node = node[key] if isinstance(key, int) else node.setdefault(key, {})
+        node[leaf.path[-1]] = torch.stack(ts) if leaf.stacked else ts[0]
     return tree
 
 
 def reference_decay_mask(model):
     """Which of ``model.parameters()`` the reference's AdamW decays: its
-    rule, rank >= 2, applied to the reference's leaves. The reference stacks
-    every block parameter on a group axis, so all of them are decayed (the
-    per-layer norm scales, ``A_log``, ``D``, ``dt_bias``, the RG-LRU's
-    ``lam`` and the biases among them, 1-D in the port), as are ``embed``
-    and ``lm_head``; the final norm's vectors are not. A pattern that
-    leaves a tail (recurrentgemma-9b's two ``"rec"`` layers past its 12
-    groups) keeps those layers unstacked; their mask comes with the slice
-    that trains the hybrid stack, and until then it raises."""
-    _, _, tail = layer_plan(model.cfg)
-    if tail:
-        raise NotImplementedError(
-            f"the decay mask of a pattern with a tail ({model.cfg.name}: tail {tail}) comes "
-            f"with the slice that trains the hybrid (recurrentgemma) stack")
-    return [(p.dim() + 1 if name.startswith("blocks.") else p.dim()) >= 2
-            for name, p in model.named_parameters()]
+    rule, rank >= 2, applied to the reference's leaves (``reference_leaves``).
+    The reference stacks every block parameter of a whole group on a group
+    axis, so those are all decayed (the per-layer norm scales, ``A_log``,
+    ``D``, ``dt_bias``, the RG-LRU's ``lam``, the biases and the
+    cross-attention gates among them, 1-D or 0-D in the port), as are
+    ``embed`` and ``lm_head``; the final norms' vectors are not, nor are a
+    tail layer's 1-D leaves (recurrentgemma-9b's two ``"rec"`` layers past
+    its 12 groups), which the reference keeps unstacked."""
+    mask = [False] * len(list(model.parameters()))
+    for leaf in reference_leaves(model):
+        for i in leaf.index:
+            mask[i] = leaf.rank >= 2
+    return mask
 
 
 @torch.no_grad()
 def from_jax_params(tree, cfg, device):
     """The port's Model holding the reference parameters ``tree`` (numpy
     arrays, or tensors as ``to_reference_tree`` gives them), for any block
-    pattern, with or without a tail. Each parameter keeps its own dtype
-    (the Mamba ``A_log``, ``D`` and ``dt_bias``, the RG-LRU's ``ba``,
-    ``bi`` and ``lam`` and the MoE router stay float32 in a bfloat16
-    model); stacked MoE leaves are (G, E, d, f) experts and the (G, d, E)
-    router."""
+    pattern, with or without a tail or an encoder. Each parameter keeps its
+    own dtype (the Mamba ``A_log``, ``D`` and ``dt_bias``, the RG-LRU's
+    ``ba``, ``bi`` and ``lam`` and the MoE router stay float32 in a
+    bfloat16 model); stacked MoE leaves are (G, E, d, f) experts and the
+    (G, d, E) router."""
     model = Model(cfg, device=device)
-    load = lambda param, a: param.copy_(_tensor(a, param.dtype, device))
-    load(model.embed, tree["embed"])
-    if model.lm_head is not None:
-        load(model.lm_head, tree["lm_head"])
-    for blk, (sub_tree, take) in zip(model.blocks, _layer_leaves(tree, cfg)):
-        for name, param in blk.named_parameters():
-            sub, leaf = name.split(".", 1)
-            load(param, take(sub_tree[sub][leaf]))
-    for name, arr in tree["decoder"]["ln_f"].items():
-        load(getattr(model.ln_f, name), arr)
+    params = list(model.parameters())
+    for leaf in reference_leaves(model):
+        a = _at(tree, leaf.path)
+        for g, i in enumerate(leaf.index):
+            params[i].copy_(_tensor(a[g] if leaf.stacked else a, params[i].dtype, device))
     return model
 
 

@@ -107,11 +107,20 @@ def test_other_block_types_name_their_slice():
     assert cache.entry_shape(cfg, "moe", 1, 8) == cache.entry_shape(cfg, "dense", 1, 8)
     moe_cache = cache.make_cache(cfg.replace(block_pattern=("moe",)), 1, 8)
     assert len(moe_cache) == cfg.n_layers and int(moe_cache[0]["pos"].max()) == -1
-    for btype in ("enc", "decx"):
-        with pytest.raises(NotImplementedError, match="encoder-decoder"):
-            cache.entry_shape(cfg, btype, 1, 8)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        cache.entry_shape(cfg, "xattn", 1, 8)
+    # the encoder-decoder and VLM blocks are ported: an enc layer's shape is
+    # a dense layer's (it keeps no cache), a decx layer's adds the encoder
+    # output's ck / cv over n_frames, an xattn layer's is ck / cv over the
+    # image tokens, each the reference's
+    for arch, btype in (("seamless-m4t-large-v2", "enc"), ("seamless-m4t-large-v2", "decx"),
+                        ("llama-3.2-vision-90b", "xattn")):
+        jc, tc = _cfg_pair(arch)
+        want = {k: (sh, getattr(torch, str(np.dtype(dt))))
+                for k, (sh, dt) in jcache.entry_shape(jc, btype, 1, 8).items()}
+        assert cache.entry_shape(tc, btype, 1, 8) == want
+    jc, tc = _cfg_pair("seamless-m4t-large-v2")
+    assert cache.entry_shape(tc, "decx", 1, 8)["ck"][0] == (1, tc.encoder.n_frames, 4, 64)
+    with pytest.raises(ValueError, match="unknown block type"):
+        cache.entry_shape(cfg, "conv", 1, 8)
 
 
 @pytest.mark.parametrize("arch,kw", [("qwen3-1.7b", GQA), ("mamba2-1.3b", {})])

@@ -17,6 +17,7 @@ from repro.configs.base import reduced as jreduced
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
+from repro.models import cache as jcache
 from repro.models import model as jmodel
 from repro_torch.configs import MoEConfig, get_config, reduced
 from repro_torch.kernels import _build, decode_attn, ops
@@ -444,8 +445,9 @@ def test_bf16_decode_stays_near_the_reference(arch):
 
 def test_decode_names_what_is_not_ported():
     """Decode needs its cache and position, takes the three modes, runs
-    the ported moe block, and names the slice of each block type still to
-    come (enc, decx, xattn) rather than running it."""
+    the ported moe block, and runs the enc, decx and xattn blocks of the
+    encoder-decoder and VLM stacks: their caches are the reference's and a
+    decode step reads the context's K/V from them."""
     _, cfg, _, model = _setup("qwen3-1.7b")
     toks = torch.zeros((1, 4), dtype=torch.long)
     with torch.inference_mode():
@@ -462,13 +464,22 @@ def test_decode_names_what_is_not_ported():
         logits, mc = decode_step(moe_model, mc, toks[:, :1], 4)
     assert logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
     assert int(mc[0]["pos"][0, 4]) == 4 and sorted(mc[0]) == ["k", "pos", "v"]
-    for btype, slice_ in (("enc", "encoder-decoder"), ("decx", "encoder-decoder"),
-                          ("xattn", "VLM")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            cache.entry_shape(cfg, btype, 1, 6)
-        with pytest.raises(NotImplementedError, match=slice_):
-            init_params(cfg.replace(block_pattern=(btype,)), torch.Generator().manual_seed(0),
-                        "cpu")
+    for arch, btype in (("seamless-m4t-large-v2", "decx"), ("llama-3.2-vision-90b", "xattn")):
+        xcfg = reduced(get_config(arch), n_layers=2)
+        jcfg = jreduced(jget_config(arch), n_layers=2)
+        want = {k: (sh, getattr(torch, str(np.dtype(dt))))
+                for k, (sh, dt) in jcache.entry_shape(jcfg, btype, 1, 6).items()}
+        assert cache.entry_shape(xcfg, btype, 1, 6) == want
+        xmodel = init_params(xcfg, torch.Generator().manual_seed(0), "cpu")
+        aux = torch.randn((1, xcfg.n_aux_tokens, xcfg.d_model),
+                          generator=torch.Generator().manual_seed(1))
+        with torch.inference_mode():
+            _, xc = prefill(xmodel, toks, attn_len=6, aux_embeds=aux)
+            logits, xc = decode_step(xmodel, xc, toks[:, :1], 4)
+        assert bool(torch.isfinite(logits).all())
+        layer = xcfg.block_types().index(btype)
+        assert sorted(xc[layer]) == sorted(want)
+        assert tuple(xc[layer]["ck"].shape) == want["ck"][0]
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-1.3b"])

@@ -31,6 +31,8 @@ def _env():
 def test_importing_the_port_loads_no_jax_and_no_repro():
     names = [m for _, m in _port_modules()]
     assert "repro_torch.launch.collab_serve" in names and len(names) >= 20
+    assert {"repro_torch.launch.train", "repro_torch.configs.seamless_m4t_large_v2",
+            "repro_torch.configs.llama_3_2_vision_90b"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}: importlib.import_module(m)\n"

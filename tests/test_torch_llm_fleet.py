@@ -42,8 +42,12 @@ def test_decode_layer_costs_match_reference(arch):
             for g, w in zip(got, want):
                 assert g.keys() == w.keys()
                 _close([g[k] for k in w], [w[k] for k in w])
-    with pytest.raises(NotImplementedError):
-        oh.decode_layer_costs(get_config(arch).replace(block_pattern=("xattn",)), 16)
+    # the VLM's image layers are costed too: an xattn layer reads its
+    # image context's K/V, whatever the context length
+    xcfg, jxcfg = (get_config(arch).replace(block_pattern=("xattn",), n_aux_tokens=64),
+                   jget_config(arch).replace(block_pattern=("xattn",), n_aux_tokens=64))
+    assert oh.decode_layer_costs(xcfg, 16) == joh.decode_layer_costs(jxcfg, 16)
+    assert oh.decode_layer_costs(xcfg, 16) == oh.decode_layer_costs(xcfg, 4096)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

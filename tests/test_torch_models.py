@@ -327,10 +327,18 @@ def test_init_params_shapes_and_scales_match_the_reference():
 
 def test_other_block_types_and_modes_name_their_slice():
     _, cfg = _cfgs("reduced")
-    for btype, slice_ in (("enc", "encoder-decoder slice"),
-                          ("decx", "encoder-decoder slice"), ("xattn", "VLM slice")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            make_block(cfg, btype)
+    # the encoder-decoder and VLM blocks are ported: an enc block is a
+    # bidirectional dense block, decx adds lnx and an ungated xattn, xattn
+    # a gated cross-attention in place of the self-attention
+    enc, decx, xattn = (make_block(cfg, bt) for bt in ("enc", "decx", "xattn"))
+    assert not enc.causal and decx.causal and decx.xattn.gate is None
+    assert xattn.xattn.gate is not None and xattn.xattn.gate.dim() == 0
+    assert {n.split(".")[0] for n, _ in decx.named_parameters()} == {
+        "ln1", "attn", "lnx", "xattn", "ln2", "mlp"}
+    assert {n.split(".")[0] for n, _ in xattn.named_parameters()} == {"ln1", "xattn", "ln2",
+                                                                       "mlp"}
+    with pytest.raises(ValueError, match="unknown block type"):
+        make_block(cfg, "conv")
     # the moe block is ported: it builds, and its train mode runs and
     # appends its load-balance loss
     moe_cfg = cfg.replace(moe=MoEConfig(n_experts=4, top_k=2, d_expert=32))

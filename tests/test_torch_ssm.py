@@ -187,8 +187,14 @@ def test_configs_match_the_reference_field_for_field():
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jssm.dims(jc) == ssm.dims(tc) and jc.block_types() == tc.block_types()
     assert ssm.dims(get_config("mamba2-1.3b")) == (4096, 64, 64, 128, 4)
-    with pytest.raises(NotImplementedError, match="encoder"):
-        reduced(get_config("qwen3-1.7b").replace(encoder=object()))
+    # reduced takes an encoder config too: 2 layers over 16 frames, as the
+    # reference's
+    enc = get_config("seamless-m4t-large-v2").encoder
+    jenc = jget_config("seamless-m4t-large-v2").encoder
+    tc = reduced(get_config("mamba2-1.3b").replace(encoder=enc), n_layers=2)
+    jc = jreduced(jget_config("mamba2-1.3b").replace(encoder=jenc), n_layers=2)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    assert (tc.encoder.n_layers, tc.encoder.n_frames) == (2, 16)
 
 
 def test_from_jax_params_carries_every_mamba_parameter():

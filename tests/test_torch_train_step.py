@@ -28,7 +28,8 @@ from repro.models import init_params as jinit_params
 from repro.optim import schedule as jschedule
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch.steps import make_train_step
-from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, make_optimizer
+from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init, adamw_update,
+                               cosine_schedule, make_optimizer)
 from repro_torch.weights import from_jax_params, reference_decay_mask
 
 torch.set_num_threads(1)   # tiny CPU ops: more threads only contend with the other test workers
@@ -204,7 +205,8 @@ def test_adamw_over_bf16_leaves_is_the_reference_formula():
 
 def test_make_optimizer_names_what_it_lacks():
     assert make_optimizer("adamw") == (adamw_init, adamw_update)
-    with pytest.raises(NotImplementedError, match="model-zoo"):
-        make_optimizer("adafactor")
+    # Adafactor is ported (tests/test_torch_adafactor.py holds it to the
+    # reference); an unknown name is refused
+    assert make_optimizer("adafactor") == (adafactor_init, adafactor_update)
     with pytest.raises(ValueError):
         make_optimizer("sgd")

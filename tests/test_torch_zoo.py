@@ -45,7 +45,8 @@ N_LAYERS = {"recurrentgemma-9b": 5}   # one (rec, rec, lattn) group and a (rec, 
 
 def test_the_registry_holds_the_zoo():
     assert set(ZOO) <= set(ALL_ARCHS) and "qwen2-7b-kv8" not in ARCH_IDS
-    assert set(ARCH_IDS) == ({"qwen3-1.7b", "mamba2-1.3b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"}
+    assert set(ARCH_IDS) == ({"qwen3-1.7b", "mamba2-1.3b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+                              "seamless-m4t-large-v2", "llama-3.2-vision-90b"}
                              | set(ZOO) - {"qwen2-7b-kv8"})
 
 
@@ -268,9 +269,18 @@ def test_weights_carry_over_both_ways(arch):
 
 
 def test_the_decay_mask_names_the_slice_for_a_tail():
-    _, cfg, _, model = _setup("recurrentgemma-9b")
-    with pytest.raises(NotImplementedError, match="recurrentgemma"):
-        reference_decay_mask(model)
+    _, cfg, params, model = _setup("recurrentgemma-9b")
+    # the tail's layers are unstacked in the reference: their 1-D leaves
+    # (norm scales, biases, lam) are not decayed, their matrices are
+    names = [n for n, _ in model.named_parameters()]
+    mask = dict(zip(names, reference_decay_mask(model)))
+    tail = params["decoder"]["tail"]
+    assert len(tail) == 2 and cfg.n_layers == 5
+    for t, layer in enumerate(tail):
+        for sub, leaves in layer.items():
+            for leaf, a in leaves.items():
+                assert mask[f"blocks.{3 + t}.{sub}.{leaf}"] == (np.ndim(a) >= 2), (t, sub, leaf)
+    assert mask["blocks.0.ln1.scale"] and not mask["blocks.3.ln1.scale"]
     # whole groups only: every block parameter is stacked, so decayed
     whole = init_params(cfg.replace(n_layers=6), torch.Generator().manual_seed(0), "cpu")
     mask = reference_decay_mask(whole)
