@@ -224,6 +224,39 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    of one image's feature at point 2, within 5 % of the entropy estimate;
    then the same sweep at bench_compression.py's size (width 0.5, 32 px);
    no kernel launched, seconds and peak memory printed;
+15g. the dry-run without running (``repro_torch.launch.dryrun.run_one``,
+   all on meta): each arch of ARCH_IDS at one input shape
+   (``DRYRUN_SHAPES``, every input shape among them: the 80
+   combinations take minutes of host time) on both production meshes,
+   one line a combination with the params' and the optimizer state's or
+   cache's bytes a device, each and together against the card's 80 GB,
+   and the step's flops, dot_flops and bytes_accessed: every figure
+   positive and finite, collectives and memory analysis null; the
+   phase's seconds;
+15h. the byte rules against the card: at a 1 x 1 mesh every spec is
+   unsharded, so the rules' bytes of qwen3-1.7b's parameters (built on
+   the card by ``init_params``, as the serving entries build them) and of
+   its ``make_cache(cfg, 4, 2080)`` cache (the KV-cache serve's) must
+   equal the bytes of their storages on the card, to the byte;
+15i. counting on the card against counting on meta:
+   ``measured_cnn_module_costs`` of ResNet18 (101 classes) at 224 px,
+   identical flops, dot_flops and bytes_accessed for every module on
+   meta and on the card (real tensors, TF32 off); the measured table's
+   t_local, f_bits and feasibility printed;
+15j. batched evaluation, a main path: the dispatch fleet (1024 UEs, 3
+   servers, 64 frames), its entity agent through the fused scorer and its
+   int8 trunk, each evaluated by ``mahppo.evaluate_policy`` with 8 eval
+   episodes a frame: exactly 64 pair_scorer (one a frame for all envs),
+   64 flat_trunk and 3 quantize launches after a 2-frame warm-up, every
+   summary finite and equal to a single-env run's within 1e-5 relative
+   (an eval episode draws nothing, so the 8 are the one episode), ms a
+   frame of both; pair_scorer on the inputs batched evaluation's first
+   frame gives it at (8, 1024, 3) with every env's queues and distances
+   drawn apart, against its plain twin within 1e-5 + 1e-5|plain| and
+   timed beside its bound; then phase 8's small run with 4 envs, each
+   env's queues and distances drawn on the host (the same on both
+   devices, different in each env), card against CPU within 1e-5
+   relative;
 16. the card's name and power limit again, the kernels as one JSON line,
    then the result as the last line.
 """
@@ -241,7 +274,7 @@ from pathlib import Path
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+HBM_BYTES_PER_S = None      # H100 SXM HBM3: the port's mesh.HBM_BW, read in main
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
 FP64_TC_FLOP_PER_S = 67e12  # H100 SXM FP64 on the tensor cores, dense
@@ -274,6 +307,8 @@ ZOO_SPLIT = ("stablelm-1.6b", "phi4-mini-3.8b", "qwen2-7b")
 SERVE.update({name: dict(requests=1, batch=4, seq=256) for name in ZOO_SPLIT})
 CALIB_BATCH = 8      # collab_serve.serve calibrates the AE on 8 sequences
 DISPATCH = dict(n_ue=1024, n_servers=3, frames=64, seed=0, bits=8)
+BATCHED_ENVS = 8             # batched evaluation: 8 eval episodes a frame, one forward
+SMALL_BATCHED_ENVS = 4       # the small card-against-CPU batched check
 DECODE_SERVE = {"qwen3-1.7b": dict(requests=2, batch=4, prompt_len=2048, gen=32),
                 "mamba2-1.3b": dict(requests=2, batch=2, prompt_len=1024, gen=32)}
 # the model zoo through the KV-cache path at full width: one request of a
@@ -308,6 +343,19 @@ ENCDEC_TRAIN_LAYERS = {"llama-3.2-vision-90b": 5}
 ENCDEC_TRAIN_BATCH = (2, 512)
 # the --arch training launcher on the card: every arch of ARCH_IDS reduced
 LAUNCHER = dict(steps=3, batch=2, seq=64)
+# the dry-run on meta, one input shape an arch on both production meshes,
+# each of the four shapes taken and the cheapest counts chosen: all 80
+# combinations take minutes of host time, most of it the prefill_32k
+# counts of the attention archs (python -m repro_torch.launch.dryrun --all
+# --both-meshes; PERF.md); kimi-k2-1t-a32b's decode_32k holds the most
+# bytes a device of all 80
+DRYRUN_SHAPES = {"seamless-m4t-large-v2": "train_4k", "qwen2-7b": "decode_32k",
+                 "kimi-k2-1t-a32b": "decode_32k", "qwen3-1.7b": "long_500k",
+                 "phi4-mini-3.8b": "long_500k", "recurrentgemma-9b": "decode_32k",
+                 "stablelm-1.6b": "decode_32k", "qwen3-moe-30b-a3b": "long_500k",
+                 "mamba2-1.3b": "prefill_32k", "llama-3.2-vision-90b": "decode_32k"}
+CARD_BYTES = 80 * 2 ** 30   # the card's 80 GB, 85 899 345 920 bytes
+CNN_COUNT = dict(classes=101, img=224)   # resnet18 counted on meta and on the card
 # decode_attention at each zoo arch's serving shape (b, S, Hkv, G, D, cache,
 # window), as DECODE_SERVE serves it (main checks them against the configs):
 # stablelm-1.6b's MHA at D 64, phi4-mini-3.8b's G 3, qwen2-7b's G 7 over a
@@ -1566,16 +1614,17 @@ def phase_dispatch_kernels(dev, kps, kft, kq):
     return err
 
 
-def scorer_work(n, e, d_ue=128, s_dim=32, hid=48):
-    """(bytes, flops) the least any pair scorer needs: each input read once
-    (the UE rows, three per-UE vectors, geometry, constants and weights),
-    the logits and embeddings written once; the ue term of the first layer
-    once per UE, the server rows and their term once, and per pair the edge
-    block, the hidden layer and the logit."""
+def scorer_work(n, e, d_ue=128, s_dim=32, hid=48, b=1):
+    """(bytes, flops) the least any pair scorer needs for ``b`` envs: each
+    input read once (every env's UE rows, three per-UE vectors, geometry,
+    the constants and weights once), the logits and embeddings written
+    once; per env the ue term of the first layer once per UE, the server
+    rows and their term once, and per pair the edge block, the hidden layer
+    and the logit."""
     weights = 4 * s_dim + s_dim + (d_ue + s_dim + 3) * hid + 2 * hid + 1
-    n_bytes = 4 * (n * d_ue + 3 * n + 3 * e + 8 + weights + n * e + e * s_dim)
-    flops = (2 * n * d_ue * hid + e * (2 * 4 * s_dim + 2 * s_dim * hid)
-             + n * e * (2 * 3 * hid + 2 * hid))
+    n_bytes = 4 * (b * (n * d_ue + 3 * n + 3 * e + n * e + e * s_dim) + 8 + weights)
+    flops = b * (2 * n * d_ue * hid + e * (2 * 4 * s_dim + 2 * s_dim * hid)
+                 + n * e * (2 * 3 * hid + 2 * hid))
     return n_bytes, flops
 
 
@@ -1656,12 +1705,37 @@ def scale_last_layers(actor, trunk, factor):
             mlp.layers[-1].b.mul_(factor)
 
 
-def phase_small_dispatch(dev, ds, mahppo, quantize_flat_trunk):
+def draw_on_host(env, seed):
+    """Make ``env``'s resets draw (an eval reset draws nothing, so batched
+    eval episodes would all be one episode), each call's queues and
+    distances from a CPU generator seeded with ``seed`` and the call's
+    number: the same variates on the card and on the CPU, and every env
+    its own."""
+    p, calls = env.params, [0]
+
+    def tasks(gen, shape):
+        g = torch.Generator().manual_seed(seed + calls[0])
+        calls[0] += 1
+        k = torch.poisson(torch.full(shape, p.lam_tasks), generator=g)
+        d = p.d_low + torch.rand(shape, generator=g) * (p.d_high - p.d_low)
+        return k.to(env.device), d.to(env.device)
+
+    reset = env.reset
+    env._draw_tasks = tasks
+    env.reset = lambda gen=None, **kw: reset(gen, **dict(kw, eval_mode=False))
+
+
+def phase_small_dispatch(dev, ds, mahppo, quantize_flat_trunk, n_envs=1):
     """The scheduling path at N = 16, E = 3, 8 frames: card against CPU
-    from the same weights and states."""
+    from the same weights and states. With ``n_envs`` > 1 the eval episodes
+    are batched and each env starts from its own drawn queues and
+    distances (``draw_on_host``), so envs that were mixed up would
+    differ from the CPU's."""
     runs = {}
     for d in (dev, torch.device("cpu")):
         env = ds.dispatch_env(16, 3, d)
+        if n_envs > 1:
+            draw_on_host(env, seed=9)
         actor, trunk = ds.init_agents(env, seed=3)
         scale_last_layers(actor, trunk, 1000.0)
         agents = {"entity": ({"entity_actor": actor}, True),
@@ -1669,10 +1743,15 @@ def phase_small_dispatch(dev, ds, mahppo, quantize_flat_trunk):
         runs[d.type] = {}
         for name, (agent, fused) in agents.items():
             trace = []
-            st = mahppo.evaluate_policy(env, agent, frames=8, fused_scorer=fused, trace=trace)
+            st = mahppo.evaluate_policy(env, agent, frames=8, fused_scorer=fused, trace=trace,
+                                        n_envs=n_envs)
             runs[d.type][name] = (st, trace)
     for name in runs["cpu"]:
         (st_d, tr_d), (st_c, tr_c) = runs[dev.type][name], runs["cpu"][name]
+        if n_envs > 1:
+            rewards = torch.stack([fr["reward"] for fr in tr_c])       # (frames, n_envs)
+            check(all(not torch.equal(rewards[:, 0], rewards[:, i]) for i in range(1, n_envs)),
+                  f"small dispatch {name}: two batched envs ran the same episode")
         worst, margin = 0.0, float("inf")
         for fd, fc in zip(tr_d, tr_c):
             for head, a in fc["actions"].items():
@@ -1682,7 +1761,7 @@ def phase_small_dispatch(dev, ds, mahppo, quantize_flat_trunk):
                 else:
                     check(torch.equal(got, a), f"small dispatch {name}: {head} actions differ")
                     top = torch.topk(fc["dist"][head], 2, dim=-1).values
-                    margin = min(margin, float((top[:, 0] - top[:, 1]).min()))
+                    margin = min(margin, float((top[..., 0] - top[..., 1]).min()))
             for head, v in fc["dist"].items():
                 pairs = [(fd["dist"][head][k], v[k]) for k in ("mu", "log_std")] \
                     if isinstance(v, dict) else [(fd["dist"][head], v)]
@@ -1694,7 +1773,8 @@ def phase_small_dispatch(dev, ds, mahppo, quantize_flat_trunk):
         for k, v in st_c.items():
             check(abs(st_d[k] - v) <= 1e-5 * abs(v), f"small dispatch {name}: {k} "
                   f"{st_d[k]} on the card, {v} on the CPU")
-        print(f"small dispatch ({name}, N=16, E=3, 8 frames): card vs CPU actions equal "
+        print(f"small dispatch ({name}, N=16, E=3, 8 frames, {n_envs} env"
+              f"{'s, each its own drawn episode' if n_envs > 1 else ''}): card vs CPU actions equal "
               f"(least top-2 margin {margin:.3e}), logits max abs diff {worst:.3e} (bound "
               f"1e-5 + 1e-5|cpu|), summary within 1e-5 relative: completed "
               f"{st_d['completed']:.2f}/frame, t_task {st_d['t_task']:.6f} s", flush=True)
@@ -3231,6 +3311,222 @@ def update_moves(mahppo, optim, fns, agent, traj, last_v, idx, device, dtype):
     return [(p.detach() - b).double().cpu() for p, b in zip(params, before)]
 
 
+# ------------------------------------------- the dry-run and batched evaluation
+def phase_dryrun(dryrun, arch_ids, input_shapes):
+    """15g: ``dryrun.run_one`` for each arch at its ``DRYRUN_SHAPES`` shape
+    on both production meshes, on meta: one line a combination with the
+    per-device bytes against the card's 80 GB and the step's counts; the
+    phase's seconds."""
+    check(set(DRYRUN_SHAPES) == set(arch_ids), "DRYRUN_SHAPES must name every arch once")
+    check(set(DRYRUN_SHAPES.values()) == set(input_shapes),
+          "DRYRUN_SHAPES must take every input shape")
+    t0 = time.perf_counter()
+    n = 0
+    for arch in arch_ids:
+        shape = DRYRUN_SHAPES[arch]
+        for multi_pod in (False, True):
+            rec = dryrun.run_one(arch, shape, multi_pod=multi_pod)
+            held = "opt" if "opt_bytes_per_device" in rec else "cache"
+            figures = {"params": rec["param_bytes_per_device"],
+                       held: rec[f"{held}_bytes_per_device"]}
+            figures["together"] = sum(figures.values())
+            counts = [rec[k] for k in ("flops", "dot_flops", "bytes_accessed")]
+            check(all(v > 0 and math.isfinite(v) for v in list(figures.values()) + counts),
+                  f"dryrun {arch} {shape} {rec['mesh']}: {rec}")
+            check(rec["collectives"] is None and rec["memory_analysis"] is None,
+                  f"dryrun {arch} {shape}: collectives and memory analysis must be null")
+            fits = ", ".join(f"{k} {v} B {'fits' if v <= CARD_BYTES else 'does not fit'}"
+                             for k, v in figures.items())
+            print(f"dryrun: {arch} {shape} {rec['mesh']} ({rec['n_devices']} devices): {fits} "
+                  f"in 80 GB ({CARD_BYTES} B) a device; flops {rec['flops']:.6e}, dot_flops "
+                  f"{rec['dot_flops']:.6e}, bytes_accessed {rec['bytes_accessed']:.6e}, "
+                  f"counted in {rec['count_s']} s", flush=True)
+            n += 1
+    print(f"dryrun: {n} combinations ({len(arch_ids)} archs, one shape each, both meshes) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def storage_bytes(tensors):
+    """Bytes the card holds for ``tensors``: each distinct storage once."""
+    seen = {}
+    for t in tensors:
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def phase_bytes_on_card(dev, cfg, init_params, sharding, mesh_lib, cache_lib):
+    """15h: at a 1 x 1 mesh every spec is unsharded, so each rule's bytes
+    must equal what the card holds, to the byte: ``cfg``'s parameters as
+    the serving entry builds them (``init_params`` on the card) and the
+    ``make_cache(cfg, 4, 2080)`` cache its KV-cache serve allocates."""
+    mesh = mesh_lib.Mesh(("data", "model"), (1, 1))
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    held = storage_bytes(model.parameters())
+    params = sharding.reference_params(model)
+    rule = sharding.bytes_per_device(params, sharding.params_pspecs(mesh, params, cfg), mesh)
+    check(rule == held, f"bytes on the card: {cfg.name}'s params hold {held} B, the rules "
+          f"at 1 x 1 give {rule}")
+    run = DECODE_SERVE[cfg.name]
+    b, s = run["batch"], run["prompt_len"] + run["gen"]
+    cache = cache_lib.make_cache(cfg, b, s, device=dev)
+    torch.cuda.synchronize()
+    held_c = storage_bytes(t for entry in cache for t in entry.values())
+    tree = sharding.reference_cache(cfg, cache)
+    rule_c = sharding.bytes_per_device(tree, sharding.cache_pspecs(mesh, tree, cfg), mesh)
+    check(rule_c == held_c, f"bytes on the card: {cfg.name}'s ({b}, {s}) cache holds "
+          f"{held_c} B, the rules at 1 x 1 give {rule_c}")
+    print(f"bytes on the card: {cfg.name} at a 1 x 1 mesh: params {rule} B by the rules, "
+          f"{held} B held on the card; the ({b}, {s}) cache {rule_c} B by the rules, {held_c} B "
+          f"held (equal, to the byte)", flush=True)
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def phase_count_on_card(dev, cnn_lib, split_lib):
+    """15i: ``measured_cnn_module_costs`` of ResNet18 (101 classes) at 224
+    px on meta and on the card (real tensors, TF32 off): identical flops,
+    dot_flops and bytes_accessed for every module; then the measured
+    table's t_local, f_bits and feasibility."""
+    model = cnn_lib.make_resnet18(CNN_COUNT["classes"])
+    t0 = time.perf_counter()
+    meta = split_lib.measured_cnn_module_costs(model, CNN_COUNT["img"])
+    t_meta = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = split_lib.measured_cnn_module_costs(model, CNN_COUNT["img"], device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    for i, (m, c) in enumerate(zip(meta, card)):
+        check(m == c, f"count on the card: resnet18 module {i}: meta {m}, card {c}")
+        print(f"count on the card: resnet18 module {i}: flops {c['flops']:.0f}, dot_flops "
+              f"{c['dot_flops']:.0f}, bytes_accessed {c['bytes_accessed']:.0f} on the card and "
+              f"on meta", flush=True)
+    check(len(meta) == len(card) == model.n_modules, "count on the card: a module is missing")
+    plan = split_lib.measured_cnn_split_table(model, CNN_COUNT["img"], module_costs=card)
+    print(f"count on the card: counted in {t_meta:.1f} s on meta and {t_card:.1f} s on the "
+          f"card; measured table t_local {plan.t_local.tolist()}, f_bits "
+          f"{plan.f_bits.tolist()}, feasible {plan.feasible.tolist()}", flush=True)
+
+
+def timed_eval(evaluate, frames):
+    """``(summary, ms a frame)`` of one ``evaluate()``, the work ended by a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = evaluate()
+    torch.cuda.synchronize()
+    return st, 1e3 * (time.perf_counter() - t0) / frames
+
+
+def phase_batched_dispatch(dev, ds, mahppo, quantize_flat_trunk, build_mod):
+    """15j: batched evaluation, a main path: the dispatch fleet's entity
+    agent (through the fused scorer) and int8 trunk, each evaluated by
+    ``mahppo.evaluate_policy`` with ``BATCHED_ENVS`` eval episodes a frame;
+    exactly one pair_scorer and one flat_trunk launch a frame (64 each)
+    and the trunk's 3 quantize, counted from the trunk's quantization on.
+    An eval episode draws nothing, so every env runs the single-env
+    episode: the summary must equal a single-env run's within 1e-5
+    relative. ms a frame of both (the batched run after a 2-frame warm-up,
+    its shapes' first calls)."""
+    n, e, frames, seed, bits = (DISPATCH[k] for k in ("n_ue", "n_servers", "frames", "seed",
+                                                      "bits"))
+    env = ds.dispatch_env(n, e, dev)
+    actor, trunk = ds.init_agents(env, seed)
+
+    def agents():
+        return {"entity": ({"entity_actor": actor}, True),
+                f"int{bits} trunk": ({"flat_trunk": quantize_flat_trunk(trunk, bits)}, False)}
+
+    single = {}
+    for name, (agent, fused) in agents().items():
+        mahppo.evaluate_policy(env, agent, frames=2, seed=seed, fused_scorer=fused,
+                               n_envs=BATCHED_ENVS)
+        single[name] = timed_eval(lambda: mahppo.evaluate_policy(
+            env, agent, frames=frames, seed=seed, fused_scorer=fused), frames)
+    torch.cuda.synchronize()
+    build_mod.reset_launches()
+    t0 = time.perf_counter()
+    batched = {name: timed_eval(lambda: mahppo.evaluate_policy(
+        env, agent, frames=frames, seed=seed, fused_scorer=fused, n_envs=BATCHED_ENVS), frames)
+        for name, (agent, fused) in agents().items()}
+    torch.cuda.synchronize()
+    launches = dict(build_mod.LAUNCHES)
+    wall = time.perf_counter() - t0
+    want = {name: 0 for name in ROUTES}
+    want.update(pair_scorer=frames, flat_trunk=frames, quantize=len(TRUNK_DIMS) - 1)
+    for name in ROUTES:
+        check(launches.get(name, 0) == want[name], f"batched dispatch: {name} launched "
+              f"{launches.get(name, 0)} times, expected {want[name]}")
+    for name, (st, ms) in batched.items():
+        one, ms_one = single[name]
+        check(all(math.isfinite(v) for v in st.values()), f"batched dispatch {name}: {st}")
+        check(st["n_active"] == n and st["done"] == 0.0,
+              f"batched dispatch {name}: {st['n_active']} active, done {st['done']}")
+        check(st["t_task"] > 0 and st["e_task"] > 0, f"batched dispatch {name}: {st}")
+        for k, v in one.items():
+            check(abs(st[k] - v) <= 1e-5 * abs(v), f"batched dispatch {name}: {k} {st[k]} at "
+                  f"{BATCHED_ENVS} envs, {v} at one env")
+        print(f"batched dispatch ({name}, {BATCHED_ENVS} envs): {ms:.3f} ms a frame (one env "
+              f"{ms_one:.3f} ms in the same run), summary within 1e-5 relative of one env's: "
+              f"{st}", flush=True)
+    print(f"batched dispatch: {n} UEs x {BATCHED_ENVS} envs x {frames} frames, both agents, "
+          f"in {wall:.1f} s, launches {launches} as expected", flush=True)
+    return launches
+
+
+def batched_scorer_args(dev, ds, mahppo, kps):
+    """The inputs that batched evaluation's first frame gives pair_scorer
+    at (8, 1024, 3) with every env's queues and distances drawn
+    (``draw_on_host``), so that each env's inputs and logits differ."""
+    env = ds.dispatch_env(DISPATCH["n_ue"], DISPATCH["n_servers"], dev)
+    draw_on_host(env, seed=10)
+    actor, _ = ds.init_agents(env, DISPATCH["seed"])
+    seen, real = [], kps.pair_scorer
+    kps.pair_scorer = lambda *a: seen.append(a) or real(*a)
+    try:
+        mahppo.evaluate_policy(env, {"entity_actor": actor}, frames=1, fused_scorer=True,
+                               n_envs=BATCHED_ENVS)
+    finally:
+        kps.pair_scorer = real
+    check(len(seen) == 1, f"batched evaluation made {len(seen)} pair_scorer calls in a frame")
+    return [a.detach().clone() for a in seen[0]]   # plain tensors, out of inference mode
+
+
+def phase_batched_scorer_timing(dev, kps, ds, mahppo):
+    """15j: pair_scorer at batched evaluation's (8, 1024, 3), on the inputs
+    its first frame gives the kernel with every env drawn apart: held to
+    its plain twin (which scores env by env) within 1e-5 + 1e-5|plain|,
+    then timed as the serving shape is (phase 7), beside its bound.
+    Returns the largest error."""
+    args = batched_scorer_args(dev, ds, mahppo, kps)
+    b, n, _ = args[0].shape
+    e = args[4].shape[1]
+    check((b, n, e) == (BATCHED_ENVS, DISPATCH["n_ue"], DISPATCH["n_servers"]),
+          f"pair_scorer's batched inputs are {(b, n, e)}")
+    (lk, sk), (lp, sp) = kps.pair_scorer(*args), kps.pair_scorer_plain(*args)
+    torch.cuda.synchronize()
+    for got, want, what in ((lk, lp, "logits"), (sk, sp, "server embeddings")):
+        excess = float(((got - want).abs() - 1e-5 * want.abs()).max())
+        check(excess <= 1e-5, f"pair_scorer (B,N,E)=({b},{n},{e}) {what}: |kernel - plain| "
+              f"exceeds 1e-5 + 1e-5|plain| by {excess - 1e-5:.3e}")
+    check(all(not torch.equal(lp[0], lp[i]) for i in range(1, b)),
+          "pair_scorer: two batched envs have the same logits")
+    worst = max(float((lk - lp).abs().max()), float((sk - sp).abs().max()))
+    print(f"kernels: pair_scorer (B,N,E)=({b},{n},{e}), batched evaluation's inputs, every env "
+          f"drawn apart: max abs err {worst:.3e}, logits in [{float(lp.min()):.4e}, "
+          f"{float(lp.max()):.4e}], allowed 1e-5 + 1e-5|plain| elementwise", flush=True)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    ms = device_ms(lambda: kps.pair_scorer(*args))
+    plain_ms = device_ms(lambda: kps.pair_scorer_plain(*args))
+    prof_ms, prof_names = profiled_ms(lambda: kps.pair_scorer(*args))
+    bound_ms, bound_by = bound(*scorer_work(n, e, b=b))
+    prof = "not measured" if prof_ms is None else f"{prof_ms:.5f} ms ({prof_names})"
+    print(f"timing: pair_scorer (B,N,E)=({b},{n},{e}): kernel {ms:.5f} ms, {ms - floor_ms:.5f} "
+          f"ms above the launch floor ({floor_ms:.5f} ms), profiler {prof} a call, plain "
+          f"{plain_ms:.5f} ms, library none, bound {bound_ms:.7f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.2f}% of bound", flush=True)
+    return worst
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", type=Path, default=Path(__file__).resolve().parent / "src",
@@ -3250,6 +3546,8 @@ def main(argv=None):
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
+    global HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
     from repro_torch import full_precision_matmuls
     from repro_torch.configs import ARCH_IDS, get_config, reduced
     from repro_torch.core import cnn as cnn_lib
@@ -3268,6 +3566,9 @@ def main(argv=None):
     from repro_torch.models import moe as moe_lib
     from repro_torch.rl import mahppo
     from repro_torch.rl.distill import quantize_flat_trunk
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.core import split as split_lib
+    from repro_torch.models import sharding
 
     full_precision_matmuls()
     dev = torch.device("cuda")
@@ -3309,6 +3610,7 @@ def main(argv=None):
         phase_decode_timing(dev, decode_attn, decode_shape)
         return 0
     from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
+    from repro_torch.launch import dryrun, mesh as mesh_lib
     from repro_torch.launch import streaming_serve, train_lm
     from repro_torch.launch import train as train_lib
     from repro_torch.rl import distill
@@ -3433,6 +3735,15 @@ def main(argv=None):
     launches.update(counts)
     phase_compressor(dev, cnn_lib, compressor, huffman, jalad, optim, synthetic, _build)
     torch.cuda.empty_cache()
+    phase_dryrun(dryrun, ARCH_IDS, INPUT_SHAPES)
+    phase_bytes_on_card(dev, qwen, init_params, sharding, mesh_lib, cache_lib)
+    phase_count_on_card(dev, cnn_lib, split_lib)
+    launches.update(phase_batched_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,
+                                           _build))
+    err["pair_scorer"] = max(err["pair_scorer"], phase_batched_scorer_timing(
+        dev, pair_scorer, dispatch_serve, mahppo))
+    phase_small_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,
+                         n_envs=SMALL_BATCHED_ENVS)
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

@@ -12,8 +12,10 @@ A split decision b in {0, 1, ..., B+1} means:
 ``cnn_jalad_table`` is the JALAD baseline's table (8-bit codes, entropy
 coding, no channel reduction); ``llm_decode_split_table`` the LLM-decode
 offloading table, whose payload carries the UE-side serving cache. The
-measured CNN tables (``measured_cnn_split_table``) need FLOP counting of a
-compiled graph and come with the launch and sharding slice.
+measured CNN tables (``measured_cnn_split_table``) read each module's FLOPs
+and bytes from ``launch/opcount.py``'s counts of its run, on ``meta`` by
+default (nothing is allocated or executed) or on a device's real tensors,
+where the reference reads XLA's cost analysis of the compiled module.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import overhead as oh
@@ -329,3 +332,85 @@ def split_table(target, **kw) -> SplitPlan:
     if isinstance(target, CNNModel):
         return cnn_split_table(target, kw.pop("in_size", 224), **kw)
     return transformer_split_table(target, **kw)
+
+
+# ------------------------------------------------------- measured tables
+@torch.no_grad()
+def measured_cnn_module_costs(model: CNNModel, in_size: int, *, batch=1,
+                              device="meta") -> List[dict]:
+    """Per-module ``{flops, dot_flops, bytes_accessed}`` of
+    each module's forward (``launch.opcount.op_costs``), on inputs of the
+    reference's shapes: (batch, 3, in_size, in_size) into the first module,
+    then ``feature_shapes``. On ``meta`` (the default) nothing is
+    materialized or executed; on a device the module runs on real tensors
+    (the parameters and inputs drawn from a seeded CPU generator), and the
+    counts are the same. Unlike ``CNNModel.module_flops`` (the hand-derived
+    walker), this counts every op the module dispatches: the BatchNorm
+    reductions, the elementwise ops and the pooling among them."""
+    from repro_torch.launch.opcount import op_costs   # the counter sits above this layer
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device=dev)
+    shapes = model.feature_shapes(in_size)
+    costs = []
+    for i in range(model.n_modules):
+        in_shape = ((batch, 3, in_size, in_size) if i == 0
+                    else (batch,) + tuple(shapes[i - 1]))
+        x = torch.randn(in_shape, generator=gen).to(dev)
+        costs.append(op_costs(model.run_module, params[i], i, x))
+    return costs
+
+
+def measured_cnn_split_table(model: CNNModel, in_size: int, *, dev=oh.JETSON_NANO, rd=None,
+                             ae_ratio=(16, 12, 8, 4), quant_bits=8, batch=1,
+                             input_bits_per_px=8, module_costs=None) -> SplitPlan:
+    """``cnn_split_table`` with measured inputs in place of the paper's
+    constants, the reference's arithmetic line for line:
+
+    * per-module FLOPs and bytes counted from each module's run
+      (``measured_cnn_module_costs``, on meta) through the same
+      ``core.overhead.module_time_energy`` device model, the memory side
+      reading the counted bytes instead of the flops / 8 heuristic;
+    * per-split-point compressor rate-distortion from a measured sweep
+      (``core.compressor.measure_rate_distortion``'s rows: ``ch_prime``
+      and ``bits`` at each point), passed as ``rd``; the paper's
+      ``ae_ratio`` constants are the fallback when ``rd`` is None.
+
+    ``module_costs`` reuses a count (e.g. one made on a device)."""
+    costs = (measured_cnn_module_costs(model, in_size, batch=batch)
+             if module_costs is None else module_costs)
+    shapes = model.feature_shapes(in_size)
+    points = list(model.split_after)
+    if rd is not None and len(rd) != len(points):
+        raise ValueError(f"rd has {len(rd)} rows for {len(points)} points")
+    if not hasattr(ae_ratio, "__len__"):
+        ae_ratio = [ae_ratio] * len(points)
+    cum_fl = np.cumsum([c["flops"] for c in costs])
+    cum_by = np.cumsum([c["bytes_accessed"] for c in costs])
+    rows = []
+    raw_bits = batch * 3 * in_size * in_size * input_bits_per_px
+    rows.append((0.0, 0.0, 0.0, 0.0, raw_bits, True))
+    for pi, k in enumerate(points):
+        t, e = oh.module_time_energy(cum_fl[k], cum_by[k], dev)
+        c, h, w = shapes[k]
+        if rd is not None:
+            cp = int(rd[pi]["ch_prime"])
+            q = int(rd[pi].get("bits", quant_bits))
+        else:
+            cp = max(1, c // ae_ratio[pi])
+            q = quant_bits
+        enc_fl = 2 * c * cp * h * w * batch
+        tc, ec = oh.module_time_energy(enc_fl, enc_fl / 4, dev)
+        rows.append((t, e, tc, ec, batch * cp * h * w * q, True))
+    t, e = oh.module_time_energy(cum_fl[-1], cum_by[-1], dev)
+    rows.append((t, e, 0.0, 0.0, 0.0, True))
+    return _finalize(model.name + "-measured", points, rows, device=dev.name)
+
+
+def measured_split_table(target, **kw) -> SplitPlan:
+    """The measured-table dispatcher, as ``split_table``: a CNNModel gets
+    the counted table (``in_size`` defaults to 224), a ModelConfig the
+    LLM-decode table (``ctx_len`` defaults to 1024)."""
+    if isinstance(target, CNNModel):
+        return measured_cnn_split_table(target, kw.pop("in_size", 224), **kw)
+    return llm_decode_split_table(target, kw.pop("ctx_len", 1024), **kw)

@@ -9,6 +9,7 @@ time, so the CPU tests can import every module.
 
 ``LAUNCHES`` counts, per kernel, the launches made by the wrappers; a
 wrapper adds one where it launches its kernel and nowhere else.
+``takes_twin`` is each wrapper's one test of which version runs.
 """
 from __future__ import annotations
 
@@ -181,6 +182,19 @@ def sm_count(device) -> int:
 
 def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def takes_twin(name: str, *tensors) -> bool:
+    """Whether a wrapper runs its plain twin: every input on the CPU, or
+    every input on ``meta``, where the twin's result is shapes and dtypes
+    only (``meta`` executes nothing: the dry-run counts through it). Inputs
+    that mix ``meta`` with another device raise. Any other inputs go to the
+    kernel, which launches or raises: no tensor a card could compute reaches
+    the twin."""
+    types = {t.device.type for t in tensors}
+    if "meta" in types and len(types) > 1:
+        raise ValueError(f"{name}: inputs mix the meta device with {sorted(types - {'meta'})}")
+    return types == {"cpu"} or types == {"meta"}
 
 
 def require_cuda(name: str, *tensors) -> None:

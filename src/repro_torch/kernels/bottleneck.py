@@ -3,7 +3,7 @@
 Replaces ``src/repro/kernels/bottleneck.py::bottleneck_encode`` (Pallas
 TPU): the whole UE-side cost of the compressor for transformer hidden
 states. On a CUDA tensor the wrapper launches a hand-written kernel of
-``csrc/bottleneck.cu`` or raises; on a CPU tensor it runs the plain twin.
+``csrc/bottleneck.cu`` or raises; on CPU or meta tensors it runs the plain twin.
 
 The kernel is chosen by shape and address before the launch (``route``):
 
@@ -70,7 +70,7 @@ def bottleneck_encode(x, w, mn, mx, *, bits=8):
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"bottleneck_encode: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} do not chain as (T, d) @ (d, d')")
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if _build.takes_twin("bottleneck_encode", x, w):
         return bottleneck_encode_plain(x, w, mn, mx, bits=bits)
     _build.require_cuda("bottleneck_encode", x, w)
     if x.dtype not in _FLOAT_CODES or w.dtype != x.dtype:

@@ -24,7 +24,7 @@ block cluster as ``plan_splits`` says, the query rows of a kv head in
 ``block_rows`` row groups, K and V staged through shared memory by the
 Tensor Memory Accelerator, a tile-wise online softmax, the splits merged
 through distributed shared memory) or raises. It is bound by the bytes of
-the cache. On a CPU tensor the wrapper runs the plain twin. The kernel has
+the cache. On CPU or meta tensors the wrapper runs the plain twin. The kernel has
 no backward: on CUDA tensors in grad mode the wrapper refuses a q, k or v
 that requires grad (``_build.refuse_grad``), where the twin would pass a
 gradient and the kernel would drop it.
@@ -137,7 +137,7 @@ def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0)
     if int(window) < 0:
         raise ValueError(f"decode_attention: window must be >= 0, got {window}")
     tensors = (q, k, v, pos) + ((k_scale, v_scale) if scaled else ())
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.takes_twin("decode_attention", *tensors):
         return decode_attention_plain(q, k, v, pos, idx, k_scale=k_scale, v_scale=v_scale,
                                       window=window)
     _build.refuse_grad("decode_attention", q, k, v)

@@ -7,7 +7,7 @@ TPU). Per layer: dequantize the weight codes,
 never reach device memory.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
-``csrc/flat_trunk.cu`` or raises; on a CPU tensor it runs the plain twin.
+``csrc/flat_trunk.cu`` or raises; on CPU or meta tensors it runs the plain twin.
 The kernel is one launch of a persistent grid laid out by ``plan`` (from
 ``launch_plan``, which takes the kernel's shared memory and the blocks an
 SM holds from the library: the kernel owns its layout):
@@ -169,7 +169,7 @@ def flat_trunk(x, codes, mns, mxs, bs, *, bits=8):
             raise ValueError(f"flat_trunk: layer {i} codes {tuple(c.shape)} and bias "
                              f"{tuple(bs[i].shape)} do not chain from width {dims[i]}")
     tensors = (x, *codes, *bs)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.takes_twin("flat_trunk", *tensors):
         return flat_trunk_plain(x, codes, mns, mxs, bs, bits=bits)
     _build.refuse_grad("flat_trunk", x, *bs)
     x = x.to(torch.float32).contiguous()

@@ -6,7 +6,8 @@ the reference's parameter and observation dicts (``pair_scorer``,
 ``flat_trunk``).
 
 Which implementation runs follows the tensor's device only: the CUDA kernel
-for a CUDA tensor, the plain PyTorch twin for a CPU tensor.
+for a CUDA tensor, the plain PyTorch twin for a CPU tensor, and the twin's
+shapes and dtypes for a ``meta`` tensor (``_build.takes_twin``).
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ reference ``vmap``s its ``pallas_call``): (B, N, d_ue), (B, N), (B, E, 3)
 give (B, N, E) and (B, E, S), each env scored on its own.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
-``csrc/pair_scorer.cu`` or raises; on a CPU tensor it runs the plain twin.
+``csrc/pair_scorer.cu`` or raises; on CPU or meta tensors it runs the plain twin.
 The kernel is one launch of 8-UE blocks on a grid of (N / 8, B), laid out
 before the launch by
 ``plan``: at entry one thread starts bulk copies of W1 and the block's UE
@@ -224,7 +224,7 @@ def pair_scorer(ue_emb, d, work, active, geom, consts,
     E), srv_emb (E, S)), with the env axis where the inputs have one."""
     args = (ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2)
     lead, n, d_ue, n_srv, s_dim, hid = _check_shapes("pair_scorer", *args)
-    if all(a.device.type == "cpu" for a in args):
+    if _build.takes_twin("pair_scorer", *args):
         return pair_scorer_plain(*args)
     args = tuple(a.to(torch.float32).contiguous() for a in args)
     _build.require_cuda("pair_scorer", *args)
@@ -369,7 +369,7 @@ def pair_scorer_backward(g_logits, g_srv, ue_emb, d, work, active, geom, consts,
     tensors. ``srv``: the (B, E, S) server embeddings the forward returned
     (the formula recomputes them)."""
     args = (ue_emb, d, work, active, geom, consts, w_srv, b_srv, w1, b1, w2, b2)
-    if all(a.device.type == "cpu" for a in args + (g_logits, g_srv)):
+    if _build.takes_twin("pair_scorer_backward", *args, g_logits, g_srv):
         return pair_scorer_backward_plain(g_logits, g_srv, *args)
     _check_shapes("pair_scorer_backward", *args)
     f32 = tuple(a.to(torch.float32).contiguous() for a in args)

@@ -4,7 +4,7 @@ Replaces ``src/repro/kernels/quant.py::quantize_2d`` and ``::dequantize_2d``
 (Pallas TPU). On a CUDA tensor the wrappers launch the hand-written kernels
 of ``csrc/quant.cu`` (bound by bytes on the H100: each takes four elements
 a thread with one vector load and one vector store, and a view at any
-element offset) or raise; on a CPU tensor they run the plain twins,
+element offset) or raise; on a CPU or meta tensor they run the plain twins,
 which mirror ``quantize_xla`` / ``dequantize_xla`` op for op and give the
 kernels' results bit for bit. Neither kernel has a backward: quantize
 returns integer codes, and on CUDA tensors in grad mode dequantize refuses
@@ -57,7 +57,7 @@ def quantize_2d(x, mn, mx, *, bits=8):
     uint8 for bits <= 8, else uint16."""
     if x.dim() != 2:
         raise ValueError(f"quantize_2d takes a 2-D tensor, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if _build.takes_twin("quantize", x):
         return quantize_plain(x, mn, mx, bits=bits)
     _build.require_cuda("quantize", x)
     if x.dtype not in _FLOAT_CODES:
@@ -79,7 +79,7 @@ def dequantize_2d(y, mn, mx, *, bits=8, out_dtype=torch.float32):
     values of ``out_dtype`` (float32 or bfloat16)."""
     if y.dim() != 2:
         raise ValueError(f"dequantize_2d takes a 2-D tensor, got {tuple(y.shape)}")
-    if y.device.type == "cpu":
+    if _build.takes_twin("dequantize", y):
         return dequantize_plain(y, mn, mx, bits=bits, out_dtype=out_dtype)
     _build.refuse_grad("dequantize", mn, mx)
     _build.require_cuda("dequantize", y)

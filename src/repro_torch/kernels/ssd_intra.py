@@ -4,7 +4,7 @@
 Replaces ``src/repro/kernels/ssd_intra.py::ssd_intra`` (Pallas TPU), the
 quadratic hot spot of ``models/ssm.ssd_chunked``. On a CUDA tensor the
 wrapper launches a hand-written kernel of ``csrc/ssd_intra.cu`` or raises;
-on a CPU tensor it runs the plain twin.
+on CPU or meta tensors it runs the plain twin.
 
 The kernel is chosen by shape and address before the launch (``route``):
 
@@ -203,7 +203,7 @@ def ssd_intra(xh, dt, la, Bm, Cm):
                          f"dt {tuple(dt.shape)}, la {tuple(la.shape)}, "
                          f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
     tensors = (xh, dt, la, Bm, Cm)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.takes_twin("ssd_intra", *tensors):
         return ssd_intra_plain(*tensors)
     _build.require_cuda("ssd_intra", *tensors)
     if dt.dtype != torch.float32 or la.dtype != torch.float32:
@@ -293,7 +293,7 @@ def ssd_intra_backward(dy, xh, dt, la, Bm, Cm):
     as ``ssd_intra`` takes them. Returns (dx, d dt, d la, dB, dC) in the
     dtypes of xh, dt, la, Bm and Cm."""
     tensors = (dy, xh, dt, la, Bm, Cm)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.takes_twin("ssd_intra_backward", *tensors):
         return ssd_intra_backward_plain(*tensors)
     dy = dy.to(torch.float32).contiguous()
     if dy.data_ptr() % 16:      # the kernel reads rows of dy as float4

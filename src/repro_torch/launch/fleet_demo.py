@@ -35,7 +35,8 @@ it to int8 (three ``quantize`` launches), scores it through the
 closes with a batch-1 forward readout of the teacher, the f32 student and
 the int8 student (best of 20 after one warm call). Runs on the CUDA card
 unless ``--device cpu`` is given. ``--n-shards`` > 1 raises
-``NotImplementedError`` naming the slice that brings it.
+``NotImplementedError``: sharded rollouts and sharded evaluation come in
+slice 19.
 
   PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1 --distill
   PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1 --llm
@@ -60,7 +61,8 @@ from repro_torch.rl.distill import DistillConfig, distill_entity_policy, quantiz
 from repro_torch.rl.heuristics import greedy_eval
 from repro_torch.rl.mahppo import MAHPPOConfig, evaluate_policy, init_agent, train_mahppo
 
-_SHARDS = "sharded rollouts (--n-shards > 1) come with the launch and sharding slice"
+_SHARDS = ("sharded rollouts and sharded evaluation (--n-shards > 1) come in slice 19, over "
+           "torch.distributed")
 DISTILL = DistillConfig(iterations=2, frames=48, epochs=120)   # the example's
 READOUT_CALLS = 20                 # timed batch-1 forwards a network, after one warm call
 

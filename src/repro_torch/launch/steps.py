@@ -1,11 +1,16 @@
 """Step builders of the port (``src/repro/launch/steps.py``): the training,
-prefill and serve closures over a ModelConfig. The dry-run input specs come
-with the launch slice."""
+prefill and serve closures over a ModelConfig, and the dry-run's input
+specs: ``meta`` tensors standing in for every input of the step an input
+shape runs, as the reference's ``ShapeDtypeStruct`` leaves do (nothing is
+allocated or executed on ``meta``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import INPUT_SHAPES
+from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models.layers import dtype_of
 from repro_torch.optim import cosine_schedule, global_norm, make_optimizer
 from repro_torch.weights import reference_decay_mask, reference_leaves
 
@@ -77,3 +82,50 @@ def make_serve_step(cfg):
         _check(model, cfg)
         return model_lib.decode_step(model, cache, token, idx)
     return serve_step
+
+
+# ------------------------------------------------------------- input specs
+def sds(shape, dtype):
+    """An empty ``meta`` tensor: a leaf's shape and dtype, nothing more."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def params_spec(cfg):
+    """The port's ``Model`` of ``cfg`` on ``meta``, with no draws: its
+    parameters' shapes and dtypes."""
+    return model_lib.Model(cfg, device="meta")
+
+
+def attn_len_for(cfg, shape) -> int:
+    """Allocated KV length for full-attention layers under this shape."""
+    if shape.name == "long_500k":
+        return cfg.long_context_window
+    return shape.seq_len
+
+
+def input_specs(cfg, shape_name):
+    """``meta`` stand-ins for every model input of the step that this input
+    shape (a name of ``INPUT_SHAPES``, or an ``InputShape``) runs: train gives ``{"batch": {"tokens", "labels"(,
+    "aux_embeds")}}``, prefill ``{"tokens"(, "aux_embeds")}``, decode
+    ``{"cache", "token", "idx"}`` with the port's per-layer cache of
+    ``attn_len_for`` slots. ``aux_embeds`` (B, n_aux_tokens, d_model) come
+    in the compute dtype where the config has them."""
+    shape = INPUT_SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    b, s = shape.global_batch, shape.seq_len
+    cdt = dtype_of(cfg.compute_dtype)
+    aux = {"aux_embeds": sds((b, cfg.n_aux_tokens, cfg.d_model), cdt)} \
+        if cfg.n_aux_tokens else {}
+    if shape.kind == "train":
+        return {"batch": dict({"tokens": sds((b, s), torch.int32),
+                               "labels": sds((b, s), torch.int32)}, **aux)}
+    if shape.kind == "prefill":
+        return dict({"tokens": sds((b, s), torch.int32)}, **aux)
+    cache = cache_lib.make_cache(cfg, b, attn_len_for(cfg, shape), device="meta")
+    return {"cache": cache, "token": sds((b, 1), torch.int32), "idx": sds((), torch.int32)}
+
+
+def long_context_applicable(cfg) -> bool:
+    """long_500k needs sub-quadratic decode state. Every arch qualifies, as
+    in the reference: SSM and hybrid natively, attention archs through the
+    sliding-window cache variant (``cfg.long_context_window``)."""
+    return True

@@ -91,7 +91,10 @@ def route(probs, k, cap):
     e_flat = top_e.reshape(t * k)
     order = torch.argsort(e_flat, stable=True)
     expert = e_flat[order]
-    counts = torch.bincount(e_flat, minlength=e)
+    # bincount's length depends on the data, so it has no meta kernel: the
+    # count as a scatter-add into E slots (integer sums: the same on any run)
+    counts = torch.zeros(e, dtype=e_flat.dtype, device=e_flat.device).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=probs.device) - offsets[expert]
     return Routing(probs, top_p, top_e, order, expert, rank, order // k, rank < cap, counts, cap)

@@ -1,6 +1,8 @@
 """AdamW and Adafactor, the port of ``src/repro/optim/optimizers.py``'s
 ``global_norm``, ``adamw_init``, ``adamw_update``, ``_factored``,
-``adafactor_init`` and ``adafactor_update``.
+``adafactor_init``, ``adafactor_update`` and ``opt_state_pspec`` (with
+``opt_state_structs``, the shapes the reference's state takes, for the
+dry-run's byte arithmetic).
 
 The reference is functional over a params pytree; here the parameters are a
 list of tensors (an agent's or a model's ``nn.Parameter``\\ s) updated in
@@ -218,3 +220,48 @@ def make_optimizer(name: str):
     if name == "adafactor":
         return adafactor_init, adafactor_update
     raise ValueError(name)
+
+
+def _slots(name, leaves):
+    """(state path, param path, shape of the slot from the leaf's shape)
+    of each slot the reference's init makes, for ``leaves`` of (path, rank):
+    AdamW's ``m`` and ``v``; Adafactor's ``vr`` (the last dim dropped) and
+    ``vc`` (the next to last dropped) for a leaf of rank two or more, else
+    its ``v``."""
+    if name not in ("adamw", "adafactor"):
+        raise ValueError(name)
+    for path, rank in leaves:
+        if name == "adamw":
+            yield ("m",) + path, path, lambda s: s
+            yield ("v",) + path, path, lambda s: s
+        elif rank >= 2:
+            yield ("slots",) + path + ("vr",), path, lambda s: s[:-1]
+            yield ("slots",) + path + ("vc",), path, lambda s: s[:-2] + s[-1:]
+        else:
+            yield ("slots",) + path + ("v",), path, lambda s: s
+
+
+def opt_state_structs(name: str, params):
+    """The reference's optimizer state of a params tree (``{path: tensor}``,
+    the reference's leaves, e.g. ``sharding.reference_params``) as
+    ``{path: meta tensor}``, the shapes and dtypes its ``opt_init`` gives:
+    float32 slots and an int32 ``step``."""
+    out = {state: torch.empty(shape_of(tuple(params[path].shape)), dtype=torch.float32,
+                              device="meta")
+           for state, path, shape_of in _slots(name, [(p, t.dim()) for p, t in params.items()])}
+    out[("step",)] = torch.empty((), dtype=torch.int32, device="meta")
+    return out
+
+
+def opt_state_pspec(name: str, params_specs):
+    """Specs of the optimizer state, derived from the params' specs
+    (``{path: spec}``; the reference's ``opt_state_pspec``): AdamW's ``m``
+    and ``v`` take the params' specs, Adafactor's ``vr`` drops a spec's
+    last entry and ``vc`` its next to last (for a spec of two entries or
+    more; another leaf keeps one ``v``), and ``step`` is replicated. The
+    paths are those of ``opt_state_structs``."""
+    out = {state: shape_of(tuple(params_specs[path]))
+           for state, path, shape_of in _slots(name, [(p, len(s))
+                                                      for p, s in params_specs.items()])}
+    out[("step",)] = ()
+    return out

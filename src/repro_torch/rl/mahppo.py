@@ -30,9 +30,10 @@ iteration's record once, as the reference's ``float(v)`` does. Random draws
 On a dynamic fleet (churn) the rollout builds each env's masks from its
 state every frame, so inactive UEs take only full-local; the loss keeps
 the static masks and weighs each actor by the frames it was active, as
-the reference's does. Still to come, each raising ``NotImplementedError``:
-sharded rollouts and batched or sharded evaluation (``n_shards``,
-``n_envs`` > 1 in eval).
+the reference's does. ``evaluate_policy`` runs ``n_envs`` eval episodes
+as one batched state, one policy forward a frame for all of them. Still to
+come in slice 19, each raising ``NotImplementedError``: sharded rollouts
+and sharded evaluation (``n_shards`` > 1), over ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ from repro_torch.rl import nets
 from repro_torch.rl.gae import gae
 
 _SUMMARY = ("reward", "t_sum", "e_sum", "w_sum", "completed", "n_active", "done")
-_SHARDS = "sharded rollouts (n_shards > 1) come with the launch and sharding slice"
+_SHARDS = ("sharded rollouts (n_shards > 1) come in slice 19, over torch.distributed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,9 +304,10 @@ def train_mahppo(env: MECEnv, cfg: MAHPPOConfig, seed=0, log_cb: Callable = None
 @torch.inference_mode()
 def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True,
                     fused_scorer=False, n_envs=1, n_shards=1, trace=None):
-    """Run one eval-mode episode of ``frames`` frames; report the per-task
-    latency and energy (Eq. 7/8, weighted by completions) and the mean
-    reward, completions, active UEs and done flag per frame.
+    """Run one eval-mode episode of ``frames`` frames, or ``n_envs``
+    independent ones together; report the per-task latency and energy
+    (Eq. 7/8, weighted by completions) and the mean reward, completions,
+    active UEs and done flag per frame.
 
     ``agent`` is a MAHPPO agent (per-UE actors {"actors": ...} on
     ``observe``, a shared actor {"actor": ...} on ``observe_per_ue``, an
@@ -317,12 +319,25 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
     the end. ``deterministic=False`` samples actions from a generator
     seeded with ``seed + 1`` (the env's, seeded with ``seed``, drives its
     auto-resets). ``trace``, a list, receives each frame's {"dist",
-    "actions", "active"}. On a dynamic fleet the masks are built from the
-    state every frame (inactive UEs take only full-local), and the per-task
-    overhead weighs active UEs only."""
-    if n_envs != 1 or n_shards != 1:
-        raise NotImplementedError("batched and sharded evaluation (n_envs, n_shards > 1) "
-                                  "come with the launch and sharding slice")
+    "actions", "active"} and its summary fields ("reward", "t_sum",
+    "e_sum", "w_sum", "completed", "n_active", "done"). On a dynamic fleet
+    the masks are built from the state every frame (inactive UEs take only
+    full-local), and the per-task overhead weighs active UEs only.
+
+    ``n_envs`` > 1 runs that many episodes over one state with a leading
+    env axis (``env.reset(n_envs=...)``, one generator drawing every env's
+    auto-resets and churn as one block): one policy forward a frame for all
+    envs, so an entity agent with ``fused_scorer`` makes one ``pair_scorer``
+    launch a frame whatever ``n_envs`` is. The summary is the reference's:
+    each field's mean over envs and frames, and ``t_task = mean(t_sum) /
+    max(mean(w_sum), 1e-9)``, ``e_task`` the same way. ``n_envs`` = 1 runs
+    the single-env state ((N,) leaves). Sharded evaluation (``n_shards`` >
+    1) comes in slice 19."""
+    if n_envs % n_shards != 0:
+        raise ValueError(f"n_envs={n_envs} must be divisible by n_shards={n_shards}")
+    if n_shards != 1:
+        raise NotImplementedError("sharded evaluation (n_shards > 1) comes in slice 19, over "
+                                  "torch.distributed")
     kinds = [k for k in ("actors", "actor", "entity_actor", "flat_trunk") if k in agent]
     if not kinds:
         raise ValueError(f"unknown agent with keys {sorted(agent)}")
@@ -332,7 +347,8 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
     space, n_ue, dev = env.action_space, env.params.n_ue, env.device
     obs_entities = env.observe_entities_raw if fused_scorer else env.observe_entities
     gen_act = torch.Generator(device=dev).manual_seed(seed + 1)
-    s = env.reset(torch.Generator(device=dev).manual_seed(seed), eval_mode=True)
+    s = env.reset(torch.Generator(device=dev).manual_seed(seed), eval_mode=True,
+                  n_envs=None if n_envs == 1 else n_envs)
 
     def masks_of(s):
         # the per-UE actors see the split mask only, as the reference's vmap
@@ -361,11 +377,13 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
         # scalar / tensor would multiply by 1 / t_task
         w = torch.where(t_task > 0, torch.full_like(t_task, env.params.t0) / t_task, 0.0) \
             * (s.k > 0) * s.active
-        rows.append(torch.stack([reward, (t_task * w).sum(), (e_task * w).sum(), w.sum(),
-                                 info["completed"], info["n_active"].to(torch.float32),
-                                 done.to(torch.float32)]))
+        # (7,) a frame, or (7, n_envs)
+        rows.append(torch.stack([reward, (t_task * w).sum(-1), (e_task * w).sum(-1),
+                                 w.sum(-1), info["completed"],
+                                 info["n_active"].to(torch.float32), done.to(torch.float32)]))
         if trace is not None:
-            trace.append({"dist": dist, "actions": actions, "active": s.active})
+            trace.append(dict(zip(_SUMMARY, rows[-1]), dist=dist, actions=actions,
+                              active=s.active))
         s = s2
     out = torch.stack(rows).cpu().numpy()
     res = {k: float(out[:, i].mean()) for i, k in enumerate(_SUMMARY)}

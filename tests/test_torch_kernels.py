@@ -248,7 +248,8 @@ def test_ssd_intra_wrapper_launches_the_route_it_chose_or_raises(monkeypatch):
     launch (the SIMT pair also gets its Gram scratch), counts one launch a
     call, and raises, counting nothing, when the launch reports an error;
     nothing falls back to the twin. The card is stood in for by meta
-    tensors and a recording library."""
+    tensors sent down the kernel branch (meta alone takes the twin's shapes)
+    and a recording library."""
     calls, status = [], [0]
 
     class Lib:
@@ -256,6 +257,7 @@ def test_ssd_intra_wrapper_launches_the_route_it_chose_or_raises(monkeypatch):
             calls.append(a)
             return status[0]
 
+    monkeypatch.setattr(_build, "takes_twin", lambda name, *ts: False)
     monkeypatch.setattr(_build, "require_cuda", lambda name, *ts: None)
     monkeypatch.setattr(_build, "library", lambda: Lib())
     monkeypatch.setattr(_build, "stream_of", lambda t: None)
@@ -294,26 +296,42 @@ def test_plain_twins_are_the_cpu_path_and_count_nothing():
     assert sum(_build.LAUNCHES.values()) == 0
 
 
-def test_wrappers_raise_rather_than_fall_back_off_the_cpu():
-    meta = torch.empty(4, 8, device="meta")
+def _card(*shape, dtype=torch.float32):
+    """A tensor that reports the card as its device (a fake tensor: shape,
+    dtype and device, no data), for the wrappers' choice of branch."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    return FakeTensor(FakeTensorMode(), torch.empty(shape, dtype=dtype, device="meta"),
+                      torch.device("cuda"))
+
+
+def test_wrappers_raise_rather_than_fall_back_off_the_cpu(monkeypatch):
+    """A tensor the card could compute never reaches a twin: the wrapper
+    takes the kernel branch, which raises here (no card, no CUDA build);
+    CUDA mixed with CPU inputs raises for the device, and so does meta
+    mixed with the CPU. Only all-CPU or all-meta inputs take the twin."""
+    reached = []
+    for mod, twin in ((quant, "quantize_plain"), (quant, "dequantize_plain"),
+                      (bottleneck, "bottleneck_encode_plain"), (ssd_intra, "ssd_intra_plain")):
+        monkeypatch.setattr(mod, twin, lambda *a, _t=twin, **k: reached.append(_t))
+    with pytest.raises((AssertionError, RuntimeError)):
+        quant.quantize_2d(_card(4, 8), -1.0, 1.0)
+    with pytest.raises((AssertionError, RuntimeError)):
+        quant.dequantize_2d(_card(4, 8, dtype=torch.uint8), -1.0, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
-        quant.quantize_2d(meta, -1.0, 1.0)
-    with pytest.raises(ValueError, match="CUDA"):
-        quant.dequantize_2d(torch.empty(4, 8, dtype=torch.uint8, device="meta"),
-                            -1.0, 1.0)
-    with pytest.raises(ValueError, match="CUDA"):
-        bottleneck.bottleneck_encode(meta, torch.empty(8, 2, device="meta"), -1.0, 1.0)
+        bottleneck.bottleneck_encode(_card(4, 8), torch.zeros(8, 2), -1.0, 1.0)
     with pytest.raises(ValueError, match="chain"):
         bottleneck.bottleneck_encode(torch.zeros(4, 8), torch.zeros(7, 2), -1.0, 1.0)
-    xh, dt, bc = (torch.empty(s, device="meta") for s in [(1, 2, 16, 2, 8), (1, 2, 16, 2),
-                                                          (1, 2, 16, 4)])
+    xh, dt, bc = _card(1, 2, 16, 2, 8), _card(1, 2, 16, 2), torch.zeros(1, 2, 16, 4)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_intra.ssd_intra(xh, dt, dt, bc, bc)
+    meta = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="mix the meta device"):
+        bottleneck.bottleneck_encode(meta, torch.zeros(8, 2), -1.0, 1.0)
     with pytest.raises(ValueError, match="do not agree"):
         ssd_intra.ssd_intra(torch.zeros(1, 2, 16, 2, 8), torch.zeros(1, 2, 16, 3),
                             torch.zeros(1, 2, 16, 3), torch.zeros(1, 2, 16, 4),
                             torch.zeros(1, 2, 16, 4))
-    assert sum(_build.LAUNCHES.values()) == 0
+    assert reached == [] and sum(_build.LAUNCHES.values()) == 0
 
 
 def test_build_finds_nvcc_or_raises(monkeypatch, tmp_path):

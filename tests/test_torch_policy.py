@@ -256,7 +256,7 @@ def test_evaluate_policy_refuses_what_waits():
     _, v = _envs(3)
     trunk = {"flat_trunk": nets.init_flat_trunk(torch.Generator().manual_seed(0), 19,
                                                 v.action_space)}
-    with pytest.raises(NotImplementedError, match="n_envs"):
-        mahppo.evaluate_policy(v, trunk, frames=1, n_envs=2)
+    with pytest.raises(NotImplementedError, match="slice 19"):
+        mahppo.evaluate_policy(v, trunk, frames=1, n_envs=2, n_shards=2)
     with pytest.raises(ValueError, match="entity"):
         mahppo.evaluate_policy(v, trunk, frames=1, fused_scorer=True)
