@@ -3,10 +3,13 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --timing-only [--src OTHER_TREE/src]
+  python3 chip_smoke.py --sharded-only
 
 Phases, one line or more each, any failure exits non-zero before the last
 line (``--timing-only`` runs only the build and the kernel timings, of the
-port under ``--src``, so two trees' kernels can be timed in one session):
+port under ``--src``, so two trees' kernels can be timed in one session;
+``--sharded-only`` runs only the build and phase 16, its NCCL half over
+every visible card, and prints no result):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
@@ -201,9 +204,9 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    15 iterations through the scorer kernels): exactly their launches,
    every reward and overhead finite, each UE's split and the
    context-length shift printed;
-15e. the streaming runtime, a main path: the ``streaming_serve`` twin at
-   its defaults (8 UEs, 2 servers, MAHPPO 30 iterations, the streaming
-   fine-tune 14, then 10 s of Poisson arrivals at 8 tasks/s a UE through
+15e. the streaming runtime, a main path: the ``streaming_serve`` twin (8
+   UEs, 2 servers, MAHPPO 10 iterations, the streaming fine-tune 4 (its
+   defaults 30 and 14 cut for time), then 10 s of Poisson arrivals at 8 tasks/s a UE through
    the asyncio daemon for the tuned and zero-shot entity policy,
    nearest-server and full-local; no kernel), the oracle on the same
    arrivals, the daemon against the event heap on the card (identical
@@ -257,8 +260,32 @@ port under ``--src``, so two trees' kernels can be timed in one session):
    env's queues and distances drawn on the host (the same on both
    devices, different in each env), card against CPU within 1e-5
    relative;
-16. the card's name and power limit again, the kernels as one JSON line,
-   then the result as the last line.
+16. sharded, the multi-process main paths (``launch.mesh.spawn``): four
+   gloo ranks sharing card 0 on a (2, 2) ("data", "model") mesh, env the
+   whole world: the reference test's reduced MoE block at capacity factor
+   0.5 (experts drop), ``apply_moe_ep`` on (4, 8) tokens and
+   ``apply_moe_ep_decode`` on (4, 1), the card held to the CPU on the same
+   ranks (kept routing integers equal, outputs within 1e-5 + 1e-5 |cpu|);
+   qwen3-moe-30b-a3b at full width, 4 of its 48 layers, seeded bf16
+   weights (each rank keeps its shard of the experts), one request of a
+   (4, 2048) prefill (``apply_moe_ep``) and 31 decode steps
+   (``apply_moe_ep_decode``, ``decode_attention`` on each rank's (2, 2080,
+   4, 8, 128) cache: exactly 124 launches a rank) at capacity factor 16
+   (where neither path drops: the single-device decode's capacity is 4),
+   held to one process with no mesh fed its tokens (logits within 5e-2 x
+   max|logit|, greedy tokens equal at 99 % or more), prefill ms, decode ms
+   a token and the dropped share printed; ``train_mahppo`` at the fleet
+   demo's settings with the fused scorer and 8 envs sharded over the four
+   ranks, 1 and 2 iterations (the agents identical on every rank, the first
+   iteration within 1e-5 of each leaf's largest change of a one-process
+   iteration, the scorer's launches exactly the path's); sharded
+   ``evaluate_policy(n_envs=8, n_shards=4)`` sampling through the fused
+   scorer, each env's rows equal to ``n_shards=1``'s, one ``pair_scorer``
+   launch a frame a rank; then one NCCL rank a visible card serves and
+   evaluates again, held the same way; world size and backend printed;
+17. the card's name and power limit again, the kernels as one JSON line
+   (phase 16's launches summed over the ranks), then the result as the
+   last line.
 """
 import argparse
 import collections
@@ -381,6 +408,9 @@ STREAM_M = 8                     # the trunk's rows on a stream dispatch: the 8-
 # the streaming serve's distillation of its tuned teacher, the settings of
 # benchmarks/bench_policy_latency.py's quick run
 STREAM_DISTILL = dict(iterations=3, frames=64, n_envs=4, label_samples=4, epochs=150)
+# the streaming twin's MAHPPO and fine-tune iterations (its defaults are 30 and 14, ~2 min of
+# the script's time; phase 16 took that room)
+STREAM_ITERS, STREAM_TUNE = 10, 4
 STREAM_REPORT_KEYS = {"tasks", "completed", "dropped", "drop_rate", "miss_rate", "sojourn_mean",
                       "energy_task", "sojourn_p50", "sojourn_p95", "sojourn_p99", "throughput",
                       "arrivals"}
@@ -2236,9 +2266,9 @@ def dispatch_wall_ms(disp, core, calls=20):
 
 
 def phase_streaming(dev, streaming_serve, distill, adapter, dispatcher, events, build_mod):
-    """The streaming runtime, a main path: the ``streaming_serve`` twin at
-    its defaults (8 UEs, 2 servers, MAHPPO 30 iterations, the fine-tune 14,
-    then 10 s of Poisson arrivals at 8 tasks/s a UE through the asyncio
+    """The streaming runtime, a main path: the ``streaming_serve`` twin (8
+    UEs, 2 servers, MAHPPO ``STREAM_ITERS`` iterations, the fine-tune
+    ``STREAM_TUNE``, then 10 s of Poisson arrivals at 8 tasks/s a UE through the asyncio
     daemon for the tuned entity policy, its zero-shot form, nearest-server
     and full-local), then the oracle on the same arrivals, then the tuned
     teacher distilled on the static pool and quantized (3 ``quantize``
@@ -2251,14 +2281,14 @@ def phase_streaming(dev, streaming_serve, distill, adapter, dispatcher, events, 
     oracle and int8 trunk dispatchers (device time and idle share)."""
     build_mod.reset_launches()
     t0 = time.perf_counter()
-    res = streaming_serve.main([])
+    res = streaming_serve.main(["--iters", str(STREAM_ITERS), "--tune-iters", str(STREAM_TUNE)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
     check(not launches, f"streaming serve: kernels launched {launches}, expected none")
     env, sp, seed = res["env"], res["sp"], 0
     tune = res["tune_history"]
-    check(len(res["history"]) == 30 and len(tune) == 14
+    check(len(res["history"]) == STREAM_ITERS and len(tune) == STREAM_TUNE
           and all(math.isfinite(h["reward_mean"]) for h in res["history"] + tune),
           f"streaming serve: {len(res['history'])} MAHPPO and {len(tune)} tune iterations")
     reports, cores, secs = dict(res["reports"]), dict(res["cores"]), dict(res["seconds"])
@@ -3527,11 +3557,460 @@ def phase_batched_scorer_timing(dev, kps, ds, mahppo):
     return worst
 
 
+# --------------------------------------------------------------- 16: sharded
+SHARD_MESH = (("data", "model"), (2, 2))   # the gloo ranks' mesh; their env axis is the world
+SHARD_MOE_LAYERS = 4                       # qwen3-moe-30b-a3b cut to 4 of its 48 layers
+SHARD_SERVE = dict(batch=4, prompt_len=2048, gen=32, requests=1, seed=0)
+# no run drops an assignment: the one-process decode routes the step's 4 tokens at capacity
+# max(1, ceil(4 k / E cf)) = 4 at k 8, E 128 and cf 16 (the reference test's 8.0 gives 2)
+SHARD_CF = 16.0
+SHARD_LOGIT_TOL = 5e-2                     # x max|logit|: PR 26's card-against-CPU bound
+SHARD_TOKEN_AGREE = 0.99
+SHARD_FLEET_ENVS = 8
+SHARD_EVAL = dict(frames=64, n_envs=8)
+SHARD_PARAM_TOL = 1e-5                     # x each leaf's largest change
+EP_SMALL_CF = 0.5                          # the small EP block drops assignments at (4, 8)
+EP_SMALL_SHAPES = {"ep": (4, 8, 32), "ep_decode": (4, 1, 32)}
+EP_SMALL_TOL = 1e-5
+EVAL_KEYS = ("reward", "t_sum", "e_sum", "w_sum", "completed", "n_active", "done")
+
+
+def nccl_mesh(world):
+    """The NCCL ranks' ("data", "model") mesh: model 2 where the world is
+    even, else 1."""
+    model = 2 if world % 2 == 0 else 1
+    return ("data", "model"), (world // model, model)
+
+
+def ep_small_cfg(cf):
+    """The reference test's MoE block (tests/test_ep_moe.py): d 32, 8
+    experts, top-2, d_expert 16, one shared expert, fsdp, f32."""
+    from repro_torch.configs import ModelConfig, MoEConfig
+    return ModelConfig(
+        name="ep-small", family="moe", n_layers=1, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64,
+        vocab_size=32, block_pattern=("moe",),
+        moe=MoEConfig(n_experts=8, top_k=2, d_expert=16, capacity_factor=cf, n_shared_experts=1),
+        param_dtype="float32", compute_dtype="float32", fsdp=True)
+
+
+def shard_moe_cfg():
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-moe-30b-a3b")
+    return cfg.replace(n_layers=SHARD_MOE_LAYERS,
+                       moe=dataclasses.replace(cfg.moe, capacity_factor=SHARD_CF))
+
+
+def shard_fleet_env(dev):
+    from repro_torch.launch import fleet_demo
+    return fleet_demo.fleet_env(fleet_demo.make_mixed_fleet(), fleet_demo.make_edge_pool(2),
+                                randomize=True, device=dev)
+
+
+def shard_fleet_cfg(iterations, n_shards):
+    """The fleet demo's settings with its fused scorer, 8 envs."""
+    from repro_torch.launch import fleet_demo
+    cfg = fleet_demo.fleet_config(iterations, entity_policy=True, randomize_pool=True,
+                                  fused_scorer=True, n_shards=n_shards)
+    return dataclasses.replace(cfg, n_envs=SHARD_FLEET_ENVS)
+
+
+def agent_with(env, params):
+    from repro_torch.rl import mahppo
+    agent = mahppo.init_agent(torch.Generator().manual_seed(0), env, entity_policy=True)
+    with torch.no_grad():
+        for p, v in zip(mahppo.agent_parameters(agent), params):
+            p.copy_(v)
+    return agent
+
+
+def shard_ep_small(mesh, dev, ctx):
+    """The reduced EP block at a dropping capacity factor: each EP path on
+    this rank's rows, on the card and on the CPU over the same gloo group;
+    the kept routing integers equal, outputs within 1e-5 + 1e-5|cpu|."""
+    from repro_torch.models import meshctx, moe as moe_lib
+    from repro_torch.weights import moe_from_jax
+    cfg = ep_small_cfg(EP_SMALL_CF)
+    g = torch.Generator().manual_seed(0)
+    d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+    draw = lambda *shape, fan: torch.randn(shape, generator=g) / math.sqrt(fan)
+    params = {"router": draw(d, e, fan=d), "wi": draw(e, d, f, fan=e), "wg": draw(e, d, f, fan=e),
+              "wo": draw(e, f, d, fan=e), "shared_wi": draw(d, f, fan=d),
+              "shared_wg": draw(d, f, fan=d), "shared_wo": draw(f, d, fan=f)}
+    dp = meshctx.dp_axes(mesh)
+    out = {}
+    for path, shape in EP_SMALL_SHAPES.items():
+        x = torch.randn(shape, generator=g) * 0.5
+        b = shape[0] // meshctx.dp_size(mesh)
+        i = mesh.index(dp)
+        fn = moe_lib.apply_moe_ep if path == "ep" else moe_lib.apply_moe_ep_decode
+        got = {}
+        for where in (dev, torch.device("cpu")):
+            with meshctx.use_mesh(mesh), torch.no_grad(), moe_lib.routing_log() as log:
+                layer = moe_from_jax(params, cfg, where)
+                o, aux = fn(layer, x[i * b:(i + 1) * b].to(where), cfg, mesh)
+            got[where.type] = o.cpu(), float(aux), log.calls[0]
+        (oc, ac, rc), (oh_, ah, rh) = got[dev.type], got["cpu"]
+        srt = rh.probs.sort(-1, descending=True).values
+        k = cfg.moe.top_k
+        out[path] = dict(
+            kept_equal=all(torch.equal(getattr(rc, n).cpu(), getattr(rh, n))
+                           for n in ("expert", "rank", "token", "kept")),
+            err=float((oc - oh_).abs().max()),
+            excess=float(((oc - oh_).abs() - EP_SMALL_TOL * (1 + oh_.abs())).max()),
+            aux_err=abs(ac - ah), dropped=float((~rh.kept).sum()) / rh.kept.numel(),
+            gap=float((srt[:, k - 1] - srt[:, k]).min()))
+    return out
+
+
+def f32_of(cfg):
+    return cfg.replace(param_dtype="float32", compute_dtype="float32")
+
+
+def shard_serve(mesh, dev, cfg, run):
+    """``cfg`` (qwen3-moe-30b-a3b at full width, ``SHARD_MOE_LAYERS``
+    layers) served by ``serve(mesh=...)`` at ``run``: prefill through
+    ``apply_moe_ep``, decode through ``apply_moe_ep_decode`` and
+    ``decode_attention``."""
+    from repro_torch.launch.serve import serve
+    res = serve(cfg, device=dev, log=lambda *a: None, mesh=mesh, **run)
+    st = res.stats[0]
+    out = {k: st[k] for k in ("prefill_ms", "decode_ms_per_token", "tokens_per_s",
+                              "cache_bytes", "moe_dropped_prefill", "moe_dropped_decode")}
+    out.update(build_s=res.build_s, tokens=st["tokens"].cpu(),
+               prefill_logits=st["prefill_logits"].float().cpu(),
+               last_logits=st["last_logits"].float().cpu())
+    del res, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_first_rollout(mahppo, env, cfg, dev):
+    """The first rollout ``train_mahppo(env, cfg, seed=0)`` collects, as it
+    draws it: (agent, optimizer state, generator, trajectory, last values),
+    gathered over the ranks where ``cfg`` shards the envs."""
+    from repro_torch import optim
+    agent = mahppo.init_agent(torch.Generator().manual_seed(0), env, entity_policy=True)
+    opt = optim.adamw_init(mahppo.agent_parameters(agent))
+    states = mahppo.init_states(env, cfg, torch.Generator(device=dev).manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    _, traj, last_v = mahppo.make_train_fns(env, cfg).collect(agent, gen, states)
+    if cfg.n_shards > 1:
+        traj = _tree(lambda x: mahppo.gather_envs(x, 1), traj)
+        last_v = mahppo.gather_envs(last_v, 0)
+    return agent, opt, gen, traj, last_v
+
+
+def shard_fleet(mesh, dev, ctx):
+    """``train_mahppo`` at the fleet demo's settings, fused scorer, 8 envs
+    sharded over the world, for 1 and for 2 iterations (the agents'
+    parameters), and the first iteration's rollout gathered over the
+    ranks."""
+    from repro_torch.rl import mahppo
+    env = shard_fleet_env(dev)
+    out = {}
+    for it in (1, 2):
+        agent, hist = mahppo.train_mahppo(env, shard_fleet_cfg(it, mesh.size), seed=0)
+        out[it] = [p.detach().cpu() for p in mahppo.agent_parameters(agent)], hist
+    _, _, _, traj, last_v = fleet_first_rollout(mahppo, env, shard_fleet_cfg(1, mesh.size), dev)
+    out["rollout"] = _tree(lambda x: x.cpu(), traj), last_v.cpu()
+    ctx["agent"] = out[2][0]
+    return out
+
+
+def shard_eval(mesh, dev, ctx):
+    """``evaluate_policy`` sharded over the world, sampling, through the
+    fused scorer: the summary and the rank's per-env rows."""
+    from repro_torch.rl import mahppo
+    env = shard_fleet_env(dev)
+    trace = []
+    res = mahppo.evaluate_policy(env, agent_with(env, ctx["agent"]), n_shards=mesh.size,
+                                 deterministic=False, fused_scorer=True, trace=trace,
+                                 **SHARD_EVAL)
+    rows = torch.stack([torch.stack([t[k] for k in EVAL_KEYS]) for t in trace])
+    return res, rows.cpu()
+
+
+SHARD_PARTS = {"ep_small": shard_ep_small,
+               "serve": lambda mesh, dev, ctx: shard_serve(mesh, dev, ctx["cfg"], ctx["run"]),
+               "serve32": lambda mesh, dev, ctx: shard_serve(mesh, dev, f32_of(ctx["cfg"]),
+                                                             ctx["run"]),
+               "fleet": shard_fleet, "eval": shard_eval}
+
+
+def shard_rank(rank, dev, mesh_spec, parts, ctx):
+    """One rank of phase 16: the ``parts`` in order on a process mesh of
+    ``mesh_spec``, each with its seconds and its kernel launches."""
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.models import meshctx
+    mesh = ProcessMesh(*mesh_spec)
+    out = {"world": dist.get_world_size(), "backend": dist.get_backend(), "device": str(dev),
+           "coords": (mesh.index(meshctx.dp_axes(mesh)), mesh.index("model"))}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for part in parts:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out[part] = SHARD_PARTS[part](mesh, dev, ctx)
+        sync()
+        out[part + "_s"] = time.perf_counter() - t0
+        out[part + "_launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    return out
+
+
+@torch.inference_mode()
+def forced_serve(steps_lib, moe_lib, model, cfg, run, fed):
+    """One process, no mesh: the prompt ``serve`` draws, prefilled, then
+    decoded with the sharded run's tokens ``fed`` (batch, gen) fed back;
+    (prefill logits, last logits, each step's argmax equal to the sharded
+    token, the dropped share of its expert assignments)."""
+    prompt = torch.randint(0, cfg.vocab_size, (run["batch"], run["prompt_len"]),
+                           generator=torch.Generator().manual_seed(run["seed"] + 1))
+    dev = model.embed.device
+    fed = fed.to(dev)
+    prefill = steps_lib.make_prefill_step(cfg, run["prompt_len"] + run["gen"])
+    step = steps_lib.make_serve_step(cfg)
+    with moe_lib.routing_log() as log:
+        logits, cache = prefill(model, prompt.to(dev))
+        pre = logits.float()
+        agree = [logits.argmax(-1) == fed[:, 0]]
+        for i in range(run["gen"] - 1):
+            logits, cache = step(model, cache, fed[:, i:i + 1], run["prompt_len"] + i)
+            agree.append(logits.argmax(-1) == fed[:, i + 1])
+    return pre.cpu(), logits.float().cpu(), torch.stack(agree, 1).cpu(), log.dropped_share()
+
+
+def sharded_run(label, ranks, part):
+    """The whole batch's tokens and logits of a sharded serve, the model
+    ranks of each data index checked identical and nothing dropped."""
+    by_dp = {}
+    for r in ranks:
+        dpi, _ = r["coords"]
+        first = by_dp.setdefault(dpi, r[part])
+        check(torch.equal(first["tokens"], r[part]["tokens"])
+              and torch.equal(first["last_logits"], r[part]["last_logits"]),
+              f"{label}: the model ranks of data index {dpi} differ")
+        check(r[part]["moe_dropped_prefill"] == 0.0 and r[part]["moe_dropped_decode"] == 0.0,
+              f"{label}: assignments dropped at capacity factor {SHARD_CF}")
+    return {k: torch.cat([by_dp[i][k] for i in sorted(by_dp)])
+            for k in ("tokens", "prefill_logits", "last_logits")}
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_shard_serve(label, ranks, steps_lib, moe_lib, init_params, cfg, run, dev):
+    """The sharded serves against one process fed their tokens. The bf16
+    serve (the main path, timed) is reported beside the float32 evaluation
+    of the same weights, which measures bf16's own error; the float32
+    serve of the same draws is held: logits within ``SHARD_LOGIT_TOL`` x
+    max|logit| at the prefill and the last step, at least
+    ``SHARD_TOKEN_AGREE`` of the greedy tokens equal, nothing dropped by
+    either run."""
+    seed = lambda: torch.Generator(device=dev).manual_seed(run["seed"])
+    r0 = ranks[0]["serve"]
+    got = sharded_run(label, ranks, "serve")
+    model = init_params(cfg, seed(), dev)
+    pre, last, agree, dropped = forced_serve(steps_lib, moe_lib, model, cfg, run, got["tokens"])
+    # the same bf16 weights evaluated in float32
+    model.float()
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = f32_of(cfg)
+    pre32, last32, agree32, _ = forced_serve(steps_lib, moe_lib, model, f32_of(cfg), run,
+                                             got["tokens"])
+    del model
+    torch.cuda.empty_cache()
+    print(f"{label}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.param_dtype}, "
+          f"capacity factor {cfg.moe.capacity_factor}), a ({run['batch']}, {run['prompt_len']}) "
+          f"prefill + {run['gen'] - 1} decode steps over {len(ranks)} ranks: rank 0 built its "
+          f"shard in {r0['build_s']:.2f} s, prefill {r0['prefill_ms']:.2f} ms, decode "
+          f"{r0['decode_ms_per_token']:.3f} ms a token, {r0['tokens_per_s']:.1f} tokens/s, "
+          f"cache {r0['cache_bytes'] / 1e6:.2f} MB a rank; dropped {r0['moe_dropped_prefill']:.4f}"
+          f" at prefill, {r0['moe_dropped_decode']:.4f} at decode (one process: {dropped:.4f}); "
+          f"against one process fed its tokens: logits within "
+          f"{rel_err(got['prefill_logits'], pre):.3e} (prefill) and "
+          f"{rel_err(got['last_logits'], last):.3e} (last step) of max|logit|, greedy tokens equal"
+          f" {100 * float(agree.float().mean()):.2f} %; against the float32 evaluation "
+          f"of the same weights: sharded {rel_err(got['prefill_logits'], pre32):.3e} / "
+          f"{rel_err(got['last_logits'], last32):.3e}, one process {rel_err(pre, pre32):.3e} / "
+          f"{rel_err(last, last32):.3e}, the float32 argmax equal to the tokens "
+          f"{100 * float(agree32.float().mean()):.2f} %", flush=True)
+    check(dropped == 0.0, f"{label}: the one-process run dropped {dropped} of its assignments")
+
+    got = sharded_run(label, ranks, "serve32")
+    model = init_params(f32_of(cfg), seed(), dev)
+    pre, last, agree, dropped = forced_serve(steps_lib, moe_lib, model, f32_of(cfg), run,
+                                             got["tokens"])
+    del model
+    torch.cuda.empty_cache()
+    rel = {"prefill": rel_err(got["prefill_logits"], pre),
+           "last step": rel_err(got["last_logits"], last)}
+    share = float(agree.float().mean())
+    print(f"{label}: the same draws in float32 ({ranks[0]['serve32']['decode_ms_per_token']:.3f} "
+          f"ms a token) against one process fed its tokens: logits within {rel['prefill']:.3e} "
+          f"(prefill) and {rel['last step']:.3e} (last step) of max|logit| (bound "
+          f"{SHARD_LOGIT_TOL}), greedy tokens equal {100 * share:.2f} % ({int(agree.sum())} of "
+          f"{agree.numel()}; at least {100 * SHARD_TOKEN_AGREE:.0f} %), dropped {dropped:.4f}",
+          flush=True)
+    check(dropped == 0.0, f"{label}: the one-process run dropped {dropped} of its assignments")
+    check(max(rel.values()) <= SHARD_LOGIT_TOL, f"{label}: logits {rel} of max|logit|")
+    check(share >= SHARD_TOKEN_AGREE, f"{label}: greedy tokens equal {share:.4f}")
+
+
+def check_shard_eval(label, ranks, want, want_rows, frames):
+    """Sharded evaluation against ``n_shards=1``: the summary on every rank
+    and each env's rows within 1e-6 relative (exactness printed), one
+    ``pair_scorer`` launch a frame a rank."""
+    got_rows = torch.cat([r["eval"][1] for r in ranks], dim=-1)
+    scale = want_rows.abs().amax(dim=(0, 2), keepdim=True).clamp(min=1e-30)
+    rel = float(((got_rows - want_rows).abs() / scale).max())
+    summ = max(abs(r["eval"][0][k] - v) / max(abs(v), 1e-30)
+               for r in ranks for k, v in want.items())
+    launches = [r["eval_launches"] for r in ranks]
+    print(f"{label}: evaluate_policy(n_envs={SHARD_EVAL['n_envs']}, n_shards={len(ranks)}, "
+          f"sampling, fused scorer) over {frames} frames: per-env rows "
+          f"{'identical to' if torch.equal(got_rows, want_rows) else f'within {rel:.3e} of'} "
+          f"n_shards=1's, summaries within {summ:.3e} relative; t_task {want['t_task']:.6f} s; "
+          f"launches a rank {launches}; {ranks[0]['eval_s']:.2f} s", flush=True)
+    check(rel <= 1e-6 and summ <= 1e-6, f"{label}: sharded evaluation differs ({rel}, {summ})")
+    check(all(x == {"pair_scorer": frames} for x in launches),
+          f"{label}: launches {launches}, expected pair_scorer {frames} a rank")
+
+
+def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg):
+    """16: the port's multi-process programs (``launch.mesh.spawn``). Four
+    gloo ranks on card 0, a (2, 2) ("data", "model") mesh, env the whole
+    world: the reduced EP block card against CPU; qwen3-moe-30b-a3b at full
+    width served through the EP paths and ``decode_attention`` against one
+    process; the fleet demo's training with the fused scorer, 8 envs over
+    the 4 ranks, the agents identical on every rank and the first iteration
+    equal to one process; sharded evaluation equal per env to
+    ``n_shards=1``. Then one NCCL rank a visible card serves and evaluates
+    again. ``cfg`` is the served config (``shard_moe_cfg()``). Returns the
+    phase's launches, summed over the ranks."""
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    run = SHARD_SERVE
+    torch.cuda.empty_cache()
+    gloo = spawn(shard_rank, 4, "gloo", SHARD_MESH,
+                 ("ep_small", "serve", "serve32", "fleet", "eval"), {"cfg": cfg, "run": run},
+                 device=dev)
+    print(f"sharded: {len(gloo)} ranks, backend {gloo[0]['backend']}, all on {gloo[0]['device']},"
+          f" a {SHARD_MESH[1]} mesh over {SHARD_MESH[0]}, env the whole world", flush=True)
+    for r in gloo:
+        for part in ("ep_small", "serve", "serve32", "fleet", "eval"):
+            launches.update(r[part + "_launches"])
+
+    for path, shape in EP_SMALL_SHAPES.items():
+        rs = [r["ep_small"][path] for r in gloo]
+        print(f"sharded: reduced EP block ({path}, x {shape}, capacity factor {EP_SMALL_CF}) "
+              f"card against CPU on the same ranks: kept assignments equal "
+              f"{all(x['kept_equal'] for x in rs)}, max abs diff "
+              f"{max(x['err'] for x in rs):.3e} (bound {EP_SMALL_TOL} + {EP_SMALL_TOL}|cpu|), "
+              f"aux within {max(x['aux_err'] for x in rs):.3e}, dropped "
+              f"{[round(x['dropped'], 4) for x in rs]}, least top-k gap "
+              f"{min(x['gap'] for x in rs):.3e}", flush=True)
+        check(all(x["kept_equal"] and x["excess"] <= 0 and x["aux_err"] <= 1e-6 for x in rs),
+              f"sharded: the reduced EP block ({path}) differs card against CPU: {rs}")
+    check(any(r["ep_small"]["ep"]["dropped"] > 0 for r in gloo),
+          "sharded: the reduced EP block dropped nothing; pick a lower capacity factor")
+    attn = cfg.n_layers * (run["gen"] - 1)
+    for part in ("serve", "serve32"):
+        check(all(r[part + "_launches"] == {"decode_attention": attn} for r in gloo),
+              f"sharded: {part} launches {[r[part + '_launches'] for r in gloo]}, expected "
+              f"decode_attention {attn} a rank")
+    check_shard_serve("sharded (gloo)", gloo, steps_lib, moe_lib, init_params, cfg, run, dev)
+
+    # the fleet: one agent on every rank, the first iteration as one process
+    for it in (1, 2):
+        for r in gloo[1:]:
+            check(all(torch.equal(a, b)
+                      for a, b in zip(r["fleet"][it][0], gloo[0]["fleet"][it][0])),
+                  f"sharded: rank agents differ after {it} iteration(s)")
+    env = shard_fleet_env(dev)
+    traj, last_v = gloo[0]["fleet"]["rollout"]
+    agent, opt, gen, own, own_v = fleet_first_rollout(mahppo, env, shard_fleet_cfg(1, 1), dev)
+    init = [p.detach().cpu().clone() for p in mahppo.agent_parameters(agent)]
+    leaves = lambda t: [t] if not isinstance(t, dict) else [x for k in sorted(t)
+                                                           for x in leaves(t[k])]
+    pairs = list(zip(leaves(traj) + [last_v], leaves(own) + [own_v]))
+    acts_equal = all(torch.equal(a, b.cpu()) for a, b in pairs if not a.is_floating_point())
+    roll = max(float((a - b.cpu()).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in pairs if a.is_floating_point())
+    # the one-process update fed the sharded rollout (and the generator its
+    # own rollout left, which drew what the ranks drew)
+    mahppo.make_train_fns(env, shard_fleet_cfg(1, 1)).update(
+        agent, opt, gen, _tree(lambda x: x.to(dev), traj), last_v.to(dev))
+    one = [p.detach().cpu() for p in mahppo.agent_parameters(agent)]
+    got = gloo[0]["fleet"][1][0]
+    worst = max(float((a - b).abs().max()) / max(float((b - c).abs().max()), 1e-30)
+                for a, b, c in zip(got, one, init))
+    exact = all(torch.equal(a, b) for a, b in zip(got, one))
+    own_it, _ = mahppo.train_mahppo(env, shard_fleet_cfg(1, 1), seed=0)
+    whole = max(float((a - b).abs().max()) / max(float((b - c).abs().max()), 1e-30)
+                for a, b, c in zip(got, [p.detach().cpu() for p in
+                                         mahppo.agent_parameters(own_it)], init))
+    # a rank's fleet part: 1 + 2 iterations and one more rollout
+    cfg1 = shard_fleet_cfg(1, 4)
+    per_it = fleet_demo_launches(cfg1)
+    want = {"pair_scorer": 3 * per_it["pair_scorer"] + cfg1.horizon // cfg1.n_envs + 1,
+            "pair_scorer_backward": 3 * per_it["pair_scorer_backward"]}
+    fl = [r["fleet_launches"] for r in gloo]
+    print(f"sharded: fleet demo training (fused scorer, {SHARD_FLEET_ENVS} envs over 4 ranks), "
+          f"1 then 2 iterations in {gloo[0]['fleet_s']:.2f} s: every rank's agent identical "
+          f"after each; the first rollout gathered over the ranks against one process's: "
+          f"actions {'equal' if acts_equal else 'DIFFER'}, floats within {roll:.3e} of each "
+          f"leaf's largest; one process's update fed it "
+          f"{'identical to' if exact else f'within {worst:.3e} of each leaf largest change from'}"
+          f" the sharded first iteration (the whole one-process iteration, its own rollout: "
+          f"{whole:.3e}, the scorer's last bias, which has no gradient, the largest); rewards "
+          f"{[h['reward_mean'] for h in gloo[0]['fleet'][2][1]]}; launches a rank {fl}",
+          flush=True)
+    check(acts_equal and roll <= SHARD_PARAM_TOL,
+          f"sharded: the gathered rollout differs from one process's ({acts_equal}, {roll:.3e})")
+    check(worst <= SHARD_PARAM_TOL, f"sharded: the first iteration is {worst:.3e} of a leaf's "
+          f"largest change from one process's update of it ({SHARD_PARAM_TOL} allowed)")
+    check(all(x == want for x in fl), f"sharded: fleet launches {fl}, expected {want} a rank")
+
+    trace = []
+    agent = agent_with(env, gloo[0]["fleet"][2][0])
+    want_eval = mahppo.evaluate_policy(env, agent, deterministic=False, fused_scorer=True,
+                                       trace=trace, **SHARD_EVAL)
+    want_rows = torch.stack([torch.stack([t[k] for k in EVAL_KEYS]) for t in trace]).cpu()
+    check_shard_eval("sharded (gloo)", gloo, want_eval, want_rows, SHARD_EVAL["frames"])
+
+    # NCCL: one rank a card, every visible card
+    world = torch.cuda.device_count()
+    mesh_spec = nccl_mesh(world)
+    torch.cuda.empty_cache()
+    nccl = spawn(shard_rank, world, "nccl", mesh_spec, ("serve", "serve32", "eval"),
+                 {"cfg": cfg, "run": run, "agent": gloo[0]["fleet"][2][0]})
+    print(f"sharded: {world} rank(s), backend {nccl[0]['backend']}, one a card "
+          f"({', '.join(r['device'] for r in nccl)}), a {mesh_spec[1]} mesh", flush=True)
+    for r in nccl:
+        for part in ("serve", "serve32", "eval"):
+            launches.update(r[part + "_launches"])
+    for part in ("serve", "serve32"):
+        check(all(r[part + "_launches"] == {"decode_attention": attn} for r in nccl),
+              f"sharded (nccl): {part} launches {[r[part + '_launches'] for r in nccl]}")
+    check_shard_serve("sharded (nccl)", nccl, steps_lib, moe_lib, init_params, cfg, run, dev)
+    check_shard_eval("sharded (nccl)", nccl, want_eval, want_rows, SHARD_EVAL["frames"])
+    out = {k: launches[k] for k in ("pair_scorer", "pair_scorer_backward", "decode_attention")}
+    print(f"sharded: launches summed over the ranks {out}; the phase in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", type=Path, default=Path(__file__).resolve().parent / "src",
                         help="the directory that holds repro_torch (default: src beside "
                              "this script); another tree's src times that tree's kernels")
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="build and run phase 16 (the sharded paths; NCCL over every "
+                             "visible card), check it and print no result")
     parser.add_argument("--timing-only", action="store_true",
                         help="build and time the kernels (phases 1-2 and the timings of "
                              "3, 7 and 10), check nothing else and print no result")
@@ -3611,6 +4090,10 @@ def main(argv=None):
         return 0
     from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
     from repro_torch.launch import dryrun, mesh as mesh_lib
+    if args.sharded_only:
+        phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo, init_params,
+                      shard_moe_cfg())
+        return 0
     from repro_torch.launch import streaming_serve, train_lm
     from repro_torch.launch import train as train_lib
     from repro_torch.rl import distill
@@ -3744,6 +4227,8 @@ def main(argv=None):
         dev, pair_scorer, dispatch_serve, mahppo))
     phase_small_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,
                          n_envs=SMALL_BATCHED_ENVS)
+    launches.update(phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo, init_params,
+                                  shard_moe_cfg()))
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

@@ -44,6 +44,12 @@ gives (E, N) leaves (and an (E,) frame counter), and ``step``,
 the reference trains on ``vmap``-batched states. Reductions run over the
 UE axis only; one generator draws every env's auto-reset as one (E, N)
 block. The (N,) single-env path computes as it did before the axis came.
+
+Sharded over ranks, a state holds block ``rows`` (an
+``actionspace.Rows``) of the env axis: ``reset(gen, n_envs=E, rows=...)``
+gives the rank's E envs, and every draw (the reset's, churn, auto-resets,
+geometry) is made for all the blocks and the rank's kept, so a rank's
+envs see the numbers one process would give them.
 """
 from __future__ import annotations
 
@@ -60,7 +66,8 @@ from repro_torch.core.fleets import (BITS_NORM, DIST_NORM, EDGE_SLOW_NORM,
                                      pool_geometry, ue_edge_work, ue_table_features)
 from repro_torch.core.split import FleetPlan, SplitPlan
 from repro_torch.env.channel import channel_gain, slot_totals, uplink_rates
-from repro_torch.rl.actionspace import ContinuousHead, DiscreteHead, HybridActionSpace
+from repro_torch.rl.actionspace import (ContinuousHead, DiscreteHead, HybridActionSpace, Rows,
+                                        draw_rows)
 
 
 class EnvParams(NamedTuple):
@@ -212,6 +219,7 @@ class EnvState(NamedTuple):
     gen: Optional[torch.Generator]   # draws of random and auto resets
     active: torch.Tensor = None      # (N,) bool membership (all True: static fleet)
     geom: Optional[torch.Tensor] = None  # (n_servers, 3) resampled geometry; None: static
+    rows: Optional[Rows] = None      # the rank's block of the env axis; None: all of it
 
 
 def _np(t):
@@ -273,16 +281,22 @@ class MECEnv:
             masks={"split": params.feasible})
 
     def reset(self, gen: Optional[torch.Generator] = None, *, eval_mode=False,
-              randomize=False, n_envs: Optional[int] = None) -> EnvState:
+              randomize=False, n_envs: Optional[int] = None,
+              rows: Optional[Rows] = None) -> EnvState:
         """Eval mode: k = lam_tasks and d = 50 m for every UE, nothing
         drawn. Otherwise k ~ Poisson(lam_tasks), d ~ U(d_low, d_high), from
         ``gen`` (on the env's device). ``gen`` stays on the state for the
         auto-resets of ``step``. ``n_envs`` gives every leaf a leading env
         axis of that length, each env drawn from the same ``gen``.
         ``randomize=True`` (needs ``pool_ranges``) first draws each env's
-        pool geometry from ``gen`` (nothing else draws without it)."""
+        pool geometry from ``gen`` (nothing else draws without it).
+        ``rows`` makes the ``n_envs`` envs block ``rows.index`` of
+        ``rows.count`` such blocks: every draw, here and in ``step``, is
+        made for all of them and this block's kept."""
         p = self.params
         dev = self.device
+        if rows is not None and n_envs is None:
+            raise ValueError("rows shard the env axis: give n_envs")
         shape = (p.n_ue,) if n_envs is None else (n_envs, p.n_ue)
         geom = None
         if randomize:
@@ -290,18 +304,19 @@ class MECEnv:
                 raise ValueError("randomize=True needs pool_ranges")
             if gen is None:
                 raise ValueError("a randomized reset needs a torch.Generator")
-            geom = self._draw_geom(gen, shape[:-1])
+            geom = draw_rows(rows, lambda lead: self._draw_geom(gen, lead), shape[:-1])
         if eval_mode:
             k = torch.full(shape, p.lam_tasks, dtype=torch.float32, device=dev)
             d = torch.full(shape, 50.0, dtype=torch.float32, device=dev)
         else:
             if gen is None:
                 raise ValueError("a random reset needs a torch.Generator")
-            k, d = self._draw_tasks(gen, shape)
+            k, d = draw_rows(rows, lambda sh: self._draw_tasks(gen, sh), shape)
         zeros = torch.zeros(shape, dtype=torch.float32, device=dev)
         return EnvState(k=k, l=zeros, n=zeros.clone(), d=d,
                         t=torch.zeros(shape[:-1], dtype=torch.int32, device=dev), gen=gen,
-                        active=torch.ones(shape, dtype=torch.bool, device=dev), geom=geom)
+                        active=torch.ones(shape, dtype=torch.bool, device=dev), geom=geom,
+                        rows=rows)
 
     def _draw_geom(self, gen, lead):
         """(*lead, E, 3) geometry, uniform in [pool_low, pool_high)."""
@@ -564,7 +579,8 @@ class MECEnv:
         spawned = dropped = torch.zeros_like(k_t)
         d_next, act_next = s.d, act
         if self.dynamic:
-            u_join, u_leave, k_fresh, d_fresh = self._draw_churn(s.gen, k3.shape)
+            u_join, u_leave, k_fresh, d_fresh = draw_rows(
+                s.rows, lambda sh: self._draw_churn(s.gen, sh), k3.shape)
             p_join = float(np.float32(1.0) - np.exp(np.float32(-prm.churn_rate)))  # float32
             joins = ~act & (u_join < p_join)
             leaves = act & (u_leave < prm.leave_rate)
@@ -579,12 +595,13 @@ class MECEnv:
 
         done = torch.all(k3 <= 0, dim=-1)
         # auto-reset on termination, drawn every frame as the reference does
-        fresh_k, fresh_d = self._draw_tasks(s.gen, k3.shape)
+        fresh_k, fresh_d = draw_rows(s.rows, lambda sh: self._draw_tasks(s.gen, sh), k3.shape)
         zeros = torch.zeros_like(k3)
         dn = done[..., None]
         geom = s.geom
         if geom is not None:                # redrawn where the episode ended
-            geom = torch.where(done[..., None, None], self._draw_geom(s.gen, done.shape), geom)
+            geom = torch.where(done[..., None, None], draw_rows(
+                s.rows, lambda lead: self._draw_geom(s.gen, lead), done.shape), geom)
         nxt = EnvState(
             k=torch.where(dn, fresh_k, k3),
             l=torch.where(dn, zeros, l_nxt),
@@ -593,7 +610,7 @@ class MECEnv:
             t=torch.where(done, torch.zeros_like(s.t), s.t + 1),
             gen=s.gen,
             # the whole fleet is active again after an auto-reset
-            active=torch.where(dn, torch.ones_like(act), act_next), geom=geom)
+            active=torch.where(dn, torch.ones_like(act), act_next), geom=geom, rows=s.rows)
         info = {"completed": k_t, "energy": e_t, "rate_mean": r.mean(-1),
                 "offloads": offloads.sum(-1), "n_active": act.sum(-1),
                 "spawned": spawned, "dropped": dropped, "eps_bits": eps_bits.sum(-1)}

@@ -22,7 +22,7 @@ Each combination writes one JSON record to ``--out`` (default
   reference's ``lower_s`` and ``compile_s``).
 
 Two of the reference's fields are null, each with a line in ``notes``:
-``collectives`` (it needs the sharded program) and ``memory_analysis``
+``collectives`` (it needs a sharded program of the dense layers) and ``memory_analysis``
 (the port has no compiler's memory analysis, so no peak or temporary
 memory). The counts do not depend on the mesh: each arch and shape is
 counted once and the count serves both meshes. The process exits non-zero
@@ -50,8 +50,8 @@ from repro_torch.models.layers import rope_inv_freqs
 from repro_torch.optim.optimizers import opt_state_pspec, opt_state_structs
 
 NOTES = {
-    "collectives": "null: the collectives need the sharded program over several "
-                   "processes, which the port does not run yet",
+    "collectives": "null: the collectives need a sharded program of the dense layers "
+                   "(tensor parallelism over 'model'), which the port does not have",
     "memory_analysis": "null: the port has no compiler's memory analysis, so the peak "
                        "and temporary memory are not counted",
 }

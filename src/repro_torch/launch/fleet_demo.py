@@ -34,16 +34,26 @@ it to int8 (three ``quantize`` launches), scores it through the
 ``flat_trunk`` kernel (one launch an eval frame) against the teacher, and
 closes with a batch-1 forward readout of the teacher, the f32 student and
 the int8 student (best of 20 after one warm call). Runs on the CUDA card
-unless ``--device cpu`` is given. ``--n-shards`` > 1 raises
-``NotImplementedError``: sharded rollouts and sharded evaluation come in
-slice 19.
+unless ``--device cpu`` is given.
+
+``--n-shards K`` trains with the envs sharded over K ranks of a
+``torch.distributed`` world (``launch.mesh.spawn``): each rank steps its
+share of the envs and every rank runs the same update on the gathered
+trajectory. Only rank 0 prints. ``--backend nccl`` (the default on the
+card) runs one rank a card and raises with fewer cards than K; ``--backend
+gloo`` runs every rank on the one device, card 0 or the CPU (the only
+backend with ``--device cpu``).
 
   PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1 --distill
   PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1 --llm
+  PYTHONPATH=src python -m repro_torch.launch.fleet_demo --device cpu --iterations 1 \
+      --n-shards 2 --backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -55,24 +65,24 @@ from repro_torch.core import overhead as oh
 from repro_torch.core.fleets import (LLM_CTX_RUNGS, EdgePool, make_edge_pool,
                                      make_llm_mixed_fleet, make_mixed_fleet, random_pool_ranges)
 from repro_torch.env.mecenv import MECEnv, make_env_params
+from repro_torch.launch.mesh import spawn
 from repro_torch.rl import nets
 from repro_torch.rl.baselines import load_aware_eval, nearest_server_eval
 from repro_torch.rl.distill import DistillConfig, distill_entity_policy, quantize_flat_trunk
 from repro_torch.rl.heuristics import greedy_eval
 from repro_torch.rl.mahppo import MAHPPOConfig, evaluate_policy, init_agent, train_mahppo
 
-_SHARDS = ("sharded rollouts and sharded evaluation (--n-shards > 1) come in slice 19, over "
-           "torch.distributed")
 DISTILL = DistillConfig(iterations=2, frames=48, epochs=120)   # the example's
 READOUT_CALLS = 20                 # timed batch-1 forwards a network, after one warm call
 
 
 def fleet_config(iterations=15, *, shared_policy=False, entity_policy=False,
-                 randomize_pool=False, fused_scorer=False):
+                 randomize_pool=False, fused_scorer=False, n_shards=1):
     """The example's training settings."""
     return MAHPPOConfig(iterations=iterations, horizon=512, n_envs=4, reuse=4,
                         shared_policy=shared_policy, entity_policy=entity_policy,
-                        randomize_pool=randomize_pool, fused_scorer=fused_scorer)
+                        randomize_pool=randomize_pool, fused_scorer=fused_scorer,
+                        n_shards=n_shards)
 
 
 def fleet_env(fleet, pool, *, t0=0.5, randomize=False, device=None, churn_rate=0.0,
@@ -122,8 +132,9 @@ def membership_trace(env, frames=24, seed=7):
 
 def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_policy=False,
                    entity_policy=False, n_ue=4, fused_scorer=False, device=None,
-                   churn_rate=0.0, leave_rate=0.0, llm=False, distill=False):
-    """Train and score the demo. Returns {"history", "mahppo", "greedy",
+                   churn_rate=0.0, leave_rate=0.0, llm=False, distill=False, n_shards=1):
+    """Train and score the demo (with ``n_shards`` > 1 on every rank of a
+    world of that many). Returns {"history", "mahppo", "greedy",
     "nearest", "loadbal", "zero_shot", "membership", "snapshot", "agent",
     "env", "seconds", "splits", "llm_shift", "distill"} (entries that do
     not apply are None)."""
@@ -164,8 +175,11 @@ def run_fleet_demo(arch="qwen3-1.7b", iterations=15, *, n_servers=1, shared_poli
     print(f"\ntraining MAHPPO ({mode}) on the mixed fleet{extra} ({iterations} iterations)...")
     if fused_scorer:
         print("  fused pair-scorer kernel path (observe_entities_raw)")
+    if n_shards > 1:
+        print(f"  rollouts sharded over {n_shards} ranks ({torch.distributed.get_backend()}, "
+              f"{dev})")
     cfg = fleet_config(iterations, shared_policy=shared_policy, entity_policy=entity_policy,
-                       randomize_pool=randomize, fused_scorer=fused_scorer)
+                       randomize_pool=randomize, fused_scorer=fused_scorer, n_shards=n_shards)
     t0 = time.perf_counter()
     agent, hist = train_mahppo(env, cfg, seed=0, log_cb=lambda r: print(
         f"  iter {r['iteration']:3d} reward={r['reward_mean']:.4f}")
@@ -320,6 +334,15 @@ def distill_demo(env, agent):
             "overhead": ovh, "forward_us": forward_us, "seconds": seconds}
 
 
+def _sharded_rank(rank, device, kwargs):
+    """One rank of ``--n-shards``: the demo on ``device``, printed by rank
+    0 only; its result without the agent and the env."""
+    with open(os.devnull, "w") as null, \
+            contextlib.redirect_stdout(null) if rank else contextlib.nullcontext():
+        out = run_fleet_demo(device=device, **kwargs)
+    return {k: v for k, v in out.items() if k not in ("agent", "env")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-1.7b", choices=ARCH_IDS)
@@ -349,15 +372,22 @@ def main(argv=None):
                     help="after training, distill the entity teacher into the int8 flat "
                          "trunk and time a batch-1 forward (implies --entity-policy; not "
                          "with --churn)")
-    ap.add_argument("--n-shards", type=int, default=1, metavar="K")
+    ap.add_argument("--n-shards", type=int, default=1, metavar="K",
+                    help="shard the envs over K ranks of torch.distributed")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the ranks' backend with --n-shards: nccl (default on the card) runs "
+                         "one rank a card, gloo every rank on the one device (the only "
+                         "backend with --device cpu)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' for the plain path)")
     args = ap.parse_args(argv)
     churn = args.churn or args.churn_rate is not None or args.leave_rate is not None
     if args.distill and churn:
         ap.error("--distill targets a fixed deployment fleet; it cannot combine with --churn")
-    if args.n_shards > 1:
-        raise NotImplementedError(_SHARDS)
+    if args.n_shards < 1:
+        ap.error("--n-shards must be at least 1")
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    backend = args.backend or ("gloo" if cpu else "nccl")
     if args.entity_policy and args.shared_policy:
         ap.error("pick one of --entity-policy / --shared-policy")
     if args.fused_scorer and args.shared_policy:
@@ -374,13 +404,18 @@ def main(argv=None):
     if args.entity_policy and args.servers < 2:
         args.servers = 2           # the route scorer needs a pool to score
     full_precision_matmuls()
-    return run_fleet_demo(
-        args.arch, args.iterations, n_servers=args.servers, shared_policy=args.shared_policy,
-        entity_policy=args.entity_policy, n_ue=args.n_ue, fused_scorer=args.fused_scorer,
-        device=args.device,
+    kwargs = dict(
+        arch=args.arch, iterations=args.iterations, n_servers=args.servers,
+        shared_policy=args.shared_policy, entity_policy=args.entity_policy, n_ue=args.n_ue,
+        fused_scorer=args.fused_scorer,
         churn_rate=(0.2 if args.churn_rate is None else args.churn_rate) if churn else 0.0,
         leave_rate=(0.1 if args.leave_rate is None else args.leave_rate) if churn else 0.0,
         llm=args.llm, distill=args.distill)
+    if args.n_shards == 1:
+        return run_fleet_demo(device=args.device, **kwargs)
+    fleet_config(n_shards=args.n_shards)     # n_envs must split over the ranks: raises first
+    return spawn(_sharded_rank, args.n_shards, backend, dict(kwargs, n_shards=args.n_shards),
+                 device=args.device)[0]
 
 
 if __name__ == "__main__":

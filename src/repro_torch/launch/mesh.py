@@ -1,19 +1,39 @@
-"""Mesh shapes of the port (``src/repro/launch/mesh.py``) and the card's
-peak figures.
+"""Meshes of the port (``src/repro/launch/mesh.py``), the launcher of its
+multi-process programs, and the card's peak figures.
 
-The reference builds ``jax.make_mesh`` over its devices. The port's dry-run
-counts bytes and operations without running on the mesh, so a mesh here is
-a plain descriptor: axis names mapped to sizes, frozen and hashable. The
-sharding rules (``models/sharding.py``) read only its ``shape``,
-``axis_names`` and ``size``, as the reference's read a ``jax.sharding.Mesh``.
+The reference builds ``jax.make_mesh`` over its devices. The port has two
+kinds of mesh. ``Mesh`` is a plain descriptor, axis names mapped to sizes,
+frozen and hashable: the dry-run counts bytes and operations without
+running, and its sharding rules (``models/sharding.py``) read only the
+descriptor's ``shape``, ``axis_names`` and ``size``, as the reference's read
+a ``jax.sharding.Mesh``. ``ProcessMesh`` lays the same axes over the ranks
+of an initialised ``torch.distributed`` world (row-major, the last axis
+fastest) and gives what the reference's per-shard code reads inside
+``shard_map``: a rank's index on a set of axes (``jax.lax.axis_index``) and
+the collectives over them (``all_gather(..., tiled=True)`` and ``psum``).
+
+``spawn(fn, world, backend)`` starts the ranks. Under ``nccl`` rank r runs
+on card r, one rank a card; under ``gloo`` every rank runs on the one device
+the caller names (ranks that share card 0, or the CPU), and gloo stages CUDA
+tensors through the host. The backend is the caller's choice: nothing
+switches it.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import itertools
 import math
+import os
+import tempfile
 from typing import Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import full_precision_matmuls, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +79,158 @@ def make_host_mesh(model_axis: int = 1) -> Mesh:
     if model_axis < 1 or n % model_axis:
         raise ValueError(f"model axis {model_axis} does not divide {n} devices")
     return Mesh(("data", "model"), (n // model_axis, model_axis))
+
+
+def _axes(names, axes):
+    """``axes`` (a name or a tuple of names) as a tuple in mesh order."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    unknown = set(axes) - set(names)
+    if unknown or not axes:
+        raise ValueError(f"axes {axes} are not a non-empty subset of the mesh's {names}")
+    return tuple(a for a in names if a in axes)
+
+
+class ProcessMesh:
+    """The axes of a ``Mesh`` laid over the ranks of the initialised
+    ``torch.distributed`` world: rank r sits at the row-major coordinates of
+    r in ``axis_sizes``. Every rank must build it, in the same order as any
+    other group: it makes one process group for every set of ranks that
+    differ only on a subset of the axes. ``shape``, ``axis_names`` and
+    ``size`` read as a ``Mesh``'s; ``index``, ``all_gather`` and
+    ``all_reduce`` take an axis name or a tuple of them."""
+
+    def __init__(self, axis_names, axis_sizes):
+        if not dist.is_available() or not dist.is_initialized():
+            raise ValueError("a ProcessMesh needs an initialised torch.distributed world: start "
+                             "the ranks with repro_torch.launch.mesh.spawn")
+        self.spec = Mesh(tuple(axis_names), tuple(int(s) for s in axis_sizes))
+        world = dist.get_world_size()
+        if self.spec.size != world:
+            raise ValueError(f"a {self.spec.label} mesh has {self.spec.size} ranks, the world "
+                             f"{world}")
+        self.rank = dist.get_rank()
+        names, sizes = self.spec.axis_names, self.spec.axis_sizes
+        grid = np.arange(world).reshape(sizes)
+        self._coords = dict(zip(names, (int(c) for c in np.unravel_index(self.rank, sizes))))
+        self._groups = {}
+        for n in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, n):
+                keep = [names.index(a) for a in axes]
+                rest = [i for i in range(len(names)) if i not in keep]
+                rows = np.transpose(grid, rest + keep).reshape(-1, math.prod(
+                    sizes[i] for i in keep))
+                for ranks in rows:       # every rank makes every group, in one order
+                    group = dist.new_group(sorted(int(r) for r in ranks))
+                    if self.rank in ranks:
+                        self._groups[axes] = group
+
+    @property
+    def axis_names(self):
+        return self.spec.axis_names
+
+    @property
+    def shape(self) -> dict:
+        return self.spec.shape
+
+    @property
+    def size(self) -> int:
+        return self.spec.size
+
+    def axis_size(self, axes) -> int:
+        """Ranks along ``axes`` (the product of their sizes)."""
+        return math.prod(self.shape[a] for a in _axes(self.axis_names, axes))
+
+    def index(self, axes) -> int:
+        """This rank's row-major index over ``axes``, the reference's
+        ``axis_index`` (over a tuple: ``pod * n_data + data``)."""
+        i = 0
+        for a in _axes(self.axis_names, axes):
+            i = i * self.shape[a] + self._coords[a]
+        return i
+
+    def group(self, axes):
+        """The process group of this rank's neighbours along ``axes``."""
+        return self._groups[_axes(self.axis_names, axes)]
+
+    def all_gather(self, t, axes, dim=0):
+        """The ``t`` of every rank along ``axes``, concatenated along
+        ``dim`` in index order (``all_gather(..., tiled=True)``)."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
+        dist.all_gather(parts, t, group=self.group(axes))
+        return torch.cat(parts, dim=dim)
+
+    def all_reduce(self, t, axes):
+        """The sum of ``t`` over the ranks along ``axes`` (``psum``), in
+        ``t``'s dtype, as a new tensor."""
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=self.group(axes))
+        return out
+
+
+def rank_devices(world: int, backend: str, device=None):
+    """Each rank's device: card r under ``nccl`` (one rank a card; raises
+    when fewer cards are visible, naming ``gloo``), ``device`` (default the
+    card) for every rank under ``gloo``."""
+    if backend == "nccl":
+        if device is not None and torch.device(device).type != "cuda":
+            raise ValueError(f"nccl runs on CUDA cards, not on {device}; use backend 'gloo'")
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < world:
+            raise ValueError(f"nccl runs one rank a card: {world} ranks need {world} cards and "
+                             f"{n} are visible; pass backend 'gloo' (--backend gloo) to run "
+                             f"the ranks on one device")
+        return [torch.device("cuda", r) for r in range(world)]
+    if backend == "gloo":
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:     # a rank sets its card by index
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return [dev] * world
+    raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+
+
+def _rank_main(rank, fn, world, backend, devices, tmp, threads, timeout_s, args):
+    dev = devices[rank]
+    torch.set_num_threads(threads)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    full_precision_matmuls()
+    dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "store"),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        out = fn(rank, dev, *args)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, backend: str, *args, device=None, timeout_s: float = 900.0):
+    """Run ``fn(rank, device, *args)`` in ``world`` new processes, the ranks
+    of a ``torch.distributed`` world on ``backend``, and return their
+    results in rank order (loaded onto the CPU). ``fn`` must be importable
+    by name (a module-level function) and its result saveable by
+    ``torch.save``. The rendezvous is a ``FileStore`` in a fresh temporary
+    directory, so concurrent launches never share a port. The devices are
+    ``rank_devices``'s; each rank takes this process's CPU threads divided
+    by ``world``. The kernels are built here, before the ranks start,
+    so that they load one library. A rank that raises fails the launch
+    with its traceback, and the other ranks are stopped. A collective
+    that waits longer than ``timeout_s`` raises."""
+    devices = rank_devices(world, backend, device)
+    if devices[0].type == "cuda":
+        from repro_torch.kernels import _build
+        _build.build()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_spawn_") as tmp:
+        # ranks that share the host split its threads (spinning OpenMP pools
+        # that outnumber the cores slow every rank many times over)
+        threads = max(1, torch.get_num_threads() // world)
+        mp.start_processes(_rank_main, args=(fn, world, backend, devices, tmp, threads,
+                                             timeout_s, args),
+                           nprocs=world, join=True, start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), map_location="cpu",
+                           weights_only=False) for r in range(world)]
 
 
 # The card's peak figures, per GPU: NVIDIA H100 80GB HBM3 (SXM5) at 700 W,

@@ -21,6 +21,13 @@ one layer; llama-3.2-vision-90b's 1.7 GB a layer, so it holds 30). An
 encoder-decoder or VLM arch is fed the reference's zero ``aux_embeds``
 (B, n_aux_tokens, d_model), the stubbed frontend's output.
 
+``serve(cfg, mesh=...)`` answers the requests on every rank of a process
+mesh (``launch.mesh.ProcessMesh``), the steps running unchanged under
+``meshctx.use_mesh``: each rank holds its shard of the batch (its own
+requests' rows and KV cache) and of the MoE experts, and the MoE layers
+take the expert-parallel paths. The reference has no serving flag for
+this, and neither has the CLI.
+
 Runs on the CUDA card at the arch's full width by default; ``--device cpu``
 runs the plain PyTorch twins of the kernels instead, and ``--reduce``
 shrinks the config as the reference's launcher does (4 layers, d_model
@@ -30,6 +37,7 @@ shrinks the config as the reference's launcher does (4 layers, d_model
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -38,7 +46,7 @@ import torch
 from repro_torch import full_precision_matmuls, resolve_device
 from repro_torch.configs import ALL_ARCHS, get_config, reduced
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import init_params
+from repro_torch.models import init_params, meshctx
 from repro_torch.models.moe import routing_log
 
 
@@ -62,7 +70,7 @@ def cache_bytes(cache):
 
 @torch.inference_mode()
 def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, seed=0,
-          aux_embeds=None, log=print) -> ServeResult:
+          aux_embeds=None, log=print, mesh=None) -> ServeResult:
     """Build ``cfg`` with seeded random weights and answer ``requests``
     requests of (batch, prompt_len) random prompt tokens, each with a
     prefill and ``gen - 1`` greedy decode steps (the prefill's argmax is
@@ -71,11 +79,30 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
     tokens per second (batch x steps over the decode time), the generated
     tokens (batch, gen) and, for an MoE arch, the share of expert
     assignments its capacity dropped at prefill and at decode (None
-    without MoE layers). An arch with ``n_aux_tokens`` (encoder-decoder,
+    without MoE layers), and the logits of the prefill's last position and
+    of the last step. An arch with ``n_aux_tokens`` (encoder-decoder,
     VLM) is prefilled with ``aux_embeds``, by default the reference's zeros
-    (B, n_aux_tokens, d_model)."""
+    (B, n_aux_tokens, d_model).
+
+    Under ``mesh`` (a ``ProcessMesh``, on every rank) the model is built
+    and run inside ``meshctx.use_mesh(mesh)``: every rank draws the whole
+    batch's prompts and keeps the rows of its data index, ``batch / dp``
+    of them, and the stats hold its rows."""
     device = resolve_device(device)
     full_precision_matmuls()
+    rows = slice(None)
+    if mesh is not None:
+        dp = meshctx.dp_size(mesh)
+        if batch % dp:
+            raise ValueError(f"a batch of {batch} does not split over {dp} data ranks")
+        i, b = mesh.index(meshctx.dp_axes(mesh)), batch // dp
+        rows = slice(i * b, (i + 1) * b)
+    with meshctx.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        return _serve(cfg, device, batch, prompt_len, gen, requests, seed, aux_embeds, log,
+                      rows)
+
+
+def _serve(cfg, device, batch, prompt_len, gen, requests, seed, aux_embeds, log, rows):
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
     _sync(device)
@@ -88,8 +115,11 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
     n_steps = max(gen - 1, 0)
     if cfg.n_aux_tokens and aux_embeds is None:
         aux_embeds = torch.zeros((batch, cfg.n_aux_tokens, cfg.d_model), device=device)
+    if aux_embeds is not None:
+        aux_embeds = aux_embeds[rows]
     for r in range(requests):
-        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=host).to(device)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               generator=host)[rows].to(device)
         _sync(device)
         t0 = time.perf_counter()
         with routing_log() as pre:
@@ -97,6 +127,7 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
         _sync(device)
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         nbytes = cache_bytes(cache)
+        prefill_logits = logits
         tok = logits.argmax(-1)[:, None]
         outs = [tok]
         t0 = time.perf_counter()
@@ -112,7 +143,8 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
               "tokens_per_s": batch * n_steps / decode_s if n_steps else 0.0,
               "tokens": torch.cat(outs, dim=1), "logits_finite": bool(torch.isfinite(logits).all()),
               "moe_dropped_prefill": pre.dropped_share(),
-              "moe_dropped_decode": dec.dropped_share()}
+              "moe_dropped_decode": dec.dropped_share(),
+              "prefill_logits": prefill_logits, "last_logits": logits}
         out.stats.append(st)
         out.cache = cache
         drops = ("" if st["moe_dropped_prefill"] is None else

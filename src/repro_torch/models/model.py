@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.models.blocks import make_block
 from repro_torch.models.layers import Norm, dense_init, dtype_of, embed_init
+from repro_torch.models.moe import expert_leaf_shape, shard_expert_leaf
 
 
 def layer_plan(cfg):
@@ -204,7 +205,11 @@ def init_params(cfg, generator, device):
     ``A_log``, ``dt_bias`` and cross-attention gates. An (E, d, f) expert leaf takes the
     reference's fan-in, its first axis E, and is drawn in slabs of experts
     of at most ``SLAB_ELEMENTS``, so no f32 copy of a whole leaf is made
-    (kimi-k2's ``wi`` would take 22.5 GB)."""
+    (kimi-k2's ``wi`` would take 22.5 GB). Built under a mesh
+    (``meshctx.use_mesh``), an MoE layer holds the rank's shard of its
+    experts: every slab of the whole leaf is drawn, in the same order, and
+    the rank keeps its part, so the shards are cut from the draw a single
+    process makes."""
     model = Model(cfg, device=device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -213,12 +218,23 @@ def init_params(cfg, generator, device):
         elif p.dim() == 2:
             p.copy_(dense_init(generator, p.shape, p.dtype, device))
         elif p.dim() == 3:
-            std = 1.0 / np.sqrt(p.shape[0])
-            step = max(1, SLAB_ELEMENTS // (p.shape[1] * p.shape[2]))
-            for i in range(0, p.shape[0], step):
-                slab = p[i:i + step]
-                slab.copy_(torch.randn(slab.shape, generator=generator, dtype=torch.float32,
-                                       device=device).mul_(float(std)))
+            shard = getattr(model.get_submodule(name.rsplit(".", 1)[0]), "shard", None)
+            full = p.shape if shard is None else expert_leaf_shape(cfg, leaf)
+            std = 1.0 / np.sqrt(full[0])
+            step = max(1, SLAB_ELEMENTS // (full[1] * full[2]))
+            for i in range(0, full[0], step):
+                slab = torch.randn((min(step, full[0] - i),) + tuple(full[1:]),
+                                   generator=generator, dtype=torch.float32,
+                                   device=device).mul_(float(std))
+                if shard is None:
+                    p[i:i + step].copy_(slab)
+                    continue
+                # a rank keeps its shard of the slab (a mesh's MoE module)
+                rows, dsl = shard
+                lo, hi = max(i, rows.start), min(i + len(slab), rows.stop)
+                if lo < hi:
+                    p[lo - rows.start:hi - rows.start].copy_(
+                        shard_expert_leaf(leaf, slab, (slice(lo - i, hi - i), dsl)))
         elif leaf in ("scale", "q_scale", "k_scale", "D", "norm_scale"):
             p.fill_(1.0)
         elif leaf == "lam":

@@ -11,7 +11,11 @@ fleet; here the actor axis is written out: logits are ``(..., n)``, masks
 ``{name: (..., n) bool}`` (broadcast against the logits, so a dynamic
 fleet's (E, N, n) masks take the env axis), and every function works on
 the last axis.
-Random draws take an explicit ``torch.Generator``.
+Random draws take an explicit ``torch.Generator``. Where the envs are
+sharded over ranks, a rank holds block ``Rows.index`` of ``Rows.count``
+blocks of the env axis: it draws the numbers of every block from the one
+generator and keeps its own (``draw_rows``), so the sharded run draws, env
+for env, what one process would, and every rank's generator stays in step.
 """
 from __future__ import annotations
 
@@ -45,6 +49,29 @@ class ContinuousHead(NamedTuple):
 
     def clamp(self, x):
         return torch.clamp(x, self.low, self.high)
+
+
+class Rows(NamedTuple):
+    """Block ``index`` of ``count`` equal blocks of a leading env axis."""
+    index: int
+    count: int
+
+    def widen(self, shape):
+        """``shape`` with its leading axis grown to all the blocks."""
+        return (shape[0] * self.count,) + tuple(shape[1:])
+
+    def keep(self, t):
+        """This block of ``t``'s leading axis (of each of a tuple's)."""
+        if isinstance(t, tuple):
+            return tuple(self.keep(x) for x in t)
+        n = t.shape[0] // self.count
+        return t[self.index * n:(self.index + 1) * n]
+
+
+def draw_rows(rows, draw, shape):
+    """``draw(shape)``; with ``rows`` (a ``Rows`` or None) this block of
+    ``draw`` over every block's rows."""
+    return draw(shape) if rows is None else rows.keep(draw(rows.widen(shape)))
 
 
 def _mask_logits(logits, mask):
@@ -139,20 +166,24 @@ class HybridActionSpace:
         return dist
 
     # ------------------------------------------------------- distribution
-    def sample(self, gen, dist, masks=None):
+    def sample(self, gen, dist, masks=None, rows=None):
         """One action per head and actor, drawn from ``gen`` in head order
         (Gumbel-max for discrete heads, with the masks re-applied so
-        infeasible choices are never drawn)."""
+        infeasible choices are never drawn). With ``rows`` (a ``Rows``) the
+        leading axis is that block of the envs: every block's numbers are
+        drawn and this block's kept."""
         actions = {}
         for h in self.heads:
             if isinstance(h, DiscreteHead):
                 logits = _mask_logits(dist[h.name], self.actor_mask(masks, h.name))
-                u = torch.rand(logits.shape, generator=gen, device=logits.device)
+                u = draw_rows(rows, lambda shape: torch.rand(
+                    shape, generator=gen, device=logits.device), logits.shape)
                 u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
                 actions[h.name] = torch.argmax(logits - torch.log(-torch.log(u)), -1)
             else:
                 d = dist[h.name]
-                noise = torch.randn(d["mu"].shape, generator=gen, device=d["mu"].device)
+                noise = draw_rows(rows, lambda shape: torch.randn(
+                    shape, generator=gen, device=d["mu"].device), d["mu"].shape)
                 actions[h.name] = d["mu"] + torch.exp(d["log_std"]) * noise
         return actions
 

@@ -31,9 +31,19 @@ On a dynamic fleet (churn) the rollout builds each env's masks from its
 state every frame, so inactive UEs take only full-local; the loss keeps
 the static masks and weighs each actor by the frames it was active, as
 the reference's does. ``evaluate_policy`` runs ``n_envs`` eval episodes
-as one batched state, one policy forward a frame for all of them. Still to
-come in slice 19, each raising ``NotImplementedError``: sharded rollouts
-and sharded evaluation (``n_shards`` > 1), over ``torch.distributed``.
+as one batched state, one policy forward a frame for all of them.
+
+With ``n_shards`` > 1 the envs are sharded over the ``n_shards`` ranks of
+an initialised ``torch.distributed`` world (``launch.mesh.spawn``), which
+the reference shards over devices with ``shard_map``. A rank steps its
+``n_envs / n_shards`` envs; every draw is made for all the envs and the
+rank keeps its own (``actionspace.Rows``), where the reference folds the
+shard index into its key, so a sharded run draws, env for env, what the
+one-process run does. Training gathers the trajectory and the last values
+along the env axis and every rank runs the same update with the same
+minibatch draws, so the agent stays the same on every rank (the gathers
+GSPMD inserts for the reference). Sharded evaluation gathers the per-env
+rows of every frame once, at the end, before the summary.
 """
 from __future__ import annotations
 
@@ -41,14 +51,15 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.env.mecenv import MECEnv
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.rl import nets
+from repro_torch.rl.actionspace import Rows
 from repro_torch.rl.gae import gae
 
 _SUMMARY = ("reward", "t_sum", "e_sum", "w_sum", "completed", "n_active", "done")
-_SHARDS = ("sharded rollouts (n_shards > 1) come in slice 19, over torch.distributed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +106,35 @@ class MAHPPOConfig:
             raise ValueError("randomize_pool trains on resampled pool "
                              "geometry that only the entity observation "
                              "exposes — set entity_policy=True")
+
+
+def env_rows(n_shards: int):
+    """This rank's block of the env axis sharded over ``n_shards`` ranks,
+    None for ``n_shards`` 1. The ranks are the whole initialised
+    ``torch.distributed`` world; raises a ``ValueError`` that says how to
+    launch them when there is none, or a world of another size."""
+    if n_shards == 1:
+        return None
+    hint = (f"launch {n_shards} ranks with repro_torch.launch.mesh.spawn (on the CPU with "
+            f"backend 'gloo'), or fleet_demo --n-shards {n_shards}")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"n_shards={n_shards} shards the envs over the ranks of "
+                         f"torch.distributed, and no process group is initialised: {hint}")
+    if dist.get_world_size() != n_shards:
+        raise ValueError(f"n_shards={n_shards} but the world has {dist.get_world_size()} "
+                         f"rank(s): {hint}")
+    return Rows(dist.get_rank(), n_shards)
+
+
+def gather_envs(t, dim):
+    """Every rank's ``t``, concatenated along its env axis ``dim`` in rank
+    order."""
+    flag = t.dtype == torch.bool          # gathered as bytes
+    t = t.to(torch.uint8) if flag else t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    out = torch.cat(parts, dim)
+    return out.bool() if flag else out
 
 
 def init_agent(gen: torch.Generator, env: MECEnv, *, shared_policy=False,
@@ -147,9 +187,10 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
     (agent, optimizer state, generator, states). ``iteration`` collects
     ``cfg.horizon`` frames over the batched envs, then runs the minibatch
     updates, updating the agent and optimizer state in place; its metrics
-    stay on the device."""
-    if cfg.n_shards > 1:
-        raise NotImplementedError(_SHARDS)
+    stay on the device. With ``cfg.n_shards`` > 1 the states are the
+    rank's block of the envs (``init_states``), and ``iteration`` gathers
+    the trajectory over the ranks before the update."""
+    rows = env_rows(cfg.n_shards)
     space = env.action_space
     n_ue = env.params.n_ue
     shared, entity = cfg.shared_policy, cfg.entity_policy
@@ -190,7 +231,7 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
         active = states.active.to(torch.float32)                      # (E, N)
         step_masks = state_masks(states)
         dist, value = policy_value(agent, obs, step_masks)
-        actions = space.sample(gen, dist, step_masks)
+        actions = space.sample(gen, dist, step_masks, rows=states.rows)
         logp = space.log_prob(dist, actions, active)
         nstates, reward, done, info = env.step(states, space.execute(actions))
         tr = {"obs": obs, "actions": actions, "logp": logp, "reward": reward,
@@ -200,6 +241,13 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
 
     @torch.no_grad()
     def collect(agent, gen, states):
+        if rows is not None:
+            # the critic's input rows gathered over the ranks: a product
+            # with one output column takes another BLAS route for another
+            # row count, so every rank runs it over all the envs (the
+            # one-process run's rows and bits) and keeps its own
+            critic = agent["critic"]
+            agent = dict(agent, critic=lambda h: rows.keep(critic(gather_envs(h, 0))))
         steps = []
         for _ in range(cfg.horizon // cfg.n_envs):
             states, tr = sample_step(agent, gen, states)
@@ -259,6 +307,9 @@ def make_train_fns(env: MECEnv, cfg: MAHPPOConfig) -> TrainFns:
 
     def iteration(agent, opt, gen, states):
         states, traj, last_v = collect(agent, gen, states)
+        if rows is not None:            # every rank updates on every env's frames
+            traj = _tree_map(lambda x: gather_envs(x, 1), traj)
+            last_v = gather_envs(last_v, 0)
         metrics = update(agent, opt, gen, traj, last_v)
         metrics.update(reward_mean=traj["reward"].mean(), completed=traj["completed"].mean(),
                        energy=traj["energy"].mean())
@@ -271,8 +322,10 @@ def init_states(env: MECEnv, cfg: MAHPPOConfig, gen: torch.Generator):
     """Batched initial states for training, (n_envs, N) leaves drawn from
     ``gen`` (on the env's device), which the states keep for their
     auto-resets; with ``cfg.randomize_pool`` each env draws its own pool
-    geometry (and redraws it at each auto-reset)."""
-    return env.reset(gen, n_envs=cfg.n_envs, randomize=cfg.randomize_pool)
+    geometry (and redraws it at each auto-reset). With ``cfg.n_shards`` >
+    1 the rank's block of them, ``n_envs / n_shards`` envs."""
+    return env.reset(gen, n_envs=cfg.n_envs // cfg.n_shards, randomize=cfg.randomize_pool,
+                     rows=env_rows(cfg.n_shards))
 
 
 def train_mahppo(env: MECEnv, cfg: MAHPPOConfig, seed=0, log_cb: Callable = None):
@@ -331,13 +384,15 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
     launch a frame whatever ``n_envs`` is. The summary is the reference's:
     each field's mean over envs and frames, and ``t_task = mean(t_sum) /
     max(mean(w_sum), 1e-9)``, ``e_task`` the same way. ``n_envs`` = 1 runs
-    the single-env state ((N,) leaves). Sharded evaluation (``n_shards`` >
-    1) comes in slice 19."""
+    the single-env state ((N,) leaves). ``n_shards`` > 1 runs the rank's
+    ``n_envs / n_shards`` of the episodes (``env_rows``: the ranks of the
+    torch.distributed world), one forward a frame, drawing what the
+    unsharded run draws for them; the per-env rows are gathered over the
+    ranks at the end, so every rank returns the unsharded summary, and
+    ``trace`` receives the rank's own envs."""
     if n_envs % n_shards != 0:
         raise ValueError(f"n_envs={n_envs} must be divisible by n_shards={n_shards}")
-    if n_shards != 1:
-        raise NotImplementedError("sharded evaluation (n_shards > 1) comes in slice 19, over "
-                                  "torch.distributed")
+    rows = env_rows(n_shards)
     kinds = [k for k in ("actors", "actor", "entity_actor", "flat_trunk") if k in agent]
     if not kinds:
         raise ValueError(f"unknown agent with keys {sorted(agent)}")
@@ -348,7 +403,7 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
     obs_entities = env.observe_entities_raw if fused_scorer else env.observe_entities
     gen_act = torch.Generator(device=dev).manual_seed(seed + 1)
     s = env.reset(torch.Generator(device=dev).manual_seed(seed), eval_mode=True,
-                  n_envs=None if n_envs == 1 else n_envs)
+                  n_envs=None if n_envs == 1 else n_envs // n_shards, rows=rows)
 
     def masks_of(s):
         # the per-UE actors see the split mask only, as the reference's vmap
@@ -356,7 +411,7 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
             else space.broadcast_masks(env.action_masks(s), n_ue, device=dev)
 
     masks = masks_of(s)          # a static fleet's masks do not change
-    rows = []
+    frames_out = []
     for _ in range(frames):
         if env.dynamic:
             masks = masks_of(s)
@@ -369,7 +424,7 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
         else:
             dist = nets.actor_forward(agent[kind], space, env.observe(s), masks)
         actions = space.mode(dist, masks) if deterministic \
-            else space.sample(gen_act, dist, masks)
+            else space.sample(gen_act, dist, masks, rows=rows)
         phys = space.execute(actions)
         s2, reward, done, info = env.step(s, phys)
         t_task, e_task = env.task_overhead(s, phys)
@@ -378,14 +433,17 @@ def evaluate_policy(env: MECEnv, agent, *, frames=64, seed=0, deterministic=True
         w = torch.where(t_task > 0, torch.full_like(t_task, env.params.t0) / t_task, 0.0) \
             * (s.k > 0) * s.active
         # (7,) a frame, or (7, n_envs)
-        rows.append(torch.stack([reward, (t_task * w).sum(-1), (e_task * w).sum(-1),
+        frames_out.append(torch.stack([reward, (t_task * w).sum(-1), (e_task * w).sum(-1),
                                  w.sum(-1), info["completed"],
                                  info["n_active"].to(torch.float32), done.to(torch.float32)]))
         if trace is not None:
-            trace.append(dict(zip(_SUMMARY, rows[-1]), dist=dist, actions=actions,
+            trace.append(dict(zip(_SUMMARY, frames_out[-1]), dist=dist, actions=actions,
                               active=s.active))
         s = s2
-    out = torch.stack(rows).cpu().numpy()
+    out = torch.stack(frames_out)
+    if rows is not None:
+        out = gather_envs(out, 2)
+    out = out.cpu().numpy()
     res = {k: float(out[:, i].mean()) for i, k in enumerate(_SUMMARY)}
     res["t_task"] = res.pop("t_sum") / max(res["w_sum"], 1e-9)
     res["e_task"] = res.pop("e_sum") / max(res.pop("w_sum"), 1e-9)

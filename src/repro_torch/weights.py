@@ -11,6 +11,11 @@ per layer, in the same (d_in, d_out) layouts, so the stacks are only
 unstacked. ``reference_leaves`` describes the reference's leaves once, in
 the port's terms; the tree carriers, the decay mask and Adafactor read it.
 
+Under a mesh (``models.meshctx.use_mesh``) an MoE layer holds a rank's
+shard of its experts: ``shard_moe_params`` cuts one (the reference's
+``init_moe`` tree) and ``moe_from_jax`` builds the layer from it;
+``from_jax_params`` cuts every MoE layer's expert leaves the same way.
+
 ``cache_from_jax`` carries a serving cache the reference built (its
 ``prefill`` output, numpy leaves) into the port's per-layer list, so a
 decode can continue in the port from state the reference made.
@@ -38,7 +43,9 @@ import torch
 
 from repro_torch.env.mecenv import EnvState
 from repro_torch.kernels.ref import code_dtype
+from repro_torch.models import meshctx
 from repro_torch.models.model import Model, layer_plan
+from repro_torch.models.moe import MoE, expert_shard, shard_expert_leaf
 from repro_torch.optim import Leaf
 from repro_torch.rl.nets import MLP, Actor, EntityActor, Linear, StackedLinear
 
@@ -152,14 +159,49 @@ def from_jax_params(tree, cfg, device):
     own dtype (the Mamba ``A_log``, ``D`` and ``dt_bias``, the RG-LRU's
     ``ba``, ``bi`` and ``lam`` and the MoE router stay float32 in a
     bfloat16 model); stacked MoE leaves are (G, E, d, f) experts and the
-    (G, d, E) router."""
+    (G, d, E) router. Under a mesh each MoE layer keeps the rank's shard
+    of its experts (``shard_moe_params``' rule)."""
     model = Model(cfg, device=device)
     params = list(model.parameters())
+    shards = {id(getattr(mod, name)): (name, mod.shard) for mod in model.modules()
+              if isinstance(mod, MoE) and mod.shard is not None for name in ("wi", "wg", "wo")}
     for leaf in reference_leaves(model):
         a = _at(tree, leaf.path)
         for g, i in enumerate(leaf.index):
-            params[i].copy_(_tensor(a[g] if leaf.stacked else a, params[i].dtype, device))
+            src = a[g] if leaf.stacked else a
+            if id(params[i]) in shards:        # a rank's shard of the experts
+                name, shard = shards[id(params[i])]
+                src = shard_expert_leaf(name, src, shard)
+            params[i].copy_(_tensor(src, params[i].dtype, device))
     return model
+
+
+def shard_moe_params(params, cfg, mesh):
+    """The rank's shard of one MoE layer's parameters ``params`` (the
+    reference's ``init_moe`` tree: "router", "wi", "wg", "wo" and the
+    shared experts' leaves, arrays or tensors) under ``mesh``: the expert
+    rows ``[lo, lo + E / model)`` of its "model" index, and with ``fsdp``
+    its d-slice over "data" (``wi`` and ``wg`` along dim 1, ``wo`` along
+    dim 2; the reference's ``wspec_i`` / ``wspec_o``). The router and the
+    shared experts stay whole, as do all leaves where the mesh has no
+    expert-parallel path for ``cfg``."""
+    shard = expert_shard(cfg, mesh)
+    if shard is None:
+        return dict(params)
+    return {k: shard_expert_leaf(k, v, shard) if k in ("wi", "wg", "wo") else v
+            for k, v in params.items()}
+
+
+@torch.no_grad()
+def moe_from_jax(params, cfg, device):
+    """An ``MoE`` layer holding the reference's ``init_moe`` tree
+    ``params``, or under a mesh (``meshctx.use_mesh``) the rank's shard of
+    it (``shard_moe_params``)."""
+    moe = MoE(cfg, device=device)
+    for name, src in shard_moe_params(params, cfg, meshctx.get_mesh()).items():
+        p = getattr(moe, name)
+        p.copy_(_tensor(src, p.dtype, device))
+    return moe
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,

@@ -160,5 +160,6 @@ def test_fleet_demo_runs_on_the_cpu(capsys):
     # churn is accepted; the reference refuses it beside --distill
     with pytest.raises(SystemExit):
         fleet_demo.main(["--device", "cpu", "--churn", "--distill"])
-    with pytest.raises(NotImplementedError, match="sharded"):
-        fleet_demo.main(["--device", "cpu", "--n-shards", "2"])
+    # --n-shards runs its ranks (tests/test_torch_sharding.py); nccl needs a card a rank
+    with pytest.raises(ValueError, match="gloo"):
+        fleet_demo.main(["--device", "cpu", "--n-shards", "2", "--backend", "nccl"])

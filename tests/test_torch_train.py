@@ -363,7 +363,8 @@ def test_config_matches_reference_and_refuses_what_waits():
         with pytest.raises(ValueError):
             mahppo.MAHPPOConfig(**bad)
     _, v = _envs(3)
-    with pytest.raises(NotImplementedError, match="n_shards"):
+    # sharded rollouts need their ranks (tests/test_torch_sharding.py runs them)
+    with pytest.raises(ValueError, match="n_shards=2"):
         mahppo.make_train_fns(v, mahppo.MAHPPOConfig(n_shards=2))
     # training through the fused scorer is ported; resampled geometry needs
     # an env built with pool_ranges, as in the reference
