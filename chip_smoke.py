@@ -8,8 +8,8 @@
 Phases, one line or more each, any failure exits non-zero before the last
 line (``--timing-only`` runs only the build and the kernel timings, of the
 port under ``--src``, so two trees' kernels can be timed in one session;
-``--sharded-only`` runs only the build and phase 16, its NCCL half over
-every visible card, and prints no result):
+``--sharded-only`` runs only the build and phases 16 and 16t, their NCCL
+half over every visible card, and prints no result):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
@@ -186,14 +186,15 @@ every visible card, and prints no result):
    the zero-shot 3-server pool; then seconds per iteration, one profiled
    iteration, and one fused update on the card held to the CPU's;
 15b. a dynamic fleet through the scorer kernels, a main path:
-   ``fleet_demo --churn`` (join intensity 0.2, leave probability 0.1 a
-   frame; otherwise phase 15's run): exactly phase 15's scorer launches,
+   ``fleet_demo --churn --iterations 5`` (join intensity 0.2, leave
+   probability 0.1 a frame; otherwise phase 15's run, 5 of its 15
+   iterations for time, as 15c and 15d): exactly its scorer launches,
    every reward and overhead finite, a 24-frame membership trace with a
    leave and a join, a mean evaluated fleet strictly between 0 and N, and
    greedy, nearest and load-balanced scored on the traced membership;
 15c. distillation into the int8 trunk, a main path: ``fleet_demo
    --distill`` at the example's settings (its own teacher, phase 15's
-   training; then 2 DAgger rounds of 48 frames over 4 envs on the static
+   training at 5 iterations; then 2 DAgger rounds of 48 frames over 4 envs on the static
    pool, 120 epochs a round, seed 1): exactly the scorer launches of the
    training, 3 ``quantize`` and 64 + 21 ``flat_trunk`` (the int8
    student's eval frames and the batch-1 readout's warm and 20 timed
@@ -201,7 +202,7 @@ every visible card, and prints no result):
 15d. the mixed CNN + LLM-decode fleet, a main path: ``fleet_demo --llm``
    (two ResNet18 UEs and one qwen3-1.7b decode UE a context rung, 256,
    1024 and 4096, on the thin v5e slice and the edge GPU, 2-second frames,
-   15 iterations through the scorer kernels): exactly their launches,
+   5 iterations through the scorer kernels): exactly their launches,
    every reward and overhead finite, each UE's split and the
    context-length shift printed;
 15e. the streaming runtime, a main path: the ``streaming_serve`` twin (8
@@ -227,15 +228,18 @@ every visible card, and prints no result):
    of one image's feature at point 2, within 5 % of the entropy estimate;
    then the same sweep at bench_compression.py's size (width 0.5, 32 px);
    no kernel launched, seconds and peak memory printed;
-15g. the dry-run without running (``repro_torch.launch.dryrun.run_one``,
-   all on meta): each arch of ARCH_IDS at one input shape
-   (``DRYRUN_SHAPES``, every input shape among them: the 80
-   combinations take minutes of host time) on both production meshes,
-   one line a combination with the params' and the optimizer state's or
+15g. the dry-run without running (``python -m repro_torch.launch.dryrun
+   --arch A --both-meshes`` for every arch, all on meta, in two background
+   processes started after the build, so their minutes of host time run
+   beside the card's phases): all 80 records of ARCH_IDS x INPUT_SHAPES x
+   both production meshes; one line a combination at each arch's
+   ``DRYRUN_SHAPES`` shape with the params' and the optimizer state's or
    cache's bytes a device, each and together against the card's 80 GB,
-   and the step's flops, dot_flops and bytes_accessed: every figure
-   positive and finite, collectives and memory analysis null; the
-   phase's seconds;
+   and the step's flops, dot_flops and bytes_accessed, every figure
+   positive and finite; the prefill, decode and long_500k records of the
+   six archs whose blocks all have a tensor-parallel program carry rank
+   0's collectives and memory analysis (36), every other record null with
+   a note (44); the background's seconds;
 15h. the byte rules against the card: at a 1 x 1 mesh every spec is
    unsharded, so the rules' bytes of qwen3-1.7b's parameters (built on
    the card by ``init_params``, as the serving entries build them) and of
@@ -269,8 +273,10 @@ every visible card, and prints no result):
    qwen3-moe-30b-a3b at full width, 4 of its 48 layers, seeded bf16
    weights (each rank keeps its shard of the experts), one request of a
    (4, 2048) prefill (``apply_moe_ep``) and 31 decode steps
-   (``apply_moe_ep_decode``, ``decode_attention`` on each rank's (2, 2080,
-   4, 8, 128) cache: exactly 124 launches a rank) at capacity factor 16
+   (``apply_moe_ep_decode``; the attention tensor-parallel, each rank's
+   heads and its half of the cache's length, ``decode_attention`` over
+   its (2, 1040, 4, 8, 128) run with the log-sum-exp: exactly 124
+   launches a rank) at capacity factor 16
    (where neither path drops: the single-device decode's capacity is 4),
    held to one process with no mesh fed its tokens (logits within 5e-2 x
    max|logit|, greedy tokens equal at 99 % or more), prefill ms, decode ms
@@ -283,8 +289,28 @@ every visible card, and prints no result):
    scorer, each env's rows equal to ``n_shards=1``'s, one ``pair_scorer``
    launch a frame a rank; then one NCCL rank a visible card serves and
    evaluates again, held the same way; world size and backend printed;
+16t. tensor parallelism over "model" (its ranks' parts run in phase 16's
+   two launches): (a) three reduced f32 blocks (qwen2-like with biases
+   and G 2; 3 query heads on 1, which the model axis does not divide; an
+   int8 cache split by length), prefill and 4 decode steps on each gloo
+   rank on the card against the same rank on the CPU (logits within 1e-5
+   of max|logit|; int8 codes within one, 99.9 % equal, logits within
+   5e-2); (b) qwen2-7b at its published widths, 28 layers, bf16, one
+   request of a (4, 2048) prefill and 31 decode steps over the four gloo
+   ranks (each its 14 query and 2 kv heads and half the cache's 2080
+   slots: exactly 868 decode_attention launches a rank), prefill ms,
+   decode ms a token and peak memory a rank; the same draws in float32 at
+   4 layers against one process fed its tokens (logits within 1e-4 of
+   max|logit|, every greedy token equal); then the same over the NCCL
+   rank(s); (c) ``decode_attention`` with its log-sum-exp at the rank's
+   (2, 1040, 4, 7, 128) bf16 and its int8 cache against the twin (2e-5 +
+   2e-5 |plain| for the output and the log-sum-exp), timed with and
+   without it beside its bound, and qwen3's shape without it against
+   PERF.md's 0.01843 ms; (d) each rank's collective log of the serves
+   equal to a ``CountingMesh``'s on meta at its coordinates, and a decode
+   step's ``max_memory_allocated`` against the meta count's peak;
 17. the card's name and power limit again, the kernels as one JSON line
-   (phase 16's launches summed over the ranks), then the result as the
+   (phases 16 and 16t's launches summed over the ranks), then the result as the
    last line.
 """
 import argparse
@@ -293,6 +319,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2135,7 +2162,7 @@ def phase_fleet_churn(dev, fleet_demo, build_mod):
     and a join, and a mean evaluated fleet strictly between 0 and N."""
     build_mod.reset_launches()
     t0 = time.perf_counter()
-    res = fleet_demo.main(["--churn"])
+    res = fleet_demo.main(["--churn", "--iterations", str(FLEET_VARIANT_ITERATIONS)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
@@ -2144,7 +2171,7 @@ def phase_fleet_churn(dev, fleet_demo, build_mod):
     want = fleet_demo_launches(cfg)
     check(launches == want, f"churned fleet demo: launches {launches}, expected {want}")
     hist, env = res["history"], res["env"]
-    check(env.dynamic and len(hist) == 15
+    check(env.dynamic and len(hist) == FLEET_VARIANT_ITERATIONS
           and all(math.isfinite(r["reward_mean"]) for r in hist),
           f"churned fleet demo: rewards {[r['reward_mean'] for r in hist]}")
     n = env.params.n_ue
@@ -2182,7 +2209,7 @@ def phase_fleet_distill(dev, fleet_demo, build_mod):
     every loss and the int8-over-teacher overhead ratio finite."""
     build_mod.reset_launches()
     t0 = time.perf_counter()
-    res = fleet_demo.main(["--distill"])
+    res = fleet_demo.main(["--distill", "--iterations", str(FLEET_VARIANT_ITERATIONS)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
@@ -2217,7 +2244,7 @@ def phase_fleet_llm(dev, fleet_demo, build_mod):
     each UE's split and the context-length shift."""
     build_mod.reset_launches()
     t0 = time.perf_counter()
-    res = fleet_demo.main(["--llm"])
+    res = fleet_demo.main(["--llm", "--iterations", str(FLEET_VARIANT_ITERATIONS)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
@@ -2225,7 +2252,8 @@ def phase_fleet_llm(dev, fleet_demo, build_mod):
     want = fleet_demo_launches(cfg)
     check(launches == want, f"fleet demo --llm: launches {launches}, expected {want}")
     hist, env = res["history"], res["env"]
-    check(len(hist) == 15 and all(math.isfinite(r["reward_mean"]) for r in hist),
+    check(len(hist) == FLEET_VARIANT_ITERATIONS
+          and all(math.isfinite(r["reward_mean"]) for r in hist),
           f"fleet demo --llm: rewards {[r['reward_mean'] for r in hist]}")
     beta = env.params.beta
     ovh = res["mahppo"]["t_task"] + beta * res["mahppo"]["e_task"]
@@ -3342,38 +3370,135 @@ def update_moves(mahppo, optim, fns, agent, traj, last_v, idx, device, dtype):
 
 
 # ------------------------------------------- the dry-run and batched evaluation
-def phase_dryrun(dryrun, arch_ids, input_shapes):
-    """15g: ``dryrun.run_one`` for each arch at its ``DRYRUN_SHAPES`` shape
-    on both production meshes, on meta: one line a combination with the
-    per-device bytes against the card's 80 GB and the step's counts; the
-    phase's seconds."""
+# The dry-run's two background workers, each a list of archs, the costliest
+# (prefill_32k's counts) spread over both.
+DRYRUN_WORKERS = (("kimi-k2-1t-a32b", "qwen2-7b", "stablelm-1.6b", "mamba2-1.3b",
+                   "seamless-m4t-large-v2"),
+                  ("qwen3-moe-30b-a3b", "phi4-mini-3.8b", "qwen3-1.7b", "llama-3.2-vision-90b",
+                   "recurrentgemma-9b"))
+DRYRUN_WAIT_S = 900
+_DRYRUN_SCRIPT = """
+import sys
+from repro_torch.launch import dryrun
+failed = 0
+for arch in sys.argv[2:]:
+    try:
+        dryrun.main(["--arch", arch, "--both-meshes", "--out", sys.argv[1]])
+    except SystemExit:
+        failed += 1
+sys.exit(1 if failed else 0)
+"""
+
+
+class DryrunJobs:
+    """``python -m repro_torch.launch.dryrun --arch A --both-meshes`` for
+    every arch of ``DRYRUN_WORKERS``, in one background process a worker
+    (one CPU thread each, no card: everything is counted on meta), writing
+    the 80 records to a temporary directory; ``stop`` ends any still
+    running and removes the directory."""
+
+    def __init__(self, src):
+        import tempfile
+        self.out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+        env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="")
+        self.t0 = time.perf_counter()
+        self.logs = [open(self.out / f"worker{i}.log", "w") for i in range(len(DRYRUN_WORKERS))]
+        self.procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT, str(self.out),
+                                        *archs], env=env, stdout=log, stderr=subprocess.STDOUT)
+                      for archs, log in zip(DRYRUN_WORKERS, self.logs)]
+
+    def wait(self):
+        """(exit codes, the seconds since the start at which the last
+        ended)."""
+        rcs = [p.wait(timeout=DRYRUN_WAIT_S) for p in self.procs]
+        return rcs, time.perf_counter() - self.t0
+
+    def records(self):
+        return {path.name: json.loads(path.read_text()) for path in self.out.glob("*.json")}
+
+    def tail(self):
+        return "\n".join(log.name + ": " + Path(log.name).read_text()[-2000:]
+                         for log in self.logs)
+
+    def stop(self):
+        import shutil
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in self.logs:
+            log.close()
+        shutil.rmtree(self.out, ignore_errors=True)
+
+
+def phase_dryrun(jobs, arch_ids, sharding):
+    """15g: the dry-run's records (``DryrunJobs``, counted on meta in the
+    background since the build): all 80 combinations of ARCH_IDS x
+    INPUT_SHAPES x both production meshes written; one line a combination
+    at ``DRYRUN_SHAPES``' shape of each arch with the params' and the
+    optimizer state's or cache's bytes a device, each and together against
+    the card's 80 GB, the step's counts and, where a rank's program exists,
+    its collectives and memory; every figure positive and finite; the
+    prefill and decode records of the archs whose blocks all have a
+    tensor-parallel program carry ``collectives`` and ``memory_analysis``
+    (6 archs x 3 shapes x 2 meshes), every other record null with a note;
+    the background's seconds."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
     check(set(DRYRUN_SHAPES) == set(arch_ids), "DRYRUN_SHAPES must name every arch once")
-    check(set(DRYRUN_SHAPES.values()) == set(input_shapes),
+    check(set(DRYRUN_SHAPES.values()) == set(INPUT_SHAPES),
           "DRYRUN_SHAPES must take every input shape")
     t0 = time.perf_counter()
-    n = 0
-    for arch in arch_ids:
-        shape = DRYRUN_SHAPES[arch]
-        for multi_pod in (False, True):
-            rec = dryrun.run_one(arch, shape, multi_pod=multi_pod)
-            held = "opt" if "opt_bytes_per_device" in rec else "cache"
-            figures = {"params": rec["param_bytes_per_device"],
-                       held: rec[f"{held}_bytes_per_device"]}
-            figures["together"] = sum(figures.values())
-            counts = [rec[k] for k in ("flops", "dot_flops", "bytes_accessed")]
-            check(all(v > 0 and math.isfinite(v) for v in list(figures.values()) + counts),
-                  f"dryrun {arch} {shape} {rec['mesh']}: {rec}")
-            check(rec["collectives"] is None and rec["memory_analysis"] is None,
-                  f"dryrun {arch} {shape}: collectives and memory analysis must be null")
-            fits = ", ".join(f"{k} {v} B {'fits' if v <= CARD_BYTES else 'does not fit'}"
-                             for k, v in figures.items())
-            print(f"dryrun: {arch} {shape} {rec['mesh']} ({rec['n_devices']} devices): {fits} "
-                  f"in 80 GB ({CARD_BYTES} B) a device; flops {rec['flops']:.6e}, dot_flops "
-                  f"{rec['dot_flops']:.6e}, bytes_accessed {rec['bytes_accessed']:.6e}, "
-                  f"counted in {rec['count_s']} s", flush=True)
-            n += 1
-    print(f"dryrun: {n} combinations ({len(arch_ids)} archs, one shape each, both meshes) "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    rcs, seconds = jobs.wait()
+    check(rcs == [0] * len(rcs), f"dryrun: the background workers exited {rcs}: {jobs.tail()}")
+    recs = jobs.records()
+    want = {f"{a}__{s}__{p}.json" for a in arch_ids for s in INPUT_SHAPES for p in ("pod1", "pod2")}
+    check(set(recs) == want, f"dryrun: records missing {sorted(want - set(recs))}")
+    sharded = {a for a in arch_ids
+               if not sharding.unsharded_blocks(get_config(a), make_production_mesh())}
+    full = null = 0
+    for name, rec in sorted(recs.items()):
+        kind = INPUT_SHAPES[rec["shape"]].kind
+        counted = rec["arch"] in sharded and kind != "train"
+        if counted:
+            check(rec["collectives"]["moved_bytes"] > 0
+                  and rec["memory_analysis"]["peak_memory_in_bytes"] > 0,
+                  f"dryrun {name}: a rank's program counted nothing: {rec}")
+            full += 1
+        else:
+            check(rec["collectives"] is None and rec["memory_analysis"] is None
+                  and set(rec["notes"]) == {"collectives", "memory_analysis"},
+                  f"dryrun {name}: collectives and memory analysis must be null with notes")
+            null += 1
+        if DRYRUN_SHAPES[rec["arch"]] != rec["shape"]:
+            continue
+        held = "opt" if "opt_bytes_per_device" in rec else "cache"
+        figures = {"params": rec["param_bytes_per_device"],
+                   held: rec[f"{held}_bytes_per_device"]}
+        figures["together"] = sum(figures.values())
+        counts = [rec[k] for k in ("flops", "dot_flops", "bytes_accessed")]
+        check(all(v > 0 and math.isfinite(v) for v in list(figures.values()) + counts),
+              f"dryrun {name}: {rec}")
+        fits = ", ".join(f"{k} {v} B {'fits' if v <= CARD_BYTES else 'does not fit'}"
+                         for k, v in figures.items())
+        rank = ("collectives and memory null by design" if not counted else
+                f"rank 0's program: moved_bytes {rec['collectives']['moved_bytes']:.6e} in "
+                f"{int(sum(v for k, v in rec['collectives'].items() if k.endswith('_count')))} "
+                f"collectives, peak memory {rec['memory_analysis']['peak_memory_in_bytes']} B "
+                f"(arguments {rec['memory_analysis']['argument_size_in_bytes']} B)")
+        print(f"dryrun: {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['n_devices']} devices): "
+              f"{fits} in 80 GB ({CARD_BYTES} B) a device; flops {rec['flops']:.6e}, dot_flops "
+              f"{rec['dot_flops']:.6e}, bytes_accessed {rec['bytes_accessed']:.6e}, counted in "
+              f"{rec['count_s']} s; {rank}", flush=True)
+    check(full == len(sharded) * 3 * 2, f"dryrun: {full} records with collectives and memory, "
+          f"expected {len(sharded) * 3 * 2}")
+    print(f"dryrun: {len(recs)} records ({len(arch_ids)} archs x {len(INPUT_SHAPES)} shapes x "
+          f"2 meshes) in {seconds:.1f} s of background time ({len(DRYRUN_WORKERS)} workers; "
+          f"waited {time.perf_counter() - t0:.1f} s here): {full} carry collectives and "
+          f"memory_analysis ({len(sharded)} archs x prefill, decode and long_500k x 2 meshes), "
+          f"{null} null by design (train steps; archs with {sorted(set(arch_ids) - sharded)})",
+          flush=True)
 
 
 def storage_bytes(tensors):
@@ -3558,6 +3683,7 @@ def phase_batched_scorer_timing(dev, kps, ds, mahppo):
 
 
 # --------------------------------------------------------------- 16: sharded
+FLEET_VARIANT_ITERATIONS = 5   # --churn, --distill, --llm: 15 iterations cut to 5 for time
 SHARD_MESH = (("data", "model"), (2, 2))   # the gloo ranks' mesh; their env axis is the world
 SHARD_MOE_LAYERS = 4                       # qwen3-moe-30b-a3b cut to 4 of its 48 layers
 SHARD_SERVE = dict(batch=4, prompt_len=2048, gen=32, requests=1, seed=0)
@@ -3573,6 +3699,8 @@ EP_SMALL_CF = 0.5                          # the small EP block drops assignment
 EP_SMALL_SHAPES = {"ep": (4, 8, 32), "ep_decode": (4, 1, 32)}
 EP_SMALL_TOL = 1e-5
 EVAL_KEYS = ("reward", "t_sum", "e_sum", "w_sum", "completed", "n_active", "done")
+# phase 16t's parts, run by phase 16's two launches of ranks
+TP_PARTS = {"gloo": ("tp_small", "tp_serve", "tp_serve32"), "nccl": ("tp_serve", "tp_serve32")}
 
 
 def nccl_mesh(world):
@@ -3746,7 +3874,8 @@ def shard_rank(rank, dev, mesh_spec, parts, ctx):
     from repro_torch.models import meshctx
     mesh = ProcessMesh(*mesh_spec)
     out = {"world": dist.get_world_size(), "backend": dist.get_backend(), "device": str(dev),
-           "coords": (mesh.index(meshctx.dp_axes(mesh)), mesh.index("model"))}
+           "coords": (mesh.index(meshctx.dp_axes(mesh)), mesh.index("model")),
+           "tp_coords": tuple(mesh.index(a) for a in mesh.axis_names)}
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for part in parts:
         _build.reset_launches()
@@ -3879,7 +4008,8 @@ def check_shard_eval(label, ranks, want, want_rows, frames):
           f"{label}: launches {launches}, expected pair_scorer {frames} a rank")
 
 
-def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg):
+def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_cfg_,
+                  tp_run=None):
     """16: the port's multi-process programs (``launch.mesh.spawn``). Four
     gloo ranks on card 0, a (2, 2) ("data", "model") mesh, env the whole
     world: the reduced EP block card against CPU; qwen3-moe-30b-a3b at full
@@ -3888,14 +4018,18 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg):
     the 4 ranks, the agents identical on every rank and the first iteration
     equal to one process; sharded evaluation equal per env to
     ``n_shards=1``. Then one NCCL rank a visible card serves and evaluates
-    again. ``cfg`` is the served config (``shard_moe_cfg()``). Returns the
-    phase's launches, summed over the ranks."""
+    again. ``cfg`` is the served config (``shard_moe_cfg()``). The same two
+    launches of ranks also run phase 16t's parts (``TP_PARTS``: ``tp_cfg_``
+    served at ``tp_run``, default ``TP_SERVE``), which 16t checks. Returns
+    (the phase's launches, summed over the ranks; the gloo ranks' results;
+    the NCCL ranks'; the NCCL mesh)."""
     t_phase = time.perf_counter()
     launches = collections.Counter()
     run = SHARD_SERVE
     torch.cuda.empty_cache()
     gloo = spawn(shard_rank, 4, "gloo", SHARD_MESH,
-                 ("ep_small", "serve", "serve32", "fleet", "eval"), {"cfg": cfg, "run": run},
+                 ("ep_small", "serve", "serve32", "fleet", "eval") + TP_PARTS["gloo"],
+                 {"cfg": cfg, "run": run, "tp_cfg": tp_cfg_, "tp_run": tp_run or TP_SERVE},
                  device=dev)
     print(f"sharded: {len(gloo)} ranks, backend {gloo[0]['backend']}, all on {gloo[0]['device']},"
           f" a {SHARD_MESH[1]} mesh over {SHARD_MESH[0]}, env the whole world", flush=True)
@@ -3985,8 +4119,9 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg):
     world = torch.cuda.device_count()
     mesh_spec = nccl_mesh(world)
     torch.cuda.empty_cache()
-    nccl = spawn(shard_rank, world, "nccl", mesh_spec, ("serve", "serve32", "eval"),
-                 {"cfg": cfg, "run": run, "agent": gloo[0]["fleet"][2][0]})
+    nccl = spawn(shard_rank, world, "nccl", mesh_spec, ("serve", "serve32", "eval")
+                 + TP_PARTS["nccl"], {"cfg": cfg, "run": run, "agent": gloo[0]["fleet"][2][0],
+                                      "tp_cfg": tp_cfg_, "tp_run": tp_run or TP_SERVE})
     print(f"sharded: {world} rank(s), backend {nccl[0]['backend']}, one a card "
           f"({', '.join(r['device'] for r in nccl)}), a {mesh_spec[1]} mesh", flush=True)
     for r in nccl:
@@ -3998,9 +4133,389 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg):
     check_shard_serve("sharded (nccl)", nccl, steps_lib, moe_lib, init_params, cfg, run, dev)
     check_shard_eval("sharded (nccl)", nccl, want_eval, want_rows, SHARD_EVAL["frames"])
     out = {k: launches[k] for k in ("pair_scorer", "pair_scorer_backward", "decode_attention")}
+    tp_s = sum(r[p + "_s"] for r in gloo[:1] + nccl[:1] for p in TP_PARTS["gloo"]
+               if p + "_s" in r)
     print(f"sharded: launches summed over the ranks {out}; the phase in "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"{time.perf_counter() - t_phase:.1f} s (of which 16t's parts on rank 0 of each "
+          f"launch {tp_s:.1f} s)", flush=True)
+    return out, gloo, nccl, mesh_spec
+
+
+# ------------------------------------------------------- 16t: tensor parallel
+TP_ARCH = "qwen2-7b"
+TP_SERVE = dict(batch=4, prompt_len=2048, gen=32, requests=1, seed=0)
+TP_CHECK_LAYERS = 4                        # the float32 check: 4 of qwen2-7b's 28 layers
+TP_LOGIT_TOL = 1e-4                        # x max|logit|, float32, against one process
+# the small blocks: (name, arch, overrides, prompt, cache slots); f32, 2 layers, batch 4
+TP_SMALL = (("qwen2 (biases, G 2)", "qwen2-7b", dict(n_heads=4, n_kv_heads=2, d_head=64), 12, 16),
+            ("3 heads on 1 (not divided)", "qwen2-7b",
+             dict(d_model=192, n_heads=3, n_kv_heads=1, d_head=64, d_ff=384), 12, 16),
+            ("int8 cache (length split)", "qwen2-7b-kv8",
+             dict(n_heads=4, n_kv_heads=2, d_head=64), 12, 16))
+TP_SMALL_STEPS = 4
+TP_SMALL_TOL = 1e-5                        # x max|logit|, card against CPU, float32
+TP_KV8_TOL = 5e-2                          # phase 11's int8 bound: a code one step off
+TP_LSE_TOL = 2e-5                          # 2e-5 + 2e-5 |plain|: output and log-sum-exp
+TP_QWEN3_MS = 0.01843                      # PERF.md section 6, row 6: qwen3's shape (PR 15)
+
+
+def tp_small_cfg(arch, kw):
+    from repro_torch.configs import get_config, reduced
+    return reduced(get_config(arch), n_layers=2).replace(**kw)
+
+
+def tp_small_steps(model, cfg, tokens, slots, steps_lib, fed=None):
+    """Prefill, then ``TP_SMALL_STEPS`` decode steps fed ``fed`` (b,
+    steps), or each step's greedy token where ``fed`` is None; (prefill
+    logits, the steps' logits, the cache, the tokens fed)."""
+    pre, cache = steps_lib.make_prefill_step(cfg, slots)(model, tokens)
+    step = steps_lib.make_serve_step(cfg)
+    tok, outs, fed_out = pre.argmax(-1)[:, None], [], []
+    for i in range(TP_SMALL_STEPS):
+        tok = tok if fed is None else fed[:, i:i + 1]
+        fed_out.append(tok)
+        out, cache = step(model, cache, tok, tokens.shape[1] + i)
+        outs.append(out)
+        tok = out.argmax(-1)[:, None]
+    return pre, torch.stack(outs), cache, torch.cat(fed_out, 1)
+
+
+def shard_tp_small(mesh, dev, ctx):
+    """The small blocks on this rank, card against CPU over the same gloo
+    group: the CPU model drawn from a CPU generator under the mesh, then
+    moved to the card and fed the CPU run's greedy tokens; the card's
+    decode_attention launches counted."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import init_params, meshctx
+    out = {}
+    b = 4 // meshctx.dp_size(mesh)
+    i = mesh.index(meshctx.dp_axes(mesh))
+    for name, arch, kw, prompt, slots in TP_SMALL:
+        cfg = tp_small_cfg(arch, kw)
+        tokens = torch.randint(0, cfg.vocab_size, (4, prompt),
+                               generator=torch.Generator().manual_seed(4))[i * b:(i + 1) * b]
+        with meshctx.use_mesh(mesh), torch.inference_mode():
+            model = init_params(cfg, torch.Generator().manual_seed(3), torch.device("cpu"))
+            pc, dc, cc, fed = tp_small_steps(model, cfg, tokens, slots, steps_lib)
+            model.to(dev)
+            before = dict(_build.LAUNCHES)
+            pd, dd, cd, _ = tp_small_steps(model, cfg, tokens.to(dev), slots, steps_lib,
+                                           fed.to(dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                        if v - before.get(k, 0)}
+        out[name] = dict(cpu=(pc, dc, cc), dev=(pd.cpu(), dd.cpu(), [
+            {k: t.cpu() for k, t in e.items()} for e in cd]), launches=launches)
     return out
+
+
+def tp_cfg():
+    """The served config: qwen2-7b at its published widths, bf16."""
+    from repro_torch.configs import get_config
+    return get_config(TP_ARCH)
+
+
+def tp_check_cfg(cfg):
+    """The held config: the same draws in float32 at ``TP_CHECK_LAYERS``."""
+    return f32_of(cfg).replace(n_layers=min(TP_CHECK_LAYERS, cfg.n_layers))
+
+
+def shard_tp_serve(mesh, dev, ctx, check_cfg=False):
+    """``ctx["tp_cfg"]`` (or with ``check_cfg`` its ``tp_check_cfg``)
+    served through ``serve(mesh=...)`` at ``ctx["tp_run"]``, its collective
+    log kept; then one more decode step of the served cache, its peak
+    memory read from the allocator (reset just before it)."""
+    import gc
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import collective_log
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import meshctx
+    cfg = tp_check_cfg(ctx["tp_cfg"]) if check_cfg else ctx["tp_cfg"]
+    run = ctx["tp_run"]
+    cuda = dev.type == "cuda"           # the CPU runs only in a rehearsal of the phase
+    memory = ((lambda: torch.cuda.reset_peak_memory_stats()), torch.cuda.memory_allocated,
+              torch.cuda.max_memory_allocated) if cuda else ((lambda: None), int, int)
+    memory[0]()
+    with collective_log() as log:
+        res = serve(cfg, device=dev, log=lambda *a: None, mesh=mesh, **run)
+    if cuda:
+        torch.cuda.synchronize()
+    serve_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    st = res.stats[0]
+    out = {k: st[k] for k in ("prefill_ms", "decode_ms_per_token", "tokens_per_s",
+                              "cache_bytes")}
+    out.update(build_s=res.build_s, tokens=st["tokens"].cpu(),
+               prefill_logits=st["prefill_logits"].float().cpu(),
+               last_logits=st["last_logits"].float().cpu(), log=list(log),
+               serve_peak=memory[2](), serve_launches=serve_launches)
+    tok = st["tokens"][:, -1:]
+    idx = run["prompt_len"] + run["gen"] - 1
+    del st
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    memory[0]()
+    out["step_base"] = memory[1]()
+    with meshctx.use_mesh(mesh), torch.inference_mode():
+        steps_lib.make_serve_step(cfg)(res.model, res.cache, tok, idx)
+    if cuda:
+        torch.cuda.synchronize()
+    out["step_peak"] = memory[2]()
+    del res
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+SHARD_PARTS.update(
+    tp_small=shard_tp_small,
+    tp_serve=lambda mesh, dev, ctx: shard_tp_serve(mesh, dev, ctx),
+    tp_serve32=lambda mesh, dev, ctx: shard_tp_serve(mesh, dev, ctx, check_cfg=True))
+
+
+def check_tp_small(label, ranks):
+    """(a) The small blocks card against CPU on the same ranks."""
+    for name, arch, kw, prompt, slots in TP_SMALL:
+        cfg = tp_small_cfg(arch, kw)
+        worst, codes_max, unequal, codes = 0.0, 0, 0, 0
+        for r in ranks:
+            got = r["tp_small"][name]
+            (pc, dc, cc), (pd, dd, cd) = got["cpu"], got["dev"]
+            scale = float(torch.cat([pc.flatten(), dc.flatten()]).abs().max())
+            worst = max(worst, float(torch.cat([(pd - pc).flatten(), (dd - dc).flatten()])
+                                     .abs().max()) / scale)
+            for ec, ed in zip(cc, cd):
+                check(torch.equal(ec["pos"], ed["pos"]), f"{label} {name}: positions differ")
+                for leaf in ("k", "v"):
+                    if ec[leaf].dtype == torch.int8:
+                        diff = (ed[leaf].to(torch.int32) - ec[leaf].to(torch.int32)).abs()
+                        codes_max = max(codes_max, int(diff.max()))
+                        unequal += int((diff > 0).sum())
+                        codes += diff.numel()
+            want = {"decode_attention": cfg.n_layers * TP_SMALL_STEPS}
+            check(got["launches"] == want, f"{label} {name}: launches {got['launches']}, "
+                  f"expected {want}")
+        e0 = ranks[0]["tp_small"][name]["dev"][2][0]
+        tol = TP_KV8_TOL if cfg.kv_quant_bits else TP_SMALL_TOL
+        print(f"{label}: small block {name} ({cfg.n_layers}L d={cfg.d_model}, {cfg.n_heads} "
+              f"query on {cfg.n_kv_heads} kv heads, f32, a (4, {prompt}) prefill + "
+              f"{TP_SMALL_STEPS} decode steps into {slots} slots, a rank's k "
+              f"{tuple(e0['k'].shape)}) card against CPU on the same ranks: logits within "
+              f"{worst:.3e} of max|logit| (bound {tol})"
+              + (f", codes max diff {codes_max} ({unequal} of {codes} differ)" if codes else ""),
+              flush=True)
+        check(worst <= tol, f"{label} {name}: logits differ by {worst:.3e} of max|logit|")
+        if codes:
+            check(codes_max <= 1 and unequal <= 1e-3 * codes,
+                  f"{label} {name}: codes differ by {codes_max}, {unequal} of {codes}")
+
+
+def tp_meta_logs(cfg, run, coords, mesh_spec, steps_lib, mesh_lib):
+    """The collective log of one rank's prefill and of one decode step of
+    ``run``, run on meta under a ``CountingMesh`` at ``coords``; and the
+    decode step's memory count (``opcount.count_memory``)."""
+    from repro_torch.launch.opcount import count_memory
+    from repro_torch.models import meshctx
+    from repro_torch.models.cache import make_cache
+    from repro_torch.models.model import Model
+    cmesh = mesh_lib.CountingMesh(mesh_lib.Mesh(*mesh_spec), coords)
+    slots = run["prompt_len"] + run["gen"]
+    b = run["batch"] // meshctx.dp_size(cmesh)
+    meta = lambda *shape: torch.empty(shape, dtype=torch.long, device="meta")
+    with meshctx.use_mesh(cmesh), torch.inference_mode():
+        model = Model(cfg, device="meta")
+        with mesh_lib.collective_log() as pre:
+            _, cache = steps_lib.make_prefill_step(cfg, slots)(model, meta(b, run["prompt_len"]))
+        with mesh_lib.collective_log() as dec:
+            steps_lib.make_serve_step(cfg)(model, cache, meta(b, 1), slots - 2)
+        cache = make_cache(cfg, run["batch"], slots, device="meta", mesh=cmesh)
+        _, memory, _ = count_memory(steps_lib.make_serve_step(cfg), model, cache, meta(b, 1),
+                                    slots - 1)
+    return list(pre), list(dec), memory
+
+
+def check_tp_counts(label, ranks, mesh_spec, steps_lib, mesh_lib, cfg, run):
+    """(d) Each rank's collective log of its serves equals the counting
+    mesh's on meta at its coordinates (the prefill's, then 31 decode
+    steps'); its decode step's peak memory against the meta count."""
+    names = mesh_spec[0]
+    for part, c in (("tp_serve32", tp_check_cfg(cfg)), ("tp_serve", cfg)):
+        for r in ranks:
+            coords = dict(zip(names, r["tp_coords"]))
+            pre, dec, memory = tp_meta_logs(c, run, coords, mesh_spec, steps_lib, mesh_lib)
+            want = pre + dec * (run["gen"] - 1)
+            got = r[part]["log"]
+            kinds = collections.Counter(k for k, _, _ in got)
+            check(got == want, f"{label} {part} rank {r['tp_coords']}: collective log of "
+                  f"{len(got)} calls differs from the counting mesh's {len(want)}")
+            if r is ranks[0] or part == "tp_serve":
+                gap = r[part]["step_peak"] - memory["peak_memory_in_bytes"]
+                print(f"{label}: {c.name} ({c.n_layers}L, {c.param_dtype}) rank "
+                      f"{r['tp_coords']}: collective log equal to the counting mesh's on meta, "
+                      f"{len(got)} calls ({dict(kinds)}), "
+                      f"{sum(n for _, n, _ in got)} result bytes; a decode step's "
+                      f"max_memory_allocated {r[part]['step_peak']} B (allocated before it "
+                      f"{r[part]['step_base']} B) against the meta count's peak "
+                      f"{memory['peak_memory_in_bytes']} B (arguments "
+                      f"{memory['argument_size_in_bytes']} B, temporaries "
+                      f"{memory['temp_size_in_bytes']} B): gap {gap:+d} B "
+                      f"({100 * gap / memory['peak_memory_in_bytes']:+.3f} %)", flush=True)
+
+
+def check_tp_serve(label, ranks, steps_lib, moe_lib, init_params, dev, cfg, run):
+    """(b) qwen2-7b over the ranks: the bf16 serve's figures, and the
+    float32 serve at ``TP_CHECK_LAYERS`` layers held to one process fed its
+    tokens (logits within ``TP_LOGIT_TOL`` x max|logit|, every greedy token
+    equal)."""
+    attn = cfg.n_layers * (run["gen"] - 1)
+    for part, c in (("tp_serve", cfg), ("tp_serve32", tp_check_cfg(cfg))):
+        # the serve's decode steps, then the part's one more (its memory)
+        want = {"decode_attention": c.n_layers * (run["gen"] - 1)}
+        got = [(r[part]["serve_launches"], r[part + "_launches"]) for r in ranks]
+        check(all(a == want and b == {"decode_attention": want["decode_attention"] + c.n_layers}
+                  for a, b in got), f"{label}: {part} launches {got}, expected {want} a rank "
+              f"in the serve and {c.n_layers} more in the measured step")
+    r0 = ranks[0]["tp_serve"]
+    peaks = [round(r["tp_serve"]["serve_peak"] / 2 ** 30, 3) for r in ranks]
+    print(f"{label}: {cfg.name} at its published widths ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} query on {cfg.n_kv_heads} kv heads, bf16) over "
+          f"{len(ranks)} rank(s), a ({run['batch']}, {run['prompt_len']}) prefill + "
+          f"{run['gen'] - 1} decode steps: rank 0 built its blocks in {r0['build_s']:.2f} s, "
+          f"prefill {r0['prefill_ms']:.2f} ms, decode {r0['decode_ms_per_token']:.3f} ms a token, "
+          f"{r0['tokens_per_s']:.1f} tokens/s, cache {r0['cache_bytes'] / 1e6:.2f} MB a rank; "
+          f"decode_attention {attn} launches a rank; peak memory a rank {peaks} GiB", flush=True)
+    for dpi in {r["coords"][0] for r in ranks}:
+        same = [r for r in ranks if r["coords"][0] == dpi]
+        check(all(torch.equal(r["tp_serve"]["tokens"], same[0]["tp_serve"]["tokens"])
+                  for r in same), f"{label}: the model ranks of data index {dpi} differ")
+    c32 = tp_check_cfg(cfg)
+    by_dp = {}
+    for r in ranks:
+        by_dp.setdefault(r["coords"][0], r["tp_serve32"])
+    got = {k: torch.cat([by_dp[i][k] for i in sorted(by_dp)])
+           for k in ("tokens", "prefill_logits", "last_logits")}
+    model = init_params(c32, torch.Generator(device=dev).manual_seed(run["seed"]), dev)
+    pre, last, agree, _ = forced_serve(steps_lib, moe_lib, model, c32, run, got["tokens"])
+    del model
+    torch.cuda.empty_cache()
+    rel = {"prefill": rel_err(got["prefill_logits"], pre),
+           "last step": rel_err(got["last_logits"], last)}
+    print(f"{label}: the same draws in float32 at {c32.n_layers} of {cfg.n_layers} layers "
+          f"({by_dp[0]['decode_ms_per_token']:.3f} ms a token) against one process fed its "
+          f"tokens: logits within {rel['prefill']:.3e} (prefill) and {rel['last step']:.3e} "
+          f"(last step) of max|logit| (bound {TP_LOGIT_TOL}), greedy tokens equal "
+          f"{int(agree.sum())} of {agree.numel()}", flush=True)
+    check(max(rel.values()) <= TP_LOGIT_TOL, f"{label}: logits {rel} of max|logit|")
+    check(bool(agree.all()), f"{label}: greedy tokens differ from one process's")
+
+
+def tp_lse_inputs(dev, g, b, s, hkv, grp, d, kv_dtype):
+    """A rank's decode call at its shape: its run of ``s`` slots (the first
+    ``s - 7`` valid), row 0's run empty, a bf16 query."""
+    q = torch.randn((b, hkv * grp, d), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
+    pos[:, s - 7:] = -1
+    pos[0] = -1
+    scales = {}
+    if kv_dtype == torch.int8:
+        k = torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=dev).to(torch.int8)
+        v = torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=dev).to(torch.int8)
+        scales = {n: torch.rand((b, s, hkv), generator=g, device=dev) * 0.02
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k = torch.randn((b, s, hkv, d), generator=g, device=dev).to(kv_dtype)
+        v = torch.randn((b, s, hkv, d), generator=g, device=dev).to(kv_dtype)
+    return q, k, v, pos, s - 1, scales
+
+
+def phase_tp_kernel(dev, kda):
+    """(c) ``decode_attention`` with its log-sum-exp at a rank's shape of
+    the tensor-parallel qwen2-7b decode, (2, 1040, 4, 7, 128) bf16, and
+    its int8 cache: output and log-sum-exp held to the twin within 2e-5 +
+    2e-5 |plain| (an empty row's -1e30 exactly); timed with and without it
+    beside its bound (bytes: k, v, pos and the scales read once, the output
+    and the log-sum-exp written once); qwen3's shape without it against
+    PERF.md's 0.01843 ms."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, s = TP_SERVE["batch"] // 2, (TP_SERVE["prompt_len"] + TP_SERVE["gen"]) // 2
+    c = tp_cfg()
+    shape = (b, s, c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim)
+    out = {}
+    for kv_dtype in (torch.bfloat16, torch.int8):
+        q, k, v, pos, idx, scales = tp_lse_inputs(dev, g, *shape, kv_dtype)
+        with torch.inference_mode():
+            o, lse = kda.decode_attention(q, k, v, pos, idx, return_lse=True, **scales)
+            po, plse = kda.decode_attention_plain(q, k, v, pos, idx, return_lse=True, **scales)
+            o_only = kda.decode_attention(q, k, v, pos, idx, **scales)
+        torch.cuda.synchronize()
+        ex_o = float(((o - po).abs() - TP_LSE_TOL * (1 + po.abs())).max())
+        ex_l = float(((lse - plse).abs() - TP_LSE_TOL * (1 + plse.abs())).max())
+        check(ex_o <= 0 and ex_l <= 0 and torch.equal(o, o_only),
+              f"tp kernel {kv_dtype}: output excess {ex_o}, lse excess {ex_l}, the output with "
+              f"the lse {'equal to' if torch.equal(o, o_only) else 'DIFFERS from'} without")
+        check(bool((lse[0] == plse[0]).all()), f"tp kernel {kv_dtype}: the empty row's lse "
+              f"{lse[0, :4].tolist()} against {plse[0, :4].tolist()}")
+        with torch.inference_mode():
+            ms_lse = device_ms(lambda: kda.decode_attention(q, k, v, pos, idx, return_lse=True,
+                                                            **scales))
+            ms = device_ms(lambda: kda.decode_attention(q, k, v, pos, idx, **scales))
+            plain = device_ms(lambda: kda.decode_attention_plain(q, k, v, pos, idx,
+                                                                 return_lse=True, **scales))
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, pos) + tuple(scales.values()))
+        n_bytes += o.numel() * 4 + lse.numel() * 4
+        bound_ms, by = bound(n_bytes, 4 * q.numel() * s)
+        out[str(kv_dtype).replace("torch.", "")] = ms_lse
+        print(f"tp kernel: decode_attention at the rank's {shape} with a {kv_dtype} cache: "
+              f"output and log-sum-exp against the twin within {TP_LSE_TOL} + {TP_LSE_TOL}|plain|"
+              f" (max abs diff {float((o - po).abs().max()):.3e} and "
+              f"{float((lse[1:] - plse[1:]).abs().max()):.3e}; the empty row's -1e30 equal), the "
+              f"output the same bits as without it; {ms_lse:.5f} ms with the log-sum-exp, "
+              f"{ms:.5f} ms without, plain {plain:.5f} ms, bound {bound_ms:.5f} ms ({by}), "
+              f"{100 * bound_ms / ms_lse:.2f}% of bound", flush=True)
+    qwen = (4, 2080, 8, 2, 128)
+    q, k, v, pos, idx, _ = tp_lse_inputs(dev, g, *qwen, torch.bfloat16)
+    pos = torch.arange(qwen[1], dtype=torch.int32, device=dev).repeat(qwen[0], 1)
+    with torch.inference_mode():
+        ms = device_ms(lambda: kda.decode_attention(q, k, v, pos, qwen[1] - 1))
+        ms_lse = device_ms(lambda: kda.decode_attention(q, k, v, pos, qwen[1] - 1,
+                                                        return_lse=True))
+    print(f"tp kernel: qwen3's {qwen} bf16 without the log-sum-exp {ms:.5f} ms against PERF.md's "
+          f"{TP_QWEN3_MS} ({100 * (ms / TP_QWEN3_MS - 1):+.2f} %), with it {ms_lse:.5f} ms",
+          flush=True)
+    return out
+
+
+def phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, kda, mesh_lib, gloo, nccl,
+                          nccl_spec, cfg, run=TP_SERVE):
+    """16t: tensor parallelism over "model" (the ranks of phase 16's two
+    launches ran its parts): (a) the small blocks card against CPU; (b)
+    qwen2-7b at its published widths over the four gloo ranks, then over
+    the NCCL rank(s); (c) the kernel with its log-sum-exp; (d) the ranks'
+    collective logs and a decode step's memory against the counting mesh
+    on meta. Returns the phase's decode_attention launches (the serves',
+    summed over the ranks)."""
+    t0 = time.perf_counter()
+    check_tp_small("tensor parallel (gloo)", gloo)
+    launches = collections.Counter()
+    for ranks, label, spec in ((gloo, "tensor parallel (gloo)", SHARD_MESH),
+                               (nccl, "tensor parallel (nccl)", nccl_spec)):
+        check_tp_serve(label, ranks, steps_lib, moe_lib, init_params, dev, cfg, run)
+        check_tp_counts(label, ranks, spec, steps_lib, mesh_lib, cfg, run)
+        for r in ranks:
+            for part in ("tp_serve", "tp_serve32") + (("tp_small",) if ranks is gloo else ()):
+                launches.update(r[part + "_launches"])
+    phase_tp_kernel(dev, kda)
+    print(f"tensor parallel: decode_attention launches summed over the ranks "
+          f"{launches['decode_attention']}; the phase's checks in {time.perf_counter() - t0:.1f} s "
+          f"(its ranks' parts ran in phase 16's launches: gloo "
+          f"{sum(gloo[0][p + '_s'] for p in ('tp_small', 'tp_serve', 'tp_serve32')):.1f} s, "
+          f"nccl {sum(nccl[0][p + '_s'] for p in ('tp_serve', 'tp_serve32')):.1f} s a rank)",
+          flush=True)
+    return {"decode_attention": launches["decode_attention"]}
 
 
 def main(argv=None):
@@ -4028,26 +4543,12 @@ def main(argv=None):
     global HBM_BYTES_PER_S
     from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
     from repro_torch import full_precision_matmuls
-    from repro_torch.configs import ARCH_IDS, get_config, reduced
-    from repro_torch.core import cnn as cnn_lib
-    from repro_torch.core import compressor, huffman, jalad
-    from repro_torch.core.compressor import pca_init_autoencoder
-    from repro_torch.data import synthetic
+    from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, bottleneck, decode_attn, flat_trunk, pair_scorer,
                                      quant, ssd_intra)
-    from repro_torch.kernels import ref as kref
-    from repro_torch import optim
-    from repro_torch.launch import collab_serve, dispatch_serve, fleet_demo, quickstart
-    from repro_torch.launch import serve as serve_lib
-    from repro_torch.models import cache as cache_lib
     from repro_torch.models import init_params, ssm
-    from repro_torch.models import model as model_lib
     from repro_torch.models import moe as moe_lib
     from repro_torch.rl import mahppo
-    from repro_torch.rl.distill import quantize_flat_trunk
-    from repro_torch.configs import INPUT_SHAPES
-    from repro_torch.core import split as split_lib
-    from repro_torch.models import sharding
 
     full_precision_matmuls()
     dev = torch.device("cuda")
@@ -4089,11 +4590,46 @@ def main(argv=None):
         phase_decode_timing(dev, decode_attn, decode_shape)
         return 0
     from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
-    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.launch import mesh as mesh_lib
     if args.sharded_only:
-        phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo, init_params,
-                      shard_moe_cfg())
+        _, gloo, nccl, nccl_spec = phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo,
+                                                 init_params, shard_moe_cfg(), tp_cfg())
+        phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, decode_attn, mesh_lib, gloo,
+                              nccl, nccl_spec, tp_cfg())
         return 0
+    # the dry-run's 80 records, counted on meta in background processes
+    # while the card's phases run; phase 15g reads them
+    jobs = DryrunJobs(args.src.resolve())
+    try:
+        return run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen)
+    finally:
+        jobs.stop()
+
+
+def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
+    """Every phase after the build (the script's docstring), then the
+    result lines."""
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.core import cnn as cnn_lib
+    from repro_torch.core import compressor, huffman, jalad
+    from repro_torch.core.compressor import pca_init_autoencoder
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import (_build, bottleneck, decode_attn, flat_trunk, pair_scorer,
+                                     quant, ssd_intra)
+    from repro_torch.kernels import ref as kref
+    from repro_torch import optim
+    from repro_torch.launch import collab_serve, dispatch_serve, fleet_demo, quickstart
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import init_params
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.rl import mahppo
+    from repro_torch.rl.distill import quantize_flat_trunk
+    from repro_torch.core import split as split_lib
+    from repro_torch.models import sharding
     from repro_torch.launch import streaming_serve, train_lm
     from repro_torch.launch import train as train_lib
     from repro_torch.rl import distill
@@ -4218,7 +4754,7 @@ def main(argv=None):
     launches.update(counts)
     phase_compressor(dev, cnn_lib, compressor, huffman, jalad, optim, synthetic, _build)
     torch.cuda.empty_cache()
-    phase_dryrun(dryrun, ARCH_IDS, INPUT_SHAPES)
+    phase_dryrun(jobs, ARCH_IDS, sharding)
     phase_bytes_on_card(dev, qwen, init_params, sharding, mesh_lib, cache_lib)
     phase_count_on_card(dev, cnn_lib, split_lib)
     launches.update(phase_batched_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,
@@ -4227,8 +4763,11 @@ def main(argv=None):
         dev, pair_scorer, dispatch_serve, mahppo))
     phase_small_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,
                          n_envs=SMALL_BATCHED_ENVS)
-    launches.update(phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo, init_params,
-                                  shard_moe_cfg()))
+    counts, gloo, nccl, nccl_spec = phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo,
+                                                  init_params, shard_moe_cfg(), tp_cfg())
+    launches.update(counts)
+    launches.update(phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, decode_attn,
+                                          mesh_lib, gloo, nccl, nccl_spec, tp_cfg()))
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

@@ -84,10 +84,10 @@ _SIGNATURES = {
                               ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
                               ctypes.POINTER(ctypes.c_int)],
     # q, q bf16, k, v, kv type (0 f32, 1 bf16, 2 int8), k_scale, v_scale,
-    # pos, idx, window, out, b, S, Hkv, G, rows a block, D, n_split, per,
-    # scale, stream
+    # pos, idx, window, out, lse (or None), b, S, Hkv, G, rows a block, D,
+    # n_split, per, scale, stream
     "repro_decode_attention": [_c, ctypes.c_int, _c, _c, ctypes.c_int, _c, _c, _c,
-                               ctypes.c_longlong, ctypes.c_int, _c] + [ctypes.c_int] * 8
+                               ctypes.c_longlong, ctypes.c_int, _c, _c] + [ctypes.c_int] * 8
     + [ctypes.c_float, _c],
     "repro_decode_attention_max_clusters": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
 }

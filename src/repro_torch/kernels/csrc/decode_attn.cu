@@ -66,7 +66,12 @@
 // distributed shared memory (m = max m_c, w_c = exp(m_c - m), out = sum w_c
 // acc_c / max(sum w_c l_c, 1e-20)), loading every block's partial in one
 // round trip, and a last cluster.sync() keeps every partial alive until
-// read. Nothing goes through a global workspace.
+// read. Nothing goes through a global workspace. Where the caller passes an
+// lse buffer, the thread that merges a row's first column also writes the
+// row's log-sum-exp m + log(sum w_c l_c) there, in the same epilogue: a
+// tensor-parallel decode whose cache is split by length over ranks merges
+// the ranks' outputs with it (o = sum_r exp(lse_r - lse) o_r). Without one
+// the kernel does what it did before, one comparison a row more.
 //
 // The kernel and its launch are in decode_attn.cuh, instantiated in one
 // translation unit a cache type (decode_attn_{f32,bf16,i8}.cu), which
@@ -92,7 +97,8 @@ bool plan_ok(long long pairs, int s, int n_split, int per) {
 // q (B, Hq, D) f32 or bf16 (q_bf16); k, v (B, S, Hkv, D) f32, bf16 or int8
 // (kv_type 0, 1, 2), 16-byte aligned; k_scale, v_scale (B, S, Hkv) f32 for
 // an int8 cache (else ignored); pos (B, S) int32; window 0 (none) or the
-// window W; out (B, Hq, D) f32. G = Hq / Hkv >= 1 query rows a kv head,
+// window W; out (B, Hq, D) f32; lse null or (B, Hq) f32, each row's
+// log-sum-exp (before an int8 cache's v-scales). G = Hq / Hkv >= 1 query rows a kv head,
 // taken rows at a time (rows in {1, 2, 4, 8, 16}, at most 8 where D = 256)
 // over ceil(G / rows) row groups; D in {32, 64, 128, 256}; S >= 1; the S
 // slots are split into n_split <= 8 non-empty runs of per slots (the last
@@ -100,7 +106,7 @@ bool plan_ok(long long pairs, int s, int n_split, int per) {
 extern "C" int repro_decode_attention(const void* q, int q_bf16, const void* k, const void* v,
                                       int kv_type, const void* k_scale, const void* v_scale,
                                       const void* pos, long long idx, int window, void* out,
-                                      int b, int s, int hkv, int g, int rows, int d,
+                                      void* lse, int b, int s, int hkv, int g, int rows, int d,
                                       int n_split, int per, float scale, void* stream) {
   if (b <= 0 || hkv <= 0 || g <= 0 || rows <= 0 || window < 0 ||
       !plan_ok((long long)b * hkv, s, n_split, per))
@@ -111,7 +117,7 @@ extern "C" int repro_decode_attention(const void* q, int q_bf16, const void* k, 
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   const Args a = {q, q_bf16, k, v, static_cast<const float*>(k_scale),
                   static_cast<const float*>(v_scale), static_cast<const int*>(pos), idx, window,
-                  static_cast<float*>(out), b, s, hkv, g, rows, d, n_split, per, scale,
+                  static_cast<float*>(out), static_cast<float*>(lse), b, s, hkv, g, rows, d, n_split, per, scale,
                   static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   switch (kv_type) {

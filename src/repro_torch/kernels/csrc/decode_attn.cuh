@@ -198,7 +198,9 @@ __device__ __forceinline__ float warp_max(float x) {
 // z) takes the slots [y per, min(S, (y + 1) per)) for the query rows [z R,
 // min(g, (z + 1) R)) of its kv head. tk, tv: k, v as (Hkv D, S, B) with
 // boxes of (kBoxRow bytes, 32, 1); ksc, vsc: (B, S, Hkv) f32 for an int8
-// cache (else unused). Writes out (B, Hq, D) f32.
+// cache (else unused). Writes out (B, Hq, D) f32 and, where lse is not null,
+// each row's log-sum-exp m + log l (B, Hq) f32: l the sum of the row's
+// probabilities before an int8 cache's v-scales, an empty row's -1e30 + log S.
 template <typename T, int R, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_cluster_kernel(const __grid_constant__ CUtensorMap tk,
@@ -206,8 +208,8 @@ decode_attn_cluster_kernel(const __grid_constant__ CUtensorMap tk,
                            const void* __restrict__ qv, int q_bf16,
                            const int* __restrict__ pos, const float* __restrict__ ksc,
                            const float* __restrict__ vsc, long long idx, int window,
-                           float* __restrict__ out, int s_len, int hkv, int g, int per,
-                           float scale) {
+                           float* __restrict__ out, float* __restrict__ lse, int s_len,
+                           int hkv, int g, int per, float scale) {
   using L = Layout<T, R, D>;
   constexpr int E = D / 32;                         // P V: a lane's columns
   constexpr int C = 16 / (int)sizeof(T);            // scores: elements in 16 bytes
@@ -460,6 +462,7 @@ decode_attn_cluster_kernel(const __grid_constant__ CUtensorMap tk,
       aa += wt * ar[c];
     }
     out[q0 + i] = aa / fmaxf(ll, 1e-20f);
+    if (lse != nullptr && d == 0) lse[q0 / D + r] = mm + logf(ll);
   }
   __syncwarp();
   cluster.sync();                   // no block leaves while its partial is read
@@ -577,6 +580,7 @@ struct Args {
   long long idx;
   int window;
   float* out;
+  float* lse;
   int b, s, hkv, g, rows, d, n_split, per;
   float scale;
   cudaStream_t stream;
@@ -598,8 +602,8 @@ cudaError_t launch(const Args& a) {
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg = launch_config<T, R, D>(grid, a.stream, attr);
     return cudaLaunchKernelEx(&cfg, decode_attn_cluster_kernel<T, R, D>, tk, tv, a.q, a.q_bf16,
-                              a.pos, a.k_scale, a.v_scale, a.idx, a.window, a.out, a.s, a.hkv,
-                              a.g, a.per, a.scale);
+                              a.pos, a.k_scale, a.v_scale, a.idx, a.window, a.out, a.lse, a.s,
+                              a.hkv, a.g, a.per, a.scale);
   });
 }
 

@@ -24,8 +24,11 @@ block cluster as ``plan_splits`` says, the query rows of a kv head in
 ``block_rows`` row groups, K and V staged through shared memory by the
 Tensor Memory Accelerator, a tile-wise online softmax, the splits merged
 through distributed shared memory) or raises. It is bound by the bytes of
-the cache. On CPU or meta tensors the wrapper runs the plain twin. The kernel has
-no backward: on CUDA tensors in grad mode the wrapper refuses a q, k or v
+the cache. With ``return_lse`` the same launch also writes each row's
+log-sum-exp, which a tensor-parallel decode over a cache split by length
+needs to merge the ranks' outputs (``models.attention.merge_lse``). On
+CPU or meta tensors the wrapper runs the plain twin. The kernel has no
+backward: on CUDA tensors in grad mode the wrapper refuses a q, k or v
 that requires grad (``_build.refuse_grad``), where the twin would pass a
 gradient and the kernel would drop it.
 """
@@ -103,18 +106,23 @@ def resident_blocks(device: torch.device, kv_dtype: torch.dtype, g: int, d: int)
     return _resident(index, _KV_TYPES[kv_dtype], block_rows(g, d)[0], d)
 
 
-def decode_attention_plain(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0):
+def decode_attention_plain(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0,
+                           return_lse=False):
     """The kernel's function in plain PyTorch: the reference's form, in
     float32."""
     return decode_attention_ref(q, k, v, pos, idx, k_scale=k_scale, v_scale=v_scale,
-                                window=window)
+                                window=window, return_lse=return_lse)
 
 
-def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0):
+def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0,
+                     return_lse=False):
     """q: (B, Hq, D) float32 or bfloat16; k, v: (B, S, Hkv, D), both float32,
     both bfloat16, or both int8 codes with ``k_scale``, ``v_scale`` (B, S,
     Hkv) float32; pos: (B, S) int32; idx: int; window: int (0 = none).
-    Returns (B, Hq, D) float32."""
+    Returns (B, Hq, D) float32; with ``return_lse`` the pair (out, lse),
+    lse (B, Hq) float32 each row's log-sum-exp ``m + log l`` of its scores
+    (l before an int8 cache's v-scales; a row with no valid slot has m =
+    -1e30), written by the same launch."""
     if q.dim() != 3 or k.dim() != 4 or pos.dim() != 2:
         raise ValueError(f"decode_attention: expected q (B, Hq, D), k/v (B, S, Hkv, D) and "
                          f"pos (B, S), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -139,7 +147,7 @@ def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0)
     tensors = (q, k, v, pos) + ((k_scale, v_scale) if scaled else ())
     if _build.takes_twin("decode_attention", *tensors):
         return decode_attention_plain(q, k, v, pos, idx, k_scale=k_scale, v_scale=v_scale,
-                                      window=window)
+                                      window=window, return_lse=return_lse)
     _build.refuse_grad("decode_attention", q, k, v)
     _build.require_cuda("decode_attention", *tensors)
     g = hq // hkv
@@ -159,8 +167,9 @@ def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("decode_attention: k and v must start on a 16-byte boundary")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     rows, groups = block_rows(g, d)
     n_split, per = plan_splits(b * hkv * groups, s, resident_blocks(q.device, k.dtype, g, d))
     lib = _build.library()
@@ -168,7 +177,7 @@ def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0)
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
         _KV_TYPES[k.dtype], k_scale.data_ptr() if scaled else None,
         v_scale.data_ptr() if scaled else None, pos.data_ptr(), int(idx), int(window),
-        out.data_ptr(), b, s, hkv, g, rows, d, n_split, per, d ** -0.5, _build.stream_of(q)),
-        "decode_attention")
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, s, hkv, g, rows, d,
+        n_split, per, d ** -0.5, _build.stream_of(q)), "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

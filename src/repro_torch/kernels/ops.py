@@ -49,14 +49,17 @@ def ssd_intra(xh, dt, la, Bm, Cm):
     return _ssd.SsdIntra.apply(*(t.contiguous() for t in (xh, dt, la, Bm, Cm)))
 
 
-def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0):
+def decode_attention(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0,
+                     return_lse=False):
     """GQA flash-decode over a (ring) KV cache (see kernels/decode_attn.py).
     q: (B, Hq, D); k, v: (B, S, Hkv, D), float or int8 codes with k_scale,
     v_scale (B, S, Hkv); pos: (B, S) int32, -1 = empty; idx: int; window:
-    int (0 = none). Returns (B, Hq, D) float32."""
+    int (0 = none). Returns (B, Hq, D) float32, and with ``return_lse`` each
+    row's log-sum-exp (B, Hq) float32 beside it."""
     c = lambda t: None if t is None else t.contiguous()
     return _da.decode_attention(*(t.contiguous() for t in (q, k, v, pos)), idx,
-                                k_scale=c(k_scale), v_scale=c(v_scale), window=window)
+                                k_scale=c(k_scale), v_scale=c(v_scale), window=window,
+                                return_lse=return_lse)
 
 
 def flat_trunk(rows, qlayers, *, bits=8):

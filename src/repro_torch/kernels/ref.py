@@ -43,7 +43,8 @@ def ssd_intra_ref(xh, dt, la, Bm, Cm):
     return torch.einsum("bcijh,bcjhp->bcihp", w, xh)
 
 
-def decode_attention_ref(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0):
+def decode_attention_ref(q, k, v, pos, idx, *, k_scale=None, v_scale=None, window=0,
+                         return_lse=False):
     """GQA decode attention over a (ring) KV cache.
 
     q: (B, Hq, D) single query token; k, v: (B, S, Hkv, D) floats, or int8
@@ -53,7 +54,9 @@ def decode_attention_ref(q, k, v, pos, idx, *, k_scale=None, v_scale=None, windo
     pos: (B, S) absolute positions (-1 = empty slot); idx: scalar int;
     window > 0 also masks ``pos <= idx - window``.
     Returns (B, Hq, D) f32 (float64 for float64 inputs, so the kernel can be
-    held to an exact version of the same function)."""
+    held to an exact version of the same function); with ``return_lse`` also
+    each row's log-sum-exp of its scores (B, Hq), before the v-scales (an
+    empty row's is -1e30 + log S)."""
     wide = lambda t: t.to(torch.promote_types(t.dtype, torch.float32))
     b, hq, d = q.shape
     hkv = k.shape[2]
@@ -69,8 +72,10 @@ def decode_attention_ref(q, k, v, pos, idx, *, k_scale=None, v_scale=None, windo
     p = torch.softmax(s, dim=-1)
     if v_scale is not None:
         p = p * wide(v_scale).permute(0, 2, 1)[:, :, None, :]
-    o = torch.einsum("bhgs,bshd->bhgd", p, wide(v))
-    return o.reshape(b, hq, d)
+    o = torch.einsum("bhgs,bshd->bhgd", p, wide(v)).reshape(b, hq, d)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(b, hq)
 
 
 def flat_trunk_ref(x, codes, mns, mxs, bs, bits=8):

@@ -18,15 +18,34 @@ Each combination writes one JSON record to ``--out`` (default
   unpartitioned, counted on ``meta`` (``launch/opcount.py``): the port's
   ``make_train_step`` (forward, backward and the optimizer) for train,
   ``make_prefill_step`` for prefill, ``make_serve_step`` for decode;
-* ``count_s``, the seconds the count took (in the place of the
+* ``count_s``, the seconds the counts took (in the place of the
   reference's ``lower_s`` and ``compile_s``).
 
-Two of the reference's fields are null, each with a line in ``notes``:
-``collectives`` (it needs a sharded program of the dense layers) and ``memory_analysis``
-(the port has no compiler's memory analysis, so no peak or temporary
-memory). The counts do not depend on the mesh: each arch and shape is
-counted once and the count serves both meshes. The process exits non-zero
-if any combination failed.
+For a prefill or decode of an arch whose blocks all have a tensor-parallel
+program (``models.sharding.SHARDED``: the dense and MoE stacks), two more
+fields come from the program rank 0 of the mesh runs, counted on ``meta``
+under a ``launch.mesh.CountingMesh`` at the production mesh's shape, on its
+shard of the inputs (``input_specs(..., mesh)``; a batch the data axes do
+not divide, long_500k's, whole on every rank):
+
+* ``collectives``: the mesh's log of that run as the reference's
+  ``collectives_weighted``, ``<kind>``, ``<kind>_count`` and
+  ``moved_bytes`` (``launch.mesh.collectives_record``); the port's Python
+  loop runs every layer, so the counts are already weighted;
+* ``memory_analysis``: the reference's keys (``opcount.count_memory``):
+  ``argument_size_in_bytes`` (the rank's parameters, cache and inputs;
+  at decode with the 4 bytes of the reference's int32 ``idx``, which the
+  port takes as a Python int), ``output_size_in_bytes`` (its logits and
+  cache, with the 8 bytes a leaf of the table of the reference's output
+  tuple, over the reference's stacked cache leaves), ``alias_size_in_bytes`` 0 (the reference donates nothing),
+  ``temp_size_in_bytes`` and ``peak_memory_in_bytes`` (the most bytes of
+  live storages the run reaches, without and with the arguments') and
+  ``generated_code_size_in_bytes`` null, with a note.
+
+These counts depend on the mesh, so ``counted_rank`` keeps them by arch,
+shape and mesh. A train record, and the records of an arch with block
+types outside ``SHARDED``, keep both fields null, with a note that names
+what is missing. The process exits non-zero if any combination failed.
 """
 from __future__ import annotations
 
@@ -41,20 +60,28 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import INPUT_SHAPES
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.opcount import count
+from repro_torch.launch.mesh import (CountingMesh, collective_log, collectives_record,
+                                     make_production_mesh)
+from repro_torch.launch.opcount import count, count_memory
 from repro_torch.launch.steps import (attn_len_for, input_specs, make_prefill_step,
                                       make_serve_step, make_train_step, params_spec)
+from repro_torch.models import meshctx
 from repro_torch.models import sharding as shd
 from repro_torch.models.layers import rope_inv_freqs
 from repro_torch.optim.optimizers import opt_state_pspec, opt_state_structs
 
 NOTES = {
-    "collectives": "null: the collectives need a sharded program of the dense layers "
-                   "(tensor parallelism over 'model'), which the port does not have",
-    "memory_analysis": "null: the port has no compiler's memory analysis, so the peak "
-                       "and temporary memory are not counted",
+    "collectives": "null: a train step under a mesh (the backward of the tensor- and "
+                   "expert-parallel collectives) is not written yet",
+    "memory_analysis": "null: a train step under a mesh is not written yet, so its memory "
+                       "is not counted",
 }
+UNSHARDED_NOTE = ("null: the block types {} have no tensor-parallel program, so no rank's "
+                  "program exists to count")
+CODE_NOTE = ("generated_code_size_in_bytes is null: the port generates no code for a step "
+             "(its kernels are built once, not per step)")
+IDX_BYTES = 4       # the reference's decode takes idx as an int32 scalar argument
+TUPLE_BYTES = 8     # a pointer a leaf in the table of the reference's output tuple
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,6 +115,33 @@ def counted(cfg, shape):
     return costs, time.perf_counter() - t0, cache
 
 
+@functools.lru_cache(maxsize=None)
+def counted_rank(cfg, shape, mesh):
+    """``(collectives, memory_analysis, seconds)`` of the prefill or decode
+    that rank 0 of ``mesh`` (a ``Mesh`` descriptor) runs, counted on
+    ``meta`` under a ``CountingMesh`` (see the module's docstring)."""
+    cmesh = CountingMesh(mesh)
+    rope_inv_freqs.cache_clear()
+    t0 = time.perf_counter()
+    whole = shape.global_batch % meshctx.dp_size(mesh) != 0
+    with meshctx.use_mesh(cmesh), meshctx.whole_batch(whole), torch.no_grad():
+        specs = input_specs(cfg, shape, mesh=cmesh)
+        model = params_spec(cfg)
+        with collective_log() as log:
+            if shape.kind == "prefill":
+                step = make_prefill_step(cfg, attn_len_for(cfg, shape))
+                _, memory, (_, cache) = count_memory(step, model, specs["tokens"],
+                                                     specs.get("aux_embeds"))
+            else:
+                _, memory, (_, cache) = count_memory(make_serve_step(cfg), model,
+                                                     specs["cache"], specs["token"],
+                                                     shape.seq_len - 1)
+                memory["argument_size_in_bytes"] += IDX_BYTES
+    leaves = 1 + len(shd.reference_cache(cfg, cache))
+    memory["output_size_in_bytes"] += TUPLE_BYTES * leaves
+    return collectives_record(log), memory, time.perf_counter() - t0
+
+
 def run_one(arch: str, shape_name: str, *, multi_pod: bool = False):
     """The record of one combination (see the module's docstring)."""
     cfg = get_config(arch)
@@ -107,8 +161,17 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False):
         rec["cache_bytes_per_device"] = shd.bytes_per_device(
             tree, shd.cache_pspecs(mesh, tree, cfg), mesh)
     rec.update(flops=costs["flops"], dot_flops=costs["dot_flops"],
-               bytes_accessed=costs["bytes_accessed"], count_s=round(seconds, 2),
-               collectives=None, memory_analysis=None, notes=dict(NOTES))
+               bytes_accessed=costs["bytes_accessed"], collectives=None,
+               memory_analysis=None, notes=dict(NOTES))
+    unsharded = shd.unsharded_blocks(cfg, mesh)
+    if unsharded:
+        note = UNSHARDED_NOTE.format(list(unsharded))
+        rec["notes"] = {"collectives": note, "memory_analysis": note}
+    elif shape.kind != "train":
+        rec["collectives"], rec["memory_analysis"], rank_s = counted_rank(cfg, shape, mesh)
+        rec["notes"] = {"memory_analysis": CODE_NOTE}
+        seconds += rank_s
+    rec["count_s"] = round(seconds, 2)
     return rec
 
 

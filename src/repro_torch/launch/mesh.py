@@ -10,7 +10,18 @@ a ``jax.sharding.Mesh``. ``ProcessMesh`` lays the same axes over the ranks
 of an initialised ``torch.distributed`` world (row-major, the last axis
 fastest) and gives what the reference's per-shard code reads inside
 ``shard_map``: a rank's index on a set of axes (``jax.lax.axis_index``) and
-the collectives over them (``all_gather(..., tiled=True)`` and ``psum``).
+the collectives over them (``all_gather(..., tiled=True)``, ``psum`` and
+``pmax``).
+
+Every collective of a mesh is logged, as ``moe.routing_log`` logs
+routings: inside ``collective_log()`` each call appends (kind, result
+bytes, group size) to the yielded list, the kind under the reference's HLO
+name ("all-gather", "all-reduce"). ``CountingMesh`` has ``ProcessMesh``'s
+interface over a ``Mesh`` descriptor and one coordinate, with no process
+group: on ``meta`` tensors it returns results of the right shape and dtype
+and logs each call as ``ProcessMesh`` does, so the dry-run runs one rank's
+program on ``meta`` and reads its collectives (``collectives_record``, in
+the keys of the reference's ``collectives_weighted``).
 
 ``spawn(fn, world, backend)`` starts the ranks. Under ``nccl`` rank r runs
 on card r, one rank a card; under ``gloo`` every rank runs on the one device
@@ -20,6 +31,7 @@ switches it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -90,7 +102,86 @@ def _axes(names, axes):
     return tuple(a for a in names if a in axes)
 
 
-class ProcessMesh:
+_LOGS = []
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Every collective a mesh runs inside the block, appended to the
+    yielded list as (kind, result bytes, group size), in call order."""
+    log = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+def _logged(kind, result, group):
+    for log in _LOGS:
+        log.append((kind, result.numel() * result.element_size(), int(group)))
+    return result
+
+
+def moved_bytes(kind, result_bytes, n):
+    """Bytes a device moves for one collective over a ring of ``n``, from
+    its result bytes (the reference's ``hloanalysis._moved_bytes``)."""
+    f = (n - 1) / n
+    if kind == "all-reduce":
+        return 2.0 * result_bytes * f
+    if kind in ("all-gather", "all-to-all"):
+        return result_bytes * f
+    if kind == "reduce-scatter":
+        return result_bytes * (n - 1)
+    return result_bytes          # collective-permute
+
+
+def collectives_record(log):
+    """A collective log as the reference's ``collectives_weighted`` record:
+    ``<kind>`` (result bytes summed), ``<kind>_count`` and ``moved_bytes``.
+    The port runs every layer in its Python loop, so its log is already
+    weighted by the layers' trip counts."""
+    out = {}
+    for kind, nbytes, n in log:
+        out[kind] = out.get(kind, 0.0) + float(nbytes)
+        out[kind + "_count"] = out.get(kind + "_count", 0.0) + 1.0
+        out["moved_bytes"] = out.get("moved_bytes", 0.0) + moved_bytes(kind, nbytes, n)
+    return out
+
+
+class _Axes:
+    """What ``ProcessMesh`` and ``CountingMesh`` share: the descriptor's
+    ``shape``, ``axis_names`` and ``size``, a rank's coordinates."""
+
+    spec: Mesh
+    _coords: dict
+
+    @property
+    def axis_names(self):
+        return self.spec.axis_names
+
+    @property
+    def shape(self) -> dict:
+        return self.spec.shape
+
+    @property
+    def size(self) -> int:
+        return self.spec.size
+
+    def axis_size(self, axes) -> int:
+        """Ranks along ``axes`` (the product of their sizes)."""
+        return math.prod(self.shape[a] for a in _axes(self.axis_names, axes))
+
+    def index(self, axes) -> int:
+        """This rank's row-major index over ``axes``, the reference's
+        ``axis_index`` (over a tuple: ``pod * n_data + data``)."""
+        i = 0
+        for a in _axes(self.axis_names, axes):
+            i = i * self.shape[a] + self._coords[a]
+        return i
+
+
+class ProcessMesh(_Axes):
     """The axes of a ``Mesh`` laid over the ranks of the initialised
     ``torch.distributed`` world: rank r sits at the row-major coordinates of
     r in ``axis_sizes``. Every rank must build it, in the same order as any
@@ -124,30 +215,6 @@ class ProcessMesh:
                     if self.rank in ranks:
                         self._groups[axes] = group
 
-    @property
-    def axis_names(self):
-        return self.spec.axis_names
-
-    @property
-    def shape(self) -> dict:
-        return self.spec.shape
-
-    @property
-    def size(self) -> int:
-        return self.spec.size
-
-    def axis_size(self, axes) -> int:
-        """Ranks along ``axes`` (the product of their sizes)."""
-        return math.prod(self.shape[a] for a in _axes(self.axis_names, axes))
-
-    def index(self, axes) -> int:
-        """This rank's row-major index over ``axes``, the reference's
-        ``axis_index`` (over a tuple: ``pod * n_data + data``)."""
-        i = 0
-        for a in _axes(self.axis_names, axes):
-            i = i * self.shape[a] + self._coords[a]
-        return i
-
     def group(self, axes):
         """The process group of this rank's neighbours along ``axes``."""
         return self._groups[_axes(self.axis_names, axes)]
@@ -158,14 +225,54 @@ class ProcessMesh:
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
         dist.all_gather(parts, t, group=self.group(axes))
-        return torch.cat(parts, dim=dim)
+        return _logged("all-gather", torch.cat(parts, dim=dim), len(parts))
 
-    def all_reduce(self, t, axes):
-        """The sum of ``t`` over the ranks along ``axes`` (``psum``), in
-        ``t``'s dtype, as a new tensor."""
+    def all_reduce(self, t, axes, op="sum"):
+        """The sum (``psum``) or, with ``op="max"``, the maximum (``pmax``)
+        of ``t`` over the ranks along ``axes``, in ``t``'s dtype, as a new
+        tensor."""
         out = t.contiguous().clone()
-        dist.all_reduce(out, group=self.group(axes))
-        return out
+        dist.all_reduce(out, op=_REDUCE_OPS[op], group=self.group(axes))
+        return _logged("all-reduce", out, self.axis_size(axes))
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class CountingMesh(_Axes):
+    """``ProcessMesh``'s interface for the rank at ``coords`` ({axis name:
+    index}) of the ``Mesh`` descriptor ``spec``, with no process group: its
+    collectives take ``meta`` tensors only (any other device raises, so no
+    value is faked), return results of the right shape and dtype, made as
+    ``ProcessMesh`` makes them (one part a rank, then one concatenation;
+    a copy for a reduction), and are logged as ``ProcessMesh`` logs them."""
+
+    def __init__(self, spec: Mesh, coords=None):
+        self.spec = spec
+        coords = dict(coords or {})
+        if set(coords) - set(spec.axis_names):
+            raise ValueError(f"coordinates {coords} name axes outside {spec.axis_names}")
+        self._coords = {a: int(coords.get(a, 0)) for a in spec.axis_names}
+        for a, i in self._coords.items():
+            if not 0 <= i < spec.shape[a]:
+                raise ValueError(f"coordinate {i} is off the {a} axis of {spec.label}")
+
+    @staticmethod
+    def _meta(t):
+        if t.device.type != "meta":
+            raise ValueError(f"a CountingMesh runs on meta tensors only, got one on {t.device}: "
+                             f"run the ranks with a ProcessMesh")
+        return t.contiguous()
+
+    def all_gather(self, t, axes, dim=0):
+        t = self._meta(t)
+        parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
+        return _logged("all-gather", torch.cat(parts, dim=dim), len(parts))
+
+    def all_reduce(self, t, axes, op="sum"):
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"op must be one of {sorted(_REDUCE_OPS)}, got {op!r}")
+        return _logged("all-reduce", self._meta(t).clone(), self.axis_size(axes))
 
 
 def rank_devices(world: int, backend: str, device=None):

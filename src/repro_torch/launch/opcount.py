@@ -33,7 +33,18 @@ switched off while counting, so the composite batch norm dispatches
 ``native_batch_norm`` as it does on the CPU and on ``meta`` (with cuDNN it
 would dispatch ``cudnn_batch_norm``, whose extra result changes the
 bytes): the counts of one function are then the same on every device.
-Collectives have no counterpart in one process.
+Collectives have no counterpart in one process: the dry-run reads them
+from the mesh's own log (``launch.mesh.collective_log``), the rank's
+program run on ``meta`` under a ``CountingMesh``.
+
+``count_memory`` also follows the step's storages, the counterpart of the
+compiled step's memory analysis: the arguments' (the model's parameters,
+the cache and the inputs, each storage once), the outputs' tensors, and
+the highest sum of live storages the run reaches, each new storage added
+when an op makes it and taken away when the last tensor on it that an op
+returned is collected (a weak reference's callback). On ``meta`` nothing
+is allocated, and the sum is that of the allocations a run would make,
+less the allocator's rounding and any workspace a library takes.
 
 ``meta`` runs PyTorch's shape functions, many of them in Python (some
 hundreds of microseconds an elementwise op). A counted run on ``meta``
@@ -45,6 +56,8 @@ is not redone. Views, in-place ops and ops whose results alias an input
 always run.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -94,16 +107,66 @@ def _fresh(func):
                 or any(r.alias_info is not None for r in schema.returns))
 
 
+def _tensors(values):
+    """The tensors among ``values``, in their lists, tuples, dicts and
+    modules (parameters and buffers)."""
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif isinstance(v, torch.nn.Module):
+            yield from v.parameters()
+            yield from v.buffers()
+        elif isinstance(v, dict):
+            yield from _tensors(v.values())
+        elif isinstance(v, (list, tuple)):
+            yield from _tensors(v)
+
+
+class _Live:
+    """The storages an op run makes, by their storage's address: bytes live
+    now and the most live at once. Storages of the arguments are not
+    counted here."""
+
+    def __init__(self, args):
+        self.args = {t.untyped_storage()._cdata for t in args}
+        self.live = {}
+        self.now = self.top = 0
+
+    def track(self, out):
+        for t in _tensors((out,)):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self.args:
+                continue
+            if key not in self.live:
+                self.live[key] = [st.nbytes(), 0]
+                self.now += st.nbytes()
+                self.top = max(self.top, self.now)
+            self.live[key][1] += 1
+            weakref.finalize(t, self._drop, key)
+
+    def _drop(self, key):
+        entry = self.live.get(key)
+        if entry is None:
+            return
+        entry[1] -= 1
+        if entry[1] == 0:
+            self.now -= entry[0]
+            del self.live[key]
+
+
 class _Counter(TorchDispatchMode):
     """Adds each op's FLOPs, product FLOPs and tensor bytes; keeps the
-    result layouts of ``meta`` ops by their inputs' layouts."""
+    result layouts of ``meta`` ops by their inputs' layouts; with a
+    ``_Live``, follows the storages the ops make."""
 
-    def __init__(self):
+    def __init__(self, live=None):
         super().__init__()
         self.flops = 0
         self.dot_flops = 0
         self.bytes_accessed = 0
         self._layouts = {}
+        self.live = live
 
     def _run(self, func, args, kwargs):
         if func.is_view:
@@ -120,9 +183,13 @@ class _Counter(TorchDispatchMode):
         single = isinstance(out, torch.Tensor)
         outs = (out,) if single else out
         # only meta results: a factory op (no tensor operand) on a device
-        # has a key too, and must not come back as meta
+        # has a key too, and must not come back as meta; and only results
+        # on storage of their own (``_unsafe_view`` declares no alias but
+        # returns one)
+        ins = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
         if _fresh(func) and isinstance(outs, tuple) and all(
-                isinstance(t, torch.Tensor) and t.device.type == "meta" for t in outs):
+                isinstance(t, torch.Tensor) and t.device.type == "meta"
+                and t.untyped_storage()._cdata not in ins for t in outs):
             self._layouts[key] = (single, [(tuple(t.shape), t.stride(), t.dtype)
                                            for t in outs])
         return out
@@ -139,18 +206,58 @@ class _Counter(TorchDispatchMode):
         if not func.is_view and packet not in _FREE:
             self.bytes_accessed += (_tensor_bytes(args) + _tensor_bytes(kwargs.values())
                                     + _tensor_bytes((out,)))
+        if self.live is not None:
+            self.live.track(out)
         return out
 
 
-def count(fn, *args, **kwargs):
-    """``(costs, fn(*args, **kwargs))``: ``op_costs``' dict and the result."""
-    counter = _Counter()
+def _run(counter, fn, args, kwargs):
     with torch.backends.cudnn.flags(enabled=False), counter:
         out = fn(*args, **kwargs)
     dots = float(counter.dot_flops)
     flops = float(counter.flops)
     return {"flops": flops if flops > 0.0 else dots, "dot_flops": dots,
             "bytes_accessed": float(counter.bytes_accessed)}, out
+
+
+def count(fn, *args, **kwargs):
+    """``(costs, fn(*args, **kwargs))``: ``op_costs``' dict and the result."""
+    return _run(_Counter(), fn, args, kwargs)
+
+
+def _nbytes(tensors):
+    seen, n = set(), 0
+    for t in tensors:
+        if id(t) not in seen:
+            seen.add(id(t))
+            n += t.numel() * t.element_size()
+    return n
+
+
+def count_memory(fn, *args, **kwargs):
+    """``(costs, memory, fn(*args, **kwargs))``: ``count``'s costs and the
+    run's memory in the keys of the reference's memory analysis, bytes:
+    ``argument_size_in_bytes`` (the tensors of ``args`` and ``kwargs``, a
+    module's parameters and buffers among them, each once),
+    ``output_size_in_bytes`` (the result's tensors, as the reference counts
+    its outputs with no buffer donated, so a cache updated in place counts
+    as an output too), ``alias_size_in_bytes`` 0 (nothing is donated),
+    ``temp_size_in_bytes`` (the most bytes of storages the run made that
+    are live at once) and ``peak_memory_in_bytes`` (the arguments' storages
+    and that); ``generated_code_size_in_bytes`` None: no code is
+    generated."""
+    arg_tensors = list(_tensors(args + tuple(kwargs.values())))
+    live = _Live(arg_tensors)
+    costs, out = _run(_Counter(live), fn, args, kwargs)
+    stores = {}
+    for t in arg_tensors:
+        stores[t.untyped_storage()._cdata] = t.untyped_storage().nbytes()
+    memory = {"generated_code_size_in_bytes": None,
+              "argument_size_in_bytes": _nbytes(arg_tensors),
+              "output_size_in_bytes": _nbytes(list(_tensors((out,)))),
+              "alias_size_in_bytes": 0, "temp_size_in_bytes": live.top,
+              "peak_memory_in_bytes": sum(stores.values()) + live.top}
+    return costs, memory, out
 
 
 def op_costs(fn, *args, **kwargs):

@@ -24,9 +24,12 @@ encoder-decoder or VLM arch is fed the reference's zero ``aux_embeds``
 ``serve(cfg, mesh=...)`` answers the requests on every rank of a process
 mesh (``launch.mesh.ProcessMesh``), the steps running unchanged under
 ``meshctx.use_mesh``: each rank holds its shard of the batch (its own
-requests' rows and KV cache) and of the MoE experts, and the MoE layers
-take the expert-parallel paths. The reference has no serving flag for
-this, and neither has the CLI.
+requests' rows), its blocks of the parameters under the reference's
+sharding rules (heads, d_ff and vocab over "model", with ``fsdp`` the
+other dim over "data") and of the KV cache (its length over "model"),
+and runs the tensor-parallel program of the dense and MoE stacks, the
+MoE layers on the expert-parallel paths. The reference has no serving
+flag for this, and neither has the CLI.
 
 Runs on the CUDA card at the arch's full width by default; ``--device cpu``
 runs the plain PyTorch twins of the kernels instead, and ``--reduce``
@@ -87,7 +90,8 @@ def serve(cfg, *, device=None, batch=4, prompt_len=2048, gen=32, requests=2, see
     Under ``mesh`` (a ``ProcessMesh``, on every rank) the model is built
     and run inside ``meshctx.use_mesh(mesh)``: every rank draws the whole
     batch's prompts and keeps the rows of its data index, ``batch / dp``
-    of them, and the stats hold its rows."""
+    of them, and the stats hold its rows (the logits whole over the
+    vocab); ``cache_bytes`` are the rank's."""
     device = resolve_device(device)
     full_precision_matmuls()
     rows = slice(None)

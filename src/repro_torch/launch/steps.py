@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.models import cache as cache_lib
+from repro_torch.models import meshctx
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import dtype_of
 from repro_torch.optim import cosine_schedule, global_norm, make_optimizer
@@ -68,7 +69,9 @@ def make_prefill_step(cfg, attn_len: int):
     """``prefill_step(model, tokens, aux_embeds=None) -> (last_logits,
     cache)``, the cache of ``attn_len`` slots per attention layer; an
     encoder-decoder or VLM arch needs ``aux_embeds`` (B, n_aux_tokens,
-    d_model)."""
+    d_model). Run inside ``meshctx.use_mesh(mesh)`` it is the program of
+    one rank of the mesh, on its shard of the tokens, holding its blocks
+    of the cache; so is the serve step's."""
     def prefill_step(model, tokens, aux_embeds=None):
         _check(model, cfg)
         return model_lib.prefill(model, tokens, attn_len=attn_len, aux_embeds=aux_embeds)
@@ -103,15 +106,29 @@ def attn_len_for(cfg, shape) -> int:
     return shape.seq_len
 
 
-def input_specs(cfg, shape_name):
+def local_batch(batch, mesh=None) -> int:
+    """The rows of a global ``batch`` one rank of ``mesh`` holds: the
+    batch over the data axes where they divide it, else all of it (the
+    reference's ``batch_shardings``)."""
+    if mesh is None:
+        return batch
+    dp = meshctx.dp_size(mesh)
+    return batch // dp if batch % dp == 0 else batch
+
+
+def input_specs(cfg, shape_name, mesh=None):
     """``meta`` stand-ins for every model input of the step that this input
     shape (a name of ``INPUT_SHAPES``, or an ``InputShape``) runs: train gives ``{"batch": {"tokens", "labels"(,
     "aux_embeds")}}``, prefill ``{"tokens"(, "aux_embeds")}``, decode
     ``{"cache", "token", "idx"}`` with the port's per-layer cache of
     ``attn_len_for`` slots. ``aux_embeds`` (B, n_aux_tokens, d_model) come
-    in the compute dtype where the config has them."""
+    in the compute dtype where the config has them. Under ``mesh`` (a
+    process or counting mesh) each is the shard one rank holds: its rows of
+    the batch (``local_batch``) and its block of every cache leaf
+    (``cache.make_cache``)."""
     shape = INPUT_SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
-    b, s = shape.global_batch, shape.seq_len
+    s = shape.seq_len
+    b = local_batch(shape.global_batch, mesh)
     cdt = dtype_of(cfg.compute_dtype)
     aux = {"aux_embeds": sds((b, cfg.n_aux_tokens, cfg.d_model), cdt)} \
         if cfg.n_aux_tokens else {}
@@ -120,7 +137,8 @@ def input_specs(cfg, shape_name):
                                "labels": sds((b, s), torch.int32)}, **aux)}
     if shape.kind == "prefill":
         return dict({"tokens": sds((b, s), torch.int32)}, **aux)
-    cache = cache_lib.make_cache(cfg, b, attn_len_for(cfg, shape), device="meta")
+    cache = cache_lib.make_cache(cfg, shape.global_batch, attn_len_for(cfg, shape),
+                                 device="meta", mesh=mesh)
     return {"cache": cache, "token": sds((b, 1), torch.int32), "idx": sds((), torch.int32)}
 
 

@@ -24,6 +24,12 @@ the kernel keeps them f32. The new token's k and v (or their codes and
 scales) are written into the cache in place (the reference returns an
 updated copy).
 
+Under a mesh (``meshctx``) self-attention is the program one rank runs
+(``self_attention``'s docstring): ``wq``, ``wk``, ``wv`` column-parallel,
+``wo`` row-parallel, and the KV cache held as ``cache_pspecs`` cuts it, its
+length over "model" (merged through the kernel's log-sum-exp at decode,
+``merge_lse``) or, where the length does not divide, its kv heads.
+
 Cross-attention (the VLM's image layers, the encoder-decoder's decoder)
 is the plain ``attention`` in every mode, as the reference's is its plain
 ``flash_attention``: no RoPE, every position 0, not causal; at decode it
@@ -35,7 +41,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models.cache import quantize_kv
+from repro_torch.models import meshctx, tp
+from repro_torch.models.cache import pack_full_kv, quantize_kv
 from repro_torch.models.layers import apply_rope, dtype_of, rms_head_norm
 
 NEG_INF = -1e30
@@ -152,47 +159,213 @@ def _flash_inner(q, k, v, q_positions, k_positions, causal, window, chunk):
     return out.to(q.dtype)
 
 
-def self_attention(p, x, cfg, positions, *, causal=True, window=0, kv_cache=None,
-                   cache_slot=None, cache_positions=None, idx=None):
-    """Self-attention for train/prefill (kv_cache None) or decode.
+def _gather_model(ts, dim, mesh):
+    """Each of ``ts`` (this rank's blocks along ``dim``) whole over "model",
+    in rank order, by one all-gather for each dtype and number of dims among
+    them: the tensors of a kind are concatenated along ``dim`` and gathered
+    on a new leading axis, then split apart."""
+    out = [None] * len(ts)
+    groups = {}
+    for i, t in enumerate(ts):
+        groups.setdefault((t.dtype, t.dim()), []).append(i)
+    for idxs in groups.values():
+        parts = [ts[i] for i in idxs]
+        if len(parts) == 1:
+            out[idxs[0]] = mesh.all_gather(parts[0], "model", dim=dim)
+            continue
+        d = dim % parts[0].dim() + 1                      # dim on the gathered tensor
+        g = mesh.all_gather(torch.cat(parts, dim).unsqueeze(0), "model", dim=0)
+        at = 0
+        for i, t in zip(idxs, parts):
+            n = t.shape[dim]
+            part = g.narrow(d, at, n).movedim(0, d - 1)       # (..., model, n, ...)
+            out[i] = part.reshape(*part.shape[:d - 1], -1, *part.shape[d + 1:])
+            at += n
+    return out
 
-    Decode: x is one token (B, 1, d); kv_cache = {"k", "v"} each
-    (B, L, Hkv, D), int8 codes with {"k_scale", "v_scale"} (B, L, Hkv)
-    where ``cfg.kv_quant_bits``; the new token's k/v (quantized, with their
-    scales, as ``quantize_kv`` gives them) are written at ``cache_slot``
-    (an int, already modulo L); cache_positions: (B, L) int32 slot ->
-    absolute-position map (-1 invalid), already holding ``idx`` (an int,
-    the token's position) at the slot; ``window`` > 0 masks the positions
-    at or before ``idx - window``.
-    Returns (out (B, S, d), new_kv): the roped (k, v) to cache (prefill) or
-    the updated cache {"k", "v"(, "k_scale", "v_scale")} (decode)."""
-    q, k, v = qkv(p, x, x, cfg)
+
+def _heads(p, x, cfg):
+    """q (B, S, H, D), k, v (B, S, Hk, D) of x under the current mesh, and
+    whether they hold this rank's heads only. Where "model" divides both
+    the query and the kv heads and cuts all three projections, the rank
+    keeps its heads (H = Hq / model, Hk = Hkv / model); elsewhere the
+    projected columns it holds are all-gathered over "model" and it holds
+    every head."""
+    mesh = meshctx.get_mesh()
+    m = tp.model_size(mesh)
+    ws = (p.wq, p.wk, p.wv)
+    local = (m > 1 and all(tp.cols(w) for w in ws) and cfg.n_heads % m == 0
+             and cfg.n_kv_heads % m == 0)
+    b, s, _ = x.shape
+    outs = []
+    for w, bias in zip(ws, ("bq", "bk", "bv")):
+        y = x @ tp.gather(w)
+        outs.append(y + getattr(p, bias) if cfg.qkv_bias else y)
+    cut = [i for i, w in enumerate(ws) if tp.cols(w)] if not local else []
+    for i, y in zip(cut, _gather_model([outs[i] for i in cut], -1, mesh) if cut else []):
+        outs[i] = y
+    q, k, v = (y.reshape(b, s, -1, cfg.head_dim) for y in outs)
+    if cfg.qk_norm:
+        q, k = rms_head_norm(p.q_scale, q), rms_head_norm(p.k_scale, k)
+    return q, k, v, local
+
+
+def _out_proj(o, wo, local):
+    """o (B, S, heads held x D) through ``wo``: where ``wo``'s rows are
+    cut over "model", the rank's rows (its own heads' columns of o) times
+    its block, summed over "model"."""
+    mesh = meshctx.get_mesh()
+    if tp.rows(wo):
+        if not local:
+            o = o[..., tp.block_of(o.shape[-1], "model", mesh)]
+        return tp.row_out(o, wo)
+    if local:
+        o = mesh.all_gather(o, "model", dim=-1)
+    return o @ tp.gather(wo)
+
+
+def merge_lse(o, lse, mesh):
+    """The decode outputs o (B, H, D) f32 of the ranks along "model", each
+    over its run of cache slots, merged by their log-sum-exps lse (B, H):
+    ``o = sum_r w_r o_r / sum_r w_r``, ``w_r = exp(lse_r - max_r lse_r)``,
+    the reference's chunk merge (``_flash_decode``). Runs of equal length
+    whose rows are all empty weigh alike, so such a row is the mean of v,
+    as one run over all the slots gives it."""
+    top = mesh.all_reduce(lse, "model", op="max")
+    w = torch.exp(lse - top)[..., None]
+    both = mesh.all_reduce(torch.cat([o * w, w], dim=-1), "model")
+    return both[..., :-1] / both[..., -1:]
+
+
+def pack_cache(k, v, positions, cache_len, *, window=0, kv_bits=0, local=False, cfg=None):
+    """The layer's cache entry from the prefill's k, v (B, S, heads held,
+    D), under the current mesh as ``cache_pspecs`` cuts it: with the length
+    over "model" the rank's run of slots of every kv head (k, v gathered
+    over "model" first where they hold the rank's heads only); with the kv
+    heads over "model" its heads (and the int8 scales, which the rule keeps
+    whole, gathered); without a mesh the whole entry (``pack_full_kv``)."""
+    mesh = meshctx.get_mesh()
+    m = tp.model_size(mesh)
+    if m == 1:
+        return pack_full_kv(k, v, positions, cache_len, window=window, kv_bits=kv_bits)
+    lc = window if window else cache_len
+    hkv = cfg.n_kv_heads
+    if lc % m == 0:
+        if local:
+            k, v = _gather_model([k, v], 2, mesh)
+        entry = pack_full_kv(k, v, positions, cache_len, window=window, kv_bits=kv_bits)
+        sl = tp.block_of(lc, "model", mesh)
+        return {name: t[:, sl].clone() for name, t in entry.items()}
+    if hkv % m:
+        raise ValueError(f"a cache of {lc} slots and {hkv} kv heads splits neither way over a "
+                         f"model axis of {m}: give it a length the axis divides")
+    if not local:
+        sl = tp.block_of(hkv, "model", mesh)
+        k, v = k[:, :, sl], v[:, :, sl]
+    entry = pack_full_kv(k, v, positions, cache_len, window=window, kv_bits=kv_bits)
+    if kv_bits:
+        entry["k_scale"], entry["v_scale"] = _gather_model([entry["k_scale"],
+                                                            entry["v_scale"]], 2, mesh)
+    return entry
+
+
+def _decode(p, cfg, q, k, v, local, cache, positions, idx, window):
+    """One token's attention over the layer's (the rank's) cache entry (see
+    ``self_attention``): returns (o (B, 1, heads held x D) in q's dtype,
+    whether it holds the rank's heads only, the entry)."""
+    mesh = meshctx.get_mesh()
+    at_pos = positions[:, 0].to(cache["pos"].dtype)
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    b, hkv, g = q.shape[0], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    scaled = bool(cfg.kv_quant_bits)
+    if scaled:
+        kq, ksc = quantize_kv(k, cfg.kv_quant_bits)
+        vq, vsc = quantize_kv(v, cfg.kv_quant_bits)
+    else:
+        kq, vq, ksc, vsc = k, v, None, None
+    if ck.shape[2] < hkv:
+        # kv heads over "model": the rank's heads attend to its whole-length cache
+        hs = tp.block_of(hkv, "model", mesh)
+        if not local:
+            qs = tp.block_of(cfg.n_heads, "model", mesh)
+            q, kq, vq = q[:, :, qs], kq[:, :, hs], vq[:, :, hs]
+            if scaled:
+                ksc, vsc = ksc[:, :, hs], vsc[:, :, hs]
+        slot = idx % ck.shape[1]
+        ck[:, slot], cv[:, slot] = kq[:, 0], vq[:, 0]
+        pos[:, slot] = at_pos
+        scales = {}
+        if scaled:     # the rule keeps the scales whole: every rank writes every head's
+            if ksc.shape[2] < hkv:
+                ksc, vsc = _gather_model([ksc, vsc], 2, mesh)
+            cache["k_scale"][:, slot] = ksc[:, 0]
+            cache["v_scale"][:, slot] = vsc[:, 0]
+            scales = {n: cache[n][:, :, hs] for n in ("k_scale", "v_scale")}
+        o = ops.decode_attention(q[:, 0], ck, cv, pos, idx, window=window, **scales)
+        return o.to(q.dtype)[:, None].reshape(b, 1, -1), True, cache
+    # the length over "model" (or one run, without a mesh): the owner of slot
+    # idx mod L writes the token (every kv head), every rank attends over its
+    # run for every query head
+    if local:
+        if scaled:
+            q, kq, vq, ksc, vsc = _gather_model([q, kq, vq, ksc, vsc], 2, mesh)
+        else:
+            q, kq, vq = _gather_model([q, kq, vq], 2, mesh)
+    run, m = ck.shape[1], tp.model_size(mesh)
+    slot = idx % (run * m)
+    if m == 1 or slot // run == mesh.index("model"):
+        at = slot % run
+        ck[:, at], cv[:, at] = kq[:, 0], vq[:, 0]
+        pos[:, at] = at_pos
+        if scaled:
+            cache["k_scale"][:, at], cache["v_scale"][:, at] = ksc[:, 0], vsc[:, 0]
+    scales = {n: cache[n] for n in ("k_scale", "v_scale")} if scaled else {}
+    if m == 1:
+        o = ops.decode_attention(q[:, 0], ck, cv, pos, idx, window=window, **scales)
+    else:
+        o, lse = ops.decode_attention(q[:, 0], ck, cv, pos, idx, window=window,
+                                      return_lse=True, **scales)
+        o = merge_lse(o, lse, mesh)
+    return o.to(q.dtype)[:, None].reshape(b, 1, hkv * g * cfg.head_dim), False, cache
+
+
+def self_attention(p, x, cfg, positions, *, causal=True, window=0, cache=None, idx=None,
+                   attn_len=0, prefill=False):
+    """Self-attention for train and prefill (``cache`` None; with
+    ``prefill`` the layer's cache entry of ``attn_len`` slots is packed by
+    ``pack_cache``) or decode: x is one token (B, 1, d) at position ``idx``
+    (an int) against the layer's entry {"k", "v", "pos"} (B, L, Hkv, D),
+    int8 codes with {"k_scale", "v_scale"} (B, L, Hkv) where
+    ``cfg.kv_quant_bits``; the token's position, k and v (quantized, with
+    their scales, as ``quantize_kv`` gives them) are written at slot ``idx
+    mod L`` in place; ``window`` > 0 masks the positions at or before
+    ``idx - window``. Returns (out (B, S, d), the entry; None in train
+    mode).
+
+    Under a mesh it is the program of one rank: the projections
+    column-parallel and ``wo`` row-parallel (``_heads``, ``_out_proj``).
+    At decode, with the cache's length over "model", a rank holds slots
+    ``[r L/m, (r+1) L/m)`` of every kv head: only the rank owning slot
+    ``idx mod L`` writes the token's k and v (gathered over "model" first
+    where its heads do not cover them), every rank runs
+    ``ops.decode_attention`` over its slots for all the query heads with
+    the log-sum-exp, and ``merge_lse`` merges the ranks; with the kv heads
+    over "model" each rank attends with its own heads and nothing is
+    merged."""
+    q, k, v, local = _heads(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     b, s = q.shape[0], q.shape[1]
-    if kv_cache is None:
+    if cache is None:
         out = attention(q, k, v, q_positions=positions, k_positions=positions,
                         causal=causal, window=window, chunk=cfg.attn_chunk)
-        new_kv = (k, v)
+        entry = (pack_cache(k, v, positions, attn_len, window=window,
+                            kv_bits=cfg.kv_quant_bits, local=local, cfg=cfg)
+                 if prefill else None)
+        held = local
     else:
-        ck, cv = kv_cache["k"], kv_cache["v"]
-        scales = {}
-        if cfg.kv_quant_bits:
-            # the token's codes and per-(token, kv head) scales, in place
-            kq, ksc = quantize_kv(k, cfg.kv_quant_bits)
-            vq, vsc = quantize_kv(v, cfg.kv_quant_bits)
-            ck[:, cache_slot], cv[:, cache_slot] = kq[:, 0], vq[:, 0]
-            kv_cache["k_scale"][:, cache_slot] = ksc[:, 0]
-            kv_cache["v_scale"][:, cache_slot] = vsc[:, 0]
-            scales = {"k_scale": kv_cache["k_scale"], "v_scale": kv_cache["v_scale"]}
-        else:
-            ck[:, cache_slot] = k[:, 0]
-            cv[:, cache_slot] = v[:, 0]
-        out = ops.decode_attention(q[:, 0], ck, cv, cache_positions, idx, window=window,
-                                   **scales)
-        out = out.to(q.dtype)[:, None]
-        new_kv = dict({"k": ck, "v": cv}, **scales)
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo, new_kv
+        out, held, entry = _decode(p, cfg, q, k, v, local, cache, positions, idx, window)
+    return _out_proj(out.reshape(b, s, -1), p.wo, held), entry
 
 
 def cross_attention(p, x, cfg, *, kv=None, context=None):

@@ -19,7 +19,6 @@ from __future__ import annotations
 from torch import nn
 
 from repro_torch.models.attention import Attention, cross_attention, self_attention
-from repro_torch.models.cache import pack_full_kv
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.rglru import RGLRU, apply_rglru, decode_rglru
@@ -64,22 +63,13 @@ class DenseBlock(nn.Module):
         return x if mode == "train" else (x, entry)
 
     def attend(self, x, positions, mode, cache, idx, attn_len):
-        """The first residual half: (x + attn(ln1(x)), cache entry)."""
-        h = self.ln1(x)
-        if mode == "decode":
-            slot = idx % cache["k"].shape[1]
-            pos_buf = cache["pos"]
-            pos_buf[:, slot] = positions[:, 0].to(pos_buf.dtype)
-            out, kv = self_attention(self.attn, h, self.cfg, positions, window=self.window,
-                                     kv_cache=cache, cache_slot=slot, cache_positions=pos_buf,
-                                     idx=idx)
-            entry = dict(kv, pos=pos_buf)
-        else:
-            out, (k, v) = self_attention(self.attn, h, self.cfg, positions, causal=self.causal,
-                                         window=self.window)
-            entry = (None if mode == "train" or not self.causal else
-                     pack_full_kv(k, v, positions, attn_len, window=self.window,
-                                  kv_bits=self.cfg.kv_quant_bits))
+        """The first residual half: (x + attn(ln1(x)), cache entry). Decode
+        writes the token's position, k and v into the entry at slot ``idx %
+        L``, in place; under a mesh it is the rank's program."""
+        out, entry = self_attention(self.attn, self.ln1(x), self.cfg, positions,
+                                    causal=self.causal, window=self.window,
+                                    cache=cache if mode == "decode" else None, idx=idx,
+                                    attn_len=attn_len, prefill=mode == "prefill" and self.causal)
         return x + out, entry
 
 

@@ -121,11 +121,26 @@ def entry_payload_bits(cfg, btype, batch, ctx_len):
     return int(total)
 
 
-def make_cache(cfg, batch, attn_len, device=None):
-    """One zero entry per layer (pos leaves -1)."""
+def make_cache(cfg, batch, attn_len, device=None, mesh=None):
+    """One zero entry per layer (pos leaves -1), of a global ``batch``;
+    under ``mesh`` each leaf is this rank's block of it
+    (``sharding.entry_pspec``: the batch over the data axes where they
+    divide it, a KV cache's length over "model", or its kv heads where the
+    length does not divide)."""
     def leaf(name, shape, dtype):
+        if mesh is not None:
+            from repro_torch.models.sharding import entry_pspec, shard_shape
+            shape = shard_shape(shape, entry_pspec(name, shape, mesh), mesh)
         if name == "pos":
             return torch.full(shape, -1, dtype=dtype, device=device)
         return torch.zeros(shape, dtype=dtype, device=device)
-    return [{name: leaf(name, *sd) for name, sd in entry_shape(cfg, bt, batch, attn_len).items()}
-            for bt in cfg.block_types()]
+    out = []
+    for bt in cfg.block_types():
+        shapes = entry_shape(cfg, bt, batch, attn_len)
+        m = 1 if mesh is None else mesh.shape["model"]
+        if "pos" in shapes and shapes["pos"][0][1] % m and cfg.n_kv_heads % m:
+            raise ValueError(f"a cache of {shapes['pos'][0][1]} slots and {cfg.n_kv_heads} kv "
+                             f"heads splits neither way over a model axis of {m}: give it a "
+                             f"length the axis divides")
+        out.append({name: leaf(name, *sd) for name, sd in shapes.items()})
+    return out

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import tp
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -84,9 +86,9 @@ class MLP(nn.Module):
         self.wo = nn.Parameter(torch.empty(f, d, dtype=dt, device=device))
 
     def forward(self, x):
-        if self.act == "swiglu":
-            return swiglu(x, self.wi, self.wg, self.wo)
-        return F.gelu(x @ self.wi, approximate="tanh") @ self.wo
+        """Under a mesh ``wi`` / ``wg`` are column-parallel and ``wo``
+        row-parallel (``tp.mlp``)."""
+        return tp.mlp(x, self.wi, self.wg, self.wo, self.act)
 
 
 def swiglu(x, wi, wg, wo):

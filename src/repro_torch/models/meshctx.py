@@ -2,21 +2,28 @@
 model code runs under, unset (None) for a single process.
 
 Launch code sets a ``launch.mesh.ProcessMesh`` (``set_mesh`` or the
-``use_mesh`` block) before it builds or runs a model; ``apply_moe`` then
-takes the expert-parallel paths where ``ep_available`` holds, and the MoE
-modules built under it hold a rank's shard of the expert leaves. The rules
+``use_mesh`` block) before it builds or runs a model, or a
+``CountingMesh`` to count one rank's program on meta: a model built under
+it holds the rank's blocks of its leaves (``sharding.localize``), the
+dense and MoE stacks run their tensor-parallel program (``models/tp.py``,
+``attention.self_attention``), and ``apply_moe`` takes the
+expert-parallel paths where ``ep_available`` holds. The rules
 read only the mesh's ``shape`` and ``axis_names``, so a ``launch.mesh.Mesh``
 descriptor answers them too.
 
 The reference's ``wsc_batch`` pins the residual stream's batch dim to the
 data axes with a GSPMD layout constraint. It has no counterpart here: a
-rank holds only its own shard of the batch, by construction.
+rank holds only its own shard of the batch, by construction. A batch the
+data axes do not divide stays whole on every data rank (the reference's
+``batch_shardings``); a rank cannot tell that from its tokens' shape, so
+the caller runs such a batch inside ``whole_batch()``.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 
 _MESH = None
+_WHOLE_BATCH = False
 
 
 def set_mesh(mesh):
@@ -70,3 +77,25 @@ def ep_available(cfg, mesh=None):
     if cfg.fsdp and cfg.d_model % m.shape["data"] != 0:
         return False
     return True
+
+
+@contextmanager
+def whole_batch(whole=True):
+    """Inside the block every rank holds the whole batch (a batch the data
+    axes do not divide), not its data index's rows."""
+    global _WHOLE_BATCH
+    prev = _WHOLE_BATCH
+    _WHOLE_BATCH = whole
+    try:
+        yield
+    finally:
+        _WHOLE_BATCH = prev
+
+
+def batch_is_whole() -> bool:
+    return _WHOLE_BATCH
+
+
+def global_batch(local: int, mesh=None) -> int:
+    """The global batch of which a rank holds ``local`` rows."""
+    return local if _WHOLE_BATCH else local * dp_size(mesh)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models import meshctx, tp
 from repro_torch.models.blocks import make_block
 from repro_torch.models.layers import Norm, dense_init, dtype_of, embed_init
 from repro_torch.models.moe import expert_leaf_shape, shard_expert_leaf
@@ -35,8 +36,16 @@ def layer_plan(cfg):
 
 
 class Model(nn.Module):
+    """Built under a mesh (``meshctx.use_mesh``), each parameter is this
+    rank's block of it, empty, with its live spec and whole shape
+    (``sharding.localize``); the block types without a tensor-parallel
+    program raise where the mesh cuts their leaves."""
+
     def __init__(self, cfg, *, device=None):
         super().__init__()
+        mesh = meshctx.get_mesh()
+        if mesh is not None:
+            target, device = device, "meta"
         dt = dtype_of(cfg.param_dtype)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
@@ -47,10 +56,14 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, dtype=dt, device=device)))
         self.encoder = Encoder(cfg, device=device) if cfg.family == "encdec" else None
+        if mesh is not None:
+            from repro_torch.models.sharding import localize
+            localize(self, mesh, target)
 
     def embed_tokens(self, tokens):
-        """Token embeddings, in the parameters' dtype (no cast)."""
-        return self.embed[tokens]
+        """Token embeddings, in the parameters' dtype (no cast); the vocab
+        rows cut over "model" under a mesh (``tp.embed``)."""
+        return tp.embed(self.embed, tokens)
 
     def run_layers(self, x, lo, hi, positions, aux=None, context=None):
         """Train-mode layers ``lo..hi``; each MoE layer appends its aux
@@ -76,8 +89,11 @@ class Model(nn.Module):
         return self.encoder(ctx) if self.encoder is not None else ctx
 
     def logits(self, x):
-        """The head: the tied embedding or ``lm_head``."""
-        return x @ (self.embed.T if self.lm_head is None else self.lm_head)
+        """The head: the tied embedding or ``lm_head``; under a mesh each
+        rank's vocab columns, all-gathered over "model" (``tp.head``)."""
+        if self.lm_head is None:
+            return tp.head(x, self.embed, tied=True)
+        return tp.head(x, self.lm_head)
 
     def forward(self, tokens, positions=None, aux_embeds=None):
         return apply_model(self, tokens, positions=positions, aux_embeds=aux_embeds)
@@ -115,6 +131,9 @@ def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None
     and prefill mode."""
     cfg = model.cfg
     b, s = tokens.shape
+    if meshctx.get_mesh() is not None:
+        from repro_torch.models.sharding import refuse_unsharded
+        refuse_unsharded(cfg, meshctx.get_mesh())
     if mode == "decode" and (cache is None or idx is None):
         raise ValueError("decode needs the cache and idx, the token's position")
     if positions is None:
@@ -209,14 +228,22 @@ def init_params(cfg, generator, device):
     (``meshctx.use_mesh``), an MoE layer holds the rank's shard of its
     experts: every slab of the whole leaf is drawn, in the same order, and
     the rank keeps its part, so the shards are cut from the draw a single
-    process makes."""
+    process makes. Every other leaf is drawn whole under a mesh, one at a
+    time, and the rank keeps its block (``sharding.cut``), so the sharded
+    model holds the one-process model's numbers."""
     model = Model(cfg, device=device)
+    mesh = meshctx.get_mesh()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name == "embed":
-            p.copy_(embed_init(generator, p.shape, p.dtype, device))
-        elif p.dim() == 2:
-            p.copy_(dense_init(generator, p.shape, p.dtype, device))
+        whole = getattr(p, "whole", tuple(p.shape))
+        if name == "embed" or (p.dim() == 2 and len(whole) == 2):
+            init = embed_init if name == "embed" else dense_init
+            w = init(generator, whole, p.dtype, device)
+            if mesh is not None:      # the whole leaf drawn, the rank's block kept
+                from repro_torch.models.sharding import cut
+                w = cut(w, p.spec, mesh)
+            p.copy_(w)
+            del w
         elif p.dim() == 3:
             shard = getattr(model.get_submodule(name.rsplit(".", 1)[0]), "shard", None)
             full = p.shape if shard is None else expert_leaf_shape(cfg, leaf)

@@ -21,9 +21,15 @@ its d-slice of them over "data"; ``apply_moe`` picks the reference's path
 by the global token count (``moe_path``). The reference writes these
 paths as per-shard code inside ``shard_map``; here they are what each rank
 runs, its ``psum`` and tiled ``all_gather`` the mesh's collectives.
-Elsewhere under a mesh the experts stay whole on every rank and the
-single-device dispatch runs over every data rank's tokens, gathered, as
-GSPMD partitions the reference's.
+Elsewhere under a mesh (a batch the data ranks do not divide, held whole
+on every rank inside ``meshctx.whole_batch``, or one they do where no
+expert-parallel path exists) the single-device dispatch runs over every
+data rank's tokens, gathered unless the batch is whole, as GSPMD
+partitions the reference's: over the rank's experts, summed over
+"model", where the experts are sharded, else over whole experts. The
+router and the shared experts follow the rules too (``tp``): the router
+gathered over "data" with ``fsdp``, the shared experts' ``wi`` / ``wg``
+column-parallel and ``wo`` row-parallel.
 
 The dispatch makes no host sync: an assignment this rank does not keep
 is written to an extra slot ``cap`` of an extra expert ``e_loc`` of the
@@ -42,8 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import meshctx
-from repro_torch.models.layers import dtype_of, swiglu
+from repro_torch.models import meshctx, tp
+from repro_torch.models.layers import dtype_of
 
 DECODE_TOKENS = 4096     # apply_moe's decode regime: at most this many tokens in all
 
@@ -220,15 +226,18 @@ def apply_moe(moe, x, cfg):
     if moe.shard != expert_shard(cfg, mesh):
         raise ValueError("this MoE's expert leaves were not built under the current mesh")
     dp = meshctx.dp_axes(mesh)
-    path = moe_path(cfg, mesh, x.shape[0] * meshctx.dp_size(mesh), x.shape[1])
+    path = moe_path(cfg, mesh, meshctx.global_batch(x.shape[0], mesh), x.shape[1])
     if path == "ep_decode":
         return apply_moe_ep_decode(moe, x, cfg, mesh)
     if path == "ep":
         return apply_moe_ep(moe, x, cfg, mesh)
-    # every data rank's tokens through the whole experts, as GSPMD runs the
-    # reference's global dispatch; this rank keeps its own rows
+    # every data rank's tokens through the global dispatch, as GSPMD runs the
+    # reference's; this rank keeps its own rows
+    if meshctx.batch_is_whole():
+        return _apply_single(moe, x, cfg) if whole else _apply_global_ep(moe, x, cfg, mesh)
     b = x.shape[0]
-    out, aux = _apply_single(moe, mesh.all_gather(x, dp), cfg)
+    xs = mesh.all_gather(x, dp)
+    out, aux = _apply_single(moe, xs, cfg) if whole else _apply_global_ep(moe, xs, cfg, mesh)
     i = mesh.index(dp)
     return out[i * b:(i + 1) * b], aux
 
@@ -270,7 +279,11 @@ def _swiglu_experts(wi, wg, wo):
 
 def _shared(moe, x, m):
     """The shared experts' SwiGLU of x (..., d), or 0 without them."""
-    return swiglu(x, moe.shared_wi, moe.shared_wg, moe.shared_wo) if m.n_shared_experts else 0
+    return tp.mlp(x, moe.shared_wi, moe.shared_wg, moe.shared_wo) if m.n_shared_experts else 0
+
+
+def _probs(moe, xf):
+    return torch.softmax(xf.to(torch.float32) @ tp.gather(moe.router), dim=-1)
 
 
 def _apply_single(moe, x, cfg):
@@ -279,11 +292,34 @@ def _apply_single(moe, x, cfg):
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
-    probs = torch.softmax(xf.to(torch.float32) @ moe.router, dim=-1)
+    probs = _probs(moe, xf)
     r = route(probs, m.top_k, capacity(t, m))
     _log(r)
     out = _combine(xf, r, 0, m.n_experts, _swiglu_experts(moe.wi, moe.wg, moe.wo))
     out = out.to(x.dtype) + _shared(moe, xf, m)
+    return out.reshape(b, s, d), _aux(r, probs, m, t)
+
+
+def _apply_global_ep(moe, x, cfg, mesh):
+    """The reference's ``_apply_moe_global`` over all the tokens of x, its
+    experts sharded as ``expert_shard`` holds them: every rank routes all
+    the tokens at the global capacity, runs its E / model experts (with
+    ``fsdp`` gathered over "data" along d), and the f32 combine, cast to
+    x's dtype, is summed over "model"."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e_loc = m.n_experts // mesh.shape["model"]
+    wi, wg, wo = moe.wi, moe.wg, moe.wo
+    if cfg.fsdp:
+        wi, wg = mesh.all_gather(wi, "data", dim=1), mesh.all_gather(wg, "data", dim=1)
+        wo = mesh.all_gather(wo, "data", dim=2)
+    xf = x.reshape(t, d)
+    probs = _probs(moe, xf)
+    r = route(probs, m.top_k, capacity(t, m))
+    _log(r)
+    out = _combine(xf, r, mesh.index("model") * e_loc, e_loc, _swiglu_experts(wi, wg, wo))
+    out = mesh.all_reduce(out.to(x.dtype), "model") + _shared(moe, xf, m)
     return out.reshape(b, s, d), _aux(r, probs, m, t)
 
 
@@ -305,7 +341,7 @@ def apply_moe_ep(moe, x, cfg, mesh):
         wi, wg = mesh.all_gather(wi, "data", dim=1), mesh.all_gather(wg, "data", dim=1)
         wo = mesh.all_gather(wo, "data", dim=2)
     xf = x.reshape(t, d)
-    probs = torch.softmax(xf.to(torch.float32) @ moe.router, dim=-1)
+    probs = _probs(moe, xf)
     r = route(probs, m.top_k, cap)
     _log(r)
     out = _combine(xf, r, mesh.index("model") * e_loc, e_loc, _swiglu_experts(wi, wg, wo))
@@ -332,7 +368,7 @@ def apply_moe_ep_decode(moe, x, cfg, mesh):
     t = xall.shape[0] * s
     cap = max(4, math.ceil(t * m.top_k / m.n_experts * m.capacity_factor))
     xf = xall.reshape(t, d)
-    probs = torch.softmax(xf.to(torch.float32) @ moe.router, dim=-1)
+    probs = _probs(moe, xf)
     r = route(probs, m.top_k, cap)
     _log(r)
     di = mesh.index("data") * d_loc

@@ -21,14 +21,27 @@ pattern position on a leading group axis, which stays unsharded, and keeps
 a tail layer's leaves unstacked (``weights.reference_leaves``); its cache
 stacks the entries of its ``blocks`` groups the same way, where the port's
 ``make_cache`` holds one entry a layer.
+
+The same rules also cut real tensors, for the program each rank of a
+process mesh runs (the reference leaves that to GSPMD): ``cut`` keeps this
+rank's block of a tensor under a spec, ``port_param_specs`` gives the spec
+of each of the port's per-layer parameters (its reference leaf's, less the
+group axis), ``localize`` makes a model built under a mesh hold its rank's
+blocks, and ``entry_pspec`` / ``cut_cache`` do the same for a serving cache
+entry. A spec is first normalised (``live``): an axis of size 1 cuts
+nothing and is dropped. Only the ``SHARDED`` block types have a program
+under a mesh that cuts their leaves (``unsharded_blocks`` names the
+others).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from repro_torch.models.model import layer_plan
+from repro_torch.models.tp import block_of
 from repro_torch.weights import reference_leaves
 
 
@@ -210,3 +223,152 @@ def cache_pspecs(mesh, cache, cfg):
             spec[1] = "model"
         out[path] = tuple([None] + spec if stacked else spec)
     return out
+
+
+# ------------------------------------------------ the rules on real tensors
+SHARDED = ("dense", "moe")     # block types with a tensor-parallel program
+
+
+def live(spec, mesh):
+    """``spec`` with the axes of size 1 dropped (a tuple of axes keeps its
+    others, in order; an entry left empty is None)."""
+    out = []
+    for ax in spec:
+        axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+        axes = tuple(a for a in axes if mesh.shape[a] > 1)
+        out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    return tuple(out)
+
+
+def cut(t, spec, mesh):
+    """This rank's block of ``t`` (a tensor or an array) under ``spec``
+    (missing trailing entries replicate), as a copy when it is a tensor
+    that was cut, so the whole is not kept alive by a view."""
+    out = t
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            sl = block_of(out.shape[dim], ax, mesh)
+            out = out[(slice(None),) * dim + (sl,)]
+    return out.clone() if isinstance(out, torch.Tensor) and out is not t else out
+
+
+def _leaf_spec(leaf, shape, cfg, mesh):
+    """The live spec of one of the port's per-layer parameters (``shape``)
+    of the reference leaf ``leaf``: the leaf's spec less its group axis."""
+    full = ((len(leaf.index),) if leaf.stacked else ()) + tuple(shape)
+    spec = param_pspec(leaf.path, torch.empty(full, device="meta"), cfg, mesh)
+    return live(spec[1:] if leaf.stacked else spec, mesh)
+
+
+def port_param_specs(model, mesh, shapes=None):
+    """The live spec of each of ``model.parameters()`` under ``mesh``, in
+    their order, from their reference leaves; ``shapes`` gives the whole
+    shapes where the parameters are not whole (the expert leaves of an
+    MoE built under the mesh)."""
+    cfg = model.cfg
+    params = list(model.parameters())
+    shapes = shapes or [tuple(p.shape) for p in params]
+    specs = [None] * len(params)
+    for leaf in reference_leaves(model):
+        for i in leaf.index:
+            specs[i] = _leaf_spec(leaf, shapes[i], cfg, mesh)
+    return specs
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded(cfg, names, sizes):
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.blocks import make_block
+    mesh = Mesh(names, sizes)
+    btypes = set(cfg.block_types()) | ({"enc"} if cfg.encoder is not None else set())
+    found = []
+    for bt in sorted(btypes - set(SHARDED)):
+        blk = make_block(cfg, bt, device="meta")
+        for name, p in blk.named_parameters():
+            sub, leaf = name.split(".", 1)
+            path = ("decoder", "blocks", 0, sub, leaf)
+            spec = live(param_pspec(path, torch.empty((1,) + tuple(p.shape), device="meta"),
+                                    cfg, mesh), mesh)
+            if any(ax is not None for ax in spec):
+                found.append(bt)
+                break
+    return tuple(found)
+
+
+def unsharded_blocks(cfg, mesh):
+    """The block types of ``cfg`` outside ``SHARDED`` whose leaves ``mesh``
+    cuts: they have no tensor-parallel program, so the port refuses to
+    build or run them under such a mesh rather than run them replicated."""
+    if mesh is None:
+        return ()
+    return _unsharded(cfg, tuple(mesh.axis_names), tuple(mesh.shape[a] for a in mesh.axis_names))
+
+
+def refuse_unsharded(cfg, mesh):
+    """Raise where ``mesh`` cuts a leaf of a block type without a program."""
+    bad = unsharded_blocks(cfg, mesh)
+    if bad:
+        raise ValueError(f"{cfg.name}: the block types {list(bad)} have no tensor-parallel "
+                         f"program, and a {'x'.join(str(mesh.shape[a]) for a in mesh.axis_names)} "
+                         f"mesh over {tuple(mesh.axis_names)} cuts their leaves; only "
+                         f"{list(SHARDED)} blocks run under it")
+
+
+def expert_spec(name, moe_shard, mesh):
+    """The live spec of expert leaf ``name`` of an MoE whose ``shard`` is
+    ``moe_shard`` (``moe.expert_shard``: the reference's ``wspec_i`` /
+    ``wspec_o``)."""
+    if moe_shard is None:
+        return (None, None, None)
+    d = "data" if moe_shard[1] != slice(None) else None
+    return live(("model", None, d) if name == "wo" else ("model", d, None), mesh)
+
+
+@torch.no_grad()
+def localize(model, mesh, device):
+    """Make ``model`` (built on ``meta`` under ``mesh``) hold empty blocks
+    of this rank on ``device``: every parameter replaced by one of its
+    block's shape, with ``spec`` (its live spec) and ``whole`` (its whole
+    shape) set on it. An MoE's expert leaves are already its shard
+    (``moe.expert_shard``). Raises for a block type without a program
+    whose leaves the mesh cuts."""
+    from repro_torch.models.moe import MoE, expert_leaf_shape
+    refuse_unsharded(model.cfg, mesh)
+    cfg = model.cfg
+    experts = {}
+    for mod in model.modules():
+        if isinstance(mod, MoE):
+            for name in ("wi", "wg", "wo"):
+                experts[id(getattr(mod, name))] = (name, mod.shard)
+    params = list(model.parameters())
+    shapes = [expert_leaf_shape(cfg, experts[id(p)][0]) if id(p) in experts else tuple(p.shape)
+              for p in params]
+    specs = port_param_specs(model, mesh, shapes)
+    owners = {id(p): (mod, name) for mod in model.modules()
+              for name, p in mod.named_parameters(recurse=False)}
+    for p, whole, spec in zip(params, shapes, specs):
+        mod, name = owners[id(p)]
+        if id(p) in experts:
+            spec = expert_spec(name, experts[id(p)][1], mesh)
+            local = tuple(p.shape)
+        else:
+            local = shard_shape(whole, spec, mesh)
+        q = torch.nn.Parameter(torch.empty(local, dtype=p.dtype, device=device),
+                               requires_grad=p.requires_grad)
+        q.spec, q.whole = spec, tuple(whole)
+        setattr(mod, name, q)
+    return model
+
+
+def entry_pspec(name, shape, mesh):
+    """The live spec of one serving-cache leaf ``name`` of the port's
+    per-layer entry (its whole ``shape``), by ``cache_pspecs``' rule."""
+    spec = cache_pspecs(mesh, {(name,): torch.empty(shape, device="meta")}, None)[(name,)]
+    return live(spec, mesh)
+
+
+def cut_cache(cache, mesh):
+    """A whole per-layer cache (the port's list of entries) cut to this
+    rank's blocks (``entry_pspec``)."""
+    return [{name: cut(t, entry_pspec(name, tuple(t.shape), mesh), mesh)
+             for name, t in entry.items()} for entry in cache]

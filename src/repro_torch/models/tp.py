@@ -1,0 +1,154 @@
+"""The tensor-parallel pieces of the program one rank of a process mesh
+runs: the reference gives GSPMD its sharding rules (``models/sharding.py``)
+and GSPMD writes each device's program; the port writes it here, over the
+mesh of ``meshctx`` (a ``launch.mesh.ProcessMesh``, or a ``CountingMesh``
+on ``meta``).
+
+A parameter built under a mesh carries ``spec``, its live spec
+(``sharding.localize``): a dim cut over "model" is tensor-parallel, a dim
+cut over "data" is the ``fsdp`` shard, all-gathered just before the
+product that reads it, as the reference's expert-parallel path gathers
+its expert leaves. Without a mesh, or on a parameter with no ``spec``,
+every function here is the plain single-process op.
+
+* ``gather``: a weight whole on its fsdp dims;
+* ``cols(w)``: whether ``w``'s output dim is cut over "model" (a
+  column-parallel product); ``rows(w)``: its input dim (row-parallel);
+* ``row_out``: a row-parallel product and its one all-reduce over
+  "model", in the activation's dtype;
+* ``mlp``: SwiGLU or GELU with ``wi`` / ``wg`` column-parallel and ``wo``
+  row-parallel;
+* ``embed`` and ``head``: the vocab-parallel lookup (a rank looks up the
+  tokens in its rows, zeroes the others and all-reduces) and the LM head
+  (each rank its vocab columns, all-gathered over "model"). These two
+  vocab-sized leaves are the exception to the fsdp gather: their "data"
+  shard stays put and the activations move (the data group's tokens and
+  looked-up rows, x and the partial logits), which is some hundred times
+  fewer bytes at decode.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import meshctx
+
+
+def model_size(mesh=None) -> int:
+    """Ranks along "model" of ``mesh`` (default: the current one); 1
+    without a mesh."""
+    m = meshctx.get_mesh() if mesh is None else mesh
+    return 1 if m is None or "model" not in m.axis_names else m.shape["model"]
+
+
+def block_of(n, axes, mesh):
+    """The slice of a dim of ``n`` that this rank of ``mesh`` (a process or
+    counting mesh) holds when ``axes`` (None, an axis or a tuple) cut it."""
+    if axes is None:
+        return slice(0, n)
+    k = math.prod(mesh.shape[a] for a in ((axes,) if isinstance(axes, str) else axes))
+    if n % k:
+        raise ValueError(f"a dim of {n} does not split over {k} ranks of {axes}")
+    i = mesh.index(axes)
+    return slice(i * (n // k), (i + 1) * (n // k))
+
+
+def _spec(w):
+    return getattr(w, "spec", None)
+
+
+def gather(w):
+    """``w`` whole on every dim cut over an axis other than "model" (its
+    fsdp shard, gathered over "data")."""
+    spec, mesh = _spec(w), meshctx.get_mesh()
+    if spec is None or mesh is None:
+        return w
+    for dim, ax in enumerate(spec):
+        if ax is not None and ax != "model":
+            w = mesh.all_gather(w, ax, dim=dim)
+    return w
+
+
+def cuts(w, dim) -> bool:
+    """Whether dim ``dim`` of parameter ``w`` is cut over "model"."""
+    spec = _spec(w)
+    return spec is not None and meshctx.get_mesh() is not None and spec[dim] == "model"
+
+
+def cols(w) -> bool:
+    return cuts(w, w.dim() - 1)
+
+
+def rows(w) -> bool:
+    return cuts(w, 0)
+
+
+def row_out(h, w):
+    """``h @ w`` where ``h`` holds this rank's share of ``w``'s input dim
+    when ``w`` is row-parallel, then summed over "model"."""
+    y = h @ gather(w)
+    return meshctx.get_mesh().all_reduce(y, "model") if rows(w) else y
+
+
+def mlp(x, wi, wg, wo, act="swiglu"):
+    """``(silu(x wg) * (x wi)) wo`` (SwiGLU) or ``gelu(x wi) wo`` (tanh
+    form), wi / wg column-parallel and wo row-parallel."""
+    if act == "swiglu":
+        h = F.silu(x @ gather(wg)) * (x @ gather(wi))
+    else:
+        h = F.gelu(x @ gather(wi), approximate="tanh")
+    return row_out(h, wo)
+
+
+def embed(w, tokens):
+    """The rows of embedding ``w`` (V, d) for ``tokens``. With the vocab
+    cut over "model", a rank looks up the tokens in its rows, zeroes the
+    others, and the lookups are summed over "model" (exact: one row is not
+    zero). With ``fsdp`` (d cut over "data") the leaf is not gathered: the
+    rank looks up every token of its data group in its columns and the
+    lookups are gathered over "data" along d, the rank keeping its rows (a
+    lookup moves the tokens' rows, where the leaf, V / model x d / data,
+    is hundreds of MB)."""
+    spec, mesh = _spec(w), meshctx.get_mesh()
+    if spec is None or mesh is None:
+        return w[tokens]
+    data = spec[1]
+    whole = meshctx.batch_is_whole()
+    toks = tokens if data is None or whole else mesh.all_gather(tokens, data, dim=0)
+    if rows(w):
+        n = w.shape[0]
+        local = toks - mesh.index("model") * n
+        mine = (local >= 0) & (local < n)
+        e = mesh.all_reduce(w[local.clamp(0, n - 1)] * mine[..., None].to(w.dtype), "model")
+    else:
+        e = w[toks]
+    if data is None:
+        return e
+    e = mesh.all_gather(e, data, dim=-1)
+    return e if whole else e[block_of(e.shape[0], data, mesh)]
+
+
+def head(x, w, *, tied=False):
+    """The logits ``x @ w`` (``x @ w.T`` for a tied embedding (V, d)). With
+    the vocab cut over "model" each rank computes its columns and they are
+    all-gathered over "model", so every rank holds all of them. With
+    ``fsdp`` (d cut over "data") the leaf is not gathered: the rank takes
+    its data group's x, contracts its slice of d with its block, and the
+    partial logits are summed over "data", the rank keeping its rows."""
+    spec, mesh = _spec(w), meshctx.get_mesh()
+    if spec is None or mesh is None:
+        return x @ (w.T if tied else w)
+    wt = w.T if tied else w
+    data = spec[1 if tied else 0]
+    if data is None:
+        logits = x @ wt
+    else:
+        whole = meshctx.batch_is_whole()
+        xs = x if whole else mesh.all_gather(x, data, dim=0)
+        logits = mesh.all_reduce(xs[..., block_of(xs.shape[-1], data, mesh)] @ wt, data)
+        logits = logits if whole else logits[block_of(logits.shape[0], data, mesh)]
+    if cuts(w, 0 if tied else 1):
+        logits = mesh.all_gather(logits, "model", dim=-1)
+    return logits

@@ -11,10 +11,11 @@ per layer, in the same (d_in, d_out) layouts, so the stacks are only
 unstacked. ``reference_leaves`` describes the reference's leaves once, in
 the port's terms; the tree carriers, the decay mask and Adafactor read it.
 
-Under a mesh (``models.meshctx.use_mesh``) an MoE layer holds a rank's
-shard of its experts: ``shard_moe_params`` cuts one (the reference's
-``init_moe`` tree) and ``moe_from_jax`` builds the layer from it;
-``from_jax_params`` cuts every MoE layer's expert leaves the same way.
+Under a mesh (``models.meshctx.use_mesh``, or ``from_jax_params``' own
+``mesh``) the model holds a rank's block of every leaf, cut by the
+reference's rules (``models.sharding.cut``); an MoE layer's experts are
+cut by ``shard_moe_params`` (the reference's ``init_moe`` tree), a case of
+the same cut, and ``moe_from_jax`` builds the layer from it.
 
 ``cache_from_jax`` carries a serving cache the reference built (its
 ``prefill`` output, numpy leaves) into the port's per-layer list, so a
@@ -43,9 +44,11 @@ import torch
 
 from repro_torch.env.mecenv import EnvState
 from repro_torch.kernels.ref import code_dtype
+import contextlib
+
 from repro_torch.models import meshctx
 from repro_torch.models.model import Model, layer_plan
-from repro_torch.models.moe import MoE, expert_shard, shard_expert_leaf
+from repro_torch.models.moe import MoE, expert_shard
 from repro_torch.optim import Leaf
 from repro_torch.rl.nets import MLP, Actor, EntityActor, Linear, StackedLinear
 
@@ -152,26 +155,30 @@ def reference_decay_mask(model):
 
 
 @torch.no_grad()
-def from_jax_params(tree, cfg, device):
+def from_jax_params(tree, cfg, device, mesh=None):
     """The port's Model holding the reference parameters ``tree`` (numpy
     arrays, or tensors as ``to_reference_tree`` gives them), for any block
     pattern, with or without a tail or an encoder. Each parameter keeps its
     own dtype (the Mamba ``A_log``, ``D`` and ``dt_bias``, the RG-LRU's
     ``ba``, ``bi`` and ``lam`` and the MoE router stay float32 in a
     bfloat16 model); stacked MoE leaves are (G, E, d, f) experts and the
-    (G, d, E) router. Under a mesh each MoE layer keeps the rank's shard
-    of its experts (``shard_moe_params``' rule)."""
-    model = Model(cfg, device=device)
+    (G, d, E) router. Under ``mesh`` (default: the current one, if any)
+    the model holds this rank's block of every leaf (``sharding.cut`` by
+    the leaf's ``spec``: for an MoE layer's experts ``shard_moe_params``'
+    rule)."""
+    from repro_torch.models.sharding import cut
+    scope = meshctx.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with scope:
+        model = Model(cfg, device=device)
+    mesh = meshctx.get_mesh() if mesh is None else mesh
     params = list(model.parameters())
-    shards = {id(getattr(mod, name)): (name, mod.shard) for mod in model.modules()
-              if isinstance(mod, MoE) and mod.shard is not None for name in ("wi", "wg", "wo")}
     for leaf in reference_leaves(model):
         a = _at(tree, leaf.path)
         for g, i in enumerate(leaf.index):
             src = a[g] if leaf.stacked else a
-            if id(params[i]) in shards:        # a rank's shard of the experts
-                name, shard = shards[id(params[i])]
-                src = shard_expert_leaf(name, src, shard)
+            if getattr(params[i], "spec", None) is not None:      # the rank's block
+                src = cut(src if isinstance(src, torch.Tensor) else np.asarray(src),
+                          params[i].spec, mesh)
             params[i].copy_(_tensor(src, params[i].dtype, device))
     return model
 
@@ -185,10 +192,11 @@ def shard_moe_params(params, cfg, mesh):
     dim 2; the reference's ``wspec_i`` / ``wspec_o``). The router and the
     shared experts stay whole, as do all leaves where the mesh has no
     expert-parallel path for ``cfg``."""
+    from repro_torch.models.sharding import cut, expert_spec
     shard = expert_shard(cfg, mesh)
     if shard is None:
         return dict(params)
-    return {k: shard_expert_leaf(k, v, shard) if k in ("wi", "wg", "wo") else v
+    return {k: cut(v, expert_spec(k, shard, mesh), mesh) if k in ("wi", "wg", "wo") else v
             for k, v in params.items()}
 
 

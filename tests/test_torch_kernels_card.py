@@ -538,6 +538,39 @@ def test_decode_attention_row_with_no_valid_slot_gives_the_mean_of_v(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+def test_decode_attention_log_sum_exp_matches_its_twin_on_card(card, kv):
+    """``return_lse``: the same launch also writes each row's log-sum-exp,
+    within 2e-5 + 2e-5 |plain| of the twin's (an empty row's -1e30 equal),
+    the output the same bits as without it, at one split and at many (a
+    tensor-parallel rank's run of 1040 slots), G 7 and 8."""
+    g = torch.Generator(device=card).manual_seed(17)
+    for b, s, hkv, grp, d in ((2, 40, 2, 7, 64), (2, 1040, 4, 7, 128), (3, 700, 2, 8, 128)):
+        q = torch.randn(b, hkv * grp, d, generator=g, device=card).bfloat16()
+        if kv == "int8":
+            k, v = (torch.randint(-127, 128, (b, s, hkv, d), generator=g, device=card)
+                    .to(torch.int8) for _ in range(2))
+            scales = {n: 0.01 + 0.04 * torch.rand(b, s, hkv, generator=g, device=card)
+                      for n in ("k_scale", "v_scale")}
+        else:
+            k, v = (torch.randn(b, s, hkv, d, generator=g, device=card).to(getattr(torch, kv))
+                    for _ in range(2))
+            scales = {}
+        pos = torch.arange(s, dtype=torch.int32, device=card).repeat(b, 1)
+        pos[0] = -1
+        pos[1, s // 3:] = -1
+        _build.reset_launches()
+        out, lse = decode_attn.decode_attention(q, k, v, pos, s - 1, return_lse=True, **scales)
+        assert _build.LAUNCHES["decode_attention"] == 1 and lse.shape == (b, hkv * grp)
+        want, want_lse = decode_attn.decode_attention_plain(q, k, v, pos, s - 1, return_lse=True,
+                                                            **scales)
+        assert torch.equal(out, decode_attn.decode_attention(q, k, v, pos, s - 1, **scales))
+        _assert_twin(out, want, 2e-5)
+        torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+        assert torch.equal(lse[0], want_lse[0])
+
+
+@pytest.mark.cuda
 def test_decode_attention_counts_launches_and_refuses_what_it_does_not_take(card):
     g = torch.Generator(device=card).manual_seed(13)
     q, k, v, pos = _decode_inputs(card, g, 2, 64, 2, 2, 64)
