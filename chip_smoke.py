@@ -8,8 +8,8 @@
 Phases, one line or more each, any failure exits non-zero before the last
 line (``--timing-only`` runs only the build and the kernel timings, of the
 port under ``--src``, so two trees' kernels can be timed in one session;
-``--sharded-only`` runs only the build and phases 16 and 16t, their NCCL
-half over every visible card, and prints no result):
+``--sharded-only`` runs only the build and phases 16, 16t and 16g, their
+NCCL half over every visible card, and prints no result):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
@@ -305,10 +305,34 @@ half over every visible card, and prints no result):
    rank(s); (c) ``decode_attention`` with its log-sum-exp at the rank's
    (2, 1040, 4, 7, 128) bf16 and its int8 cache against the twin (2e-5 +
    2e-5 |plain| for the output and the log-sum-exp), timed with and
-   without it beside its bound, and qwen3's shape without it against
-   PERF.md's 0.01843 ms; (d) each rank's collective log of the serves
-   equal to a ``CountingMesh``'s on meta at its coordinates, and a decode
-   step's ``max_memory_allocated`` against the meta count's peak;
+   without it beside its bound and beside the library call that also
+   returns the log-sum-exp (``_scaled_dot_product_efficient_attention``),
+   also at phase 16's qwen3-moe rank's (2, 1040, 4, 8, 128), and qwen3's
+   shape without it against PERF.md's 0.01843 ms; (d) each rank's
+   collective log of the serves equal to a ``CountingMesh``'s on meta at
+   its coordinates, and a decode step's ``max_memory_allocated`` against
+   the meta count's peak;
+16g. the train step under a mesh (its ranks' parts run in phase 16's two
+   launches, one process's float32 runs just before them): (a) the four
+   small f32 cases of tests/test_torch_sharded_train.py (2 layers, (4,
+   16)) trained 2 steps on each gloo rank on the card against the same
+   rank on the CPU (loss, ce, aux and grad norm within 1e-5 relative, the
+   optimizer state after step 1 within 1e-5 of each leaf's largest);
+   (b) qwen2-7b at its published widths (d 3584, 14 query and 2 kv heads,
+   half of d_ff and of the vocab a rank), 2 of its 28 layers, bf16, AdamW,
+   3 steps on a (4, 512) batch of the synthetic token stream over the four
+   gloo ranks: seconds a step, peak memory a rank, the collectives a step
+   by kind and bytes, step 1's loss and grad norm beside one process's;
+   the same draws in float32 at 1 layer for 2 steps held to one process
+   on the card (loss, ce, aux and grad norm within 1e-5 relative, AdamW's
+   m and v after step 1 within 1e-4 of each leaf's largest); (c) the same
+   for qwen3-moe-30b-a3b (fsdp, 2 of 48 layers, capacity factor 16: nothing
+   dropped; a step where a token's expert set differs from one
+   process's held to 1e-3 relative, and a token routed apart only within
+   1e-4 of a tie); (d) (b) and (c) again over the NCCL rank(s); (e) each rank's
+   collective log of a step equal to a ``CountingMesh``'s on meta, and a
+   step's ``max_memory_allocated`` against the meta count's peak; the
+   train steps launch no kernel;
 17. the card's name and power limit again, the kernels as one JSON line
    (phases 16 and 16t's launches summed over the ranks), then the result as the
    last line.
@@ -3440,10 +3464,10 @@ def phase_dryrun(jobs, arch_ids, sharding):
     optimizer state's or cache's bytes a device, each and together against
     the card's 80 GB, the step's counts and, where a rank's program exists,
     its collectives and memory; every figure positive and finite; the
-    prefill and decode records of the archs whose blocks all have a
-    tensor-parallel program carry ``collectives`` and ``memory_analysis``
-    (6 archs x 3 shapes x 2 meshes), every other record null with a note;
-    the background's seconds."""
+    records of the archs whose blocks all have a tensor-parallel program
+    carry ``collectives`` and ``memory_analysis`` (6 archs x 4 shapes x 2
+    meshes, the train steps among them), every other record null with a
+    note; the background's seconds."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch.mesh import make_production_mesh
     check(set(DRYRUN_SHAPES) == set(arch_ids), "DRYRUN_SHAPES must name every arch once")
@@ -3459,8 +3483,7 @@ def phase_dryrun(jobs, arch_ids, sharding):
                if not sharding.unsharded_blocks(get_config(a), make_production_mesh())}
     full = null = 0
     for name, rec in sorted(recs.items()):
-        kind = INPUT_SHAPES[rec["shape"]].kind
-        counted = rec["arch"] in sharded and kind != "train"
+        counted = rec["arch"] in sharded
         if counted:
             check(rec["collectives"]["moved_bytes"] > 0
                   and rec["memory_analysis"]["peak_memory_in_bytes"] > 0,
@@ -3491,13 +3514,13 @@ def phase_dryrun(jobs, arch_ids, sharding):
               f"{fits} in 80 GB ({CARD_BYTES} B) a device; flops {rec['flops']:.6e}, dot_flops "
               f"{rec['dot_flops']:.6e}, bytes_accessed {rec['bytes_accessed']:.6e}, counted in "
               f"{rec['count_s']} s; {rank}", flush=True)
-    check(full == len(sharded) * 3 * 2, f"dryrun: {full} records with collectives and memory, "
-          f"expected {len(sharded) * 3 * 2}")
+    check(full == len(sharded) * len(INPUT_SHAPES) * 2, f"dryrun: {full} records with "
+          f"collectives and memory, expected {len(sharded) * len(INPUT_SHAPES) * 2}")
     print(f"dryrun: {len(recs)} records ({len(arch_ids)} archs x {len(INPUT_SHAPES)} shapes x "
           f"2 meshes) in {seconds:.1f} s of background time ({len(DRYRUN_WORKERS)} workers; "
           f"waited {time.perf_counter() - t0:.1f} s here): {full} carry collectives and "
-          f"memory_analysis ({len(sharded)} archs x prefill, decode and long_500k x 2 meshes), "
-          f"{null} null by design (train steps; archs with {sorted(set(arch_ids) - sharded)})",
+          f"memory_analysis ({len(sharded)} archs x {len(INPUT_SHAPES)} shapes x 2 meshes), "
+          f"{null} null by design (archs with {sorted(set(arch_ids) - sharded)})",
           flush=True)
 
 
@@ -4008,8 +4031,7 @@ def check_shard_eval(label, ranks, want, want_rows, frames):
           f"{label}: launches {launches}, expected pair_scorer {frames} a rank")
 
 
-def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_cfg_,
-                  tp_run=None):
+def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_cfg_, tg):
     """16: the port's multi-process programs (``launch.mesh.spawn``). Four
     gloo ranks on card 0, a (2, 2) ("data", "model") mesh, env the whole
     world: the reduced EP block card against CPU; qwen3-moe-30b-a3b at full
@@ -4020,7 +4042,9 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     ``n_shards=1``. Then one NCCL rank a visible card serves and evaluates
     again. ``cfg`` is the served config (``shard_moe_cfg()``). The same two
     launches of ranks also run phase 16t's parts (``TP_PARTS``: ``tp_cfg_``
-    served at ``tp_run``, default ``TP_SERVE``), which 16t checks. Returns
+    served at ``TP_SERVE``), which 16t checks, and phase 16g's
+    (``TG_PARTS``, given ``tg``: ``{"tg_cfgs", "tg_want"}``), which 16g
+    checks. Returns
     (the phase's launches, summed over the ranks; the gloo ranks' results;
     the NCCL ranks'; the NCCL mesh)."""
     t_phase = time.perf_counter()
@@ -4028,8 +4052,9 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     run = SHARD_SERVE
     torch.cuda.empty_cache()
     gloo = spawn(shard_rank, 4, "gloo", SHARD_MESH,
-                 ("ep_small", "serve", "serve32", "fleet", "eval") + TP_PARTS["gloo"],
-                 {"cfg": cfg, "run": run, "tp_cfg": tp_cfg_, "tp_run": tp_run or TP_SERVE},
+                 ("ep_small", "serve", "serve32", "fleet", "eval") + TP_PARTS["gloo"]
+                 + TG_PARTS["gloo"],
+                 dict({"cfg": cfg, "run": run, "tp_cfg": tp_cfg_, "tp_run": TP_SERVE}, **tg),
                  device=dev)
     print(f"sharded: {len(gloo)} ranks, backend {gloo[0]['backend']}, all on {gloo[0]['device']},"
           f" a {SHARD_MESH[1]} mesh over {SHARD_MESH[0]}, env the whole world", flush=True)
@@ -4120,8 +4145,9 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     mesh_spec = nccl_mesh(world)
     torch.cuda.empty_cache()
     nccl = spawn(shard_rank, world, "nccl", mesh_spec, ("serve", "serve32", "eval")
-                 + TP_PARTS["nccl"], {"cfg": cfg, "run": run, "agent": gloo[0]["fleet"][2][0],
-                                      "tp_cfg": tp_cfg_, "tp_run": tp_run or TP_SERVE})
+                 + TP_PARTS["nccl"] + TG_PARTS["nccl"],
+                 dict({"cfg": cfg, "run": run, "agent": gloo[0]["fleet"][2][0],
+                       "tp_cfg": tp_cfg_, "tp_run": TP_SERVE}, **tg))
     print(f"sharded: {world} rank(s), backend {nccl[0]['backend']}, one a card "
           f"({', '.join(r['device'] for r in nccl)}), a {mesh_spec[1]} mesh", flush=True)
     for r in nccl:
@@ -4133,11 +4159,12 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     check_shard_serve("sharded (nccl)", nccl, steps_lib, moe_lib, init_params, cfg, run, dev)
     check_shard_eval("sharded (nccl)", nccl, want_eval, want_rows, SHARD_EVAL["frames"])
     out = {k: launches[k] for k in ("pair_scorer", "pair_scorer_backward", "decode_attention")}
-    tp_s = sum(r[p + "_s"] for r in gloo[:1] + nccl[:1] for p in TP_PARTS["gloo"]
-               if p + "_s" in r)
+    part_s = lambda parts: sum(r[p + "_s"] for r in gloo[:1] + nccl[:1] for p in parts
+                               if p + "_s" in r)
     print(f"sharded: launches summed over the ranks {out}; the phase in "
           f"{time.perf_counter() - t_phase:.1f} s (of which 16t's parts on rank 0 of each "
-          f"launch {tp_s:.1f} s)", flush=True)
+          f"launch {part_s(TP_PARTS['gloo']):.1f} s, 16g's "
+          f"{part_s(TG_PARTS['gloo']):.1f} s)", flush=True)
     return out, gloo, nccl, mesh_spec
 
 
@@ -4432,20 +4459,55 @@ def tp_lse_inputs(dev, g, b, s, hkv, grp, d, kv_dtype):
     return q, k, v, pos, s - 1, scales
 
 
+def lse_library(q, k, v, pos, idx):
+    """One library call computing ``decode_attention(..., return_lse=True)``
+    of a bf16 cache: aten's ``_scaled_dot_product_efficient_attention``
+    with ``compute_log_sumexp``, the G query heads of each kv head on its
+    query-length axis, (B, Hkv, G, D) queries against (B, Hkv, S, D) views
+    of k and v (no copy: the call reads the cache once, as the kernel does),
+    the slots not valid at ``idx`` masked by a (B, Hkv, G, S) additive bias
+    made here. Returns the call; ``lse_library_heads`` reads its output and
+    log-sum-exp as the kernel's (B, H, D) and (B, H)."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    qh = q.view(b, hkv, hq // hkv, d)
+    kh, vh = (t.permute(0, 2, 1, 3) for t in (k, v))
+    valid = (pos >= 0) & (pos <= idx)
+    bias = torch.zeros((b, hkv, hq // hkv, k.shape[1]), dtype=q.dtype,
+                       device=q.device).masked_fill(~valid[:, None, None, :], float("-inf"))
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(qh, kh, vh, bias, True)
+
+
+def lse_library_heads(out, lse):
+    """``lse_library``'s (B, Hkv, G, D) output and (B, Hkv, >= G)
+    log-sum-exp (its query axis padded) as (B, H, D) and (B, H)."""
+    b, hkv, g, d = out.shape
+    return out.reshape(b, hkv * g, d), lse[..., :g].reshape(b, hkv * g)
+
+
 def phase_tp_kernel(dev, kda):
     """(c) ``decode_attention`` with its log-sum-exp at a rank's shape of
     the tensor-parallel qwen2-7b decode, (2, 1040, 4, 7, 128) bf16, and
-    its int8 cache: output and log-sum-exp held to the twin within 2e-5 +
-    2e-5 |plain| (an empty row's -1e30 exactly); timed with and without it
+    its int8 cache, and at phase 16's qwen3-moe rank's (2, 1040, 4, 8,
+    128) bf16: output and log-sum-exp held to the twin within 2e-5 + 2e-5
+    |plain| (an empty row's -1e30 exactly); timed with and without it
     beside its bound (bytes: k, v, pos and the scales read once, the output
-    and the log-sum-exp written once); qwen3's shape without it against
-    PERF.md's 0.01843 ms."""
+    and the log-sum-exp written once) and, for a bf16 cache, beside the
+    library call that also returns the log-sum-exp (``lse_library``; its
+    agreement with the kernel on the rows that have a valid slot printed);
+    qwen3's shape without it against PERF.md's 0.01843 ms."""
     g = torch.Generator(device=dev).manual_seed(11)
     b, s = TP_SERVE["batch"] // 2, (TP_SERVE["prompt_len"] + TP_SERVE["gen"]) // 2
     c = tp_cfg()
-    shape = (b, s, c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim)
+    moe = shard_moe_cfg()
+    mb, ms_ = SHARD_SERVE["batch"] // 2, (SHARD_SERVE["prompt_len"] + SHARD_SERVE["gen"]) // 2
+    cases = ((c.name, (b, s, c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim),
+              torch.bfloat16),
+             (c.name, (b, s, c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim), torch.int8),
+             (moe.name, (mb, ms_, moe.n_kv_heads, moe.n_heads // moe.n_kv_heads, moe.head_dim),
+              torch.bfloat16))
     out = {}
-    for kv_dtype in (torch.bfloat16, torch.int8):
+    for arch, shape, kv_dtype in cases:
         q, k, v, pos, idx, scales = tp_lse_inputs(dev, g, *shape, kv_dtype)
         with torch.inference_mode():
             o, lse = kda.decode_attention(q, k, v, pos, idx, return_lse=True, **scales)
@@ -4467,15 +4529,29 @@ def phase_tp_kernel(dev, kda):
                                                                  return_lse=True, **scales))
         n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, pos) + tuple(scales.values()))
         n_bytes += o.numel() * 4 + lse.numel() * 4
-        bound_ms, by = bound(n_bytes, 4 * q.numel() * s)
-        out[str(kv_dtype).replace("torch.", "")] = ms_lse
-        print(f"tp kernel: decode_attention at the rank's {shape} with a {kv_dtype} cache: "
+        bound_ms, by = bound(n_bytes, 4 * q.numel() * shape[1])
+        library = "none (no one call takes the int8 cache's scales)"
+        if kv_dtype == torch.bfloat16:
+            call = lse_library(q, k, v, pos, idx)
+            with torch.inference_mode():
+                lo, llse = lse_library_heads(*call()[:2])
+                lib_ms = device_ms(call)
+            torch.cuda.synchronize()
+            agree_o = float((lo[1:].float() - o[1:]).abs().max())
+            agree_l = float((llse[1:] - lse[1:]).abs().max())
+            library = (f"{lib_ms:.5f} ms (aten._scaled_dot_product_efficient_attention with the "
+                       f"log-sum-exp, each kv head's G query heads on its query axis, k and v "
+                       f"read in place; "
+                       f"on the rows with a valid slot within {agree_o:.3e} of the kernel's output "
+                       f"and {agree_l:.3e} of its log-sum-exp)")
+        out[f"{arch} {str(kv_dtype).replace('torch.', '')}"] = ms_lse
+        print(f"tp kernel: decode_attention at {arch}'s rank's {shape} with a {kv_dtype} cache: "
               f"output and log-sum-exp against the twin within {TP_LSE_TOL} + {TP_LSE_TOL}|plain|"
               f" (max abs diff {float((o - po).abs().max()):.3e} and "
               f"{float((lse[1:] - plse[1:]).abs().max()):.3e}; the empty row's -1e30 equal), the "
               f"output the same bits as without it; {ms_lse:.5f} ms with the log-sum-exp, "
               f"{ms:.5f} ms without, plain {plain:.5f} ms, bound {bound_ms:.5f} ms ({by}), "
-              f"{100 * bound_ms / ms_lse:.2f}% of bound", flush=True)
+              f"{100 * bound_ms / ms_lse:.2f}% of bound; library {library}", flush=True)
     qwen = (4, 2080, 8, 2, 128)
     q, k, v, pos, idx, _ = tp_lse_inputs(dev, g, *qwen, torch.bfloat16)
     pos = torch.arange(qwen[1], dtype=torch.int32, device=dev).repeat(qwen[0], 1)
@@ -4518,14 +4594,473 @@ def phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, kda, mesh_lib, g
     return {"decode_attention": launches["decode_attention"]}
 
 
+# -------------------------------------------------- 16g: the train step under a mesh
+TG_ARCHS = {"qwen2": "qwen2-7b", "moe": "qwen3-moe-30b-a3b"}
+# 2 of qwen2-7b's 28 and qwen3-moe's 48 layers: four gloo ranks share card 0,
+# each with its bf16 blocks, gradients and f32 AdamW moments (qwen2-7b: ~9 GB
+# a rank at 2 layers, the vocab-sized embedding and head most of it)
+TG_LAYERS = 2
+TG_CHECK_LAYERS = 1                        # the float32 check against one process
+TG_RUN = dict(batch=4, seq=512, steps=3, seed=0)
+TG_CHECK_STEPS = 2
+TG_LR = dict(base_lr=3e-4, warmup=0)       # warmup 0: the first step moves at base_lr
+TG_TOL = 1e-5                              # loss and grad norm, relative
+TG_MOMENT_TOL = 1e-4                       # x the leaf's largest moment, full width
+# a step whose routing differs from one process's (a token within ROUTE_GAP
+# of a tie): its metrics, relative; such a step measured 7.435e-05 apart
+TG_FLIP_TOL = 1e-3
+# section 4's small cases (tests/test_torch_sharded_train.py): (name, arch,
+# overrides, capacity factor, optimizer); f32, 2 layers, a (4, 16) batch
+TG_SMALL = (("qwen2 (biases, G 2)", "qwen2-7b", dict(n_heads=4, n_kv_heads=2, d_head=64), None,
+             "adamw"),
+            ("3 heads on 1", "qwen2-7b",
+             dict(d_model=192, n_heads=3, n_kv_heads=1, d_head=64, d_ff=384), None, "adamw"),
+            ("qwen3-moe (fsdp)", "qwen3-moe-30b-a3b",
+             dict(n_heads=4, n_kv_heads=2, d_head=64, fsdp=True), 2.0, "adamw"),
+            ("qwen3-moe (fsdp), Adafactor", "qwen3-moe-30b-a3b",
+             dict(n_heads=4, n_kv_heads=2, d_head=64, fsdp=True), 2.0, "adafactor"))
+TG_SMALL_RUN = dict(batch=4, seq=16, steps=2, seed=1)
+TG_SMALL_TOL = 1e-5                        # metrics relative, moments x the leaf's largest
+TG_PARTS = {"gloo": ("tg_small", "tg_qwen2", "tg_moe"), "nccl": ("tg_qwen2", "tg_moe")}
+
+
+def tg_cfg(key):
+    """The trained config: published widths at ``TG_LAYERS`` layers, bf16;
+    the MoE at ``SHARD_CF``, where neither path drops."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TG_ARCHS[key]).replace(n_layers=TG_LAYERS)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=SHARD_CF))
+    return cfg
+
+
+def tg_check_cfg(cfg):
+    return f32_of(cfg).replace(n_layers=min(TG_CHECK_LAYERS, cfg.n_layers))
+
+
+def tg_small_cfg(arch, kw, cf, opt):
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config(arch), n_layers=2).replace(optimizer=opt, **kw)
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf)) if cf else cfg
+
+
+def tg_batch(cfg, run):
+    """The synthetic token stream's first (batch, seq) batch, on the CPU."""
+    from repro_torch.data.synthetic import TokenPipelineConfig, token_batch_stream
+    return next(token_batch_stream(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=run["seq"], batch=run["batch"]), seed=run["seed"]))
+
+
+def tg_rows(mesh, batch, dev):
+    """This rank's rows of ``batch``, on ``dev`` (the whole batch without
+    a mesh)."""
+    from repro_torch.models import meshctx
+    if mesh is None:
+        return {k: v.to(dev) for k, v in batch.items()}
+    b = batch["tokens"].shape[0] // meshctx.dp_size(mesh)
+    i = mesh.index(meshctx.dp_axes(mesh))
+    return {k: v[i * b:(i + 1) * b].to(dev) for k, v in batch.items()}
+
+
+def tg_train(model, cfg, batch, steps, dev, after_first=None):
+    """``steps`` train steps of ``model`` on ``batch`` under the current
+    mesh: each step's metrics, seconds (host clock around a synchronized
+    step), ``max_memory_allocated`` (reset just before it) and collective
+    log, the dropped share of its routings; ``after_first(state, model)``
+    runs after step 1 and its result is kept."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import collective_log
+    from repro_torch.models import moe as moe_lib
+    train_step, opt_init = steps_lib.make_train_step(cfg, **TG_LR)
+    state = opt_init(model)
+    cuda = dev.type == "cuda"
+    out = {"metrics": [], "s": [], "peak": [], "logs": [], "routes": []}
+    kept = []
+    for i in range(steps):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with collective_log() as log, moe_lib.routing_log() as routes:
+            model, state, m = train_step(model, state, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        out["peak"].append(torch.cuda.max_memory_allocated() if cuda else 0)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["logs"].append(list(log))
+        out["routes"].append([dataclasses.replace(r, **{f.name: getattr(r, f.name).detach().cpu()
+                                                          for f in dataclasses.fields(r)
+                                                          if f.name != "cap"})
+                              for r in routes.calls])
+        kept += [r.kept for r in routes.calls]
+        if i == 0 and after_first is not None:
+            out["first"] = after_first(state, model)
+    out["dropped"] = (float((~torch.cat(kept)).sum()) / torch.cat(kept).numel()
+                      if kept else None)
+    return out
+
+
+
+
+def tg_moments(state, model, tokens):
+    """One process's AdamW moments after step 1, cloned: {"m", "v"}, one
+    entry a parameter; the embedding's as the rows of ``tokens`` (its
+    gradient is zero elsewhere, checked here), the others whole."""
+    rows = torch.unique(tokens.reshape(-1)).to(model.embed.device)
+    out = {"m": [], "v": []}
+    for i, p in enumerate(model.parameters()):
+        for n in ("m", "v"):
+            t = state[n][i]
+            if p is model.embed:
+                rest = torch.ones(t.shape[0], dtype=torch.bool, device=t.device)
+                rest[rows] = False
+                check(float(t[rest].abs().max()) == 0.0 if bool(rest.any()) else True,
+                      f"sharded train: the embedding's {n} is not zero off the batch's tokens")
+                out[n].append({"rows": rows, "values": t[rows].clone(),
+                               "scale": float(t.abs().max())})
+            else:
+                out[n].append({"values": t.clone(), "scale": float(t.abs().max())})
+    return out
+
+
+def tg_moment_gaps(state, model, want, mesh):
+    """The largest gap, over each leaf's largest moment, between this
+    rank's AdamW moments (blocks of the whole, cut by ``p.spec``) and one
+    process's ``want`` (``tg_moments``), for "m" and "v"; and the
+    parameter where "m"'s is largest."""
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.tp import block_of
+    gaps, worst = {}, (0.0, None)
+    names = [n for n, _ in model.named_parameters()]
+    for n in ("m", "v"):
+        top = 0.0
+        for i, p in enumerate(model.parameters()):
+            got, w = state[n][i], want[n][i]
+            spec = getattr(p, "spec", None) or (None,) * p.dim()
+            if "rows" in w:       # the embedding: the batch's rows in this rank's block
+                rs = block_of(p.whole[0] if hasattr(p, "whole") else p.shape[0], spec[0], mesh) \
+                    if spec[0] is not None else slice(0, got.shape[0])
+                cs = block_of(w["values"].shape[1], spec[1], mesh) if spec[1] is not None \
+                    else slice(None)
+                rows = w["rows"].to(got.device)
+                mine = (rows >= rs.start) & (rows < rs.stop)
+                local = rows[mine] - rs.start
+                gap = float((got[local] - w["values"].to(got.device)[mine][:, cs]).abs().max()) \
+                    if bool(mine.any()) else 0.0
+                rest = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+                rest[local] = False
+                if bool(rest.any()):
+                    gap = max(gap, float(got[rest].abs().max()))
+            else:
+                gap = float((got - shd.cut(w["values"].to(got.device), spec, mesh)).abs().max())
+            gap /= max(w["scale"], 1e-30)
+            if gap > top:
+                top = gap
+                if n == "m":
+                    worst = (gap, names[i])
+        gaps[n] = top
+    return gaps, worst[1]
+
+
+def shard_train_small(mesh, dev, ctx):
+    """(a) Section 4's small cases on this rank, card against CPU on the
+    same gloo group: drawn under the mesh from a CPU generator, trained
+    ``TG_SMALL_RUN["steps"]`` steps on the CPU, drawn again and trained on
+    the card; each step's metrics and the state after step 1 compared here
+    (a moment's gap over its whole leaf's largest, a max over the ranks)."""
+    from repro_torch.models import init_params, meshctx
+    cpu = torch.device("cpu")
+    out = {}
+    for name, arch, kw, cf, opt in TG_SMALL:
+        cfg = tg_small_cfg(arch, kw, cf, opt)
+        batch = tg_batch(cfg, TG_SMALL_RUN)
+        runs, states = {}, {}
+        for where in (cpu, dev):
+            with meshctx.use_mesh(mesh):
+                model = init_params(cfg, torch.Generator().manual_seed(3), cpu).to(where)
+                runs[where.type] = tg_train(model, cfg, tg_rows(mesh, batch, where),
+                                            TG_SMALL_RUN["steps"], where,
+                                            lambda state, model: _tg_state(state))
+            states[where.type] = runs[where.type]["first"]
+        a, b = runs["cpu"]["metrics"], runs[dev.type]["metrics"]
+        metric = max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-30)
+                     for x, y in zip(a, b) for k in ("loss", "ce", "aux", "grad_norm"))
+        moment = 0.0
+        with torch.no_grad():
+            for t_cpu, t_dev in zip(states["cpu"], states[dev.type]):
+                scale = mesh.all_reduce(t_cpu.abs().max().reshape(1), mesh.axis_names, op="max")
+                gap = float((t_dev.cpu() - t_cpu).abs().max()) / max(float(scale), 1e-30)
+                moment = max(moment, gap)
+        out[name] = dict(metric=metric, moment=moment, dropped=runs[dev.type]["dropped"],
+                         loss=a[0]["loss"])
+    return out
+
+
+def _tg_state(state):
+    """The optimizer state's moment tensors, cloned, in one list (AdamW's
+    m then v; Adafactor's slots, a layer at a time)."""
+    if "m" in state:
+        return [t.detach().clone() for t in state["m"] + state["v"]]
+    flat = []
+    for slot in state["slots"]:
+        for k in sorted(slot):
+            flat += [t.clone() for t in (slot[k] if isinstance(slot[k], list) else [slot[k]])]
+    return flat
+
+
+def shard_train(mesh, dev, ctx, key):
+    """(b), (c) ``ctx["tg_cfgs"][key]`` trained ``TG_RUN["steps"]`` steps
+    on this rank's rows (seconds, peak memory and collective log a step,
+    its scatter route); then its float32 draws at ``TG_CHECK_LAYERS`` for
+    ``TG_CHECK_STEPS`` steps, the moments after step 1 held here against
+    one process's (``ctx["tg_want"][key]``, on the card)."""
+    import gc
+    from repro_torch.models import init_params, meshctx
+    cfg = ctx["tg_cfgs"][key]
+    batch = tg_batch(cfg, TG_RUN)
+    seed = lambda: torch.Generator(device=dev).manual_seed(TG_RUN["seed"])
+    out = {}
+    for label, c, steps in (("bf16", cfg, TG_RUN["steps"]),
+                            ("f32", tg_check_cfg(cfg), TG_CHECK_STEPS)):
+        want = ctx["tg_want"][key]["moments"]
+        check_first = (None if label == "bf16" else
+                       lambda state, model: tg_moment_gaps(state, model, want, mesh))
+        t0 = time.perf_counter()
+        with meshctx.use_mesh(mesh):
+            model = init_params(c, seed(), dev)
+            build_s = time.perf_counter() - t0
+            res = tg_train(model, c, tg_rows(mesh, batch, dev), steps, dev, check_first)
+        res["build_s"] = build_s
+        res["logs"] = res["logs"][:1]       # every step runs the same collectives
+        out[label] = res
+        del model
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+SHARD_PARTS.update(
+    tg_small=shard_train_small,
+    tg_qwen2=lambda mesh, dev, ctx: shard_train(mesh, dev, ctx, "qwen2"),
+    tg_moe=lambda mesh, dev, ctx: shard_train(mesh, dev, ctx, "moe"))
+
+
+def phase_train_prep(dev, init_params, cfgs):
+    """16g's one-process float32 runs, before phase 16's launches: each of
+    ``cfgs``' check configs trained ``TG_CHECK_STEPS`` steps on the card
+    with no mesh; its metrics, and its moments after step 1 kept on the
+    card for the ranks (``tg_moments``). Returns the ranks' ``tg_want``."""
+    import gc
+    want = {}
+    for key, cfg in cfgs.items():
+        c = tg_check_cfg(cfg)
+        batch = tg_batch(cfg, TG_RUN)
+        model = init_params(c, torch.Generator(device=dev).manual_seed(TG_RUN["seed"]), dev)
+        res = tg_train(model, c, tg_rows(None, batch, dev), TG_CHECK_STEPS, dev,
+                       lambda state, model: tg_moments(state, model, batch["tokens"]))
+        want[key] = {"metrics": res["metrics"], "moments": res.pop("first"),
+                     "dropped": res["dropped"], "s": res["s"], "peak": res["peak"],
+                     "routes": res["routes"]}
+        del model, res
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return want
+
+
+def tg_meta(cfg, coords, mesh_spec, mesh_lib, run, memory=False):
+    """The collective log of one train step of the rank at ``coords`` on
+    meta under a ``CountingMesh``, and with ``memory`` the step's count
+    (``opcount.count_memory``)."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.opcount import count_memory
+    from repro_torch.models import meshctx
+    from repro_torch.models.model import Model
+    cmesh = mesh_lib.CountingMesh(mesh_lib.Mesh(*mesh_spec), coords)
+    b = run["batch"] // meshctx.dp_size(cmesh)
+    meta = {k: torch.empty((b, run["seq"]), dtype=torch.long, device="meta")
+            for k in ("tokens", "labels")}
+    with meshctx.use_mesh(cmesh):
+        model = Model(cfg, device="meta")
+        train_step, opt_init = steps_lib.make_train_step(cfg, **TG_LR)
+        state = opt_init(model)
+        with mesh_lib.collective_log() as log:
+            train_step(model, state, meta)
+        mem = count_memory(train_step, model, state, meta)[1] if memory else None
+    return list(log), mem
+
+
+def tg_kinds(log):
+    """{kind: (calls, result bytes)} of a collective log."""
+    out = {}
+    for kind, nbytes, _ in log:
+        n, b = out.get(kind, (0, 0))
+        out[kind] = (n + 1, b + nbytes)
+    return out
+
+
+def check_train_small(label, ranks):
+    """(a) The small cases card against CPU on each gloo rank."""
+    for name, arch, kw, cf, opt in TG_SMALL:
+        rs = [r["tg_small"][name] for r in ranks]
+        metric, moment = max(x["metric"] for x in rs), max(x["moment"] for x in rs)
+        print(f"{label}: small case {name} (2 layers, f32, {opt}, a {TG_SMALL_RUN['batch']} x "
+              f"{TG_SMALL_RUN['seq']} batch, {TG_SMALL_RUN['steps']} steps) card against CPU on "
+              f"the same ranks: loss, ce, aux and grad norm within {metric:.3e} relative, the "
+              f"optimizer state after step 1 within {moment:.3e} of each leaf's largest (bound "
+              f"{TG_SMALL_TOL}); loss {rs[0]['loss']:.6f}"
+              + (f", dropped {[x['dropped'] for x in rs]}" if cf else ""), flush=True)
+        check(metric <= TG_SMALL_TOL and moment <= TG_SMALL_TOL,
+              f"{label} {name}: card against CPU {metric:.3e} / {moment:.3e}")
+        check(not cf or all(x["dropped"] == 0.0 for x in rs), f"{label} {name}: dropped")
+
+
+def check_train(label, ranks, key, cfg, want, one_bf16, mesh_spec, mesh_lib, problems):
+    """(b)-(e) of one trained config over the ranks of one launch; a
+    float32 check that misses its bound is appended to ``problems``."""
+    part = "tg_" + key
+    r0 = ranks[0][part]["bf16"]
+    c32 = tg_check_cfg(cfg)
+    for r in ranks:
+        check(r[part + "_launches"] == {}, f"{label} {key}: the train step launched "
+              f"{r[part + '_launches']}; it runs no kernel")
+    # every rank reads the global metrics
+    for lab in ("bf16", "f32"):
+        for r in ranks[1:]:
+            gap = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-30)
+                      for a, b in zip(r[part][lab]["metrics"], ranks[0][part][lab]["metrics"])
+                      for k in ("loss", "grad_norm"))
+            check(gap <= TG_TOL, f"{label} {key} {lab}: the ranks' metrics differ by {gap:.3e}")
+    kinds = tg_kinds(r0["logs"][0])
+    m1, o1 = r0["metrics"][0], one_bf16
+    dropped = [r[part]["bf16"]["dropped"] for r in ranks]
+    print(f"{label}: {cfg.name} at its published widths, {cfg.n_layers} of its layers, bf16, "
+          f"{cfg.optimizer}, trained over {len(ranks)} rank(s) on a ({TG_RUN['batch']}, "
+          f"{TG_RUN['seq']}) batch: rank 0 built its blocks in {r0['build_s']:.2f} s; seconds a "
+          f"step {[round(x, 3) for x in r0['s']]}; peak memory a rank "
+          f"{[round(r[part]['bf16']['peak'][-1] / 2 ** 30, 3) for r in ranks]} GiB; "
+          f"collectives a step (calls, result bytes) {kinds}, "
+          f"{sum(n for n, _ in kinds.values())} calls; step 1 loss {m1['loss']:.6f}, grad norm "
+          f"{m1['grad_norm']:.6f} (one process on the card: {o1['loss']:.6f}, "
+          f"{o1['grad_norm']:.6f}); losses {[round(m['loss'], 6) for m in r0['metrics']]}"
+          + (f"; dropped {dropped}" if cfg.moe is not None else ""), flush=True)
+    check(cfg.moe is None or all(d == 0.0 for d in dropped), f"{label} {key}: dropped {dropped}")
+    # the float32 check against one process on the card
+    f0 = ranks[0][part]["f32"]
+    metric = [{k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in ("loss", "ce", "aux",
+                                                                     "grad_norm")}
+              for a, b in zip(f0["metrics"], want["metrics"])]
+    # a step whose routing differs from one process's (a token within
+    # ROUTE_GAP of a tie, routed apart by the summation order; one far from a
+    # tie fails routing_flips) moves a whole expert's contribution: its
+    # metrics are held to TG_FLIP_TOL, the others to TG_TOL
+    flips = [routing_flips(w, g, f"{label} {key} step {i + 1}")
+             for i, (g, w) in enumerate(zip(f0["routes"], want["routes"]))]
+    gaps = {n: max(r[part]["f32"]["first"][0][n] for r in ranks) for n in ("m", "v")}
+    worst = max(ranks, key=lambda r: r[part]["f32"]["first"][0]["m"])[part]["f32"]["first"][1]
+    print(f"{label}: the same draws in float32 at {c32.n_layers} layer(s), {TG_CHECK_STEPS} "
+          f"steps, against one process on the card: relative gaps by step "
+          f"{[{k: f'{v:.3e}' for k, v in m.items()} for m in metric]} (bound {TG_TOL}); AdamW's "
+          f"m and v after step 1 within {gaps['m']:.3e} and {gaps['v']:.3e} of each leaf's "
+          f"largest (bound {TG_MOMENT_TOL}; m's worst leaf {worst}); seconds a step "
+          f"{[round(x, 3) for x in f0['s']]} (one process {[round(x, 3) for x in want['s']]}); "
+          f"step 1 loss {f0['metrics'][0]['loss']:.6f}"
+          + (f"; routing against one process by step (tokens within {ROUTE_GAP} of a tie, "
+             f"tokens whose expert set differs) {flips}; a step where a token's set differs "
+             f"held to {TG_FLIP_TOL}" if cfg.moe is not None else ""), flush=True)
+    for step, (m, (_, n_flip)) in enumerate(zip(metric, flips or [(0, 0)] * len(metric))):
+        if max(m.values()) > (TG_FLIP_TOL if n_flip else TG_TOL):
+            problems.append(f"{label} {key}: float32 metrics of step {step + 1} {m} from one "
+                            f"process's")
+    if max(gaps.values()) > TG_MOMENT_TOL:
+        problems.append(f"{label} {key}: float32 moments {gaps}")
+    # (e) each rank's collective log against the counting mesh's, and memory
+    names = mesh_spec[0]
+    t0 = time.perf_counter()
+    for lab, c in (("bf16", cfg), ("f32", c32)):
+        for r in ranks:
+            coords = dict(zip(names, r["tp_coords"]))
+            first = lab == "bf16" and r is ranks[0]
+            log, mem = tg_meta(c, coords, mesh_spec, mesh_lib, TG_RUN, memory=first)
+            got = r[part][lab]["logs"][0]
+            check(got == log, f"{label} {key} {lab} rank {r['tp_coords']}: collective log of "
+                  f"{len(got)} calls differs from the counting mesh's {len(log)}")
+            if first:
+                peak = r[part]["bf16"]["peak"][-1]
+                gap = peak - mem["peak_memory_in_bytes"]
+                print(f"{label}: {key} rank {r['tp_coords']}: collective logs equal to the "
+                      f"counting mesh's on meta (bf16 and float32, every rank); a train step's "
+                      f"max_memory_allocated {peak} B against the meta count's peak "
+                      f"{mem['peak_memory_in_bytes']} B (arguments "
+                      f"{mem['argument_size_in_bytes']} B, temporaries "
+                      f"{mem['temp_size_in_bytes']} B): gap {gap:+d} B "
+                      f"({100 * gap / mem['peak_memory_in_bytes']:+.3f} %); counted in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_sharded_train(dev, init_params, mesh_lib, gloo, nccl, nccl_spec, cfgs, want):
+    """16g: the train step under a mesh (its ranks' parts ran in phase 16's
+    two launches): (a) the small cases card against CPU; (b), (c) qwen2-7b
+    and qwen3-moe-30b-a3b at their published widths over the four gloo
+    ranks, then (d) over the NCCL rank(s), each beside one process's step 1
+    and held in float32; (e) the logs and a step's memory against the
+    counting mesh."""
+    import gc
+    t0 = time.perf_counter()
+    problems = []
+    check_train_small("sharded train (gloo)", gloo)
+    for key, cfg in cfgs.items():
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(TG_RUN["seed"]), dev)
+        one = tg_train(model, cfg, tg_rows(None, tg_batch(cfg, TG_RUN), dev), 1, dev)
+        del model
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        for ranks, label, spec in ((gloo, "sharded train (gloo)", SHARD_MESH),
+                                   (nccl, "sharded train (nccl)", nccl_spec)):
+            check_train(label, ranks, key, cfg, want[key], one["metrics"][0], spec, mesh_lib,
+                        problems)
+    print(f"sharded train: the phase's checks in {time.perf_counter() - t0:.1f} s (its ranks' "
+          f"parts ran in phase 16's launches: gloo "
+          f"{sum(gloo[0][p + '_s'] for p in TG_PARTS['gloo']):.1f} s, nccl "
+          f"{sum(nccl[0][p + '_s'] for p in TG_PARTS['nccl']):.1f} s a rank)", flush=True)
+    check(not problems, "; ".join(problems))
+
+
+def phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params, kda, mesh_lib):
+    """Phases 16, 16t and 16g: 16g's one-process float32 runs, then phase
+    16's two launches of ranks (16t's and 16g's parts among them), then the
+    checks of 16t and 16g. Returns the kernel launches, summed over the
+    ranks."""
+    cfgs = {key: tg_cfg(key) for key in TG_ARCHS}
+    t0 = time.perf_counter()
+    want = phase_train_prep(dev, init_params, cfgs)
+    print(f"sharded train: one process's float32 checks at {TG_CHECK_LAYERS} layer(s) on the "
+          f"card in {time.perf_counter() - t0:.1f} s (steps "
+          f"{ {k: [round(x, 3) for x in w['s']] for k, w in want.items()} } s, peak "
+          f"{ {k: round(w['peak'][-1] / 2 ** 30, 3) for k, w in want.items()} } GiB)", flush=True)
+    counts, gloo, nccl, nccl_spec = phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo,
+                                                  init_params, shard_moe_cfg(), tp_cfg(),
+                                                  {"tg_cfgs": cfgs, "tg_want": want})
+    launches = collections.Counter(counts)
+    launches.update(phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, kda, mesh_lib,
+                                          gloo, nccl, nccl_spec, tp_cfg(), TP_SERVE))
+    phase_sharded_train(dev, init_params, mesh_lib, gloo, nccl, nccl_spec, cfgs, want)
+    del want
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", type=Path, default=Path(__file__).resolve().parent / "src",
                         help="the directory that holds repro_torch (default: src beside "
                              "this script); another tree's src times that tree's kernels")
     parser.add_argument("--sharded-only", action="store_true",
-                        help="build and run phase 16 (the sharded paths; NCCL over every "
-                             "visible card), check it and print no result")
+                        help="build and run phases 16, 16t and 16g (the sharded paths; NCCL "
+                             "over every visible card), check them and print no result")
     parser.add_argument("--timing-only", action="store_true",
                         help="build and time the kernels (phases 1-2 and the timings of "
                              "3, 7 and 10), check nothing else and print no result")
@@ -4592,10 +5127,8 @@ def main(argv=None):
     from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
     from repro_torch.launch import mesh as mesh_lib
     if args.sharded_only:
-        _, gloo, nccl, nccl_spec = phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo,
-                                                 init_params, shard_moe_cfg(), tp_cfg())
-        phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, decode_attn, mesh_lib, gloo,
-                              nccl, nccl_spec, tp_cfg())
+        phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params, decode_attn,
+                                mesh_lib)
         return 0
     # the dry-run's 80 records, counted on meta in background processes
     # while the card's phases run; phase 15g reads them
@@ -4763,11 +5296,8 @@ def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
         dev, pair_scorer, dispatch_serve, mahppo))
     phase_small_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,
                          n_envs=SMALL_BATCHED_ENVS)
-    counts, gloo, nccl, nccl_spec = phase_sharded(dev, mesh_lib.spawn, steps_lib, moe_lib, mahppo,
-                                                  init_params, shard_moe_cfg(), tp_cfg())
-    launches.update(counts)
-    launches.update(phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, decode_attn,
-                                          mesh_lib, gloo, nccl, nccl_spec, tp_cfg()))
+    launches.update(phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params,
+                                            decode_attn, mesh_lib))
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():

@@ -21,31 +21,40 @@ Each combination writes one JSON record to ``--out`` (default
 * ``count_s``, the seconds the counts took (in the place of the
   reference's ``lower_s`` and ``compile_s``).
 
-For a prefill or decode of an arch whose blocks all have a tensor-parallel
-program (``models.sharding.SHARDED``: the dense and MoE stacks), two more
-fields come from the program rank 0 of the mesh runs, counted on ``meta``
-under a ``launch.mesh.CountingMesh`` at the production mesh's shape, on its
-shard of the inputs (``input_specs(..., mesh)``; a batch the data axes do
-not divide, long_500k's, whole on every rank):
+For every step of an arch whose blocks all have a tensor-parallel program
+(``models.sharding.SHARDED``: the dense and MoE stacks), two more fields
+come from the program rank 0 of the mesh runs, counted on ``meta`` under a
+``launch.mesh.CountingMesh`` at the production mesh's shape, on its shard
+of the inputs (``input_specs(..., mesh)``; a batch the data axes do not
+divide, long_500k's, whole on every rank); for train, ``make_train_step``
+on the rank's blocks of the parameters and of the optimizer state:
 
 * ``collectives``: the mesh's log of that run as the reference's
   ``collectives_weighted``, ``<kind>``, ``<kind>_count`` and
   ``moved_bytes`` (``launch.mesh.collectives_record``); the port's Python
-  loop runs every layer, so the counts are already weighted;
+  loop runs every layer, so the counts are already weighted; a train
+  step's are its forward's, its backward's (the collectives' transposes),
+  the gradient sync's and the global norm's;
 * ``memory_analysis``: the reference's keys (``opcount.count_memory``):
-  ``argument_size_in_bytes`` (the rank's parameters, cache and inputs;
-  at decode with the 4 bytes of the reference's int32 ``idx``, which the
-  port takes as a Python int), ``output_size_in_bytes`` (its logits and
-  cache, with the 8 bytes a leaf of the table of the reference's output
-  tuple, over the reference's stacked cache leaves), ``alias_size_in_bytes`` 0 (the reference donates nothing),
+  ``argument_size_in_bytes`` (the rank's parameters, and its optimizer
+  state and batch or its cache and inputs; at decode with the 4 bytes of
+  the reference's int32 ``idx``, which the port takes as a Python int),
+  ``output_size_in_bytes`` (its logits and cache, or its parameters,
+  optimizer state and metrics, with the 8 bytes a leaf of the table of the
+  reference's output tuple, over the reference's stacked leaves),
+  ``alias_size_in_bytes`` 0 (the reference donates nothing),
   ``temp_size_in_bytes`` and ``peak_memory_in_bytes`` (the most bytes of
-  live storages the run reaches, without and with the arguments') and
-  ``generated_code_size_in_bytes`` null, with a note.
+  live storages the run reaches, autograd's saved tensors among them,
+  without and with the arguments') and ``generated_code_size_in_bytes``
+  null, with a note. The port recomputes no activations (``cfg.remat``
+  is ignored), so a train record's temporaries and peak keep every
+  activation where the reference's step recomputes them; its note says
+  so.
 
 These counts depend on the mesh, so ``counted_rank`` keeps them by arch,
-shape and mesh. A train record, and the records of an arch with block
-types outside ``SHARDED``, keep both fields null, with a note that names
-what is missing. The process exits non-zero if any combination failed.
+shape and mesh. The records of an arch with block types outside
+``SHARDED`` keep both fields null, with a note that names what is
+missing. The process exits non-zero if any combination failed.
 """
 from __future__ import annotations
 
@@ -70,16 +79,13 @@ from repro_torch.models import sharding as shd
 from repro_torch.models.layers import rope_inv_freqs
 from repro_torch.optim.optimizers import opt_state_pspec, opt_state_structs
 
-NOTES = {
-    "collectives": "null: a train step under a mesh (the backward of the tensor- and "
-                   "expert-parallel collectives) is not written yet",
-    "memory_analysis": "null: a train step under a mesh is not written yet, so its memory "
-                       "is not counted",
-}
 UNSHARDED_NOTE = ("null: the block types {} have no tensor-parallel program, so no rank's "
                   "program exists to count")
 CODE_NOTE = ("generated_code_size_in_bytes is null: the port generates no code for a step "
              "(its kernels are built once, not per step)")
+REMAT_NOTE = ("temp_size_in_bytes and peak_memory_in_bytes are not the reference's: its train "
+              "step recomputes each layer group's activations for the backward (cfg.remat, "
+              "jax.checkpoint), and the port's, which ignores cfg.remat, keeps every activation")
 IDX_BYTES = 4       # the reference's decode takes idx as an int32 scalar argument
 TUPLE_BYTES = 8     # a pointer a leaf in the table of the reference's output tuple
 
@@ -117,18 +123,25 @@ def counted(cfg, shape):
 
 @functools.lru_cache(maxsize=None)
 def counted_rank(cfg, shape, mesh):
-    """``(collectives, memory_analysis, seconds)`` of the prefill or decode
-    that rank 0 of ``mesh`` (a ``Mesh`` descriptor) runs, counted on
-    ``meta`` under a ``CountingMesh`` (see the module's docstring)."""
+    """``(collectives, memory_analysis, seconds)`` of the train step,
+    prefill or decode that rank 0 of ``mesh`` (a ``Mesh`` descriptor) runs,
+    counted on ``meta`` under a ``CountingMesh`` (see the module's
+    docstring)."""
     cmesh = CountingMesh(mesh)
     rope_inv_freqs.cache_clear()
     t0 = time.perf_counter()
     whole = shape.global_batch % meshctx.dp_size(mesh) != 0
-    with meshctx.use_mesh(cmesh), meshctx.whole_batch(whole), torch.no_grad():
+    train = shape.kind == "train"
+    with meshctx.use_mesh(cmesh), meshctx.whole_batch(whole), torch.set_grad_enabled(train):
         specs = input_specs(cfg, shape, mesh=cmesh)
         model = params_spec(cfg)
         with collective_log() as log:
-            if shape.kind == "prefill":
+            if train:
+                train_step, opt_init = make_train_step(cfg)
+                state = opt_init(model)
+                _, memory, (_, _, metrics) = count_memory(train_step, model, state,
+                                                          specs["batch"])
+            elif shape.kind == "prefill":
                 step = make_prefill_step(cfg, attn_len_for(cfg, shape))
                 _, memory, (_, cache) = count_memory(step, model, specs["tokens"],
                                                      specs.get("aux_embeds"))
@@ -137,7 +150,11 @@ def counted_rank(cfg, shape, mesh):
                                                      specs["cache"], specs["token"],
                                                      shape.seq_len - 1)
                 memory["argument_size_in_bytes"] += IDX_BYTES
-    leaves = 1 + len(shd.reference_cache(cfg, cache))
+    if train:   # the reference returns its params, its optimizer state and the metrics
+        params = shd.reference_params(model)
+        leaves = len(params) + len(opt_state_structs(cfg.optimizer, params)) + len(metrics)
+    else:
+        leaves = 1 + len(shd.reference_cache(cfg, cache))
     memory["output_size_in_bytes"] += TUPLE_BYTES * leaves
     return collectives_record(log), memory, time.perf_counter() - t0
 
@@ -162,14 +179,15 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False):
             tree, shd.cache_pspecs(mesh, tree, cfg), mesh)
     rec.update(flops=costs["flops"], dot_flops=costs["dot_flops"],
                bytes_accessed=costs["bytes_accessed"], collectives=None,
-               memory_analysis=None, notes=dict(NOTES))
+               memory_analysis=None)
     unsharded = shd.unsharded_blocks(cfg, mesh)
     if unsharded:
         note = UNSHARDED_NOTE.format(list(unsharded))
         rec["notes"] = {"collectives": note, "memory_analysis": note}
-    elif shape.kind != "train":
+    else:
         rec["collectives"], rec["memory_analysis"], rank_s = counted_rank(cfg, shape, mesh)
-        rec["notes"] = {"memory_analysis": CODE_NOTE}
+        remat = shape.kind == "train" and cfg.remat
+        rec["notes"] = {"memory_analysis": CODE_NOTE + ("; " + REMAT_NOTE if remat else "")}
         seconds += rank_s
     rec["count_s"] = round(seconds, 2)
     return rec

@@ -10,18 +10,30 @@ a ``jax.sharding.Mesh``. ``ProcessMesh`` lays the same axes over the ranks
 of an initialised ``torch.distributed`` world (row-major, the last axis
 fastest) and gives what the reference's per-shard code reads inside
 ``shard_map``: a rank's index on a set of axes (``jax.lax.axis_index``) and
-the collectives over them (``all_gather(..., tiled=True)``, ``psum`` and
-``pmax``).
+the collectives over them (``all_gather(..., tiled=True)``, ``psum``,
+``psum_scatter`` and ``pmax``).
 
-Every collective of a mesh is logged, as ``moe.routing_log`` logs
-routings: inside ``collective_log()`` each call appends (kind, result
-bytes, group size) to the yielded list, the kind under the reference's HLO
-name ("all-gather", "all-reduce"). ``CountingMesh`` has ``ProcessMesh``'s
-interface over a ``Mesh`` descriptor and one coordinate, with no process
-group: on ``meta`` tensors it returns results of the right shape and dtype
-and logs each call as ``ProcessMesh`` does, so the dry-run runs one rank's
-program on ``meta`` and reads its collectives (``collectives_record``, in
-the keys of the reference's ``collectives_weighted``).
+The collectives carry gradients by JAX's transpose rules, each a
+``torch.autograd.Function``: the backward of an all-gather is a
+reduce-scatter of the cotangent (summed over the ranks, each keeping its
+block), of a sum all-reduce an all-reduce of the cotangent, of a
+reduce-scatter an all-gather. So a rank that differentiates its share of
+a loss gets its share of the gradient of the whole program, with no case
+at any call site. A ``max`` all-reduce has no transpose: it refuses an
+input that requires grad in grad mode, as ``kernels._build.refuse_grad``
+refuses for the forward-only kernels.
+
+Every collective of a mesh is logged, forward and backward, as
+``moe.routing_log`` logs routings: inside ``collective_log()`` each call
+appends (kind, result bytes, group size) to the yielded list, the kind
+under the reference's HLO name ("all-gather", "all-reduce",
+"reduce-scatter"). ``CountingMesh`` has ``ProcessMesh``'s interface over a
+``Mesh`` descriptor and one coordinate, with no process group: on ``meta``
+tensors it returns results of the right shape and dtype and logs each call
+as ``ProcessMesh`` does, its backward included, so the dry-run runs one
+rank's program on ``meta`` and reads its collectives
+(``collectives_record``, in the keys of the reference's
+``collectives_weighted``).
 
 ``spawn(fn, world, backend)`` starts the ranks. Under ``nccl`` rank r runs
 on card r, one rank a card; under ``gloo`` every rank runs on the one device
@@ -180,6 +192,73 @@ class _Axes:
             i = i * self.shape[a] + self._coords[a]
         return i
 
+    def all_gather(self, t, axes, dim=0):
+        """The ``t`` of every rank along ``axes``, concatenated along
+        ``dim`` in index order (``all_gather(..., tiled=True)``); its
+        backward reduce-scatters the cotangent."""
+        return _AllGather.apply(t, self, axes, dim % t.dim())
+
+    def all_reduce(self, t, axes, op="sum"):
+        """The sum (``psum``; its backward the sum of the cotangent) or,
+        with ``op="max"``, the maximum (``pmax``, which refuses an input
+        that requires grad in grad mode) of ``t`` over the ranks along
+        ``axes``, in ``t``'s dtype, as a new tensor."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"op must be one of {sorted(_REDUCE_OPS)}, got {op!r}")
+        if op == "sum":
+            return _AllReduce.apply(t, self, axes)
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError("all_reduce(op='max') has no backward: run it on a detached "
+                               "tensor or under torch.no_grad()")
+        return self._reduce(t, axes, op)
+
+    def reduce_scatter(self, t, axes, dim=0):
+        """``t`` summed over the ranks along ``axes``, this rank keeping
+        its block of ``dim`` (``psum_scatter(..., tiled=True)``); its
+        backward all-gathers the cotangent."""
+        return _ReduceScatter.apply(t, self, axes, dim % t.dim())
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._gather(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._scatter(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh._reduce(t, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce(g, ctx.axes, "sum"), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._scatter(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._gather(g, ctx.axes, ctx.dim), None, None, None
+
+
+def _block_len(t, dim, n):
+    """The length of one rank's block of dim ``dim`` of ``t`` over ``n``."""
+    if t.shape[dim] % n:
+        raise ValueError(f"a reduce-scatter over {n} ranks cannot split dim {dim} of "
+                         f"{tuple(t.shape)}")
+    return t.shape[dim] // n
+
 
 class ProcessMesh(_Axes):
     """The axes of a ``Mesh`` laid over the ranks of the initialised
@@ -187,8 +266,11 @@ class ProcessMesh(_Axes):
     r in ``axis_sizes``. Every rank must build it, in the same order as any
     other group: it makes one process group for every set of ranks that
     differ only on a subset of the axes. ``shape``, ``axis_names`` and
-    ``size`` read as a ``Mesh``'s; ``index``, ``all_gather`` and
-    ``all_reduce`` take an axis name or a tuple of them."""
+    ``size`` read as a ``Mesh``'s; ``index``, ``all_gather``,
+    ``all_reduce`` and ``reduce_scatter`` take an axis name or a tuple of
+    them. ``reduce_scatter`` is ``dist.reduce_scatter_single`` (formerly
+    ``reduce_scatter_tensor``), which gloo takes on CPU and CUDA tensors
+    alike."""
 
     def __init__(self, axis_names, axis_sizes):
         if not dist.is_available() or not dist.is_initialized():
@@ -219,24 +301,29 @@ class ProcessMesh(_Axes):
         """The process group of this rank's neighbours along ``axes``."""
         return self._groups[_axes(self.axis_names, axes)]
 
-    def all_gather(self, t, axes, dim=0):
-        """The ``t`` of every rank along ``axes``, concatenated along
-        ``dim`` in index order (``all_gather(..., tiled=True)``)."""
+    def _gather(self, t, axes, dim):
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
         dist.all_gather(parts, t, group=self.group(axes))
         return _logged("all-gather", torch.cat(parts, dim=dim), len(parts))
 
-    def all_reduce(self, t, axes, op="sum"):
-        """The sum (``psum``) or, with ``op="max"``, the maximum (``pmax``)
-        of ``t`` over the ranks along ``axes``, in ``t``'s dtype, as a new
-        tensor."""
+    def _reduce(self, t, axes, op):
         out = t.contiguous().clone()
         dist.all_reduce(out, op=_REDUCE_OPS[op], group=self.group(axes))
         return _logged("all-reduce", out, self.axis_size(axes))
 
+    def _scatter(self, t, axes, dim):
+        n = self.axis_size(axes)
+        b = _block_len(t, dim, n)
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((b,) + x.shape[1:])
+        _REDUCE_SCATTER(out, x, group=self.group(axes))
+        return _logged("reduce-scatter", out.movedim(0, dim).contiguous(), n)
+
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# newer torch deprecates reduce_scatter_tensor for reduce_scatter_single; older has only the first
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 class CountingMesh(_Axes):
@@ -245,7 +332,8 @@ class CountingMesh(_Axes):
     collectives take ``meta`` tensors only (any other device raises, so no
     value is faked), return results of the right shape and dtype, made as
     ``ProcessMesh`` makes them (one part a rank, then one concatenation;
-    a copy for a reduction), and are logged as ``ProcessMesh`` logs them."""
+    a copy for a reduction; a block for a reduce-scatter), and are logged
+    as ``ProcessMesh`` logs them, backward included."""
 
     def __init__(self, spec: Mesh, coords=None):
         self.spec = spec
@@ -264,15 +352,19 @@ class CountingMesh(_Axes):
                              f"run the ranks with a ProcessMesh")
         return t.contiguous()
 
-    def all_gather(self, t, axes, dim=0):
+    def _gather(self, t, axes, dim):
         t = self._meta(t)
         parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
         return _logged("all-gather", torch.cat(parts, dim=dim), len(parts))
 
-    def all_reduce(self, t, axes, op="sum"):
-        if op not in _REDUCE_OPS:
-            raise ValueError(f"op must be one of {sorted(_REDUCE_OPS)}, got {op!r}")
+    def _reduce(self, t, axes, op):
         return _logged("all-reduce", self._meta(t).clone(), self.axis_size(axes))
+
+    def _scatter(self, t, axes, dim):
+        n = self.axis_size(axes)
+        x = self._meta(t).movedim(dim, 0).contiguous()
+        out = x.new_empty((_block_len(t, dim, n),) + x.shape[1:])
+        return _logged("reduce-scatter", out.movedim(0, dim).contiguous(), n)
 
 
 def rank_devices(world: int, backend: str, device=None):

@@ -13,6 +13,7 @@ from repro_torch.models import meshctx
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import dtype_of
 from repro_torch.optim import cosine_schedule, global_norm, make_optimizer
+from repro_torch.optim.optimizers import cut_axes, flat_passes
 from repro_torch.weights import reference_decay_mask, reference_leaves
 
 
@@ -36,7 +37,18 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=200, total=10000, clip=1.0):
     parameters and the optimizer state are updated in place; the model and
     the state are returned for the reference's calling form. metrics
     ``{loss, ce, aux, ppl_proxy, grad_norm, lr}`` are tensors on the
-    model's device: the step makes no host sync."""
+    model's device: the step makes no host sync.
+
+    Run inside ``meshctx.use_mesh(mesh)`` on a model built under it, it is
+    one rank's step, on its rows of the batch: ``loss_fn`` is the global
+    loss on every rank; each rank differentiates ``loss / mesh.size`` (the
+    ranks' seeds sum to one) through the mesh's collectives, whose
+    backwards carry the gradient between ranks (``launch.mesh``); then
+    ``sync_grads`` sums each gradient over the axes that replicate its
+    block, ``global_norm`` counts each element once, and the optimizer
+    updates the rank's blocks and its state, ``opt_init(model)`` being the
+    rank's block of the reference's state. The metrics are the global
+    ones."""
     opt_init_fn, opt_update = make_optimizer(cfg.optimizer)
     lr_fn = cosine_schedule(base_lr, warmup, total)
     factored = cfg.optimizer == "adafactor"
@@ -48,14 +60,20 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=200, total=10000, clip=1.0):
 
     def train_step(model, opt_state, batch):
         _check(model, cfg)
+        mesh = meshctx.get_mesh()
         params = list(model.parameters())
         loss, metrics = model_lib.loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, params)
-        gn = global_norm(grads)
+        if mesh is None:
+            grads = [g.contiguous() for g in torch.autograd.grad(loss, params)]
+            gn = global_norm(grads)
+        else:
+            grads = sync_grads(torch.autograd.grad(loss / mesh.size, params), params, mesh)
+            gn = global_norm(grads, [getattr(p, "spec", None) for p in params], mesh)
         scale = torch.clamp(torch.full_like(gn, clip) / torch.clamp(gn, min=1e-9), max=1.0)
-        grads = [g * scale.to(g.dtype) for g in grads]
+        for g in grads:     # the step's own gradients, clipped in place
+            g.mul_(scale.to(g.dtype))
         lr = lr_fn(opt_state["step"])
-        layout = ({"leaves": reference_leaves(model)} if factored else
+        layout = ({"leaves": reference_leaves(model), "mesh": mesh} if factored else
                   {"decay": reference_decay_mask(model)})
         _, opt_state = opt_update(grads, opt_state, params, lr, **layout)
         metrics = dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach(),
@@ -63,6 +81,31 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=200, total=10000, clip=1.0):
         return model, opt_state, metrics
 
     return train_step, opt_init
+
+
+def sync_grads(grads, params, mesh):
+    """Each gradient of a rank's blocks summed over the axes of ``mesh``
+    (of more than one rank) that do not cut its parameter (``p.spec``):
+    the ranks that hold the same block each hold their share of its
+    gradient. A dim cut over an axis was summed over it already, by the
+    reduce-scatter of its gather's backward. For each set of axes and
+    dtype the gradients are concatenated into flat buffers of at most
+    ``PASS_ELEMENTS`` (``optim.flat_passes``), one all-reduce a buffer,
+    and the sums are copied back into them."""
+    grads = [g.contiguous() for g in grads]
+    groups = {}
+    for i, (g, p) in enumerate(zip(grads, params)):
+        cut = cut_axes(getattr(p, "spec", None))
+        axes = tuple(a for a in mesh.axis_names if a not in cut and mesh.shape[a] > 1)
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(i)
+    for (axes, _), idx in groups.items():
+        for run in flat_passes([grads[i].numel() for i in idx]):
+            parts = [grads[idx[j]].view(-1)[a:b] for j, a, b in run]
+            flat = mesh.all_reduce(torch.cat(parts), axes)
+            for part, summed in zip(parts, flat.split([t.numel() for t in parts])):
+                part.copy_(summed)
+    return grads
 
 
 def make_prefill_step(cfg, attn_len: int):

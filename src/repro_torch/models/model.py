@@ -175,7 +175,13 @@ def loss_fn(model, batch):
     entropy of the train-mode logits (in float32) plus ``aux``, the sum of
     the MoE layers' load-balance losses (0 for a stack without MoE);
     metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the card the
-    mamba2 mixers run the ``ssd_intra`` forward and backward kernels."""
+    mamba2 mixers run the ``ssd_intra`` forward and backward kernels.
+
+    Under a mesh (``meshctx``) it is the global loss on every rank: the
+    rank's masked sum and mask count are summed over the data axes (one
+    all-reduce; the count carries no gradient), and the MoE layers' aux
+    losses are already those of the global batch. A whole batch
+    (``meshctx.whole_batch``) takes no such sum."""
     auxes = []
     x, _ = _run_stack(model, batch["tokens"], positions=None, mode="train", cache=None,
                       idx=None, attn_len=0, aux=auxes, aux_embeds=batch.get("aux_embeds"))
@@ -185,7 +191,12 @@ def loss_fn(model, batch):
     safe = torch.clamp(labels, min=0).long()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
-    ce = ((lse - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total, count = ((lse - tgt) * mask).sum(), mask.sum()
+    mesh = meshctx.get_mesh()
+    if mesh is not None and not meshctx.batch_is_whole():
+        total, count = mesh.all_reduce(torch.stack([total, count]), meshctx.dp_axes(mesh))
+        count = count.detach()
+    ce = total / torch.clamp(count, min=1.0)
     aux = sum(auxes, torch.zeros((), dtype=torch.float32, device=logits.device))
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}

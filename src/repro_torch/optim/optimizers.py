@@ -33,23 +33,79 @@ computed layer by layer (a layer of llama-3.2-vision-90b is 1.7 GB: the
 stack is never formed), and its update's RMS, which the reference clips
 over the whole leaf, sums the layers' squares; the 1-D and scalar leaves
 are stacked. The new parameter is rounded to its dtype once.
+
+Under a process mesh (a model built under ``meshctx.use_mesh``) each
+parameter is a rank's block, with its live spec (``p.spec``) and whole
+shape (``p.whole``). AdamW is elementwise and runs on the blocks as they
+are. ``global_norm`` counts each element once: a leaf's sum of squares is
+divided by the number of ranks that hold its block, and one all-reduce
+over every axis sums them. Adafactor's means over a dim (``vr`` over the
+last, ``vc`` over the next to last, ``rfac``'s mean of ``vr``) and the
+RMS of its update over the whole leaf become sums all-reduced over the
+axes that cut the dims reduced, divided by the whole leaf's dims; its
+state is the rank's block of ``opt_state_pspec``.
 """
 from __future__ import annotations
 
+import math
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 
-def global_norm(tree: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The L2 norm of all leaves together, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree))
+def cut_axes(spec):
+    """The mesh axes that cut some dim under ``spec`` (a live spec, or
+    None), in the order they first appear."""
+    out = []
+    for ax in spec or ():
+        for a in ((ax,) if isinstance(ax, str) else tuple(ax or ())):
+            if a not in out:
+                out.append(a)
+    return tuple(out)
+
+
+def replicas(spec, mesh) -> int:
+    """The ranks of ``mesh`` that hold the same block of a leaf cut by
+    ``spec``."""
+    return mesh.size // math.prod(mesh.shape[a] for a in cut_axes(spec))
+
+
+def global_norm(tree: Sequence[torch.Tensor], specs=None, mesh=None) -> torch.Tensor:
+    """The L2 norm of all leaves together, in float32. Under ``mesh`` the
+    leaves are a rank's blocks cut by ``specs`` (one live spec, or None,
+    a leaf): each block's sum of squares over its ``replicas``, summed over
+    every axis by one all-reduce, so each element counts once."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree))
+    total = sum(torch.sum(torch.square(x.to(torch.float32))) / replicas(spec, mesh)
+                for x, spec in zip(tree, specs))
+    return torch.sqrt(mesh.all_reduce(total, mesh.axis_names))
 
 
 def adamw_init(params: Sequence[torch.Tensor]):
     zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
     return {"m": zeros, "v": [z.clone() for z in zeros],
             "step": torch.zeros((), dtype=torch.int32, device=params[0].device)}
+
+
+PASS_ELEMENTS = 1 << 26    # elements an AdamW pass or a gradient sync's buffer takes at once
+
+
+def flat_passes(sizes, limit=PASS_ELEMENTS):
+    """The leaves of ``sizes`` elements as passes of at most ``limit``
+    elements: each pass a list of (leaf, start, stop) runs of the leaves'
+    flattened elements, in order, a leaf larger than ``limit`` cut into
+    runs."""
+    passes, cur, n = [], [], 0
+    for i, size in enumerate(sizes):
+        for a in range(0, max(size, 1), limit):
+            b = min(size, a + limit)
+            if cur and n + b - a > limit:
+                passes.append(cur)
+                cur, n = [], 0
+            cur.append((i, a, b))
+            n += b - a
+    return passes + ([cur] if cur else [])
 
 
 @torch.no_grad()
@@ -59,13 +115,33 @@ def adamw_update(grads: Sequence[torch.Tensor], state, params: List[torch.Tensor
     """One AdamW step: updates ``params`` and the state's moments in place
     and returns ``(params, state)`` with the state's step advanced.
     ``decay[i]`` says whether parameter i takes weight decay; by default
-    those of two or more dimensions, the reference's rule on its leaves."""
+    those of two or more dimensions, the reference's rule on its leaves.
+    The leaves are updated in passes of at most ``PASS_ELEMENTS`` of their
+    flattened elements (``flat_passes``), so the float32 temporaries of a
+    pass stay a few hundred MB whatever the model's size; the arithmetic
+    is elementwise, so the passes change no bit."""
     step = state["step"] + 1
     sf = step.to(torch.float32)
     bc1 = 1 - torch.pow(b1, sf)
     bc2 = 1 - torch.pow(b2, sf)
-    grads = [g.to(torch.float32) for g in grads]
     m, v = state["m"], state["v"]
+    if decay is None:
+        decay = [p.dim() >= 2 for p in params]
+    if len(decay) != len(params):
+        raise ValueError(f"adamw_update: {len(decay)} decay flags for {len(params)} parameters")
+    grads = [g.reshape(-1) for g in grads]
+    flat = lambda ts, run: [ts[i].view(-1)[a:b] for i, a, b in run]
+    for run in flat_passes([p.numel() for p in params]):
+        _adamw_pass([grads[i][a:b] for i, a, b in run], flat(m, run), flat(v, run),
+                    flat(params, run), [decay[i] for i, _, _ in run], lr, bc1, bc2,
+                    b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    return params, {"m": m, "v": v, "step": step}
+
+
+def _adamw_pass(grads, m, v, params, decay, lr, bc1, bc2, *, b1, b2, eps, weight_decay):
+    """AdamW on one pass's runs of the leaves (flat views, updated in
+    place)."""
+    grads = [g.to(torch.float32) for g in grads]
     torch._foreach_mul_(m, b1)
     torch._foreach_add_(m, torch._foreach_mul(grads, 1 - b1))
     torch._foreach_mul_(v, b2)
@@ -79,10 +155,6 @@ def adamw_update(grads: Sequence[torch.Tensor], state, params: List[torch.Tensor
     update = torch._foreach_div(m, bc1)
     torch._foreach_div_(update, denom)
     del denom
-    if decay is None:
-        decay = [p.dim() >= 2 for p in params]
-    if len(decay) != len(params):
-        raise ValueError(f"adamw_update: {len(decay)} decay flags for {len(params)} parameters")
     if weight_decay:
         idx = [i for i, d in enumerate(decay) if d]
         if idx:   # wd * p in float32, for bf16 leaves too
@@ -95,7 +167,6 @@ def adamw_update(grads: Sequence[torch.Tensor], state, params: List[torch.Tensor
     for i, p in enumerate(params):
         if p.dtype != torch.float32:   # p - lr (update + wd p) in float32, rounded once
             p.copy_(p.to(torch.float32) - update[i])
-    return params, {"m": m, "v": v, "step": step}
 
 
 class Leaf(NamedTuple):
@@ -145,28 +216,72 @@ def adafactor_init(params: Sequence[torch.Tensor], leaves=None):
     return {"slots": slots, "step": torch.zeros((), dtype=torch.int32, device=params[0].device)}
 
 
-def _moments(g, vr, vc, beta, eps):
+class _Means:
+    """Means over the dims of a leaf of shape ``whole`` that a rank holds
+    as a block cut by ``spec`` (its live spec, a stacked leaf's with its
+    group axis; None without a mesh): over a dim cut by some axes, the
+    block's sum all-reduced over them and divided by the whole dim."""
+
+    def __init__(self, whole, spec=None, mesh=None):
+        self.spec, self.whole, self.mesh = spec, whole, mesh
+        self.axes = cut_axes(spec)
+
+    def over(self, x, dim, leaf_dim, keepdim=False):
+        """The mean of ``x`` over its ``dim``, which is the leaf's
+        ``leaf_dim``."""
+        ax = self.spec[leaf_dim] if self.spec is not None else None
+        if ax is None:
+            return x.mean(dim, keepdim=keepdim)
+        return self.mesh.all_reduce(x.sum(dim, keepdim=keepdim), ax) / self.whole[leaf_dim]
+
+    def total(self, s):
+        """A sum over the block's elements, summed over the leaf's ranks."""
+        return self.mesh.all_reduce(s, self.axes) if self.axes else s
+
+    def all(self, x):
+        """The mean of ``x`` over the whole leaf."""
+        return self.total(x.sum()) / math.prod(self.whole) if self.axes else x.mean()
+
+
+def _leaf_means(leaf, params, mesh):
+    """The ``_Means`` of a leaf: its live spec and whole shape from its
+    parameters (``p.spec``, ``p.whole``) under ``mesh``, with the group
+    axis of a stacked leaf whose layers are stacked into one tensor."""
+    p = params[leaf.index[0]]
+    spec = getattr(p, "spec", None) if mesh is not None else None
+    whole = tuple(getattr(p, "whole", p.shape))
+    if leaf.stacked and not _layerwise(leaf, params):
+        whole = (len(leaf.index),) + whole
+        spec = None if spec is None else (None,) + tuple(spec)
+    return _Means(whole, spec, mesh)
+
+
+def _moments(g, vr, vc, beta, eps, means):
     """The factored second moments' new values for the f32 gradient ``g``."""
     g2 = g * g + eps
-    return beta * vr + (1 - beta) * g2.mean(-1), beta * vc + (1 - beta) * g2.mean(-2)
+    return (beta * vr + (1 - beta) * means.over(g2, -1, -1),
+            beta * vc + (1 - beta) * means.over(g2, -2, -2))
 
 
-def _scaled(g, vr, vc, eps):
+def _scaled(g, vr, vc, eps, means):
     """The unclipped update of ``g`` by its factored moments."""
-    rfac = torch.rsqrt(vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps))
+    rfac = torch.rsqrt(vr / torch.clamp(means.over(vr, -1, -2, keepdim=True), min=eps))
     return g * rfac[..., None] * torch.rsqrt(vc)[..., None, :]
 
 
 @torch.no_grad()
 def adafactor_update(grads: Sequence[torch.Tensor], state, params: List[torch.Tensor], lr, *,
-                     decay=0.8, eps=1e-30, clip_thresh=1.0, weight_decay=0.0, leaves=None):
+                     decay=0.8, eps=1e-30, clip_thresh=1.0, weight_decay=0.0, leaves=None,
+                     mesh=None):
     """One Adafactor step, the reference's: ``beta = 1 - step ** -decay``,
     second moments of ``g * g + eps`` (factored for a leaf of rank 2 or
     more), the update clipped to an RMS of ``clip_thresh`` over its leaf,
     ``p - lr * update`` (``- lr * weight_decay * p`` for a leaf of rank 2
     or more when ``weight_decay``) in float32, rounded to the parameter's
     dtype once. Updates ``params`` and the state in place; returns
-    ``(params, state)`` with the step advanced."""
+    ``(params, state)`` with the step advanced. Under ``mesh`` the
+    parameters are a rank's blocks (their ``spec`` and ``whole``) and the
+    means over the whole leaf are taken across the ranks (``_Means``)."""
     step = state["step"] + 1
     beta = 1.0 - torch.pow(step.to(torch.float32), -decay)
     slots = []
@@ -181,31 +296,33 @@ def adafactor_update(grads: Sequence[torch.Tensor], state, params: List[torch.Te
         ps = [params[i] for i in leaf.index]
         gs = [grads[i] for i in leaf.index]
         wd = bool(weight_decay) and leaf.rank >= 2
+        means = _leaf_means(leaf, params, mesh)
         if _layerwise(leaf, params):
             # the moments layer by layer, and the update's squares; then the
             # same update again, clipped and applied (one layer's f32
             # gradient and update at a time)
             f32 = lambda g: g.to(torch.float32)
-            moments = [_moments(f32(g), r, c, beta, eps)
+            moments = [_moments(f32(g), r, c, beta, eps, means)
                        for g, r, c in zip(gs, slot["vr"], slot["vc"])]
-            sq = sum(torch.sum(torch.square(_scaled(f32(g), r, c, eps)))
-                     for g, (r, c) in zip(gs, moments))
-            scale = torch.clamp(torch.sqrt(sq / sum(g.numel() for g in gs)) / clip_thresh, min=1.0)
+            sq = means.total(sum(torch.sum(torch.square(_scaled(f32(g), r, c, eps, means)))
+                                 for g, (r, c) in zip(gs, moments)))
+            scale = torch.clamp(torch.sqrt(sq / (len(gs) * math.prod(means.whole)))
+                                / clip_thresh, min=1.0)
             for p, g, (r, c) in zip(ps, gs, moments):
-                apply(p, _scaled(f32(g), r, c, eps), scale, wd)
+                apply(p, _scaled(f32(g), r, c, eps, means), scale, wd)
             slots.append({"vr": [r for r, _ in moments], "vc": [c for _, c in moments]})
             continue
         gs = [g.to(torch.float32) for g in gs]
         g = torch.stack(gs) if leaf.stacked else gs[0]
         if leaf.rank >= 2:
-            vr, vc = _moments(g, slot["vr"], slot["vc"], beta, eps)
-            update = _scaled(g, vr, vc, eps)
+            vr, vc = _moments(g, slot["vr"], slot["vc"], beta, eps, means)
+            update = _scaled(g, vr, vc, eps, means)
             slots.append({"vr": vr, "vc": vc})
         else:
             v = beta * slot["v"] + (1 - beta) * (g * g + eps)
             update = g * torch.rsqrt(v)
             slots.append({"v": v})
-        scale = torch.clamp(torch.sqrt(torch.mean(update * update)) / clip_thresh, min=1.0)
+        scale = torch.clamp(torch.sqrt(means.all(update * update)) / clip_thresh, min=1.0)
         for k, p in enumerate(ps):
             apply(p, update[k] if leaf.stacked else update, scale, wd)
     return params, {"slots": slots, "step": step}
