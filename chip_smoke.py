@@ -8,8 +8,8 @@
 Phases, one line or more each, any failure exits non-zero before the last
 line (``--timing-only`` runs only the build and the kernel timings, of the
 port under ``--src``, so two trees' kernels can be timed in one session;
-``--sharded-only`` runs only the build and phases 16, 16t and 16g, their
-NCCL half over every visible card, and prints no result):
+``--sharded-only`` runs only the build and phases 16, 16t, 16g and 16b,
+their NCCL half over every visible card, and prints no result):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
@@ -229,17 +229,15 @@ NCCL half over every visible card, and prints no result):
    then the same sweep at bench_compression.py's size (width 0.5, 32 px);
    no kernel launched, seconds and peak memory printed;
 15g. the dry-run without running (``python -m repro_torch.launch.dryrun
-   --arch A --both-meshes`` for every arch, all on meta, in two background
-   processes started after the build, so their minutes of host time run
-   beside the card's phases): all 80 records of ARCH_IDS x INPUT_SHAPES x
+   --arch A --both-meshes`` for every arch, all on meta, in four background
+   processes at a lower priority started before the build, so their
+   minutes of host time run beside the card's phases): all 80 records of ARCH_IDS x INPUT_SHAPES x
    both production meshes; one line a combination at each arch's
    ``DRYRUN_SHAPES`` shape with the params' and the optimizer state's or
    cache's bytes a device, each and together against the card's 80 GB,
    and the step's flops, dot_flops and bytes_accessed, every figure
-   positive and finite; the prefill, decode and long_500k records of the
-   six archs whose blocks all have a tensor-parallel program carry rank
-   0's collectives and memory analysis (36), every other record null with
-   a note (44); the background's seconds;
+   positive and finite; every record carries rank 0's collectives and
+   memory analysis; the background's seconds;
 15h. the byte rules against the card: at a 1 x 1 mesh every spec is
    unsharded, so the rules' bytes of qwen3-1.7b's parameters (built on
    the card by ``init_params``, as the serving entries build them) and of
@@ -333,12 +331,46 @@ NCCL half over every visible card, and prints no result):
    collective log of a step equal to a ``CountingMesh``'s on meta, and a
    step's ``max_memory_allocated`` against the meta count's peak; the
    train steps launch no kernel;
+16b. the other block types' tensor-parallel programs (its ranks' parts run
+   in phase 16's two launches): (a) mamba2-1.3b (4 layers), recurrentgemma-9b
+   (one rec, rec, lattn group), seamless-m4t-large-v2 (2 encoder and 2 decx
+   layers) and llama-3.2-vision-90b (one group of 4 dense and 1 xattn
+   layer) at their published widths, bf16, each served through
+   ``serve(mesh=...)`` over the four gloo ranks, a (4, 63) prefill with
+   drawn aux_embeds and 4 greedy decode steps (68 slots, split by length;
+   llama-vision (4, 62) and 1 step, its fsdp gathers staged through the
+   host a forward):
+   prefill ms, decode ms a token, peak memory a rank, exactly the path's
+   ssd_intra and decode_attention launches a rank; the same draws in
+   float32 with every cross-attention gate at 1.0 held to one process on
+   the card fed the ranks' tokens (logits within 1e-5 of max|logit|, every
+   greedy token equal); (b) mamba2-1.3b at 2 layers and recurrentgemma-9b
+   (with fsdp) at 1, float32, AdamW, one step on a (4, 512) batch: seconds a
+   step, peak memory a rank, step 1's loss, ce, aux and grad norm within
+   1e-5 relative of one process's, exactly the path's ssd_intra and
+   ssd_intra_backward launches; (c) every rank's collective logs, serving
+   (bf16 and float32) and training, equal to a ``CountingMesh``'s on meta,
+   where the kernel calls each rank's program makes are recorded (as many a
+   kernel as the rank launched); then (a)-(c) over the NCCL rank(s); (d)
+   ``ssd_intra``, its backward and ``decode_attention`` at every shape so
+   recorded (the prefills' ssd_intra at (2, 1, 63, 32, 64, 128) a (2, 2)
+   rank, the train steps' forward and backward at (2, 2, 256, 32, 64, 128),
+   decode_attention with its log-sum-exp at recurrentgemma's (2, 1024, 1,
+   16, 256) windowed ring run, seamless's (2, 34, 16, 1, 64) and
+   llama-vision's (2, 32, 8, 8, 128), and the NCCL rank's whole shapes),
+   then at the rank shapes of a (2, 1024) prefill (H 32 and 16) and of a
+   (4, 2048) + 32 serve: against the twin (2e-5 + 2e-5 |plain|; the ssd
+   forward 1e-5 of max|plain|, a gradient 1e-5 of its largest) and float64
+   (1e-5 + 1e-5 |exact|), timed beside the bound (decode_attention's counts
+   the cache at its valid slots only) and, for decode_attention, aten's
+   memory-efficient attention with the log-sum-exp;
 17. the card's name and power limit again, the kernels as one JSON line
-   (phases 16 and 16t's launches summed over the ranks), then the result as the
-   last line.
+   (phases 16, 16t and 16b's launches summed over the ranks), then the result
+   as the last line.
 """
 import argparse
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -3394,12 +3426,16 @@ def update_moves(mahppo, optim, fns, agent, traj, last_v, idx, device, dtype):
 
 
 # ------------------------------------------- the dry-run and batched evaluation
-# The dry-run's two background workers, each a list of archs, the costliest
-# (prefill_32k's counts) spread over both.
-DRYRUN_WORKERS = (("kimi-k2-1t-a32b", "qwen2-7b", "stablelm-1.6b", "mamba2-1.3b",
-                   "seamless-m4t-large-v2"),
-                  ("qwen3-moe-30b-a3b", "phi4-mini-3.8b", "qwen3-1.7b", "llama-3.2-vision-90b",
-                   "recurrentgemma-9b"))
+# The dry-run's four background workers, each a list of archs, balanced by
+# the seconds each arch's 8 records took on a CPU host (every record counts
+# rank 0's program too: llama-3.2-vision-90b's prefill_32k the most); they
+# run at a lower priority (nice 10), so the card's host-bound phases keep
+# their cores
+DRYRUN_WORKERS = (("llama-3.2-vision-90b", "mamba2-1.3b"),
+                  ("kimi-k2-1t-a32b", "stablelm-1.6b"),
+                  ("qwen3-moe-30b-a3b", "phi4-mini-3.8b"),
+                  ("qwen2-7b", "qwen3-1.7b", "seamless-m4t-large-v2", "recurrentgemma-9b"))
+DRYRUN_NICE = 10
 DRYRUN_WAIT_S = 900
 _DRYRUN_SCRIPT = """
 import sys
@@ -3417,7 +3453,8 @@ sys.exit(1 if failed else 0)
 class DryrunJobs:
     """``python -m repro_torch.launch.dryrun --arch A --both-meshes`` for
     every arch of ``DRYRUN_WORKERS``, in one background process a worker
-    (one CPU thread each, no card: everything is counted on meta), writing
+    (one CPU thread each at nice ``DRYRUN_NICE``, no card: everything is
+    counted on meta), writing
     the 80 records to a temporary directory; ``stop`` ends any still
     running and removes the directory."""
 
@@ -3429,7 +3466,8 @@ class DryrunJobs:
         self.t0 = time.perf_counter()
         self.logs = [open(self.out / f"worker{i}.log", "w") for i in range(len(DRYRUN_WORKERS))]
         self.procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT, str(self.out),
-                                        *archs], env=env, stdout=log, stderr=subprocess.STDOUT)
+                                        *archs], env=env, stdout=log, stderr=subprocess.STDOUT,
+                                       preexec_fn=lambda: os.nice(DRYRUN_NICE))
                       for archs, log in zip(DRYRUN_WORKERS, self.logs)]
 
     def wait(self):
@@ -3456,20 +3494,17 @@ class DryrunJobs:
         shutil.rmtree(self.out, ignore_errors=True)
 
 
-def phase_dryrun(jobs, arch_ids, sharding):
+def phase_dryrun(jobs, arch_ids):
     """15g: the dry-run's records (``DryrunJobs``, counted on meta in the
     background since the build): all 80 combinations of ARCH_IDS x
     INPUT_SHAPES x both production meshes written; one line a combination
     at ``DRYRUN_SHAPES``' shape of each arch with the params' and the
     optimizer state's or cache's bytes a device, each and together against
-    the card's 80 GB, the step's counts and, where a rank's program exists,
-    its collectives and memory; every figure positive and finite; the
-    records of the archs whose blocks all have a tensor-parallel program
-    carry ``collectives`` and ``memory_analysis`` (6 archs x 4 shapes x 2
-    meshes, the train steps among them), every other record null with a
-    note; the background's seconds."""
-    from repro_torch.configs import INPUT_SHAPES, get_config
-    from repro_torch.launch.mesh import make_production_mesh
+    the card's 80 GB, the step's counts and rank 0's collectives and
+    memory; every figure positive and finite; every record carries
+    ``collectives`` and ``memory_analysis`` (every block type has a
+    tensor-parallel program); the background's seconds."""
+    from repro_torch.configs import INPUT_SHAPES
     check(set(DRYRUN_SHAPES) == set(arch_ids), "DRYRUN_SHAPES must name every arch once")
     check(set(DRYRUN_SHAPES.values()) == set(INPUT_SHAPES),
           "DRYRUN_SHAPES must take every input shape")
@@ -3479,21 +3514,11 @@ def phase_dryrun(jobs, arch_ids, sharding):
     recs = jobs.records()
     want = {f"{a}__{s}__{p}.json" for a in arch_ids for s in INPUT_SHAPES for p in ("pod1", "pod2")}
     check(set(recs) == want, f"dryrun: records missing {sorted(want - set(recs))}")
-    sharded = {a for a in arch_ids
-               if not sharding.unsharded_blocks(get_config(a), make_production_mesh())}
-    full = null = 0
     for name, rec in sorted(recs.items()):
-        counted = rec["arch"] in sharded
-        if counted:
-            check(rec["collectives"]["moved_bytes"] > 0
-                  and rec["memory_analysis"]["peak_memory_in_bytes"] > 0,
-                  f"dryrun {name}: a rank's program counted nothing: {rec}")
-            full += 1
-        else:
-            check(rec["collectives"] is None and rec["memory_analysis"] is None
-                  and set(rec["notes"]) == {"collectives", "memory_analysis"},
-                  f"dryrun {name}: collectives and memory analysis must be null with notes")
-            null += 1
+        check(rec["collectives"]["moved_bytes"] > 0
+              and rec["memory_analysis"]["peak_memory_in_bytes"] > 0
+              and set(rec["notes"]) == {"memory_analysis"},
+              f"dryrun {name}: a rank's program counted nothing: {rec}")
         if DRYRUN_SHAPES[rec["arch"]] != rec["shape"]:
             continue
         held = "opt" if "opt_bytes_per_device" in rec else "cache"
@@ -3505,23 +3530,18 @@ def phase_dryrun(jobs, arch_ids, sharding):
               f"dryrun {name}: {rec}")
         fits = ", ".join(f"{k} {v} B {'fits' if v <= CARD_BYTES else 'does not fit'}"
                          for k, v in figures.items())
-        rank = ("collectives and memory null by design" if not counted else
-                f"rank 0's program: moved_bytes {rec['collectives']['moved_bytes']:.6e} in "
-                f"{int(sum(v for k, v in rec['collectives'].items() if k.endswith('_count')))} "
-                f"collectives, peak memory {rec['memory_analysis']['peak_memory_in_bytes']} B "
-                f"(arguments {rec['memory_analysis']['argument_size_in_bytes']} B)")
         print(f"dryrun: {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['n_devices']} devices): "
               f"{fits} in 80 GB ({CARD_BYTES} B) a device; flops {rec['flops']:.6e}, dot_flops "
               f"{rec['dot_flops']:.6e}, bytes_accessed {rec['bytes_accessed']:.6e}, counted in "
-              f"{rec['count_s']} s; {rank}", flush=True)
-    check(full == len(sharded) * len(INPUT_SHAPES) * 2, f"dryrun: {full} records with "
-          f"collectives and memory, expected {len(sharded) * len(INPUT_SHAPES) * 2}")
+              f"{rec['count_s']} s; rank 0's program: moved_bytes "
+              f"{rec['collectives']['moved_bytes']:.6e} in "
+              f"{int(sum(v for k, v in rec['collectives'].items() if k.endswith('_count')))} "
+              f"collectives, peak memory {rec['memory_analysis']['peak_memory_in_bytes']} B "
+              f"(arguments {rec['memory_analysis']['argument_size_in_bytes']} B)", flush=True)
     print(f"dryrun: {len(recs)} records ({len(arch_ids)} archs x {len(INPUT_SHAPES)} shapes x "
-          f"2 meshes) in {seconds:.1f} s of background time ({len(DRYRUN_WORKERS)} workers; "
-          f"waited {time.perf_counter() - t0:.1f} s here): {full} carry collectives and "
-          f"memory_analysis ({len(sharded)} archs x {len(INPUT_SHAPES)} shapes x 2 meshes), "
-          f"{null} null by design (archs with {sorted(set(arch_ids) - sharded)})",
-          flush=True)
+          f"2 meshes), every one with collectives and memory_analysis, in {seconds:.1f} s of "
+          f"background time ({len(DRYRUN_WORKERS)} workers; waited "
+          f"{time.perf_counter() - t0:.1f} s here)", flush=True)
 
 
 def storage_bytes(tensors):
@@ -4053,7 +4073,7 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     torch.cuda.empty_cache()
     gloo = spawn(shard_rank, 4, "gloo", SHARD_MESH,
                  ("ep_small", "serve", "serve32", "fleet", "eval") + TP_PARTS["gloo"]
-                 + TG_PARTS["gloo"],
+                 + TG_PARTS["gloo"] + TB_PARTS,
                  dict({"cfg": cfg, "run": run, "tp_cfg": tp_cfg_, "tp_run": TP_SERVE}, **tg),
                  device=dev)
     print(f"sharded: {len(gloo)} ranks, backend {gloo[0]['backend']}, all on {gloo[0]['device']},"
@@ -4145,7 +4165,7 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     mesh_spec = nccl_mesh(world)
     torch.cuda.empty_cache()
     nccl = spawn(shard_rank, world, "nccl", mesh_spec, ("serve", "serve32", "eval")
-                 + TP_PARTS["nccl"] + TG_PARTS["nccl"],
+                 + TP_PARTS["nccl"] + TG_PARTS["nccl"] + TB_PARTS,
                  dict({"cfg": cfg, "run": run, "agent": gloo[0]["fleet"][2][0],
                        "tp_cfg": tp_cfg_, "tp_run": TP_SERVE}, **tg))
     print(f"sharded: {world} rank(s), backend {nccl[0]['backend']}, one a card "
@@ -4473,8 +4493,10 @@ def lse_library(q, k, v, pos, idx):
     qh = q.view(b, hkv, hq // hkv, d)
     kh, vh = (t.permute(0, 2, 1, 3) for t in (k, v))
     valid = (pos >= 0) & (pos <= idx)
-    bias = torch.zeros((b, hkv, hq // hkv, k.shape[1]), dtype=q.dtype,
-                       device=q.device).masked_fill(~valid[:, None, None, :], float("-inf"))
+    # the call wants the bias's strides in multiples of 8: a view of a padded one
+    s = k.shape[1]
+    bias = torch.zeros((b, hkv, hq // hkv, -(-s // 8) * 8), dtype=q.dtype, device=q.device)
+    bias = bias[..., :s].masked_fill_(~valid[:, None, None, :], float("-inf"))
     return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(qh, kh, vh, bias, True)
 
 
@@ -4485,14 +4507,32 @@ def lse_library_heads(out, lse):
     return out.reshape(b, hkv * g, d), lse[..., :g].reshape(b, hkv * g)
 
 
+def decode_bound(q, k, v, pos, idx, window=0, scales=(), lse=True):
+    """decode_attention's bound on these inputs, (ms, by): q and pos read
+    once, k, v (and an int8 cache's scales) read only at the slots valid at
+    ``idx`` (and inside ``window``), the f32 output (and with ``lse`` the
+    log-sum-exp) written once; 4 D flops a query head and valid slot."""
+    valid = (pos >= 0) & (pos <= idx)
+    if window:
+        valid &= pos > idx - window
+    n_valid = int(valid.sum())
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    per_slot = hkv * d * (k.element_size() + v.element_size()) \
+        + sum(hkv * t.element_size() for t in scales)
+    n_bytes = (q.numel() * q.element_size() + pos.numel() * pos.element_size()
+               + n_valid * per_slot + 4 * b * hq * (d + lse))
+    return bound(n_bytes, 4 * n_valid * hq * d)
+
+
 def phase_tp_kernel(dev, kda):
     """(c) ``decode_attention`` with its log-sum-exp at a rank's shape of
     the tensor-parallel qwen2-7b decode, (2, 1040, 4, 7, 128) bf16, and
     its int8 cache, and at phase 16's qwen3-moe rank's (2, 1040, 4, 8,
     128) bf16: output and log-sum-exp held to the twin within 2e-5 + 2e-5
     |plain| (an empty row's -1e30 exactly); timed with and without it
-    beside its bound (bytes: k, v, pos and the scales read once, the output
-    and the log-sum-exp written once) and, for a bf16 cache, beside the
+    beside its bound (``decode_bound``: k, v and the scales read at the
+    valid slots only) and, for a bf16 cache, beside the
     library call that also returns the log-sum-exp (``lse_library``; its
     agreement with the kernel on the rows that have a valid slot printed);
     qwen3's shape without it against PERF.md's 0.01843 ms."""
@@ -4527,9 +4567,7 @@ def phase_tp_kernel(dev, kda):
             ms = device_ms(lambda: kda.decode_attention(q, k, v, pos, idx, **scales))
             plain = device_ms(lambda: kda.decode_attention_plain(q, k, v, pos, idx,
                                                                  return_lse=True, **scales))
-        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, pos) + tuple(scales.values()))
-        n_bytes += o.numel() * 4 + lse.numel() * 4
-        bound_ms, by = bound(n_bytes, 4 * q.numel() * shape[1])
+        bound_ms, by = decode_bound(q, k, v, pos, idx, scales=tuple(scales.values()))
         library = "none (no one call takes the int8 cache's scales)"
         if kv_dtype == torch.bfloat16:
             call = lse_library(q, k, v, pos, idx)
@@ -5029,11 +5067,548 @@ def phase_sharded_train(dev, init_params, mesh_lib, gloo, nccl, nccl_spec, cfgs,
     check(not problems, "; ".join(problems))
 
 
+# ---------------------------------- 16b: the other block types' tensor-parallel programs
+# each arch at its published widths, cut in depth: mamba2-1.3b at 4 of 48
+# layers; recurrentgemma-9b at one (rec, rec, lattn) group; seamless at 2
+# encoder and 2 decx layers; llama-3.2-vision-90b at one group (4 dense, 1
+# xattn); (layers, encoder layers)
+TB_ARCHS = {"mamba2-1.3b": (4, None), "recurrentgemma-9b": (3, None),
+            "seamless-m4t-large-v2": (2, 2), "llama-3.2-vision-90b": (5, None)}
+# a 63-token prompt and 4 greedy decode steps into 68 slots, which the model
+# axis splits by length (the reference's first rule) on every arch;
+# llama-vision takes a 62-token prompt and 1 step into 64 slots: over the
+# gloo ranks each of its forwards gathers ~4.3 GB of fsdp blocks through the
+# host (6.6 s a bf16 step)
+TB_SERVE = dict(batch=4, prompt_len=63, gen=5, requests=1, seed=0)
+TB_RUNS = {"llama-3.2-vision-90b": dict(prompt_len=62, gen=2)}
+TB_LOGIT_TOL = 1e-5                        # x max|logit|, float32, against one process
+TB_GATE = 1.0                              # every cross-attention gate in the float32 check
+# trained at full width, float32, AdamW: mamba2-1.3b at 2 layers (the ssd_intra
+# backward on a rank's heads) and recurrentgemma-9b at 1 (a rec layer), with
+# fsdp: four ranks share the card with phase 16g's one-process moments (~14 GB
+# in the launching process), and f32 AdamW state for recurrentgemma's 256 000-row
+# embedding and head cut over "model" alone would take ~17 GB a rank (a step's
+# peak, counted on meta: 12.36 GiB a rank at 1 layer with fsdp, 13.90 at 2)
+TB_TRAIN = {"mamba2-1.3b": dict(n_layers=2), "recurrentgemma-9b": dict(n_layers=1, fsdp=True)}
+TB_TRAIN_RUN = dict(batch=4, seq=512, steps=1, seed=0)   # step 1's metrics are held
+TB_TRAIN_TOL = 1e-5                        # step 1's loss, ce, aux and grad norm, relative
+TB_PARTS = ("tb_serve", "tb_train")
+# the kernels, besides the shapes 16b's ranks give them (recorded on meta,
+# ``kernel_calls``), at the rank shapes of a longer serve, timing points:
+# ssd_intra (B, NC, Q, H, P, N) of mamba2-1.3b's (2, 1024) prefill, a (2, 2)
+# rank's 32 heads (B 1) and four ranks on "model"'s 16 (B 2); decode_attention
+# (B, S, Hkv, G, D, window) of a (2, 2) rank's run of a (4, 2048) + 32 serve
+TB_SSD_SHAPES = {"a (2, 2) rank, H 32": (1, 4, 256, 32, 64, 128),
+                 "four ranks on model, H 16": (2, 4, 256, 16, 64, 128)}
+TB_DECODE_SHAPES = {"recurrentgemma-9b": (2, 1024, 1, 16, 256, 2048),
+                    "seamless-m4t-large-v2": (2, 1040, 16, 1, 64, 0),
+                    "llama-3.2-vision-90b": (2, 1040, 8, 8, 128, 0)}
+# the wrappers whose calls a rank's program counted on meta records
+TB_SPIED = (("ssd_intra", "ssd_intra"), ("ssd_intra", "ssd_intra_backward"),
+            ("decode_attn", "decode_attention"))
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """A list to which every call made inside to a wrapper of ``TB_SPIED``
+    adds (name, its tensor arguments' (shape, dtype), its window, whether
+    it returns the log-sum-exp). On meta a wrapper runs its twin, so a
+    rank's program counted there gives the calls, at their shapes, that
+    the rank makes on the card."""
+    import importlib
+    calls, saved = [], []
+    for mod_name, fn in TB_SPIED:
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        real = getattr(mod, fn)
+
+        def spy(*args, _real=real, _fn=fn, **kw):
+            tensors = [a for a in (*args, *kw.values()) if torch.is_tensor(a)]
+            calls.append((_fn, tuple((tuple(t.shape), t.dtype) for t in tensors),
+                          kw.get("window", 0), kw.get("return_lse", False)))
+            return _real(*args, **kw)
+        saved.append((mod, fn, real))
+        setattr(mod, fn, spy)
+    try:
+        yield calls
+    finally:
+        for mod, fn, real in saved:
+            setattr(mod, fn, real)
+
+
+def tb_run(arch):
+    """``TB_SERVE`` with ``arch``'s own prompt and generated tokens."""
+    return dict(TB_SERVE, **TB_RUNS.get(arch, {}))
+
+
+def tb_cfg(arch):
+    """``arch`` at its published widths and ``TB_ARCHS``' depth, bf16."""
+    from repro_torch.configs import get_config
+    layers, enc = TB_ARCHS[arch]
+    cfg = get_config(arch).replace(n_layers=layers)
+    return cfg if enc is None else cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                                           n_layers=enc))
+
+
+def tb_aux(cfg, run):
+    """The whole batch's aux_embeds (B, n_aux_tokens, d_model), drawn on
+    the host; None for an arch that reads none."""
+    if not cfg.n_aux_tokens:
+        return None
+    return torch.randn((run["batch"], cfg.n_aux_tokens, cfg.d_model),
+                       generator=torch.Generator().manual_seed(run["seed"] + 2))
+
+
+def tb_prompt(cfg, run):
+    """The prompt ``serve`` draws for ``run``, on the host."""
+    return torch.randint(0, cfg.vocab_size, (run["batch"], run["prompt_len"]),
+                         generator=torch.Generator().manual_seed(run["seed"] + 1))
+
+
+def tb_model(cfg, dev, seed):
+    """``cfg``'s seeded draws (under the current mesh, the rank's blocks)
+    with every cross-attention gate set to ``TB_GATE`` (they start at zero,
+    where the cross-attention would add nothing)."""
+    from repro_torch.models import init_params
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gate"):
+                p.fill_(TB_GATE)
+    return model
+
+
+@torch.inference_mode()
+def tb_steps(model, cfg, tokens, aux, run, fed=None):
+    """A prefill and ``run["gen"] - 1`` decode steps, greedy or fed ``fed``
+    (b, gen): (the prefill's and each step's float32 logits, the tokens,
+    the collective log)."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import collective_log
+    slots = run["prompt_len"] + run["gen"]
+    with collective_log() as log:
+        logits, cache = steps_lib.make_prefill_step(cfg, slots)(model, tokens, aux)
+        outs, toks = [logits.float()], [logits.argmax(-1)[:, None]]
+        step = steps_lib.make_serve_step(cfg)
+        for i in range(run["gen"] - 1):
+            tok = toks[-1] if fed is None else fed[:, i:i + 1]
+            logits, cache = step(model, cache, tok, run["prompt_len"] + i)
+            outs.append(logits.float())
+            toks.append(logits.argmax(-1)[:, None])
+    return torch.stack(outs), torch.cat(toks, 1), list(log)
+
+
+def shard_tb_serve(mesh, dev, ctx):
+    """Each of ``TB_ARCHS`` served through ``serve(mesh=...)`` at
+    ``TB_SERVE`` in bf16 with drawn aux_embeds (its figures, peak memory,
+    launches and collective log); then its float32 draws, every gate at
+    ``TB_GATE``, prefilled and decoded greedily on this rank's rows (the
+    logits, tokens and collective log)."""
+    import gc
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import collective_log
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import meshctx
+    cuda = dev.type == "cuda"
+    out = {}
+    for arch in TB_ARCHS:
+        cfg, run = tb_cfg(arch), tb_run(arch)
+        aux = tb_aux(cfg, run)
+        _build.reset_launches()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with collective_log() as log:
+            res = serve(cfg, device=dev, log=lambda *a: None, mesh=mesh,
+                        aux_embeds=None if aux is None else aux.to(dev), **run)
+        if cuda:
+            torch.cuda.synchronize()
+        st = res.stats[0]
+        r = {k: st[k] for k in ("prefill_ms", "decode_ms_per_token", "cache_bytes")}
+        r.update(build_s=res.build_s, tokens=st["tokens"].cpu(), log=list(log),
+                 peak=torch.cuda.max_memory_allocated() if cuda else 0,
+                 launches={k: v for k, v in _build.LAUNCHES.items() if v},
+                 entry=[{n: tuple(t.shape) for n, t in e.items()} for e in res.cache])
+        del res, st
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        c32 = f32_of(cfg)
+        mine = tg_rows(mesh, dict({"tokens": tb_prompt(cfg, run)},
+                                  **({} if aux is None else {"aux": aux})), dev)
+        with meshctx.use_mesh(mesh):
+            model = tb_model(c32, dev, run["seed"])
+            logits, tokens, log32 = tb_steps(model, c32, mine["tokens"], mine.get("aux"), run)
+        r["f32"] = (logits.cpu(), tokens.cpu(), log32)
+        del model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        out[arch] = r
+    return out
+
+
+def tb_train_cfg(arch):
+    return f32_of(tb_cfg(arch)).replace(**TB_TRAIN[arch])
+
+
+def shard_tb_train(mesh, dev, ctx):
+    """Each of ``TB_TRAIN`` at full width, float32, trained
+    ``TB_TRAIN_RUN["steps"]`` steps on this rank's rows of the synthetic
+    token stream (``tg_train``: metrics, seconds, peak memory and collective
+    log a step)."""
+    import gc
+    from repro_torch.models import init_params, meshctx
+    out = {}
+    for arch in TB_TRAIN:
+        cfg = tb_train_cfg(arch)
+        batch = tg_batch(cfg, TB_TRAIN_RUN)
+        with meshctx.use_mesh(mesh):
+            model = init_params(cfg, torch.Generator(device=dev).manual_seed(TB_TRAIN_RUN["seed"]),
+                                dev)
+            res = tg_train(model, cfg, tg_rows(mesh, batch, dev), TB_TRAIN_RUN["steps"], dev)
+        res["logs"] = res["logs"][:1]       # every step runs the same collectives
+        del res["routes"]
+        out[arch] = res
+        del model
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+SHARD_PARTS.update(tb_serve=shard_tb_serve, tb_train=shard_tb_train)
+
+
+def tb_serve_launches(cfg, run):
+    """The kernel launches of one rank's serve of ``cfg`` at ``run``: the
+    mamba2 layers' ssd_intra at the prefill; a decode_attention each
+    self-attention layer and decode step (an image layer's and a decx
+    layer's cross-attention launch none)."""
+    want = {}
+    n_ssd = sum(bt == "mamba2" for bt in cfg.block_types())
+    if n_ssd:
+        want["ssd_intra"] = n_ssd
+    n_attn = attention_layers(cfg) * (run["gen"] - 1)
+    if n_attn:
+        want["decode_attention"] = n_attn
+    return want
+
+
+def tb_meta_log(cfg, run, coords, mesh_spec, mesh_lib):
+    """The collective log of one rank's prefill and decode steps of
+    ``run`` on meta under a ``CountingMesh`` at ``coords``."""
+    from repro_torch.models import meshctx
+    from repro_torch.models.model import Model
+    cmesh = mesh_lib.CountingMesh(mesh_lib.Mesh(*mesh_spec), coords)
+    b = run["batch"] // meshctx.dp_size(cmesh)
+    meta = lambda *shape, dt=torch.long: torch.empty(shape, dtype=dt, device="meta")
+    aux = (meta(b, cfg.n_aux_tokens, cfg.d_model, dt=torch.float32) if cfg.n_aux_tokens
+           else None)
+    with meshctx.use_mesh(cmesh):
+        model = Model(cfg, device="meta")
+        return tb_steps(model, cfg, meta(b, run["prompt_len"]), aux,
+                        dict(run), fed=meta(b, run["gen"]))[2]
+
+
+def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
+    """(a)-(c) of 16b over the ranks of one launch. Returns the set of
+    kernel calls (``kernel_calls``) the ranks' programs make, recorded on
+    meta, whose counts a rank are checked to be its launches."""
+    import gc
+    from repro_torch.models import init_params
+    names = mesh_spec[0]
+    seen = set()
+    for arch in TB_ARCHS:
+        cfg, run = tb_cfg(arch), tb_run(arch)
+        rs = [r["tb_serve"][arch] for r in ranks]
+        want = tb_serve_launches(cfg, run)
+        check(all(x["launches"] == want for x in rs), f"{label} {arch}: serve launches "
+              f"{[x['launches'] for x in rs]}, expected {want} a rank")
+        for dpi in {r["coords"][0] for r in ranks}:
+            same = [r["tb_serve"][arch] for r in ranks if r["coords"][0] == dpi]
+            check(all(torch.equal(x["tokens"], same[0]["tokens"]) for x in same),
+                  f"{label} {arch}: the model ranks of data index {dpi} differ")
+        # the collective logs, bf16 serve and float32 steps, against the counting mesh
+        for r in ranks:
+            coords = dict(zip(names, r["tp_coords"]))
+            for c, got in ((cfg, r["tb_serve"][arch]["log"]),
+                           (f32_of(cfg), r["tb_serve"][arch]["f32"][2])):
+                with kernel_calls() as calls:
+                    log = tb_meta_log(c, run, coords, mesh_spec, mesh_lib)
+                check(got == log, f"{label} {arch} {c.param_dtype} rank {r['tp_coords']}: "
+                      f"collective log of {len(got)} calls differs from the counting mesh's "
+                      f"{len(log)}")
+                n_calls = collections.Counter(x[0] for x in calls)
+                check(n_calls == want, f"{label} {arch} {c.param_dtype} rank {r['tp_coords']}: "
+                      f"kernel calls on meta {dict(n_calls)}, launches {want}")
+                seen.update(calls)
+        r0 = rs[0]
+        kinds = tg_kinds(r0["log"])
+        print(f"{label}: {arch} at its published widths ({cfg.n_layers} layers"
+              + (f", {cfg.encoder.n_layers} encoder layers" if cfg.encoder else "")
+              + f", bf16) over {len(ranks)} rank(s), a ({run['batch']}, {run['prompt_len']}) "
+              f"prefill + {run['gen'] - 1} decode step(s)"
+              + (f" with drawn aux_embeds ({cfg.n_aux_tokens} tokens)" if cfg.n_aux_tokens else "")
+              + f": rank 0 built its blocks in {r0['build_s']:.2f} s, prefill "
+              f"{r0['prefill_ms']:.2f} ms, decode {r0['decode_ms_per_token']:.3f} ms a token, "
+              f"cache {r0['cache_bytes'] / 1e6:.3f} MB a rank (layer 0's entry "
+              f"{r0['entry'][0]}, the last's {r0['entry'][-1]}); peak memory a rank "
+              f"{[round(x['peak'] / 2 ** 30, 3) for x in rs]} GiB; launches a rank {want}; "
+              f"collectives (calls, result bytes) {kinds}, every rank's log equal to the "
+              f"counting mesh's on meta (bf16 and float32)", flush=True)
+        # the float32 draws against one process on the card, fed the ranks' tokens
+        by_dp = {}
+        for r in ranks:
+            by_dp.setdefault(r["coords"][0], r["tb_serve"][arch]["f32"])
+        logits = torch.cat([by_dp[i][0] for i in sorted(by_dp)], dim=1)
+        tokens = torch.cat([by_dp[i][1] for i in sorted(by_dp)], dim=0)
+        c32 = f32_of(cfg)
+        model = tb_model(c32, dev, run["seed"])
+        aux = tb_aux(cfg, run)
+        one, one_toks, _ = tb_steps(model, c32, tb_prompt(cfg, run).to(dev),
+                                    None if aux is None else aux.to(dev), run,
+                                    fed=tokens.to(dev))
+        one, one_toks = one.cpu(), one_toks.cpu()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = [rel_err(a, b) for a, b in zip(logits, one)]
+        agree = int((one_toks == tokens).sum())
+        print(f"{label}: {arch} float32 (gates at {TB_GATE}) against one process on the card "
+              f"fed the ranks' tokens: logits of the prefill and each decode step within "
+              f"{[f'{x:.3e}' for x in rel]} of max|logit| (bound {TB_LOGIT_TOL}); greedy tokens "
+              f"equal {agree} of {tokens.numel()}", flush=True)
+        check(max(rel) <= TB_LOGIT_TOL, f"{label} {arch}: float32 logits {rel} of max|logit|")
+        check(agree == tokens.numel(), f"{label} {arch}: greedy tokens differ from one process's")
+    # training
+    for arch in TB_TRAIN:
+        cfg = tb_train_cfg(arch)
+        rs = [r["tb_train"][arch] for r in ranks]
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(TB_TRAIN_RUN["seed"]),
+                            dev)
+        one = tg_train(model, cfg, tg_rows(None, tg_batch(cfg, TB_TRAIN_RUN), dev), 1, dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        gap = max(abs(x["metrics"][0][k] - one["metrics"][0][k])
+                  / max(abs(one["metrics"][0][k]), 1e-30)
+                  for x in rs for k in ("loss", "ce", "aux", "grad_norm"))
+        n_ssd = sum(bt == "mamba2" for bt in cfg.block_types())
+        for r in ranks:
+            coords = dict(zip(names, r["tp_coords"]))
+            with kernel_calls() as calls:
+                log, _ = tg_meta(cfg, coords, mesh_spec, mesh_lib, TB_TRAIN_RUN)
+            check(r["tb_train"][arch]["logs"][0] == log, f"{label} {arch} train rank "
+                  f"{r['tp_coords']}: collective log differs from the counting mesh's")
+            n_calls = collections.Counter(x[0] for x in calls)
+            check(n_calls == ({"ssd_intra": n_ssd, "ssd_intra_backward": n_ssd} if n_ssd else {}),
+                  f"{label} {arch} train rank {r['tp_coords']}: kernel calls of a step on meta "
+                  f"{dict(n_calls)}, {n_ssd} mamba2 layers")
+            seen.update(calls)
+        x0 = rs[0]
+        kinds = tg_kinds(x0["logs"][0])
+        print(f"{label}: {arch} at its published widths, {cfg.n_layers} layers, float32, "
+              f"AdamW{', fsdp' if cfg.fsdp else ''}, trained over {len(ranks)} rank(s) on a "
+              f"({TB_TRAIN_RUN['batch']}, {TB_TRAIN_RUN['seq']}) batch: seconds a step "
+              f"{[round(s_, 3) for s_ in x0['s']]} (one process, step 1: {one['s'][0]:.3f}); "
+              f"peak memory a rank {[round(x['peak'][-1] / 2 ** 30, 3) for x in rs]} GiB (one "
+              f"process {one['peak'][0] / 2 ** 30:.3f}); collectives a step (calls, result "
+              f"bytes) {kinds}, every rank's log equal to the counting mesh's; step 1's loss "
+              f"{x0['metrics'][0]['loss']:.6f} and grad norm {x0['metrics'][0]['grad_norm']:.6f} "
+              f"against one process's {one['metrics'][0]['loss']:.6f} and "
+              f"{one['metrics'][0]['grad_norm']:.6f}: loss, ce, aux and grad norm within "
+              f"{gap:.3e} relative (bound {TB_TRAIN_TOL}); losses "
+              f"{[round(m['loss'], 6) for m in x0['metrics']]}", flush=True)
+        check(gap <= TB_TRAIN_TOL, f"{label} {arch}: step 1's metrics {gap:.3e} from one "
+              f"process's")
+    n_train = {"ssd_intra": 0, "ssd_intra_backward": 0}
+    for arch in TB_TRAIN:
+        n = sum(bt == "mamba2" for bt in tb_train_cfg(arch).block_types()) * TB_TRAIN_RUN["steps"]
+        n_train = {k: v + n for k, v in n_train.items()}
+    n_train = {k: v for k, v in n_train.items() if v}
+    got = [r["tb_train_launches"] for r in ranks]
+    check(all(x == n_train for x in got), f"{label}: train launches {got}, expected {n_train}")
+    return seen
+
+
+def tb_ssd_cases(calls):
+    """ssd_intra's cases (label, (B, NC, Q, H, P, N), with its backward):
+    each shape 16b's ranks called it at (``calls``; with the backward where
+    a train step called that too), then ``TB_SSD_SHAPES``."""
+    bwd = {x[1][1:] for x in calls if x[0] == "ssd_intra_backward"}
+    cases = []
+    for args in sorted({x[1] for x in calls if x[0] == "ssd_intra"}):
+        check(all(dt == torch.float32 for _, dt in args), f"ssd_intra called at {args}: 16b "
+              f"holds float32 inputs only")
+        (xh, _), *_, (cm, _) = args
+        cases.append(("a rank of 16b's " + ("train step" if args in bwd else "prefill"),
+                      xh + cm[-1:], args in bwd))
+    return cases + [(label, shape, True) for label, shape in TB_SSD_SHAPES.items()]
+
+
+def tb_ssd_kernel(dev, kssd, kref, calls):
+    """ssd_intra, and its backward where it runs, at ``tb_ssd_cases``, held
+    as phase 3 holds the serving shape: against the plain twin (forward
+    within 1e-5 of max|plain|; each gradient within 1e-5 of its largest)
+    and float64 (forward within 1e-5 of max|y|; each gradient within 1e-5 of
+    its largest), then timed beside the bound (the 3xTF32 one, as the
+    serving shape's row takes it)."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for label, shape, backward in tb_ssd_cases(calls):
+        args = ssd_inputs(dev, g, *shape)
+        got, plain = kssd.ssd_intra(*args), kssd.ssd_intra_plain(*args)
+        exact = kref.ssd_intra_ref(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        err, top = float((got - plain).abs().max()), float(plain.abs().max())
+        k64, scale = float((got.double() - exact).abs().max()), float(exact.abs().max())
+        check(err <= 1e-5 * top and k64 <= 1e-5 * scale,
+              f"ssd_intra {label} {shape}: {err:.3e} from the twin (max|plain| {top:.3e}), "
+              f"{k64:.3e} from float64 (max|y| {scale:.3e})")
+        del exact
+        ms = device_ms(lambda: kssd.ssd_intra(*args))
+        plain_ms = device_ms(lambda: kssd.ssd_intra_plain(*args))
+        bms, bby = ssd_bounds(shape)[0]
+        out[(label, shape)] = dict(ms=ms)
+        print(f"tp blocks kernel: ssd_intra at {label} (B,NC,Q,H,P,N)={shape} f32 (route "
+              f"{ssd_route(kssd, args, dev)}): {err:.3e} from the twin, {k64:.3e} from float64 "
+              f"(allowed 1e-5 max|plain| = {1e-5 * top:.3e}, 1e-5 max|y| = {1e-5 * scale:.3e}); "
+              f"kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, library none, bound {bms:.5f} ms ({bby}), "
+              f"{100 * bms / ms:.1f}% of bound", flush=True)
+        if backward:
+            dy = torch.randn(args[0].shape, generator=g, device=dev)
+            grads = kssd.ssd_intra_backward(dy, *args)
+            ex_p, rel_p = ssd_grad_excess(grads, kssd.ssd_intra_backward_plain(dy, *args), False)
+            ex_w, rel_w = ssd_grad_excess(grads, kssd.ssd_intra_backward_plain(
+                *(t.double() for t in (dy, *args))), False)
+            check(ex_p <= 0 and ex_w <= 0, f"ssd_intra_backward {label} {shape}: beyond 1e-5 "
+                  f"of a gradient's largest ({ex_p:.2e} against the formula, {ex_w:.2e} "
+                  f"float64)")
+            bwd_ms = device_ms(lambda: kssd.ssd_intra_backward(dy, *args))
+            bwd_plain = device_ms(lambda: kssd.ssd_intra_backward_plain(dy, *args))
+            bbms, bbby = ssd_bwd_bounds(shape)[0]
+            out[(label, shape)]["bwd_ms"] = bwd_ms
+            print(f"tp blocks kernel: ssd_intra_backward at {label} {shape} (route "
+                  f"{ssd_bwd_route(kssd, args, dev)}): largest difference over a gradient's "
+                  f"largest {rel_p:.2e} against the formula, {rel_w:.2e} against float64 (1e-5 "
+                  f"allowed); kernel {bwd_ms:.5f} ms, plain {bwd_plain:.5f} ms, library none, "
+                  f"bound {bbms:.5f} ms ({bbby}), {100 * bbms / bwd_ms:.1f}% of bound",
+                  flush=True)
+            del dy, grads
+        del args, got, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def tb_decode_cases(calls):
+    """decode_attention's cases (label, (B, S, Hkv, G, D), window, query
+    dtype, cache dtype, whether it returns the log-sum-exp): each call 16b's
+    ranks made (``calls``), then ``TB_DECODE_SHAPES`` (bf16, with it)."""
+    cases = []
+    for _, args, window, lse in sorted({x for x in calls if x[0] == "decode_attention"},
+                                       key=repr):
+        check(len(args) == 4, f"decode_attention called with an int8 cache's scales: 16b "
+              f"holds a float cache only")
+        (q, q_dt), (k, kv_dt), *_ = args
+        cases.append(("a rank of 16b's serve", (q[0], k[1], k[2], q[1] // k[2], q[2]), window,
+                      q_dt, kv_dt, lse))
+    return cases + [(f"{arch}'s rank of a (4, 2048) + 32 serve", shape[:5], shape[5],
+                     torch.bfloat16, torch.bfloat16, True)
+                    for arch, shape in TB_DECODE_SHAPES.items()]
+
+
+def tb_decode_kernel(dev, kda, kref, calls):
+    """decode_attention at ``tb_decode_cases`` (row 0 holding no valid slot,
+    the others the first S - 7 slots; the window of a local layer): the
+    output, and the log-sum-exp where the call returns it, against the twin
+    within 2e-5 + 2e-5 |plain| (the empty row's -1e30 exactly) and against
+    float64 within 1e-5 + 1e-5 |exact|; the output the same bits with and
+    without it; timed as called (and with the log-sum-exp where called
+    without) beside its bound (``decode_bound``) and beside aten's
+    memory-efficient attention with the log-sum-exp (``lse_library``; the
+    call takes no window, and a window of more than the run masks nothing
+    here, so recurrentgemma's is timed too, the same function on these
+    slots)."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    out = {}
+    for label, (b, s, hkv, grp, d), window, q_dt, kv_dt, lse_out in tb_decode_cases(calls):
+        q, k, v, pos, idx, _ = tp_lse_inputs(dev, g, b, s, hkv, grp, d, kv_dt)
+        q = q.to(q_dt)
+        kw = dict(window=window, return_lse=True)
+        with torch.inference_mode():
+            o, lse = kda.decode_attention(q, k, v, pos, idx, **kw)
+            po, plse = kda.decode_attention_plain(q, k, v, pos, idx, **kw)
+            eo, else_ = kref.decode_attention_ref(q.double(), k.double(), v.double(), pos, idx,
+                                                  **kw)
+            o_only = kda.decode_attention(q, k, v, pos, idx, window=window)
+        torch.cuda.synchronize()
+        ex = max(float(((o - po).abs() - TP_LSE_TOL * (1 + po.abs())).max()),
+                 float(((lse - plse).abs() - TP_LSE_TOL * (1 + plse.abs())).max()))
+        ex64 = max(float(((o.double() - eo).abs() - 1e-5 * (1 + eo.abs())).max()),
+                   float(((lse[1:].double() - else_[1:]).abs()
+                          - 1e-5 * (1 + else_[1:].abs())).max()))
+        shape = (b, s, hkv, grp, d)
+        check(ex <= 0 and ex64 <= 0 and torch.equal(o, o_only)
+              and bool((lse[0] == plse[0]).all()),
+              f"tp blocks kernel {label} {shape}: twin excess {ex:.3e}, float64 excess "
+              f"{ex64:.3e}, empty row's lse {lse[0, :2].tolist()}")
+        with torch.inference_mode():
+            ms_lse = device_ms(lambda: kda.decode_attention(q, k, v, pos, idx, **kw))
+            ms = device_ms(lambda: kda.decode_attention(q, k, v, pos, idx, window=window))
+            plain = device_ms(lambda: kda.decode_attention_plain(q, k, v, pos, idx,
+                                                                 window=window,
+                                                                 return_lse=lse_out))
+            lib_ms = device_ms(lse_library(q, k, v, pos, idx))
+        bound_ms, by = decode_bound(q, k, v, pos, idx, window=window, lse=lse_out)
+        called = ms_lse if lse_out else ms
+        out[(label, shape, window, str(kv_dt))] = called
+        dt = str(kv_dt).replace("torch.", "")
+        print(f"tp blocks kernel: decode_attention at {label} (B,S,Hkv,G,D)={shape} {dt}, window "
+              f"{window}, {'with' if lse_out else 'without'} the log-sum-exp: output and "
+              f"log-sum-exp within {TP_LSE_TOL} + {TP_LSE_TOL}|plain| of the twin (max abs diff "
+              f"{float((o - po).abs().max()):.3e}, {float((lse[1:] - plse[1:]).abs().max()):.3e}; "
+              f"the empty row's -1e30 equal) and 1e-5 + 1e-5|exact| of float64; the output the "
+              f"same bits with and without it; as called {called:.5f} ms ({ms_lse:.5f} with the "
+              f"log-sum-exp, {ms:.5f} without), plain {plain:.5f} ms, bound {bound_ms:.5f} ms "
+              f"({by}), {100 * bound_ms / called:.2f}% of bound; library {lib_ms:.5f} ms "
+              f"(aten._scaled_dot_product_efficient_attention with the log-sum-exp)", flush=True)
+    return out
+
+
+def phase_tp_blocks(dev, mesh_lib, gloo, nccl, nccl_spec, kssd, kda, kref):
+    """16b: the other block types' tensor-parallel programs (their ranks'
+    parts ran in phase 16's two launches): (a) each of ``TB_ARCHS`` at its
+    published widths served in bf16 over the four gloo ranks (figures,
+    peak memory, launches) and its float32 draws held to one process on
+    the card; (b) mamba2-1.3b and recurrentgemma-9b trained in float32,
+    step 1's metrics held to one process's; (c) every rank's collective
+    logs against the counting mesh; then (a)-(c) over the NCCL rank(s);
+    (d) the kernels at every shape the ranks' programs gave them (recorded
+    on meta, ``kernel_calls``) and at the rank shapes of a longer serve.
+    Returns the launches of the parts, summed over the ranks."""
+    t0 = time.perf_counter()
+    launches, calls = collections.Counter(), set()
+    for ranks, label, spec in ((gloo, "tp blocks (gloo)", SHARD_MESH),
+                               (nccl, "tp blocks (nccl)", nccl_spec)):
+        calls |= check_tb(label, ranks, spec, mesh_lib, dev)
+        for r in ranks:
+            launches.update(r["tb_train_launches"])
+            for x in r["tb_serve"].values():
+                launches.update(x["launches"])
+    tb_ssd_kernel(dev, kssd, kref, calls)
+    tb_decode_kernel(dev, kda, kref, calls)
+    print(f"tp blocks: launches summed over the ranks {dict(launches)}; the phase's checks in "
+          f"{time.perf_counter() - t0:.1f} s (its ranks' parts ran in phase 16's launches: "
+          f"gloo {sum(gloo[0][p + '_s'] for p in TB_PARTS):.1f} s, nccl "
+          f"{sum(nccl[0][p + '_s'] for p in TB_PARTS):.1f} s a rank)", flush=True)
+    return launches
+
+
 def phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params, kda, mesh_lib):
-    """Phases 16, 16t and 16g: 16g's one-process float32 runs, then phase
-    16's two launches of ranks (16t's and 16g's parts among them), then the
-    checks of 16t and 16g. Returns the kernel launches, summed over the
-    ranks."""
+    """Phases 16, 16t, 16g and 16b: 16g's one-process float32 runs, then
+    phase 16's two launches of ranks (16t's, 16g's and 16b's parts among
+    them), then the checks of 16t, 16g and 16b. Returns the kernel
+    launches, summed over the ranks."""
     cfgs = {key: tg_cfg(key) for key in TG_ARCHS}
     t0 = time.perf_counter()
     want = phase_train_prep(dev, init_params, cfgs)
@@ -5050,6 +5625,10 @@ def phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params, kda, m
     phase_sharded_train(dev, init_params, mesh_lib, gloo, nccl, nccl_spec, cfgs, want)
     del want
     torch.cuda.empty_cache()
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import ssd_intra
+    launches.update(phase_tp_blocks(dev, mesh_lib, gloo, nccl, nccl_spec, ssd_intra, kda, kref))
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -5059,7 +5638,7 @@ def main(argv=None):
                         help="the directory that holds repro_torch (default: src beside "
                              "this script); another tree's src times that tree's kernels")
     parser.add_argument("--sharded-only", action="store_true",
-                        help="build and run phases 16, 16t and 16g (the sharded paths; NCCL "
+                        help="build and run phases 16, 16t, 16g and 16b (the sharded paths; NCCL "
                              "over every visible card), check them and print no result")
     parser.add_argument("--timing-only", action="store_true",
                         help="build and time the kernels (phases 1-2 and the timings of "
@@ -5096,47 +5675,48 @@ def main(argv=None):
     print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    mamba = get_config("mamba2-1.3b")
-    _, n_heads, head_dim, d_state, _ = ssm.dims(mamba)
-    serve = SERVE[mamba.name]
-    ssd_shape = (serve["batch"], serve["seq"] // mamba.ssm.chunk, mamba.ssm.chunk, n_heads,
-                 head_dim, d_state)
-    calib_shape = (CALIB_BATCH,) + ssd_shape[1:]
-    qwen = get_config("qwen3-1.7b")
-    run = DECODE_SERVE[qwen.name]
-    decode_shape = (run["batch"], run["prompt_len"] + run["gen"], qwen.n_kv_heads,
-                    qwen.n_heads // qwen.n_kv_heads, qwen.head_dim)
-    for name in ZOO_DECODE_SHAPES:
-        want = zoo_decode_shape(get_config(name), DECODE_SERVE[name])
-        check(ZOO_DECODE_SHAPES[name] == want, f"ZOO_DECODE_SHAPES[{name!r}] is "
-              f"{ZOO_DECODE_SHAPES[name]}, its decode serve runs {want}")
-    if args.timing_only:
-        phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
-        phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant)
-        if hasattr(pair_scorer, "pair_scorer_backward"):      # a parent tree may lack it
-            phase_scorer_timing(dev, pair_scorer)
-        if hasattr(ssd_intra, "ssd_intra_backward"):
-            phase_ssd_backward_timing(dev, ssd_intra, ssd_shape, calib_shape)
-        phase_decode_timing(dev, decode_attn, decode_shape)
-        return 0
-    from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
-    from repro_torch.launch import mesh as mesh_lib
-    if args.sharded_only:
-        phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params, decode_attn,
-                                mesh_lib)
-        return 0
-    # the dry-run's 80 records, counted on meta in background processes
-    # while the card's phases run; phase 15g reads them
-    jobs = DryrunJobs(args.src.resolve())
+    # the dry-run's 80 records, counted on meta in background processes from
+    # before the build while the card's phases run; phase 15g reads them
+    jobs = None if args.timing_only or args.sharded_only else DryrunJobs(args.src.resolve())
     try:
+        t0 = time.perf_counter()
+        lib = _build.build()
+        _build.library()
+        print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        mamba = get_config("mamba2-1.3b")
+        _, n_heads, head_dim, d_state, _ = ssm.dims(mamba)
+        serve = SERVE[mamba.name]
+        ssd_shape = (serve["batch"], serve["seq"] // mamba.ssm.chunk, mamba.ssm.chunk, n_heads,
+                     head_dim, d_state)
+        calib_shape = (CALIB_BATCH,) + ssd_shape[1:]
+        qwen = get_config("qwen3-1.7b")
+        run = DECODE_SERVE[qwen.name]
+        decode_shape = (run["batch"], run["prompt_len"] + run["gen"], qwen.n_kv_heads,
+                        qwen.n_heads // qwen.n_kv_heads, qwen.head_dim)
+        for name in ZOO_DECODE_SHAPES:
+            want = zoo_decode_shape(get_config(name), DECODE_SERVE[name])
+            check(ZOO_DECODE_SHAPES[name] == want, f"ZOO_DECODE_SHAPES[{name!r}] is "
+                  f"{ZOO_DECODE_SHAPES[name]}, its decode serve runs {want}")
+        if args.timing_only:
+            phase_timing(dev, quant, bottleneck, ssd_intra, ssd_shape, calib_shape)
+            phase_dispatch_timing(dev, pair_scorer, flat_trunk, quant)
+            if hasattr(pair_scorer, "pair_scorer_backward"):      # a parent tree may lack it
+                phase_scorer_timing(dev, pair_scorer)
+            if hasattr(ssd_intra, "ssd_intra_backward"):
+                phase_ssd_backward_timing(dev, ssd_intra, ssd_shape, calib_shape)
+            phase_decode_timing(dev, decode_attn, decode_shape)
+            return 0
+        from repro_torch.launch import steps as steps_lib   # not in a parent tree's --timing-only
+        from repro_torch.launch import mesh as mesh_lib
+        if args.sharded_only:
+            phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params, decode_attn,
+                                    mesh_lib)
+            return 0
         return run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen)
     finally:
-        jobs.stop()
+        if jobs is not None:
+            jobs.stop()
 
 
 def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
@@ -5287,7 +5867,7 @@ def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
     launches.update(counts)
     phase_compressor(dev, cnn_lib, compressor, huffman, jalad, optim, synthetic, _build)
     torch.cuda.empty_cache()
-    phase_dryrun(jobs, ARCH_IDS, sharding)
+    phase_dryrun(jobs, ARCH_IDS)
     phase_bytes_on_card(dev, qwen, init_params, sharding, mesh_lib, cache_lib)
     phase_count_on_card(dev, cnn_lib, split_lib)
     launches.update(phase_batched_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,

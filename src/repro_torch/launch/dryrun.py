@@ -21,10 +21,10 @@ Each combination writes one JSON record to ``--out`` (default
 * ``count_s``, the seconds the counts took (in the place of the
   reference's ``lower_s`` and ``compile_s``).
 
-For every step of an arch whose blocks all have a tensor-parallel program
-(``models.sharding.SHARDED``: the dense and MoE stacks), two more fields
-come from the program rank 0 of the mesh runs, counted on ``meta`` under a
-``launch.mesh.CountingMesh`` at the production mesh's shape, on its shard
+For every step of every arch (each block type has its tensor-parallel
+program), two more fields come from the program rank 0 of the mesh runs,
+counted on ``meta`` under a ``launch.mesh.CountingMesh`` at the
+production mesh's shape, on its shard
 of the inputs (``input_specs(..., mesh)``; a batch the data axes do not
 divide, long_500k's, whole on every rank); for train, ``make_train_step``
 on the rank's blocks of the parameters and of the optimizer state:
@@ -37,8 +37,11 @@ on the rank's blocks of the parameters and of the optimizer state:
   the gradient sync's and the global norm's;
 * ``memory_analysis``: the reference's keys (``opcount.count_memory``):
   ``argument_size_in_bytes`` (the rank's parameters, and its optimizer
-  state and batch or its cache and inputs; at decode with the 4 bytes of
-  the reference's int32 ``idx``, which the port takes as a Python int),
+  state and batch or its cache and inputs, those the step reads, as XLA
+  drops the arguments a compiled step never reads: at decode an
+  encoder's parameters and a cross-attention layer's context projections;
+  at decode of an arch with self-attention the 4 bytes of the reference's
+  int32 ``idx``, which the port takes as a Python int),
   ``output_size_in_bytes`` (its logits and cache, or its parameters,
   optimizer state and metrics, with the 8 bytes a leaf of the table of the
   reference's output tuple, over the reference's stacked leaves),
@@ -52,9 +55,11 @@ on the rank's blocks of the parameters and of the optimizer state:
   so.
 
 These counts depend on the mesh, so ``counted_rank`` keeps them by arch,
-shape and mesh. The records of an arch with block types outside
-``SHARDED`` keep both fields null, with a note that names what is
-missing. The process exits non-zero if any combination failed.
+shape and mesh. The reference pins mamba2-1.3b's residual stream
+sequence-parallel in train and prefill (``seq_parallel_residual``); the
+port's program keeps it whole over "model", so its moved bytes there are
+those of the plain all-reduce. The process exits non-zero if any
+combination failed.
 """
 from __future__ import annotations
 
@@ -79,14 +84,12 @@ from repro_torch.models import sharding as shd
 from repro_torch.models.layers import rope_inv_freqs
 from repro_torch.optim.optimizers import opt_state_pspec, opt_state_structs
 
-UNSHARDED_NOTE = ("null: the block types {} have no tensor-parallel program, so no rank's "
-                  "program exists to count")
 CODE_NOTE = ("generated_code_size_in_bytes is null: the port generates no code for a step "
              "(its kernels are built once, not per step)")
 REMAT_NOTE = ("temp_size_in_bytes and peak_memory_in_bytes are not the reference's: its train "
               "step recomputes each layer group's activations for the backward (cfg.remat, "
               "jax.checkpoint), and the port's, which ignores cfg.remat, keeps every activation")
-IDX_BYTES = 4       # the reference's decode takes idx as an int32 scalar argument
+IDX_BYTES = 4       # the reference's decode takes idx as an int32 scalar argument (where read)
 TUPLE_BYTES = 8     # a pointer a leaf in the table of the reference's output tuple
 
 
@@ -149,7 +152,8 @@ def counted_rank(cfg, shape, mesh):
                 _, memory, (_, cache) = count_memory(make_serve_step(cfg), model,
                                                      specs["cache"], specs["token"],
                                                      shape.seq_len - 1)
-                memory["argument_size_in_bytes"] += IDX_BYTES
+                if any("pos" in entry for entry in cache):    # a self-attention reads idx
+                    memory["argument_size_in_bytes"] += IDX_BYTES
     if train:   # the reference returns its params, its optimizer state and the metrics
         params = shd.reference_params(model)
         leaves = len(params) + len(opt_state_structs(cfg.optimizer, params)) + len(metrics)
@@ -178,17 +182,11 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False):
         rec["cache_bytes_per_device"] = shd.bytes_per_device(
             tree, shd.cache_pspecs(mesh, tree, cfg), mesh)
     rec.update(flops=costs["flops"], dot_flops=costs["dot_flops"],
-               bytes_accessed=costs["bytes_accessed"], collectives=None,
-               memory_analysis=None)
-    unsharded = shd.unsharded_blocks(cfg, mesh)
-    if unsharded:
-        note = UNSHARDED_NOTE.format(list(unsharded))
-        rec["notes"] = {"collectives": note, "memory_analysis": note}
-    else:
-        rec["collectives"], rec["memory_analysis"], rank_s = counted_rank(cfg, shape, mesh)
-        remat = shape.kind == "train" and cfg.remat
-        rec["notes"] = {"memory_analysis": CODE_NOTE + ("; " + REMAT_NOTE if remat else "")}
-        seconds += rank_s
+               bytes_accessed=costs["bytes_accessed"])
+    rec["collectives"], rec["memory_analysis"], rank_s = counted_rank(cfg, shape, mesh)
+    remat = shape.kind == "train" and cfg.remat
+    rec["notes"] = {"memory_analysis": CODE_NOTE + ("; " + REMAT_NOTE if remat else "")}
+    seconds += rank_s
     rec["count_s"] = round(seconds, 2)
     return rec
 

@@ -39,7 +39,10 @@ program run on ``meta`` under a ``CountingMesh``.
 
 ``count_memory`` also follows the step's storages, the counterpart of the
 compiled step's memory analysis: the arguments' (the model's parameters,
-the cache and the inputs, each storage once), the outputs' tensors, and
+the cache and the inputs that some op of the run reads, each storage
+once: XLA drops the arguments a compiled step never reads, such as a
+cross-attention layer's context projections at decode), the outputs'
+tensors, and
 the highest sum of live storages the run reaches, each new storage added
 when an op makes it and taken away when the last tensor on it that an op
 returned is collected (a weak reference's callback). On ``meta`` nothing
@@ -125,12 +128,25 @@ def _tensors(values):
 class _Live:
     """The storages an op run makes, by their storage's address: bytes live
     now and the most live at once. Storages of the arguments are not
-    counted here."""
+    counted here; ``read`` holds those that some op took as an operand."""
 
     def __init__(self, args):
         self.args = {t.untyped_storage()._cdata for t in args}
+        self.read = set()
         self.live = {}
         self.now = self.top = 0
+
+    def reads(self, args, kwargs):
+        """Marks the arguments' storages among an op's operands (tensors,
+        or tensors in a list or tuple, as aten takes them) as read."""
+        if len(self.read) == len(self.args):
+            return
+        for v in (*args, *kwargs.values()):
+            for t in (v if isinstance(v, (list, tuple)) else (v,)):
+                if isinstance(t, torch.Tensor):
+                    key = t.untyped_storage()._cdata
+                    if key in self.args:
+                        self.read.add(key)
 
     def track(self, out):
         for t in _tensors((out,)):
@@ -196,6 +212,8 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.live is not None:
+            self.live.reads(args, kwargs)
         out = self._run(func, args, kwargs)
         packet = func.overloadpacket
         if packet in flop_registry:
@@ -238,7 +256,8 @@ def count_memory(fn, *args, **kwargs):
     """``(costs, memory, fn(*args, **kwargs))``: ``count``'s costs and the
     run's memory in the keys of the reference's memory analysis, bytes:
     ``argument_size_in_bytes`` (the tensors of ``args`` and ``kwargs``, a
-    module's parameters and buffers among them, each once),
+    module's parameters and buffers among them, each once, that some op of
+    the run reads),
     ``output_size_in_bytes`` (the result's tensors, as the reference counts
     its outputs with no buffer donated, so a cache updated in place counts
     as an output too), ``alias_size_in_bytes`` 0 (nothing is donated),
@@ -249,11 +268,12 @@ def count_memory(fn, *args, **kwargs):
     arg_tensors = list(_tensors(args + tuple(kwargs.values())))
     live = _Live(arg_tensors)
     costs, out = _run(_Counter(live), fn, args, kwargs)
+    read = [t for t in arg_tensors if t.untyped_storage()._cdata in live.read]
     stores = {}
-    for t in arg_tensors:
+    for t in read:
         stores[t.untyped_storage()._cdata] = t.untyped_storage().nbytes()
     memory = {"generated_code_size_in_bytes": None,
-              "argument_size_in_bytes": _nbytes(arg_tensors),
+              "argument_size_in_bytes": _nbytes(read),
               "output_size_in_bytes": _nbytes(list(_tensors((out,)))),
               "alias_size_in_bytes": 0, "temp_size_in_bytes": live.top,
               "peak_memory_in_bytes": sum(stores.values()) + live.top}

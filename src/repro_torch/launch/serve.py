@@ -25,10 +25,12 @@ encoder-decoder or VLM arch is fed the reference's zero ``aux_embeds``
 mesh (``launch.mesh.ProcessMesh``), the steps running unchanged under
 ``meshctx.use_mesh``: each rank holds its shard of the batch (its own
 requests' rows), its blocks of the parameters under the reference's
-sharding rules (heads, d_ff and vocab over "model", with ``fsdp`` the
-other dim over "data") and of the KV cache (its length over "model"),
-and runs the tensor-parallel program of the dense and MoE stacks, the
-MoE layers on the expert-parallel paths. The reference has no serving
+sharding rules (heads, d_ff, the SSM's heads, the RG-LRU's width and
+vocab over "model", with ``fsdp`` the other dim over "data") and of the
+cache (a KV cache's and a context cache's length over "model", the
+recurrent states' heads or width), and runs each block type's
+tensor-parallel program, the MoE layers on the expert-parallel paths;
+``aux_embeds`` are cut by the batch rule, as the tokens are. The reference has no serving
 flag for this, and neither has the CLI.
 
 Runs on the CUDA card at the arch's full width by default; ``--device cpu``

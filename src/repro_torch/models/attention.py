@@ -33,7 +33,10 @@ length over "model" (merged through the kernel's log-sum-exp at decode,
 Cross-attention (the VLM's image layers, the encoder-decoder's decoder)
 is the plain ``attention`` in every mode, as the reference's is its plain
 ``flash_attention``: no RoPE, every position 0, not causal; at decode it
-reads the context's K/V from the cache.
+reads the context's K/V from the cache. Under a mesh its projections are
+cut as self-attention's, and its cache entry holds the rank's run of the
+context (``pack_context``), over which a decode step attends with every
+query head, the runs merged by the plain attention's log-sum-exp.
 """
 from __future__ import annotations
 
@@ -75,50 +78,44 @@ class Attention(nn.Module):
 
 def qkv(p, x, xc, cfg):
     """x: (B, S, d) query source; xc: kv source (x for self-attention).
-    Returns q (B, S, Hq, D), k and v (B, Sk, Hkv, D), qk-normed per head."""
-    k, v = project_cross_kv(p, xc, cfg)
-    return query(p, x, cfg), k, v
-
-
-def query(p, x, cfg):
-    """q (B, S, Hq, D) of x (B, S, d), qk-normed per head."""
-    b, s, _ = x.shape
-    q = x @ p.wq
-    if cfg.qkv_bias:
-        q = q + p.bq
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    return rms_head_norm(p.q_scale, q) if cfg.qk_norm else q
+    Returns q (B, S, Hq, D), k and v (B, Sk, Hkv, D), qk-normed per head
+    (under a mesh, the heads ``_heads`` holds)."""
+    q, k, v, _ = _heads(p, x, cfg, xc)
+    return q, k, v
 
 
 def project_cross_kv(p, context, cfg):
     """k, v (B, Sc, Hkv, D) of ``context`` (B, Sc, d), qk-normed per head,
-    not roped."""
-    b, sk, _ = context.shape
-    k, v = context @ p.wk, context @ p.wv
-    if cfg.qkv_bias:
-        k, v = k + p.bk, v + p.bv
-    k = k.reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
-    return (rms_head_norm(p.k_scale, k) if cfg.qk_norm else k), v
+    not roped; under a mesh the kv heads ``_heads`` holds."""
+    _, k, v, _ = _heads(p, None, cfg, context, query=False)
+    return k, v
 
 
 def attention(q, k, v, *, q_positions, k_positions, causal=True, window=0, chunk=1024,
-              q_block=2048):
+              q_block=2048, return_lse=False):
     """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); positions (B, S) int,
-    k_positions -1 = invalid slot. Returns (B, Sq, Hq, D) in q's dtype.
-    Query rows are independent, so blocks of ``q_block`` rows are computed
-    one after another."""
+    k_positions -1 = invalid slot. Returns (B, Sq, Hq, D) in q's dtype;
+    with ``return_lse`` (out in float32, each row's log-sum-exp (B, Sq, Hq)
+    of its scaled, masked scores), as ``ops.decode_attention`` returns
+    them, for ``merge_lse``. Query rows are independent, so blocks of
+    ``q_block`` rows are computed one after another."""
     blocks = [_flash_inner(q[:, i:i + q_block], k, v, q_positions[:, i:i + q_block],
-                           k_positions, causal, window, chunk)
+                           k_positions, causal, window, chunk, return_lse)
               for i in range(0, q.shape[1], q_block)]
-    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+    if len(blocks) == 1:
+        return blocks[0]
+    if return_lse:
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*blocks))
+    return torch.cat(blocks, dim=1)
 
 
-def _flash_inner(q, k, v, q_positions, k_positions, causal, window, chunk):
+def _flash_inner(q, k, v, q_positions, k_positions, causal, window, chunk, return_lse=False):
     """Online softmax over key chunks: running max m, sum l and f32
     accumulator; a chunk's probabilities are cast to v's dtype before the
     second product. The first chunk sets (m, l, acc) directly: from the
-    reference's (-1e30, 0, 0) its step gives the same values."""
+    reference's (-1e30, 0, 0) its step gives the same values. With
+    ``return_lse`` the output stays float32 and ``m + log l`` comes with it
+    (a row with no valid key: -1e30, as the decode kernel gives it)."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -156,18 +153,21 @@ def _flash_inner(q, k, v, q_positions, k_positions, causal, window, chunk):
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]           # (B,Hkv,G,Sq,D)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+    if return_lse:
+        return out, (m + torch.log(l)).permute(0, 3, 1, 2).reshape(b, sq, hq)
     return out.to(q.dtype)
 
 
 def _gather_model(ts, dim, mesh):
     """Each of ``ts`` (this rank's blocks along ``dim``) whole over "model",
-    in rank order, by one all-gather for each dtype and number of dims among
-    them: the tensors of a kind are concatenated along ``dim`` and gathered
-    on a new leading axis, then split apart."""
+    in rank order, by one all-gather for each dtype and shape off ``dim``
+    among them: the tensors of a kind are concatenated along ``dim`` and
+    gathered on a new leading axis, then split apart."""
     out = [None] * len(ts)
     groups = {}
     for i, t in enumerate(ts):
-        groups.setdefault((t.dtype, t.dim()), []).append(i)
+        rest = tuple(n for j, n in enumerate(t.shape) if j != dim % t.dim())
+        groups.setdefault((t.dtype, t.dim(), rest), []).append(i)
     for idxs in groups.values():
         parts = [ts[i] for i in idxs]
         if len(parts) == 1:
@@ -184,30 +184,34 @@ def _gather_model(ts, dim, mesh):
     return out
 
 
-def _heads(p, x, cfg):
-    """q (B, S, H, D), k, v (B, S, Hk, D) of x under the current mesh, and
-    whether they hold this rank's heads only. Where "model" divides both
-    the query and the kv heads and cuts all three projections, the rank
-    keeps its heads (H = Hq / model, Hk = Hkv / model); elsewhere the
-    projected columns it holds are all-gathered over "model" and it holds
-    every head."""
+def _heads(p, x, cfg, xc=None, *, query=True, kv=True):
+    """q (B, S, H, D) of x, k and v (B, Sk, Hk, D) of ``xc`` (x where None)
+    under the current mesh, and whether they hold this rank's heads only;
+    q is None where ``query`` is False, k and v where ``kv`` is. Where
+    "model" divides both the query and the kv heads and cuts all three
+    projections (whichever are made), the rank keeps
+    its heads (H = Hq / model, Hk = Hkv / model); elsewhere the projected
+    columns it holds are all-gathered over "model" and it holds every
+    head."""
     mesh = meshctx.get_mesh()
     m = tp.model_size(mesh)
-    ws = (p.wq, p.wk, p.wv)
-    local = (m > 1 and all(tp.cols(w) for w in ws) and cfg.n_heads % m == 0
-             and cfg.n_kv_heads % m == 0)
-    b, s, _ = x.shape
-    outs = []
-    for w, bias in zip(ws, ("bq", "bk", "bv")):
-        y = x @ tp.gather(w)
-        outs.append(y + getattr(p, bias) if cfg.qkv_bias else y)
-    cut = [i for i, w in enumerate(ws) if tp.cols(w)] if not local else []
-    for i, y in zip(cut, _gather_model([outs[i] for i in cut], -1, mesh) if cut else []):
-        outs[i] = y
-    q, k, v = (y.reshape(b, s, -1, cfg.head_dim) for y in outs)
+    local = (m > 1 and all(tp.cols(w) for w in (p.wq, p.wk, p.wv))
+             and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0)
+    xc = x if xc is None else xc
+    names = ("q",) * query + ("k", "v") * kv
+    outs = {}
+    for n in names:
+        y = (x if n == "q" else xc) @ tp.gather(getattr(p, "w" + n))
+        outs[n] = y + getattr(p, "b" + n) if cfg.qkv_bias else y
+    cut = [] if local else [n for n in names if tp.cols(getattr(p, "w" + n))]
+    for n, y in zip(cut, _gather_model([outs[n] for n in cut], -1, mesh) if cut else []):
+        outs[n] = y
+    heads = {n: y.reshape(y.shape[0], y.shape[1], -1, cfg.head_dim) for n, y in outs.items()}
     if cfg.qk_norm:
-        q, k = rms_head_norm(p.q_scale, q), rms_head_norm(p.k_scale, k)
-    return q, k, v, local
+        for n in ("q", "k"):
+            if n in heads:
+                heads[n] = rms_head_norm(getattr(p, n + "_scale"), heads[n])
+    return heads.get("q"), heads.get("k"), heads.get("v"), local
 
 
 def _out_proj(o, wo, local):
@@ -372,23 +376,82 @@ def cross_attention(p, x, cfg, *, kv=None, context=None):
     """Cross-attention of x (B, S, d) over ``context`` (B, Sc, d), projected
     here, or over its precomputed ``kv`` = (k, v), each (B, Sc, Hkv, D).
     No RoPE; every query sees every context position. Gated by
-    ``tanh(gate)`` where ``p`` has a gate. Returns (out (B, S, d), (k, v))."""
+    ``tanh(gate)`` where ``p`` has a gate. Returns (out (B, S, d), (k, v)).
+
+    Under a mesh it is the program of one rank. From the context, q, k and
+    v are its heads where "model" divides both head counts, else every head
+    (``_heads``), and ``wo`` is row-parallel (``_out_proj``); the (k, v)
+    returned hold those heads (``pack_context`` makes the cache entry of
+    them). ``kv`` is the layer's cache entry as ``pack_context`` cut it:
+    with its length over "model" every rank attends with every query head
+    over its run of the context and the runs are merged by their
+    log-sum-exps (``merge_lse``); with its kv heads over "model" the rank
+    attends with its own heads."""
     if kv is None:
         if context is None:
             raise ValueError("cross-attention needs its context: pass aux_embeds, the "
                              "(B, n_aux_tokens, d_model) frame or patch embeddings")
-        k, v = project_cross_kv(p, context, cfg)
+        q, k, v, held = _heads(p, x, cfg, context)
+        out = _attend_all(q, k, v, cfg)
     else:
         k, v = kv
-    b, s, _ = x.shape
-    hq, dh = cfg.n_heads, cfg.head_dim
-    q = query(p, x, cfg)
-    qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
-    kpos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
-    out = attention(q, k, v, q_positions=qpos, k_positions=kpos, causal=False,
-                    chunk=cfg.attn_chunk)
-    out = out.reshape(b, s, hq * dh) @ p.wo
+        out, held = _cross_decode(p, x, cfg, k, v)
+    out = _out_proj(out.reshape(x.shape[0], x.shape[1], -1), p.wo, held)
     if p.gate is not None:
         out = torch.tanh(p.gate.to(out.dtype)) * out
     return out, (k, v)
 
+
+def _attend_all(q, k, v, cfg, return_lse=False):
+    """``attention`` of q over every position of k and v (all at position
+    0, not causal)."""
+    b, s, dev = q.shape[0], q.shape[1], q.device
+    return attention(q, k, v, q_positions=torch.zeros((b, s), dtype=torch.int32, device=dev),
+                     k_positions=torch.zeros((b, k.shape[1]), dtype=torch.int32, device=dev),
+                     causal=False, chunk=cfg.attn_chunk, return_lse=return_lse)
+
+
+def _cross_decode(p, x, cfg, ck, cv):
+    """x's attention over the layer's (the rank's) context cache ``ck``,
+    ``cv``: (out (B, S, heads held, D) in x's dtype, whether it holds the
+    rank's heads only)."""
+    mesh = meshctx.get_mesh()
+    m = tp.model_size(mesh)
+    q, _, _, mine = _heads(p, x, cfg, kv=False)    # mine: q holds the rank's heads
+    if m == 1:
+        return _attend_all(q, ck, cv, cfg), False
+    if ck.shape[2] < cfg.n_kv_heads:
+        # kv heads over "model": the rank's heads attend to the whole context
+        if not mine:
+            q = q[:, :, tp.block_of(cfg.n_heads, "model", mesh)]
+        return _attend_all(q, ck, cv, cfg), True
+    # the length over "model": every query head over the rank's run, merged
+    if mine:
+        q = mesh.all_gather(q, "model", dim=2)
+    o, lse = _attend_all(q, ck, cv, cfg, return_lse=True)
+    return merge_lse(o, lse, mesh).to(q.dtype), False
+
+
+def pack_context(k, v, cfg):
+    """The cross-attention layer's cache entry {"ck", "cv"} of the
+    context's k, v (B, Sc, heads held, D), under the current mesh as
+    ``cache_pspecs`` cuts it: its length over "model" (the kv heads
+    gathered over "model" first where k, v hold the rank's only), or where
+    the length does not divide, its kv heads; without a mesh k and v."""
+    mesh = meshctx.get_mesh()
+    m = tp.model_size(mesh)
+    if m == 1:
+        return {"ck": k, "cv": v}
+    sc, hkv = k.shape[1], cfg.n_kv_heads
+    if sc % m == 0:
+        if k.shape[2] < hkv:
+            k, v = _gather_model([k, v], 2, mesh)
+        sl = tp.block_of(sc, "model", mesh)
+        return {"ck": k[:, sl].clone(), "cv": v[:, sl].clone()}
+    if hkv % m:
+        raise ValueError(f"a context of {sc} positions and {hkv} kv heads splits neither way "
+                         f"over a model axis of {m}")
+    if k.shape[2] == hkv:
+        sl = tp.block_of(hkv, "model", mesh)
+        k, v = k[:, :, sl].clone(), v[:, :, sl].clone()
+    return {"ck": k, "cv": v}

@@ -18,7 +18,8 @@ from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models.attention import Attention, cross_attention, self_attention
+from repro_torch.models.attention import (Attention, cross_attention, pack_context,
+                                          self_attention)
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.rglru import RGLRU, apply_rglru, decode_rglru
@@ -76,12 +77,13 @@ class DenseBlock(nn.Module):
 def attend_context(attn, h, cfg, mode, cache, context):
     """Cross-attention of ``h`` over ``context`` (train and prefill) or over
     the context's K/V in the layer's cache entry (decode). Returns (out,
-    {"ck", "cv"} for the layer's entry; None in train mode)."""
+    {"ck", "cv"} for the layer's entry, under a mesh the rank's blocks
+    (``pack_context``); None in train mode)."""
     if mode == "decode":
         out, _ = cross_attention(attn, h, cfg, kv=(cache["ck"], cache["cv"]))
         return out, {"ck": cache["ck"], "cv": cache["cv"]}
     out, (ck, cv) = cross_attention(attn, h, cfg, context=context)
-    return out, (None if mode == "train" else {"ck": ck, "cv": cv})
+    return out, (None if mode == "train" else pack_context(ck, cv, cfg))
 
 
 class DecXBlock(DenseBlock):

@@ -4,9 +4,10 @@ model code runs under, unset (None) for a single process.
 Launch code sets a ``launch.mesh.ProcessMesh`` (``set_mesh`` or the
 ``use_mesh`` block) before it builds or runs a model, or a
 ``CountingMesh`` to count one rank's program on meta: a model built under
-it holds the rank's blocks of its leaves (``sharding.localize``), the
-dense and MoE stacks run their tensor-parallel program (``models/tp.py``,
-``attention.self_attention``), and ``apply_moe`` takes the
+it holds the rank's blocks of its leaves (``sharding.localize``), every
+block type runs its tensor-parallel program (``models/tp.py``,
+``attention``'s self- and cross-attention, ``ssm`` and ``rglru``'s
+mixers), and ``apply_moe`` takes the
 expert-parallel paths where ``ep_available`` holds. The rules
 read only the mesh's ``shape`` and ``axis_names``, so a ``launch.mesh.Mesh``
 descriptor answers them too.

@@ -38,8 +38,8 @@ def layer_plan(cfg):
 class Model(nn.Module):
     """Built under a mesh (``meshctx.use_mesh``), each parameter is this
     rank's block of it, empty, with its live spec and whole shape
-    (``sharding.localize``); the block types without a tensor-parallel
-    program raise where the mesh cuts their leaves."""
+    (``sharding.localize``); every block type runs its tensor-parallel
+    program under it."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -131,9 +131,6 @@ def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None
     and prefill mode."""
     cfg = model.cfg
     b, s = tokens.shape
-    if meshctx.get_mesh() is not None:
-        from repro_torch.models.sharding import refuse_unsharded
-        refuse_unsharded(cfg, meshctx.get_mesh())
     if mode == "decode" and (cache is None or idx is None):
         raise ValueError("decode needs the cache and idx, the token's position")
     if positions is None:

@@ -12,6 +12,18 @@ The full-sequence path runs the linear recurrence as a log-step
 step a token (the reference uses ``jax.lax.associative_scan``, whose tree
 sums in another order). Decode is a one-step update. The gates and the
 recurrence run in f32; it has no kernel.
+
+Under a mesh (``meshctx``) both are the program one rank runs under the
+reference's rules: ``wx``, ``wgate``, ``conv_w`` and ``conv_b`` cut on
+d_rnn, so a rank holds its d_rnn / model columns of the branch, the gate
+and the conv; ``wa`` and ``wi`` cut on their output columns, while their
+products contract over the whole d_rnn, so the rank's branch after the
+conv is all-gathered over "model" before the two gate products, and each
+rank computes its columns of ``a`` and ``b``; ``ba``, ``bi`` and ``lam``
+replicated, each read as its block (``tp.model_block``); the scan and the
+decode update elementwise over d_rnn, so a rank runs its columns; ``out``
+row-parallel. The state is the rank's columns (``conv`` and ``h`` cut on
+d_rnn by the cache rules).
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import meshctx, tp
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.ssm import softplus
 
@@ -52,12 +65,16 @@ class RGLRU(nn.Module):
         return apply_rglru(self, x, self.cfg, state=state)
 
 
-def _gates(p, xc):
-    """xc: (..., d_rnn), the branch after the conv. Returns (a, b) in f32."""
+def _gates(p, xc, local=False):
+    """xc: (..., d_rnn), the branch after the conv (with ``local`` this
+    rank's columns of it). Returns (a, b) in f32, the rank's columns."""
     xf = xc.to(torch.float32)
-    ra = torch.sigmoid(xf @ p.wa.to(torch.float32) + p.ba)
-    ii = torch.sigmoid(xf @ p.wi.to(torch.float32) + p.bi)
-    log_a = -C_CONST * softplus(p.lam) * ra
+    whole = meshctx.get_mesh().all_gather(xf, "model", dim=-1) if local else xf
+    ra = torch.sigmoid(whole @ tp.gather(p.wa).to(torch.float32)
+                       + tp.model_block(p.ba, local))
+    ii = torch.sigmoid(whole @ tp.gather(p.wi).to(torch.float32)
+                       + tp.model_block(p.bi, local))
+    log_a = -C_CONST * softplus(tp.model_block(p.lam, local)) * ra
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (ii * xf)
     return a, b
@@ -90,26 +107,28 @@ def linear_scan(a, b):
 
 def apply_rglru(p, x, cfg, *, state=None):
     """x: (B, L, d). Returns (out, new state {"conv", "h"})."""
-    xb = x @ p.wx
-    gate = x @ p.wgate
+    local = tp.cols(p.wx)
+    xb = x @ tp.gather(p.wx)
+    gate = x @ tp.gather(p.wgate)
     xc, conv_state = _conv(p, xb, None if state is None else state["conv"])
-    a, b = _gates(p, xc)                                 # (B, L, D) f32
+    a, b = _gates(p, xc, local)                          # (B, L, D) f32
     if state is not None:
         # fold h0 into the first step: b_0 += a_0 * h0
         b = torch.cat([b[:, :1] + a[:, :1] * state["h"][:, None], b[:, 1:]], dim=1)
     h = linear_scan(a, b)
-    out = (h.to(x.dtype) * F.gelu(gate, approximate="tanh")) @ p.out
+    out = tp.row_out(h.to(x.dtype) * F.gelu(gate, approximate="tanh"), p.out)
     return out, {"conv": conv_state, "h": h[:, -1].to(torch.float32)}
 
 
 def decode_rglru(p, x, cfg, state):
     """One-step decode. x: (B, 1, d); state {"conv": (B, 3, D), "h": (B,
     D)}. Returns (out, new state); the state passed in is not changed."""
-    xb = x @ p.wx
-    gate = x @ p.wgate
+    local = tp.cols(p.wx)
+    xb = x @ tp.gather(p.wx)
+    gate = x @ tp.gather(p.wgate)
     xin = torch.cat([state["conv"].to(xb.dtype), xb], dim=1)
     xc = sum(xin[:, i, :] * p.conv_w[i] for i in range(p.conv_w.shape[0])) + p.conv_b
-    a, b = _gates(p, xc)                                 # (B, D)
+    a, b = _gates(p, xc, local)                          # (B, D)
     hnew = a * state["h"] + b
-    out = (hnew[:, None, :].to(x.dtype) * F.gelu(gate, approximate="tanh")) @ p.out
+    out = tp.row_out(hnew[:, None, :].to(x.dtype) * F.gelu(gate, approximate="tanh"), p.out)
     return out, {"conv": xin[:, 1:, :], "h": hnew}

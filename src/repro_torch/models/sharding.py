@@ -29,13 +29,10 @@ of each of the port's per-layer parameters (its reference leaf's, less the
 group axis), ``localize`` makes a model built under a mesh hold its rank's
 blocks, and ``entry_pspec`` / ``cut_cache`` do the same for a serving cache
 entry. A spec is first normalised (``live``): an axis of size 1 cuts
-nothing and is dropped. Only the ``SHARDED`` block types have a program
-under a mesh that cuts their leaves (``unsharded_blocks`` names the
-others).
+nothing and is dropped.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -226,9 +223,6 @@ def cache_pspecs(mesh, cache, cfg):
 
 
 # ------------------------------------------------ the rules on real tensors
-SHARDED = ("dense", "moe")     # block types with a tensor-parallel program
-
-
 def live(spec, mesh):
     """``spec`` with the axes of size 1 dropped (a tuple of axes keeps its
     others, in order; an entry left empty is None)."""
@@ -275,45 +269,6 @@ def port_param_specs(model, mesh, shapes=None):
     return specs
 
 
-@functools.lru_cache(maxsize=None)
-def _unsharded(cfg, names, sizes):
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.models.blocks import make_block
-    mesh = Mesh(names, sizes)
-    btypes = set(cfg.block_types()) | ({"enc"} if cfg.encoder is not None else set())
-    found = []
-    for bt in sorted(btypes - set(SHARDED)):
-        blk = make_block(cfg, bt, device="meta")
-        for name, p in blk.named_parameters():
-            sub, leaf = name.split(".", 1)
-            path = ("decoder", "blocks", 0, sub, leaf)
-            spec = live(param_pspec(path, torch.empty((1,) + tuple(p.shape), device="meta"),
-                                    cfg, mesh), mesh)
-            if any(ax is not None for ax in spec):
-                found.append(bt)
-                break
-    return tuple(found)
-
-
-def unsharded_blocks(cfg, mesh):
-    """The block types of ``cfg`` outside ``SHARDED`` whose leaves ``mesh``
-    cuts: they have no tensor-parallel program, so the port refuses to
-    build or run them under such a mesh rather than run them replicated."""
-    if mesh is None:
-        return ()
-    return _unsharded(cfg, tuple(mesh.axis_names), tuple(mesh.shape[a] for a in mesh.axis_names))
-
-
-def refuse_unsharded(cfg, mesh):
-    """Raise where ``mesh`` cuts a leaf of a block type without a program."""
-    bad = unsharded_blocks(cfg, mesh)
-    if bad:
-        raise ValueError(f"{cfg.name}: the block types {list(bad)} have no tensor-parallel "
-                         f"program, and a {'x'.join(str(mesh.shape[a]) for a in mesh.axis_names)} "
-                         f"mesh over {tuple(mesh.axis_names)} cuts their leaves; only "
-                         f"{list(SHARDED)} blocks run under it")
-
-
 def expert_spec(name, moe_shard, mesh):
     """The live spec of expert leaf ``name`` of an MoE whose ``shard`` is
     ``moe_shard`` (``moe.expert_shard``: the reference's ``wspec_i`` /
@@ -330,10 +285,8 @@ def localize(model, mesh, device):
     of this rank on ``device``: every parameter replaced by one of its
     block's shape, with ``spec`` (its live spec) and ``whole`` (its whole
     shape) set on it. An MoE's expert leaves are already its shard
-    (``moe.expert_shard``). Raises for a block type without a program
-    whose leaves the mesh cuts."""
+    (``moe.expert_shard``)."""
     from repro_torch.models.moe import MoE, expert_leaf_shape
-    refuse_unsharded(model.cfg, mesh)
     cfg = model.cfg
     experts = {}
     for mod in model.modules():

@@ -6,6 +6,21 @@ the mamba2-1.3b config. The projections are separate (d_in, d_out)
 matrices applied as ``x @ w``, as in the reference. All recurrence math
 runs in f32. ``decode_mamba`` is the one-token recurrent step from the
 state ``apply_mamba`` returns; it has no kernel.
+
+Under a mesh (``meshctx``) both are the program one rank runs under the
+reference's rules: ``wz``, ``wx`` and ``wdt`` column-parallel, so a rank
+holds its H / model heads (d_inner is head-major, so its block of ``wx``'s
+columns is a run of whole heads) and its channels of ``conv_x`` and
+``conv_x_b``; ``wbc`` and ``conv_bc`` replicated, so every rank computes B
+and C whole; ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` replicated,
+each read as its block (``tp.model_block``); the gated norm's mean over
+d_inner one all-reduce of the sums of squares over "model"
+(``tp.mean_square``); ``out_proj`` row-parallel. ``ssd_intra`` runs on the
+rank's heads. The state is the rank's blocks as the cache rules cut it:
+``h`` by heads, ``conv_x`` by channels, ``conv_bc`` whole. The reference
+pins the residual sequence-parallel in train and prefill
+(``seq_parallel_residual``); the port keeps it whole on every rank of
+"model" (the row-parallel product's all-reduce), which changes no value.
 """
 from __future__ import annotations
 
@@ -14,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.models import tp
 from repro_torch.models.layers import dtype_of
 
 
@@ -80,10 +96,31 @@ def _conv_step(w, b, x1, state):
     return F.silu(y + b), xin[:, 1:, :]
 
 
-def _gated_norm(p, y, z, eps=1e-6):
+def _gated_norm(p, y, z, eps=1e-6, local=False):
+    """RMSNorm of ``y * silu(z)`` over d_inner; with ``local`` y and z are
+    this rank's channels of it."""
     yf = (y * F.silu(z)).to(torch.float32)
-    ms = (yf * yf).mean(-1, keepdim=True)
-    return yf * torch.rsqrt(ms + eps) * p.norm_scale.to(torch.float32)
+    ms = tp.mean_square(yf, local)
+    return yf * torch.rsqrt(ms + eps) * tp.model_block(p.norm_scale, local).to(torch.float32)
+
+
+def _heads_held(p, cfg):
+    """Whether this rank runs its heads only: "model" cuts ``wx``'s
+    columns (a mesh whose model axis divides d_inner). The rules cut
+    ``wdt`` only where the axis divides the heads; a mixer whose d_inner
+    splits and whose heads do not has no program."""
+    if not tp.cols(p.wx):
+        return False
+    if not tp.cols(p.wdt):
+        raise ValueError(f"{cfg.name}: a model axis of {tp.model_size()} splits d_inner but not "
+                         f"the {dims(cfg)[1]} heads of a mamba2 mixer")
+    return True
+
+
+def _mixer_inputs(p, x):
+    """z, x's branch, B and C's branch and dt: x times ``wz``, ``wx``,
+    ``wbc`` and ``wdt`` (each gathered whole on its fsdp dims)."""
+    return tuple(x @ tp.gather(w) for w in (p.wz, p.wx, p.wbc, p.wdt))
 
 
 def ssd_chunked(xh, dth, a_log, Bm, Cm, chunk, h0=None):
@@ -141,12 +178,11 @@ def apply_mamba(p, x, cfg, *, state=None):
     """Full-sequence forward (train/prefill). x: (B, L, d).
     state: optional {"conv_x","conv_bc","h"} to resume. Returns
     (out, new_state)."""
-    d_inner, h, pdim, n, _ = dims(cfg)
+    pdim = cfg.ssm.head_dim
     b, l, _ = x.shape
-    z = x @ p.wz
-    xs = x @ p.wx
-    bc = x @ p.wbc
-    dt = x @ p.wdt
+    local = _heads_held(p, cfg)
+    z, xs, bc, dt = _mixer_inputs(p, x)
+    h = dt.shape[-1]                                    # the heads this rank holds
     cx = None if state is None else state["conv_x"]
     cbc = None if state is None else state["conv_bc"]
     h0 = None if state is None else state["h"]
@@ -154,13 +190,14 @@ def apply_mamba(p, x, cfg, *, state=None):
     bc, conv_bc_state = _conv_seq(p.conv_bc, p.conv_bc_b, bc, cbc)
     Bm, Cm = torch.chunk(bc, 2, dim=-1)
     xh = xs.reshape(b, l, h, pdim).to(torch.float32)
-    dtf = softplus(dt.to(torch.float32) + p.dt_bias)
-    a_log = -torch.exp(p.A_log) * dtf                   # (B,L,H)
+    dtf = softplus(dt.to(torch.float32) + tp.model_block(p.dt_bias, local))
+    a_log = -torch.exp(tp.model_block(p.A_log, local)) * dtf     # (B,L,H)
     y, hlast = ssd_chunked(xh, dtf, a_log, Bm.to(torch.float32),
                            Cm.to(torch.float32), cfg.ssm.chunk, h0)
-    y = y + p.D[None, None, :, None] * xh
-    y = y.reshape(b, l, d_inner)
-    out = _gated_norm(p, y, z.to(torch.float32)).to(x.dtype) @ p.out_proj
+    y = y + tp.model_block(p.D, local)[None, None, :, None] * xh
+    y = y.reshape(b, l, h * pdim)
+    out = tp.row_out(_gated_norm(p, y, z.to(torch.float32), local=local).to(x.dtype),
+                     p.out_proj)
     return out, {"conv_x": conv_x_state, "conv_bc": conv_bc_state, "h": hlast}
 
 
@@ -168,21 +205,22 @@ def decode_mamba(p, x, cfg, state):
     """One-token decode. x: (B, 1, d); state {"conv_x": (B, d_conv-1, di),
     "conv_bc": (B, d_conv-1, 2N), "h": (B, H, P, N)}. Returns (out, new
     state); the state passed in is not changed."""
-    d_inner, h, pdim, n, _ = dims(cfg)
+    pdim = cfg.ssm.head_dim
     b = x.shape[0]
-    z = x @ p.wz
-    xs = (x @ p.wx)[:, 0]
-    bc = (x @ p.wbc)[:, 0]
-    dt = (x @ p.wdt)[:, 0]
+    local = _heads_held(p, cfg)
+    z, xs, bc, dt = _mixer_inputs(p, x)
+    xs, bc, dt = xs[:, 0], bc[:, 0], dt[:, 0]
+    h = dt.shape[-1]
     xs, new_cx = _conv_step(p.conv_x, p.conv_x_b, xs, state["conv_x"])
     bc, new_cbc = _conv_step(p.conv_bc, p.conv_bc_b, bc, state["conv_bc"])
     Bm, Cm = torch.chunk(bc, 2, dim=-1)
     xh = xs.reshape(b, h, pdim).to(torch.float32)
-    dtf = softplus(dt.to(torch.float32) + p.dt_bias)   # (B,H)
-    a = torch.exp(-torch.exp(p.A_log) * dtf)            # (B,H)
+    dtf = softplus(dt.to(torch.float32) + tp.model_block(p.dt_bias, local))   # (B,H)
+    a = torch.exp(-torch.exp(tp.model_block(p.A_log, local)) * dtf)          # (B,H)
     hnew = (state["h"] * a[:, :, None, None]
             + torch.einsum("bh,bn,bhp->bhpn", dtf, Bm.to(torch.float32), xh))
     yh = torch.einsum("bn,bhpn->bhp", Cm.to(torch.float32), hnew)
-    yh = yh + p.D[None, :, None] * xh
-    out = _gated_norm(p, yh.reshape(b, 1, d_inner), z.to(torch.float32)).to(x.dtype) @ p.out_proj
+    yh = yh + tp.model_block(p.D, local)[None, :, None] * xh
+    out = tp.row_out(_gated_norm(p, yh.reshape(b, 1, h * pdim), z.to(torch.float32),
+                                 local=local).to(x.dtype), p.out_proj)
     return out, {"conv_x": new_cx, "conv_bc": new_cbc, "h": hnew}

@@ -16,6 +16,11 @@ every function here is the plain single-process op.
   column-parallel product); ``rows(w)``: its input dim (row-parallel);
 * ``row_out``: a row-parallel product and its one all-reduce over
   "model", in the activation's dtype;
+* ``model_block``: a replicated leaf's slice for this rank's block of a
+  width cut over "model" (the mamba2 mixer's per-head and per-channel
+  leaves, the RG-LRU's gate biases), as a view of the whole leaf;
+* ``mean_square``: a norm's mean of squares over a width cut over
+  "model" (the sums of squares all-reduced, divided by the whole width);
 * ``mlp``: SwiGLU or GELU with ``wi`` / ``wg`` column-parallel and ``wo``
   row-parallel;
 * ``embed`` and ``head``: the vocab-parallel lookup (a rank looks up the
@@ -90,6 +95,31 @@ def row_out(h, w):
     when ``w`` is row-parallel, then summed over "model"."""
     y = h @ gather(w)
     return meshctx.get_mesh().all_reduce(y, "model") if rows(w) else y
+
+
+def model_block(w, cut=True):
+    """This rank's block along "model" of the replicated leaf ``w`` (its
+    first dim) where ``cut``, as a view of the whole leaf: the rank reads
+    only its block, and the gradient sync's sum over "model" (whose ranks
+    each fill their block's rows of the leaf's gradient) assembles the
+    whole gradient. ``w`` itself without a mesh or where ``cut`` is
+    False."""
+    mesh = meshctx.get_mesh()
+    if not cut or mesh is None:
+        return w
+    return w[block_of(w.shape[0], "model", mesh)]
+
+
+def mean_square(xf, cut=False):
+    """The mean of ``xf * xf`` over its last dim (kept); where ``cut`` that
+    dim is this rank's block of a width cut over "model", so the sums of
+    squares are all-reduced over "model" and divided by the whole width
+    (GSPMD's partial sum and all-reduce of the same mean)."""
+    if not cut:
+        return (xf * xf).mean(-1, keepdim=True)
+    mesh = meshctx.get_mesh()
+    total = mesh.all_reduce((xf * xf).sum(-1, keepdim=True), "model")
+    return total / (xf.shape[-1] * model_size(mesh))
 
 
 def mlp(x, wi, wg, wo, act="swiglu"):

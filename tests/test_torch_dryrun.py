@@ -417,14 +417,11 @@ def test_run_one_records_every_key(monkeypatch, arch, kind):
     for k in ("param_bytes_per_device", held, "flops", "dot_flops", "bytes_accessed"):
         assert rec[k] > 0, k
     assert rec["count_s"] >= 0
-    if arch == "qwen3-1.7b":                        # a rank's program counted on meta
-        assert rec["collectives"]["moved_bytes"] > 0
-        assert rec["memory_analysis"]["peak_memory_in_bytes"] > 0
-        assert set(rec["notes"]) == {"memory_analysis"}
-        assert ("cfg.remat" in rec["notes"]["memory_analysis"]) == (kind == "train")
-    else:                                           # unsharded blocks
-        assert rec["collectives"] is None and rec["memory_analysis"] is None
-        assert set(rec["notes"]) == {"collectives", "memory_analysis"}
+    # every arch's rank program is counted on meta
+    assert rec["collectives"]["moved_bytes"] > 0
+    assert rec["memory_analysis"]["peak_memory_in_bytes"] > 0
+    assert set(rec["notes"]) == {"memory_analysis"}
+    assert ("cfg.remat" in rec["notes"]["memory_analysis"]) == (kind == "train")
     json.dumps(rec)
 
 

@@ -353,24 +353,6 @@ def test_rules_cut_the_dense_leaves():
     assert model.blocks[0].moe.wi.spec == ("model", "data", None)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
-def test_an_unsharded_block_raises_under_a_cutting_mesh(arch):
-    cfg = reduced(get_config(arch), n_layers=2 if arch.startswith("mamba") else 3)
-    btype = "mamba2" if arch.startswith("mamba") else "rec"
-    cutting = CountingMesh(Mesh(*MESHES["2x2"]))
-    with meshctx.use_mesh(cutting), pytest.raises(ValueError, match=btype):
-        Model(cfg, device="meta")
-    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")    # as today
-    tokens = torch.zeros((2, 8), dtype=torch.long)
-    logits, _ = make_prefill_step(cfg, 8)(model, tokens)
-    assert torch.isfinite(logits).all()
-    with meshctx.use_mesh(cutting), pytest.raises(ValueError, match=btype):
-        make_prefill_step(cfg, 8)(model, tokens.to("meta"))
-    # a mesh that cuts nothing leaves them runnable
-    with meshctx.use_mesh(CountingMesh(Mesh(("data", "model"), (2, 1)))):
-        Model(cfg, device="meta")
-
-
 @pytest.mark.parametrize("kind", ["float", "int8"])
 @pytest.mark.parametrize("window", [0, 9])
 def test_plain_lse_is_the_float64_logsumexp(kind, window):
