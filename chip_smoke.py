@@ -129,12 +129,14 @@ their NCCL half over every visible card, and prints no result):
    profiled decode step each; the phase's seconds;
 12b. the loss gradient, a main path: one loss-and-gradient pass of
    mamba2-1.3b (48 layers, bf16, (2, 1024)) through ``models.loss_fn`` and
-   autograd, exactly 48 ssd_intra and 48 ssd_intra_backward launches, its
+   autograd, each layer recomputed in the backward (the config's remat),
+   exactly 96 ssd_intra and 48 ssd_intra_backward launches, its
    wall and device ms and peak memory; then at full width, 2 layers and
    f32 the card's gradient against the CPU's;
 12c. LM training, a main path: three ``launch.steps.make_train_step``
-   steps of mamba2-1.3b (48 layers, bf16, (2, 1024)), exactly 48 + 48 ssd
-   launches a step and nothing else, the first step (rate 0) moving no
+   steps of mamba2-1.3b (48 layers, bf16, (2, 1024)), exactly 96 + 48 ssd
+   launches a step (the remat's recompute launches ssd_intra again) and
+   nothing else, the first step (rate 0) moving no
    parameter and the second every leaf a step of the rate can move, then a
    step's wall and device ms split into forward, backward and optimizer,
    its top device kernels and the peak memory; one timed qwen3-1.7b step
@@ -147,12 +149,24 @@ their NCCL half over every visible card, and prints no result):
    for every arch of ARCH_IDS, 3 steps of (2, 64) each into a temporary
    --out (Adafactor for llama-3.2-vision-90b and kimi-k2-1t-a32b, the
    tail's decay mask for recurrentgemma-9b): every loss finite, the final
-   checkpoint written, exactly 12 ssd_intra and 12 ssd_intra_backward
+   checkpoint written, exactly 24 ssd_intra and 12 ssd_intra_backward
    launches for mamba2-1.3b's 4 layers and none elsewhere; then one
    full-width train step of llama-3.2-vision-90b at one 5-layer group
    (Adafactor) and of seamless-m4t-large-v2 at full depth (AdamW) at
    (2, 512) with drawn aux_embeds, split as 12c's, the optimizer's share
    and peak memory;
+12f. the main path's model trained at full width and depth, a main path:
+   ``launch.train("qwen3-1.7b", batch=2, seq=4096, steps=3)`` (28 layers,
+   bf16, AdamW, each layer recomputed in the backward as the config's
+   remat asks): the step first counted on meta with remat (its peak; batch
+   1 if it exceeds 60 GiB) and without (printed, never run); every loss
+   and grad norm finite, the final checkpoint written, no kernel launched,
+   ``max_memory_allocated`` under 80 GiB and within 5 % of the meta
+   count's peak; the seconds of each step and a step split into forward,
+   backward and optimizer, its top device kernels; then at 4 layers, float32,
+   (2, 4096), one loss gradient with remat on and one with it off from the
+   same weights and batch, each gradient within 1e-6 of its leaf's largest
+   (the bits equal or not, printed);
 12d. the example's pre-training, a main path: ``collab_serve --reduced
    --pretrain 150`` for qwen3-1.7b (final loss at most 3.9, top-1
    agreement at least 70 %, beside the JAX example's 3.576 and 86.7 %) and
@@ -231,7 +245,8 @@ their NCCL half over every visible card, and prints no result):
 15g. the dry-run without running (``python -m repro_torch.launch.dryrun
    --arch A --both-meshes`` for every arch, all on meta, in four background
    processes at a lower priority started before the build, so their
-   minutes of host time run beside the card's phases): all 80 records of ARCH_IDS x INPUT_SHAPES x
+   minutes of host time run beside the card's phases, and read last,
+   after phase 16b): all 80 records of ARCH_IDS x INPUT_SHAPES x
    both production meshes; one line a combination at each arch's
    ``DRYRUN_SHAPES`` shape with the params' and the optimizer state's or
    cache's bytes a device, each and together against the card's 80 GB,
@@ -270,10 +285,10 @@ their NCCL half over every visible card, and prints no result):
    ranks (kept routing integers equal, outputs within 1e-5 + 1e-5 |cpu|);
    qwen3-moe-30b-a3b at full width, 4 of its 48 layers, seeded bf16
    weights (each rank keeps its shard of the experts), one request of a
-   (4, 2048) prefill (``apply_moe_ep``) and 31 decode steps
+   (4, 2048) prefill (``apply_moe_ep``) and 7 decode steps
    (``apply_moe_ep_decode``; the attention tensor-parallel, each rank's
    heads and its half of the cache's length, ``decode_attention`` over
-   its (2, 1040, 4, 8, 128) run with the log-sum-exp: exactly 124
+   its (2, 1028, 4, 8, 128) run with the log-sum-exp: exactly 28
    launches a rank) at capacity factor 16
    (where neither path drops: the single-device decode's capacity is 4),
    held to one process with no mesh fed its tokens (logits within 5e-2 x
@@ -305,7 +320,7 @@ their NCCL half over every visible card, and prints no result):
    2e-5 |plain| for the output and the log-sum-exp), timed with and
    without it beside its bound and beside the library call that also
    returns the log-sum-exp (``_scaled_dot_product_efficient_attention``),
-   also at phase 16's qwen3-moe rank's (2, 1040, 4, 8, 128), and qwen3's
+   also at phase 16's qwen3-moe rank's (2, 1028, 4, 8, 128), and qwen3's
    shape without it against PERF.md's 0.01843 ms; (d) each rank's
    collective log of the serves equal to a ``CountingMesh``'s on meta at
    its coordinates, and a decode step's ``max_memory_allocated`` against
@@ -318,7 +333,7 @@ their NCCL half over every visible card, and prints no result):
    optimizer state after step 1 within 1e-5 of each leaf's largest);
    (b) qwen2-7b at its published widths (d 3584, 14 query and 2 kv heads,
    half of d_ff and of the vocab a rank), 2 of its 28 layers, bf16, AdamW,
-   3 steps on a (4, 512) batch of the synthetic token stream over the four
+   2 steps on a (4, 512) batch of the synthetic token stream over the four
    gloo ranks: seconds a step, peak memory a rank, the collectives a step
    by kind and bytes, step 1's loss and grad norm beside one process's;
    the same draws in float32 at 1 layer for 2 steps held to one process
@@ -373,6 +388,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -384,6 +400,7 @@ from pathlib import Path
 
 import torch
 
+T0 = time.perf_counter()    # the script's start: each phase prints its end against it
 HBM_BYTES_PER_S = None      # H100 SXM HBM3: the port's mesh.HBM_BW, read in main
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
@@ -453,6 +470,20 @@ ENCDEC_TRAIN_LAYERS = {"llama-3.2-vision-90b": 5}
 ENCDEC_TRAIN_BATCH = (2, 512)
 # the --arch training launcher on the card: every arch of ARCH_IDS reduced
 LAUNCHER = dict(steps=3, batch=2, seq=64)
+# the main path's model trained by the launcher at full width and depth at
+# train_4k's sequence, its layers recomputed in the backward (cfg.remat);
+# a meta count of the step's peak above FULL_TRAIN_COUNT_MAX takes batch 1
+FULL_TRAIN = dict(arch="qwen3-1.7b", batch=2, seq=4096, steps=3)
+FULL_TRAIN_COUNT_MAX = 60 * 2**30
+# max_memory_allocated of the launcher's run at most this far from the
+# meta count's peak, relative (the sharded train steps of phase 16g read
+# 0.25-0.69 % above theirs)
+FULL_TRAIN_PEAK_GAP = 0.05
+# remat on against off at full width and a depth where both fit, float32,
+# the same weights and batch: each gradient over its leaf's largest (the
+# recompute runs the same kernels on the same inputs: the same bits)
+REMAT_CHECK = dict(layers=4, batch=2, seq=4096)
+REMAT_TOL = 1e-6
 # the dry-run on meta, one input shape an arch on both production meshes,
 # each of the four shapes taken and the cheapest counts chosen: all 80
 # combinations take minutes of host time, most of it the prefill_32k
@@ -572,6 +603,19 @@ HUFFMAN_GAP = 0.05
 
 class Failed(Exception):
     pass
+
+
+def timed(fn):
+    """``fn`` printing, after each call, its seconds and the script's
+    elapsed seconds."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(f"time: {fn.__name__} {time.perf_counter() - t:.1f} s, at "
+              f"{time.perf_counter() - T0:.1f} s", flush=True)
+        return out
+    return run
 
 
 def check(ok, what):
@@ -1065,9 +1109,11 @@ def loss_batch(cfg, b, s, gen, dev):
 def phase_loss_grad(dev, model_lib, init_params, cfg, build_mod):
     """A main path: one loss-and-gradient pass of mamba2-1.3b at its
     published widths (seeded random bf16 weights) at LOSS_BATCH, the way a
-    training step takes it (``models.loss_fn``, then autograd): exactly one
-    ssd_intra and one ssd_intra_backward launch a layer and no other
-    kernel, a finite loss and every gradient finite and nonzero; the wall
+    training step takes it (``models.loss_fn``, then autograd, each layer
+    recomputed in the backward under the config's remat): exactly two
+    ssd_intra launches a layer (the forward and the recompute) and one
+    ssd_intra_backward and no other kernel, a finite loss and every
+    gradient finite and nonzero; the wall
     and device ms of the forward and the backward, peak memory. Then at
     full width and 2 layers in f32, the card's gradient against the CPU's
     (the twin and the formula), each parameter within LOSS_GRAD_TOL of its
@@ -1084,7 +1130,7 @@ def phase_loss_grad(dev, model_lib, init_params, cfg, build_mod):
     grads = torch.autograd.grad(loss, params)
     torch.cuda.synchronize()
     launches = {k: v for k, v in build_mod.LAUNCHES.items() if v}
-    want = {"ssd_intra": n_ssd, "ssd_intra_backward": n_ssd}
+    want = {"ssd_intra": 2 * n_ssd, "ssd_intra_backward": n_ssd}
     check(launches == want, f"loss gradient {cfg.name}: launches {launches}, expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     value = float(loss.detach())
@@ -1140,7 +1186,7 @@ def phase_loss_grad(dev, model_lib, init_params, cfg, build_mod):
         res[d.type] = (float(l.detach()), [t.cpu() for t in torch.autograd.grad(
             l, list(m.parameters()))], dict(build_mod.LAUNCHES))
     n2 = sum(bt == "mamba2" for bt in small.block_types())
-    check(res[dev.type][2] == {"ssd_intra": n2, "ssd_intra_backward": n2},
+    check(res[dev.type][2] == {"ssd_intra": 2 * n2, "ssd_intra_backward": n2},
           f"loss gradient check: launches {res[dev.type][2]}")
     worst = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
                 for a, c in zip(res[dev.type][1], res["cpu"][1]))
@@ -1208,8 +1254,9 @@ def step_split(train_step, model, opt, batch, model_lib, label, top=12):
 def phase_train_step(dev, steps_lib, model_lib, init_params, cfg, build_mod):
     """A main path: ``launch.steps.make_train_step`` on mamba2-1.3b at its
     published widths (seeded random bf16 weights) at LOSS_BATCH, TRAIN_STEPS
-    steps: exactly one ssd_intra and one ssd_intra_backward launch a layer a
-    step and no other kernel, every loss finite, no parameter moved by the
+    steps: exactly two ssd_intra launches (the forward and the remat's
+    recompute) and one ssd_intra_backward a layer a step and no other
+    kernel, every loss finite, no parameter moved by the
     first step (rate 0) and every leaf moved by the second but bf16 ones
     too large everywhere for a step of the rate to change (the norm scales
     at 1.0); then a step's
@@ -1217,7 +1264,7 @@ def phase_train_step(dev, steps_lib, model_lib, init_params, cfg, build_mod):
     device kernels, and the peak memory. Returns the launches."""
     b, s = LOSS_BATCH
     n_ssd = sum(bt == "mamba2" for bt in cfg.block_types())
-    want = {"ssd_intra": n_ssd, "ssd_intra_backward": n_ssd}
+    want = {"ssd_intra": 2 * n_ssd, "ssd_intra_backward": n_ssd}
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(7), dev)
     batch = loss_batch(cfg, b, s, torch.Generator().manual_seed(8), dev)
     train_step, opt_init = steps_lib.make_train_step(cfg, **TRAIN_STEP_LR)
@@ -1254,7 +1301,7 @@ def phase_train_step(dev, steps_lib, model_lib, init_params, cfg, build_mod):
           f"{TRAIN_STEPS} steps of make_train_step({TRAIN_STEP_LR}): losses "
           f"{', '.join(f'{v:.6f}' for v in losses)}, rates "
           f"0 then {TRAIN_STEP_LR['base_lr']}; wall {', '.join(f'{w:.1f}' for w in walls)} ms; "
-          f"launches {dict(launches)} ({n_ssd} + {n_ssd} a step, nothing else); the first step "
+          f"launches {dict(launches)} ({2 * n_ssd} + {n_ssd} a step, nothing else); the first step "
           f"moved no parameter, the second every leaf but {n_still} bf16 leaves of magnitude "
           f">= 0.5 everywhere (the norm scales at 1.0: a 1e-3 step is under half a bf16 step); "
           f"peak memory {peak:.2f} GiB", flush=True)
@@ -1296,6 +1343,149 @@ def phase_train_step_timing(dev, steps_lib, model_lib, init_params, cfg, build_m
           f"the wall and {share(device)} of the device time of a step; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del model, opt, batch
+    torch.cuda.empty_cache()
+
+
+def full_train_count(steps_lib, count_memory, cfg, b, s):
+    """``count_memory``'s costs and memory of one train step of ``cfg`` on
+    ``meta`` at a (b, s) batch of int64 tokens and labels (the synthetic
+    stream's)."""
+    train_step, opt_init = steps_lib.make_train_step(cfg)
+    model = steps_lib.params_spec(cfg)
+    batch = {k: steps_lib.sds((b, s), torch.int64) for k in ("tokens", "labels")}
+    costs, memory, _ = count_memory(train_step, model, opt_init(model), batch)
+    return costs, memory
+
+
+def phase_full_train(dev, train_lib, steps_lib, model_lib, init_params, build_mod, get_config):
+    """12f. A main path at full width and depth: ``launch.train`` of
+    qwen3-1.7b (28 layers, bf16, AdamW, the config's remat: each layer
+    recomputed in the backward) at FULL_TRAIN. First the step counted on
+    meta with remat, and without (for comparison: never run); then the
+    launcher's run, each step timed (synchronized): every loss and grad
+    norm finite, the final checkpoint written, no kernel launched, and
+    ``max_memory_allocated`` under 80 GiB and within FULL_TRAIN_PEAK_GAP of
+    the meta count's peak; a step split as 12c's; then at REMAT_CHECK one
+    float32 loss gradient with remat on and one with it off from the same
+    weights and batch, each gradient within REMAT_TOL of its leaf's
+    largest (whether the bits are equal printed)."""
+    import gc
+    import tempfile
+    from repro_torch.launch.opcount import count_memory
+    t0 = time.perf_counter()
+    run = dict(FULL_TRAIN)
+    cfg = get_config(run["arch"])
+    check(cfg.remat, f"full train: {cfg.name}'s config does not recompute (remat off)")
+    gib = lambda n: n / 2**30
+    costs, mem = full_train_count(steps_lib, count_memory, cfg, run["batch"], run["seq"])
+    if mem["peak_memory_in_bytes"] > FULL_TRAIN_COUNT_MAX:
+        print(f"full train: the meta count at ({run['batch']}, {run['seq']}) is "
+              f"{gib(mem['peak_memory_in_bytes']):.2f} GiB, above "
+              f"{gib(FULL_TRAIN_COUNT_MAX):.0f}: batch 1", flush=True)
+        run["batch"] = 1
+        costs, mem = full_train_count(steps_lib, count_memory, cfg, run["batch"], run["seq"])
+    _, plain = full_train_count(steps_lib, count_memory, cfg.replace(remat=False), run["batch"],
+                                run["seq"])
+    b, s = run["batch"], run["seq"]
+    print(f"full train: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.param_dtype}, "
+          f"{cfg.optimizer}) at ({b}, {s}), a step counted on meta in "
+          f"{time.perf_counter() - t0:.1f} s: with remat peak {mem['peak_memory_in_bytes']} B "
+          f"({gib(mem['peak_memory_in_bytes']):.2f} GiB; arguments "
+          f"{gib(mem['argument_size_in_bytes']):.2f}, temporaries "
+          f"{gib(mem['temp_size_in_bytes']):.2f}), dot_flops {costs['dot_flops']:.6e}; without "
+          f"remat (not run) peak {gib(plain['peak_memory_in_bytes']):.2f} GiB", flush=True)
+
+    # the launcher, each step timed and its metrics kept
+    real = train_lib.make_train_step
+    seen = {"s": [], "metrics": []}
+
+    def timed_make(*a, **kw):
+        step, opt_init = real(*a, **kw)
+
+        def timed_step(model, opt, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(model, opt, batch)
+            torch.cuda.synchronize()
+            seen["s"].append(time.perf_counter() - t)
+            seen["metrics"].append({k: float(v) for k, v in out[2].items()})
+            seen["last"] = (step, out[0], out[1], batch)
+            return out
+        return timed_step, opt_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build_mod.reset_launches()
+    train_lib.make_train_step = timed_make
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            t1 = time.perf_counter()
+            model, _, _ = train_lib.train(run["arch"], steps=run["steps"], batch=b, seq=s,
+                                          out=out, log=lambda *_: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated()
+            written = all(Path(out, f"{run['arch']}_final{x}").exists()
+                          for x in (".npz", ".json"))
+    finally:
+        train_lib.make_train_step = real
+    launches = {n: v for n, v in build_mod.LAUNCHES.items() if v}
+    check(launches == {}, f"full train: launches {launches}, expected none")
+    check(written, "full train: the launcher wrote no final checkpoint")
+    check(len(seen["metrics"]) == run["steps"] and all(
+        math.isfinite(m[k]) for m in seen["metrics"] for k in ("loss", "grad_norm")),
+        f"full train: metrics {seen['metrics']}")
+    count = mem["peak_memory_in_bytes"]
+    gap = (peak - count) / count
+    print(f"full train: launch.train('{run['arch']}', batch={b}, seq={s}, steps={run['steps']}) "
+          f"in {wall:.1f} s (weights drawn and the checkpoint written included): seconds a step "
+          f"{[round(x, 3) for x in seen['s']]}, losses "
+          f"{[round(m['loss'], 6) for m in seen['metrics']]}, grad norms "
+          f"{[round(m['grad_norm'], 6) for m in seen['metrics']]}, every one finite; the final "
+          f"checkpoint written; no kernel launched; max_memory_allocated {peak} B "
+          f"({gib(peak):.2f} GiB) against the meta count's peak {count} B: {100 * gap:+.2f} % "
+          f"(within {100 * FULL_TRAIN_PEAK_GAP:.0f} % allowed)", flush=True)
+    check(gib(peak) < 80, f"full train: peak memory {gib(peak):.2f} GiB")
+    check(abs(gap) <= FULL_TRAIN_PEAK_GAP, f"full train: max_memory_allocated {peak} B is "
+          f"{100 * gap:+.2f} % from the meta count's peak {count} B")
+    step, model, opt, batch = seen.pop("last")
+    step_split(step, model, opt, batch, model_lib, f"{cfg.name} at full depth at ({b}, {s})",
+               top=8)
+    del model, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # remat on against off, float32, at a depth where both fit
+    small = cfg.replace(n_layers=REMAT_CHECK["layers"], param_dtype="float32",
+                        compute_dtype="float32")
+    b2, s2 = REMAT_CHECK["batch"], REMAT_CHECK["seq"]
+    model = init_params(small, torch.Generator(device=dev).manual_seed(11), dev)
+    batch = loss_batch(small, b2, s2, torch.Generator().manual_seed(12), dev)
+    params = list(model.parameters())
+    res = {}
+    for remat in (True, False):
+        model.cfg = small.replace(remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = model_lib.loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        res[remat] = (loss.detach(), grads, torch.cuda.max_memory_allocated())
+    on, off = res[True], res[False]
+    worst = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for a, c in zip(on[1], off[1]))
+    same = torch.equal(on[0], off[0]) and all(torch.equal(a, c) for a, c in zip(on[1], off[1]))
+    print(f"full train: remat on against off, {cfg.name} at full width, {small.n_layers} layers, "
+          f"float32, ({b2}, {s2}), one loss gradient each from the same weights and batch: "
+          f"losses {float(on[0]):.6f} / {float(off[0]):.6f}; the largest difference of a "
+          f"gradient over its leaf's largest {worst:.3e} ({REMAT_TOL} allowed); the same bits: "
+          f"{same}; peak memory {gib(on[2]):.2f} / {gib(off[2]):.2f} GiB; the phase in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(worst <= REMAT_TOL, f"full train: remat moves a gradient by {worst:.3e} of its leaf's "
+          f"largest")
+    del model, params, batch, res, on, off
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -1363,7 +1553,7 @@ def phase_train_check(dev, steps_lib, init_params, cfg, build_mod, kssd):
 
     card, ref = two_steps(dev), two_steps(cpu)
     if dev.type == "cuda":
-        check(card[3] == {"ssd_intra": 2 * n2, "ssd_intra_backward": 2 * n2},
+        check(card[3] == {"ssd_intra": 4 * n2, "ssd_intra_backward": 2 * n2},
               f"train step check: launches {card[3]}")
     changes = [c - s0 for c, s0 in zip(ref[0], start)]
     p_gap, p_leaf = leaf_gap(card[0], ref[0], changes)
@@ -1403,12 +1593,13 @@ def phase_train_check(dev, steps_lib, init_params, cfg, build_mod, kssd):
 
 
 def pretrain_launches(cfg, steps, requests):
-    """The launches ``collab_serve --reduced --pretrain steps`` makes: one
-    ssd_intra forward and backward a mamba2 layer a step, then what
-    ``serve`` makes at its split (``expected_launches``)."""
+    """The launches ``collab_serve --reduced --pretrain steps`` makes: two
+    ssd_intra forwards (the forward and the remat's recompute) and one
+    backward a mamba2 layer a step, then what ``serve`` makes at its split
+    (``expected_launches``)."""
     want = expected_launches(cfg, cfg.n_layers // 2, requests)
     n_ssd = sum(bt == "mamba2" for bt in cfg.block_types())
-    want["ssd_intra"] += steps * n_ssd
+    want["ssd_intra"] += 2 * steps * n_ssd
     want["ssd_intra_backward"] += steps * n_ssd
     return {n: v for n, v in want.items() if v}
 
@@ -1567,16 +1758,32 @@ KERNEL_NAMES = {"ssd_intra": ("ssd_intra_mma_kernel", "gram_kernel", "intra_kern
                 "decode_attention": ("decode_attn_cluster_kernel",)}
 
 
+@dataclasses.dataclass
+class DeviceKernel:
+    """One kernel name's launches in a profile and their device time."""
+    key: str
+    count: int = 0
+    us: float = 0.0
+
+
 def device_kernels(fn):
     """One torch.profiler window around ``fn`` (which synchronizes): the
-    CUDA kernels it saw, and each one's device time in us."""
+    CUDA kernels it saw, by name, and each one's device time in us. The
+    profiler's raw events are summed here: ``key_averages`` takes about
+    half a millisecond of host time an event, tens of seconds for a train
+    step of tens of thousands of launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return kernels, lambda e: getattr(e, "self_device_time_total", 0.0)
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), DeviceKernel(e.name()))
+            k.count += 1
+            k.us += e.duration_ns() / 1e3
+    return list(kernels.values()), lambda e: e.us
 
 
 def profiled_ms(fn, calls=10):
@@ -3267,8 +3474,9 @@ def phase_launcher(dev, train_lib, build_mod, arch_ids):
     ``--reduce`` for every arch of ARCH_IDS, LAUNCHER's steps into a
     temporary --out: every step's loss finite, the final checkpoint
     written, and exactly the launches the path makes (mamba2-1.3b's 4
-    layers one ssd_intra and one ssd_intra_backward each a step, no other
-    kernel anywhere). Returns the launches."""
+    layers two ssd_intra, the forward and the remat's recompute, and one
+    ssd_intra_backward each a step, no other kernel anywhere). Returns the
+    launches."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -3282,7 +3490,7 @@ def phase_launcher(dev, train_lib, build_mod, arch_ids):
             torch.cuda.synchronize()
             got = {n: v for n, v in build_mod.LAUNCHES.items() if v}
             n_ssd = LAUNCHER["steps"] * sum(bt == "mamba2" for bt in model.cfg.block_types())
-            want = {"ssd_intra": n_ssd, "ssd_intra_backward": n_ssd} if n_ssd else {}
+            want = {"ssd_intra": 2 * n_ssd, "ssd_intra_backward": n_ssd} if n_ssd else {}
             check(got == want, f"launcher {arch}: launches {got}, expected {want}")
             launches.update(got)
             losses = [float(v) for v in losses]
@@ -3438,7 +3646,7 @@ DRYRUN_WORKERS = (("llama-3.2-vision-90b", "mamba2-1.3b"),
 DRYRUN_NICE = 10
 DRYRUN_WAIT_S = 900
 _DRYRUN_SCRIPT = """
-import sys
+import sys, time
 from repro_torch.launch import dryrun
 failed = 0
 for arch in sys.argv[2:]:
@@ -3446,6 +3654,7 @@ for arch in sys.argv[2:]:
         dryrun.main(["--arch", arch, "--both-meshes", "--out", sys.argv[1]])
     except SystemExit:
         failed += 1
+print(f"ended at {time.time()}", flush=True)
 sys.exit(1 if failed else 0)
 """
 
@@ -3463,7 +3672,7 @@ class DryrunJobs:
         self.out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
         env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1",
                    CUDA_VISIBLE_DEVICES="")
-        self.t0 = time.perf_counter()
+        self.t0 = time.time()
         self.logs = [open(self.out / f"worker{i}.log", "w") for i in range(len(DRYRUN_WORKERS))]
         self.procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT, str(self.out),
                                         *archs], env=env, stdout=log, stderr=subprocess.STDOUT,
@@ -3472,9 +3681,12 @@ class DryrunJobs:
 
     def wait(self):
         """(exit codes, the seconds since the start at which the last
-        ended)."""
+        ended, by the end time each worker logs)."""
         rcs = [p.wait(timeout=DRYRUN_WAIT_S) for p in self.procs]
-        return rcs, time.perf_counter() - self.t0
+        ends = [float(line.split()[-1]) for log in self.logs
+                for line in Path(log.name).read_text().splitlines()
+                if line.startswith("ended at ")]
+        return rcs, max(ends, default=time.time()) - self.t0
 
     def records(self):
         return {path.name: json.loads(path.read_text()) for path in self.out.glob("*.json")}
@@ -3729,7 +3941,8 @@ def phase_batched_scorer_timing(dev, kps, ds, mahppo):
 FLEET_VARIANT_ITERATIONS = 5   # --churn, --distill, --llm: 15 iterations cut to 5 for time
 SHARD_MESH = (("data", "model"), (2, 2))   # the gloo ranks' mesh; their env axis is the world
 SHARD_MOE_LAYERS = 4                       # qwen3-moe-30b-a3b cut to 4 of its 48 layers
-SHARD_SERVE = dict(batch=4, prompt_len=2048, gen=32, requests=1, seed=0)
+# 7 decode steps: each takes ~1 s of a gloo rank in bf16 and float32
+SHARD_SERVE = dict(batch=4, prompt_len=2048, gen=8, requests=1, seed=0)
 # no run drops an assignment: the one-process decode routes the step's 4 tokens at capacity
 # max(1, ceil(4 k / E cf)) = 4 at k 8, E 128 and cf 16 (the reference test's 8.0 gives 2)
 SHARD_CF = 16.0
@@ -4528,7 +4741,7 @@ def decode_bound(q, k, v, pos, idx, window=0, scales=(), lse=True):
 def phase_tp_kernel(dev, kda):
     """(c) ``decode_attention`` with its log-sum-exp at a rank's shape of
     the tensor-parallel qwen2-7b decode, (2, 1040, 4, 7, 128) bf16, and
-    its int8 cache, and at phase 16's qwen3-moe rank's (2, 1040, 4, 8,
+    its int8 cache, and at phase 16's qwen3-moe rank's (2, 1028, 4, 8,
     128) bf16: output and log-sum-exp held to the twin within 2e-5 + 2e-5
     |plain| (an empty row's -1e30 exactly); timed with and without it
     beside its bound (``decode_bound``: k, v and the scales read at the
@@ -4639,7 +4852,7 @@ TG_ARCHS = {"qwen2": "qwen2-7b", "moe": "qwen3-moe-30b-a3b"}
 # a rank at 2 layers, the vocab-sized embedding and head most of it)
 TG_LAYERS = 2
 TG_CHECK_LAYERS = 1                        # the float32 check against one process
-TG_RUN = dict(batch=4, seq=512, steps=3, seed=0)
+TG_RUN = dict(batch=4, seq=512, steps=2, seed=0)
 TG_CHECK_STEPS = 2
 TG_LR = dict(base_lr=3e-4, warmup=0)       # warmup 0: the first step moves at base_lr
 TG_TOL = 1e-5                              # loss and grad norm, relative
@@ -5400,7 +5613,8 @@ def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
             check(r["tb_train"][arch]["logs"][0] == log, f"{label} {arch} train rank "
                   f"{r['tp_coords']}: collective log differs from the counting mesh's")
             n_calls = collections.Counter(x[0] for x in calls)
-            check(n_calls == ({"ssd_intra": n_ssd, "ssd_intra_backward": n_ssd} if n_ssd else {}),
+            check(n_calls == ({"ssd_intra": 2 * n_ssd, "ssd_intra_backward": n_ssd} if n_ssd
+                              else {}),
                   f"{label} {arch} train rank {r['tp_coords']}: kernel calls of a step on meta "
                   f"{dict(n_calls)}, {n_ssd} mamba2 layers")
             seen.update(calls)
@@ -5423,7 +5637,8 @@ def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
     n_train = {"ssd_intra": 0, "ssd_intra_backward": 0}
     for arch in TB_TRAIN:
         n = sum(bt == "mamba2" for bt in tb_train_cfg(arch).block_types()) * TB_TRAIN_RUN["steps"]
-        n_train = {k: v + n for k, v in n_train.items()}
+        n_train = {"ssd_intra": n_train["ssd_intra"] + 2 * n,   # the forward and the recompute
+                   "ssd_intra_backward": n_train["ssd_intra_backward"] + n}
     n_train = {k: v for k, v in n_train.items() if v}
     got = [r["tb_train_launches"] for r in ranks]
     check(all(x == n_train for x in got), f"{label}: train launches {got}, expected {n_train}")
@@ -5644,6 +5859,9 @@ def main(argv=None):
                         help="build and time the kernels (phases 1-2 and the timings of "
                              "3, 7 and 10), check nothing else and print no result")
     args = parser.parse_args(argv)
+    for name, fn in list(globals().items()):     # every phase prints its seconds
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(fn)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
@@ -5847,6 +6065,7 @@ def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
                                 shape=ENCDEC_TRAIN_BATCH)
     print(f"encdec: the launcher over ARCH_IDS and the full-width train steps of "
           f"{', '.join(ENCDEC)} in {time.perf_counter() - t_train:.1f} s", flush=True)
+    phase_full_train(dev, train_lib, steps_lib, model_lib, init_params, _build, get_config)
     phase_train_check(dev, steps_lib, init_params, mamba, _build, ssd_intra)
     launches.update(phase_pretrain(dev, collab_serve, _build))
     phase_train_lm(dev, train_lm)
@@ -5867,7 +6086,6 @@ def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
     launches.update(counts)
     phase_compressor(dev, cnn_lib, compressor, huffman, jalad, optim, synthetic, _build)
     torch.cuda.empty_cache()
-    phase_dryrun(jobs, ARCH_IDS)
     phase_bytes_on_card(dev, qwen, init_params, sharding, mesh_lib, cache_lib)
     phase_count_on_card(dev, cnn_lib, split_lib)
     launches.update(phase_batched_dispatch(dev, dispatch_serve, mahppo, quantize_flat_trunk,
@@ -5878,12 +6096,15 @@ def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
                          n_envs=SMALL_BATCHED_ENVS)
     launches.update(phase_several_processes(dev, steps_lib, moe_lib, mahppo, init_params,
                                             decode_attn, mesh_lib))
+    # last: the background dry-run ran beside every phase of the card
+    phase_dryrun(jobs, ARCH_IDS)
 
     kernels = []
     for name, (source, replaces) in ROUTES.items():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches.get(name, 0), max_abs_err=err[name],
                             **times[name]))
+    print(f"time: the whole script in {time.perf_counter() - T0:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,8 @@ Each combination writes one JSON record to ``--out`` (default
   (``models/sharding.py``, ``optim.opt_state_pspec``);
 * ``flops``, ``dot_flops`` and ``bytes_accessed`` of the whole step,
   unpartitioned, counted on ``meta`` (``launch/opcount.py``): the port's
-  ``make_train_step`` (forward, backward and the optimizer) for train,
+  ``make_train_step`` (forward, backward with the recomputed forward of
+  each layer group, and the optimizer) for train,
   ``make_prefill_step`` for prefill, ``make_serve_step`` for decode;
 * ``count_s``, the seconds the counts took (in the place of the
   reference's ``lower_s`` and ``compile_s``).
@@ -33,8 +34,8 @@ on the rank's blocks of the parameters and of the optimizer state:
   ``collectives_weighted``, ``<kind>``, ``<kind>_count`` and
   ``moved_bytes`` (``launch.mesh.collectives_record``); the port's Python
   loop runs every layer, so the counts are already weighted; a train
-  step's are its forward's, its backward's (the collectives' transposes),
-  the gradient sync's and the global norm's;
+  step's are its forward's, its recompute's, its backward's (the
+  collectives' transposes), the gradient sync's and the global norm's;
 * ``memory_analysis``: the reference's keys (``opcount.count_memory``):
   ``argument_size_in_bytes`` (the rank's parameters, and its optimizer
   state and batch or its cache and inputs, those the step reads, as XLA
@@ -49,10 +50,10 @@ on the rank's blocks of the parameters and of the optimizer state:
   ``temp_size_in_bytes`` and ``peak_memory_in_bytes`` (the most bytes of
   live storages the run reaches, autograd's saved tensors among them,
   without and with the arguments') and ``generated_code_size_in_bytes``
-  null, with a note. The port recomputes no activations (``cfg.remat``
-  is ignored), so a train record's temporaries and peak keep every
-  activation where the reference's step recomputes them; its note says
-  so.
+  null, with a note. A train step recomputes each layer group as the
+  reference's does (``cfg.remat``, ``models/model.py``), so between the
+  forward and the backward only the groups' inputs are kept, and the
+  counts and the collectives include the recomputed forwards.
 
 These counts depend on the mesh, so ``counted_rank`` keeps them by arch,
 shape and mesh. The reference pins mamba2-1.3b's residual stream
@@ -86,9 +87,6 @@ from repro_torch.optim.optimizers import opt_state_pspec, opt_state_structs
 
 CODE_NOTE = ("generated_code_size_in_bytes is null: the port generates no code for a step "
              "(its kernels are built once, not per step)")
-REMAT_NOTE = ("temp_size_in_bytes and peak_memory_in_bytes are not the reference's: its train "
-              "step recomputes each layer group's activations for the backward (cfg.remat, "
-              "jax.checkpoint), and the port's, which ignores cfg.remat, keeps every activation")
 IDX_BYTES = 4       # the reference's decode takes idx as an int32 scalar argument (where read)
 TUPLE_BYTES = 8     # a pointer a leaf in the table of the reference's output tuple
 
@@ -184,8 +182,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False):
     rec.update(flops=costs["flops"], dot_flops=costs["dot_flops"],
                bytes_accessed=costs["bytes_accessed"])
     rec["collectives"], rec["memory_analysis"], rank_s = counted_rank(cfg, shape, mesh)
-    remat = shape.kind == "train" and cfg.remat
-    rec["notes"] = {"memory_analysis": CODE_NOTE + ("; " + REMAT_NOTE if remat else "")}
+    rec["notes"] = {"memory_analysis": CODE_NOTE}
     seconds += rank_s
     rec["count_s"] = round(seconds, 2)
     return rec

@@ -7,6 +7,21 @@ per layer, so a split forward can run layers ``lo..hi`` on their own
 ``loss_fn`` is the reference's training loss, the MoE layers' load-balance
 loss included.
 
+With ``cfg.remat`` set (the reference's default) a train-mode forward
+under grad recomputes activations as the reference's ``jax.checkpoint``
+does: each layer group of ``layer_plan`` (``len(cfg.block_pattern)``
+layers; an encoder layer alone) runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps
+the group's input and runs the group again in the backward, stopping at
+the last tensor the backward needs (the group's last product is not
+rerun, as XLA drops it). The tail layers run outside it, as the
+reference's do. The recompute issues the group's collectives again
+(under a mesh, as GSPMD's rematerialised program holds them) and its
+kernels (a mamba2 layer's ``ssd_intra``), but records no MoE routing
+(``moe.unlogged``); a group returns the sum of its MoE aux losses, as the
+reference's ``group_body`` returns ``aux_tot``. Without grad, or with
+``remat`` off, every layer runs once, unchanged.
+
 An encoder-decoder arch (``family == "encdec"``) has an encoder stack of
 ``"enc"`` layers with its own final norm, run over ``aux_embeds`` (the
 stubbed frontend's frame embeddings) in train mode, roped at positions
@@ -16,14 +31,17 @@ patches) itself. Both read the context in train and prefill mode only: at
 decode the cross-attention layers read its K/V from the cache."""
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import meshctx, tp
 from repro_torch.models.blocks import make_block
 from repro_torch.models.layers import Norm, dense_init, dtype_of, embed_init
-from repro_torch.models.moe import expert_leaf_shape, shard_expert_leaf
+from repro_torch.models.moe import expert_leaf_shape, shard_expert_leaf, unlogged
 
 
 def layer_plan(cfg):
@@ -66,12 +84,27 @@ class Model(nn.Module):
         return tp.embed(self.embed, tokens)
 
     def run_layers(self, x, lo, hi, positions, aux=None, context=None):
-        """Train-mode layers ``lo..hi``; each MoE layer appends its aux
-        loss to the list ``aux`` when one is given; the cross-attention
-        layers attend to ``context``."""
+        """Train-mode layers ``lo..hi``, each run once (no recompute); each
+        MoE layer appends its aux loss to the list ``aux`` when one is
+        given; the cross-attention layers attend to ``context``."""
         for blk in self.blocks[lo:hi]:
             x = blk(x, positions, aux=aux, context=context)
         return x
+
+    def train_layers(self, x, positions, aux=None, context=None):
+        """Every layer in train mode; with ``cfg.remat`` and grad enabled
+        each whole group of ``layer_plan`` under a checkpoint and the tail
+        after them (the module's docstring), else ``run_layers``. Each
+        group with MoE layers appends its aux losses' sum to ``aux``."""
+        cfg = self.cfg
+        if not (cfg.remat and torch.is_grad_enabled()):
+            return self.run_layers(x, 0, cfg.n_layers, positions, aux=aux, context=context)
+        pattern, n_groups, _ = layer_plan(cfg)
+        p = len(pattern)
+        for g in range(n_groups):
+            x = remat_group(self.blocks[g * p:(g + 1) * p], x, positions, aux, context)
+        return self.run_layers(x, n_groups * p, cfg.n_layers, positions, aux=aux,
+                               context=context)
 
     def context(self, aux_embeds, dtype):
         """What the cross-attention layers attend to: for an encoder-decoder
@@ -106,15 +139,50 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
+        self.remat = cfg.remat
         self.blocks = nn.ModuleList(make_block(cfg, "enc", device=device)
                                     for _ in range(cfg.encoder.n_layers))
         self.ln_f = Norm(cfg, device=device)
 
     def forward(self, x):
+        """With ``cfg.remat`` and grad enabled each layer is a group of its
+        own under a checkpoint, as the reference runs the encoder as a
+        stack of pattern ("enc",)."""
         positions = default_positions(x.shape[0], x.shape[1], x.device)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, positions)
+            x = remat_group([blk], x, positions) if remat else blk(x, positions)
         return self.ln_f(x)
+
+
+class _Group:
+    """A layer group's body for ``checkpoint``: ``(x, the sum of its MoE
+    aux losses, or None)``. Its second run is the checkpoint's recompute,
+    which records no routing."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+        self.runs = 0
+
+    def __call__(self, x, positions, context):
+        auxes = []
+        with unlogged() if self.runs else contextlib.nullcontext():
+            self.runs += 1
+            for blk in self.blocks:
+                x = blk(x, positions, aux=auxes, context=context)
+        return x, (sum(auxes[1:], auxes[0]) if auxes else None)
+
+
+def remat_group(blocks, x, positions, aux=None, context=None):
+    """Train-mode ``blocks`` under ``checkpoint(use_reentrant=False)``: only
+    ``x`` is kept, the rest is recomputed in the backward (the forward
+    draws no random numbers, so no RNG state is kept). The group's aux
+    sum is appended to the list ``aux`` when there is one."""
+    x, group_aux = checkpoint(_Group(blocks), x, positions, context, use_reentrant=False,
+                              preserve_rng_state=False)
+    if aux is not None and group_aux is not None:
+        aux.append(group_aux)
+    return x
 
 
 def default_positions(b, s, device):
@@ -141,7 +209,7 @@ def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None
     x = model.embed_tokens(tokens).to(dtype_of(cfg.compute_dtype))
     context = None if mode == "decode" else model.context(aux_embeds, x.dtype)
     if mode == "train":
-        return model.run_layers(x, 0, cfg.n_layers, positions, aux=aux, context=context), None
+        return model.train_layers(x, positions, aux=aux, context=context), None
     new_cache = []
     for i, blk in enumerate(model.blocks):
         x, entry = blk(x, positions, mode=mode, cache=None if cache is None else cache[i],
@@ -172,7 +240,8 @@ def loss_fn(model, batch):
     entropy of the train-mode logits (in float32) plus ``aux``, the sum of
     the MoE layers' load-balance losses (0 for a stack without MoE);
     metrics {"ce", "aux", "ppl_proxy"}. Differentiable: on the card the
-    mamba2 mixers run the ``ssd_intra`` forward and backward kernels.
+    mamba2 mixers run the ``ssd_intra`` forward and backward kernels (the
+    forward twice under ``cfg.remat``: once more in the recompute).
 
     Under a mesh (``meshctx``) it is the global loss on every rank: the
     rank's masked sum and mask count are summed over the data axes (one

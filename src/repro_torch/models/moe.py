@@ -36,7 +36,7 @@ is written to an extra slot ``cap`` of an extra expert ``e_loc`` of the
 buffer, which no expert reads (torch refuses an out-of-bounds index where
 XLA drops it), and gathered from a kept slot with weight 0.
 ``routing_log`` records the routing of every call made inside it, on
-every path.
+every path, once: not again in a train step's recompute (``unlogged``).
 """
 from __future__ import annotations
 
@@ -147,6 +147,7 @@ class RoutingLog:
 
 
 _LOGS = []
+_PAUSED = [0]
 
 
 @contextlib.contextmanager
@@ -159,6 +160,17 @@ def routing_log():
         yield log
     finally:
         _LOGS.remove(log)
+
+
+@contextlib.contextmanager
+def unlogged():
+    """No routing is recorded inside the block: a train step's recomputed
+    forward (``cfg.remat``) routes the calls its first run recorded."""
+    _PAUSED[0] += 1
+    try:
+        yield
+    finally:
+        _PAUSED[0] -= 1
 
 
 def expert_shard(cfg, mesh):
@@ -243,6 +255,8 @@ def apply_moe(moe, x, cfg):
 
 
 def _log(r):
+    if _PAUSED[0]:
+        return
     for log in _LOGS:
         log.calls.append(r)
 

@@ -115,6 +115,21 @@ def _at(tree, path):
     return tree
 
 
+def _whole(p, mesh):
+    """Parameter ``p`` whole, as a CPU tensor: a rank's block (``p.spec``,
+    an expert leaf's shard included) gathered over each mesh axis its spec
+    cuts, along the dim it cuts, the inverse of ``sharding.cut``."""
+    t = p.detach()
+    for dim, ax in enumerate(getattr(p, "spec", None) or ()):
+        if ax is None:
+            continue
+        if mesh is None:
+            raise ValueError("this model holds a rank's blocks; take its tree under the mesh "
+                             "it was built under (meshctx.use_mesh)")
+        t = mesh.all_gather(t, ax, dim)
+    return t.cpu()
+
+
 @torch.no_grad()
 def to_reference_tree(model):
     """The port's Model as the reference's params tree: {"embed", "decoder":
@@ -122,14 +137,22 @@ def to_reference_tree(model):
     the groups on a leading axis; "tail": one subtree a layer past the last
     whole group; "ln_f"}, ("lm_head"), ("encoder": the same for the encoder
     stack)}, as CPU tensors in their own dtypes (``from_jax_params`` takes
-    this tree back)."""
+    this tree back).
+
+    A model built under a mesh (``meshctx.use_mesh``) gives the whole
+    leaves, as the reference's ``np.asarray`` of a sharded array does:
+    every rank calls this under the mesh, each parameter's blocks are
+    gathered over the axes that cut it, one at a time and straight to the
+    CPU (a rank's card never holds two copies of the model), and every
+    rank returns the same tree; one rank writes it (``save_checkpoint``)."""
     params = list(model.parameters())
+    mesh = meshctx.get_mesh()
     pattern, n_groups, tail = layer_plan(model.cfg)
     tree = {"decoder": _stack_skeleton(len(pattern), n_groups, len(tail))}
     if model.encoder is not None:
         tree["encoder"] = _stack_skeleton(1, len(model.encoder.blocks), 0)
     for leaf in reference_leaves(model):
-        ts = [params[i].detach().cpu() for i in leaf.index]
+        ts = [_whole(params[i], mesh) for i in leaf.index]
         node = tree
         for key in leaf.path[:-1]:
             node = node[key] if isinstance(key, int) else node.setdefault(key, {})

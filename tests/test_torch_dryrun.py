@@ -421,7 +421,8 @@ def test_run_one_records_every_key(monkeypatch, arch, kind):
     assert rec["collectives"]["moved_bytes"] > 0
     assert rec["memory_analysis"]["peak_memory_in_bytes"] > 0
     assert set(rec["notes"]) == {"memory_analysis"}
-    assert ("cfg.remat" in rec["notes"]["memory_analysis"]) == (kind == "train")
+    # the train step recomputes as the reference's does: no record notes a gap
+    assert "cfg.remat" not in rec["notes"]["memory_analysis"]
     json.dumps(rec)
 
 
