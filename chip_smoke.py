@@ -354,7 +354,8 @@ their NCCL half over every visible card, and prints no result):
    ``serve(mesh=...)`` over the four gloo ranks, a (4, 63) prefill with
    drawn aux_embeds and 4 greedy decode steps (68 slots, split by length;
    llama-vision (4, 62) and 1 step, its fsdp gathers staged through the
-   host a forward):
+   host a forward; mamba2 (4, 64), a prompt the model axis divides, so its
+   residual is sequence-parallel, ``seq_parallel_residual``):
    prefill ms, decode ms a token, peak memory a rank, exactly the path's
    ssd_intra and decode_attention launches a rank; the same draws in
    float32 with every cross-attention gate at 1.0 held to one process on
@@ -366,9 +367,16 @@ their NCCL half over every visible card, and prints no result):
    ssd_intra_backward launches; (c) every rank's collective logs, serving
    (bf16 and float32) and training, equal to a ``CountingMesh``'s on meta,
    where the kernel calls each rank's program makes are recorded (as many a
-   kernel as the rank launched); then (a)-(c) over the NCCL rank(s); (d)
+   kernel as the rank launched); (d) mamba2's sequence-parallel residual:
+   its float32 serve (fed the same tokens) and train step run again on the
+   gloo ranks with ``seq_parallel_residual`` off, the flag-on logits within
+   1e-5 of max|logit| and step 1's metrics within 1e-5 relative of them,
+   every rank's prefill with one reduce-scatter a layer and its train step's
+   collectives the flag-off step's turned as the flag turns them, both
+   runs' peak memory a rank printed; then (a)-(c) over the NCCL rank(s),
+   whose model axis of 1 leaves the residual whole; (e)
    ``ssd_intra``, its backward and ``decode_attention`` at every shape so
-   recorded (the prefills' ssd_intra at (2, 1, 63, 32, 64, 128) a (2, 2)
+   recorded (the prefills' ssd_intra at (2, 1, 64, 32, 64, 128) a (2, 2)
    rank, the train steps' forward and backward at (2, 2, 256, 32, 64, 128),
    decode_attention with its log-sum-exp at recurrentgemma's (2, 1024, 1,
    16, 256) windowed ring run, seamless's (2, 34, 16, 1, 64) and
@@ -401,6 +409,7 @@ from pathlib import Path
 import torch
 
 T0 = time.perf_counter()    # the script's start: each phase prints its end against it
+TIME_LIMIT_S = 1200         # s, the whole script with the kernels' build
 HBM_BYTES_PER_S = None      # H100 SXM HBM3: the port's mesh.HBM_BW, read in main
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
@@ -5291,9 +5300,12 @@ TB_ARCHS = {"mamba2-1.3b": (4, None), "recurrentgemma-9b": (3, None),
 # axis splits by length (the reference's first rule) on every arch;
 # llama-vision takes a 62-token prompt and 1 step into 64 slots: over the
 # gloo ranks each of its forwards gathers ~4.3 GB of fsdp blocks through the
-# host (6.6 s a bf16 step)
+# host (6.6 s a bf16 step); mamba2-1.3b (no attention cache) a 64-token
+# prompt, which the model axis divides, so its prefill's residual is
+# sequence-parallel (``seq_parallel_residual``)
 TB_SERVE = dict(batch=4, prompt_len=63, gen=5, requests=1, seed=0)
-TB_RUNS = {"llama-3.2-vision-90b": dict(prompt_len=62, gen=2)}
+TB_RUNS = {"llama-3.2-vision-90b": dict(prompt_len=62, gen=2),
+           "mamba2-1.3b": dict(prompt_len=64)}
 TB_LOGIT_TOL = 1e-5                        # x max|logit|, float32, against one process
 TB_GATE = 1.0                              # every cross-attention gate in the float32 check
 # trained at full width, float32, AdamW: mamba2-1.3b at 2 layers (the ssd_intra
@@ -5447,14 +5459,24 @@ def shard_tb_serve(mesh, dev, ctx):
         c32 = f32_of(cfg)
         mine = tg_rows(mesh, dict({"tokens": tb_prompt(cfg, run)},
                                   **({} if aux is None else {"aux": aux})), dev)
-        with meshctx.use_mesh(mesh):
-            model = tb_model(c32, dev, run["seed"])
-            logits, tokens, log32 = tb_steps(model, c32, mine["tokens"], mine.get("aux"), run)
-        r["f32"] = (logits.cpu(), tokens.cpu(), log32)
-        del model
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
+        # the float32 steps, and where the residual is sequence-parallel the
+        # same with it whole (the flag off), fed the first run's tokens
+        runs = [("f32", c32)] + ([("f32_off", c32.replace(seq_parallel_residual=False))]
+                                 if tb_seq_split(c32, mesh.shape["model"]) else [])
+        tokens = None
+        for key, c in runs:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with meshctx.use_mesh(mesh):
+                model = tb_model(c, dev, run["seed"])
+                logits, tokens, log32 = tb_steps(model, c, mine["tokens"], mine.get("aux"), run,
+                                                 fed=tokens)
+            r[key] = (logits.cpu(), tokens.cpu(), log32,
+                      torch.cuda.max_memory_allocated() if cuda else 0)
+            del model
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
         out[arch] = r
     return out
 
@@ -5463,28 +5485,42 @@ def tb_train_cfg(arch):
     return f32_of(tb_cfg(arch)).replace(**TB_TRAIN[arch])
 
 
+def tb_seq_split(cfg, model_ranks):
+    """Whether ``cfg``'s residual runs sequence-parallel over ``model_ranks``
+    ranks of "model" (16b's sequences are ones the axis divides): the flag
+    set and more than one rank."""
+    return cfg.seq_parallel_residual and model_ranks > 1
+
+
 def shard_tb_train(mesh, dev, ctx):
     """Each of ``TB_TRAIN`` at full width, float32, trained
     ``TB_TRAIN_RUN["steps"]`` steps on this rank's rows of the synthetic
     token stream (``tg_train``: metrics, seconds, peak memory and collective
-    log a step)."""
+    log a step); where the residual is sequence-parallel, again with the
+    flag off (under "off")."""
     import gc
     from repro_torch.models import init_params, meshctx
     out = {}
     for arch in TB_TRAIN:
         cfg = tb_train_cfg(arch)
         batch = tg_batch(cfg, TB_TRAIN_RUN)
-        with meshctx.use_mesh(mesh):
-            model = init_params(cfg, torch.Generator(device=dev).manual_seed(TB_TRAIN_RUN["seed"]),
-                                dev)
-            res = tg_train(model, cfg, tg_rows(mesh, batch, dev), TB_TRAIN_RUN["steps"], dev)
-        res["logs"] = res["logs"][:1]       # every step runs the same collectives
-        del res["routes"]
-        out[arch] = res
-        del model
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        runs = [cfg] + ([cfg.replace(seq_parallel_residual=False)]
+                        if tb_seq_split(cfg, mesh.shape["model"]) else [])
+        for c in runs:
+            with meshctx.use_mesh(mesh):
+                model = init_params(c, torch.Generator(device=dev).manual_seed(
+                    TB_TRAIN_RUN["seed"]), dev)
+                res = tg_train(model, c, tg_rows(mesh, batch, dev), TB_TRAIN_RUN["steps"], dev)
+            res["logs"] = res["logs"][:1]       # every step runs the same collectives
+            del res["routes"]
+            if c is cfg:
+                out[arch] = res
+            else:
+                out[arch]["off"] = res
+            del model
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     return out
 
 
@@ -5523,12 +5559,13 @@ def tb_meta_log(cfg, run, coords, mesh_spec, mesh_lib):
 
 
 def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
-    """(a)-(c) of 16b over the ranks of one launch. Returns the set of
+    """(a)-(d) of 16b over the ranks of one launch. Returns the set of
     kernel calls (``kernel_calls``) the ranks' programs make, recorded on
     meta, whose counts a rank are checked to be its launches."""
     import gc
     from repro_torch.models import init_params
     names = mesh_spec[0]
+    model_ranks = dict(zip(*mesh_spec)).get("model", 1)
     seen = set()
     for arch in TB_ARCHS:
         cfg, run = tb_cfg(arch), tb_run(arch)
@@ -5592,6 +5629,8 @@ def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
               f"equal {agree} of {tokens.numel()}", flush=True)
         check(max(rel) <= TB_LOGIT_TOL, f"{label} {arch}: float32 logits {rel} of max|logit|")
         check(agree == tokens.numel(), f"{label} {arch}: greedy tokens differ from one process's")
+        if tb_seq_split(cfg, model_ranks):
+            check_tb_seq_serve(label, ranks, arch, cfg, model_ranks, logits)
     # training
     for arch in TB_TRAIN:
         cfg = tb_train_cfg(arch)
@@ -5634,15 +5673,77 @@ def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
               f"{[round(m['loss'], 6) for m in x0['metrics']]}", flush=True)
         check(gap <= TB_TRAIN_TOL, f"{label} {arch}: step 1's metrics {gap:.3e} from one "
               f"process's")
+        if tb_seq_split(cfg, model_ranks):
+            check_tb_seq_train(label, rs, arch, cfg)
     n_train = {"ssd_intra": 0, "ssd_intra_backward": 0}
     for arch in TB_TRAIN:
-        n = sum(bt == "mamba2" for bt in tb_train_cfg(arch).block_types()) * TB_TRAIN_RUN["steps"]
+        cfg = tb_train_cfg(arch)
+        runs = 2 if tb_seq_split(cfg, model_ranks) else 1     # with the flag on and off
+        n = sum(bt == "mamba2" for bt in cfg.block_types()) * TB_TRAIN_RUN["steps"] * runs
         n_train = {"ssd_intra": n_train["ssd_intra"] + 2 * n,   # the forward and the recompute
                    "ssd_intra_backward": n_train["ssd_intra_backward"] + n}
     n_train = {k: v for k, v in n_train.items() if v}
     got = [r["tb_train_launches"] for r in ranks]
     check(all(x == n_train for x in got), f"{label}: train launches {got}, expected {n_train}")
     return seen
+
+
+def check_tb_seq_serve(label, ranks, arch, cfg, model_ranks, logits):
+    """16b's sequence-parallel residual at serve: every rank's prefill, bf16
+    and float32, reduce-scatters ``out_proj`` once a layer (the flag-off
+    run never), and the float32 ``logits`` (gathered over the data ranks)
+    equal the flag-off run's within ``TB_LOGIT_TOL`` of max|logit|."""
+    scatters = lambda log: sum(k == "reduce-scatter" for k, _, _ in log)
+    got = [(scatters(r["tb_serve"][arch]["log"]), scatters(r["tb_serve"][arch]["f32"][2]),
+            scatters(r["tb_serve"][arch]["f32_off"][2])) for r in ranks]
+    check(all(x == (cfg.n_layers, cfg.n_layers, 0) for x in got),
+          f"{label} {arch}: reduce-scatters a rank (bf16, float32, float32 flag off) {got}, "
+          f"expected ({cfg.n_layers}, {cfg.n_layers}, 0)")
+    by_dp = {}
+    for r in ranks:
+        by_dp.setdefault(r["coords"][0], r["tb_serve"][arch]["f32_off"])
+    off = torch.cat([by_dp[i][0] for i in sorted(by_dp)], dim=1)
+    rel = [rel_err(a, b) for a, b in zip(logits, off)]
+    peaks = lambda key: [round(r["tb_serve"][arch][key][3] / 2 ** 30, 3) for r in ranks]
+    print(f"{label}: {arch} float32 serve, the residual sequence-parallel over "
+          f"{model_ranks} model ranks ({cfg.n_layers} reduce-scatters a "
+          f"rank's prefill) against the same draws with seq_parallel_residual off, fed the same "
+          f"tokens: logits of the prefill and each decode step within "
+          f"{[f'{x:.3e}' for x in rel]} of max|logit| (bound {TB_LOGIT_TOL}); peak memory a "
+          f"rank on {peaks('f32')} GiB, off {peaks('f32_off')} GiB", flush=True)
+    check(max(rel) <= TB_LOGIT_TOL, f"{label} {arch}: float32 logits {rel} of max|logit| from "
+          f"the flag-off run's")
+
+
+def check_tb_seq_train(label, rs, arch, cfg):
+    """16b's sequence-parallel residual in a train step: each rank's log
+    is the flag-off step's with each layer's two ``out_proj`` all-reduces
+    (forward and backward) turned into reduce-scatters and all-gathers, an
+    all-gather of each layer's input again in the recompute, and the
+    stack end's all-gather and its reduce-scatter; step 1's loss, ce, aux
+    and grad norm within ``TB_TRAIN_TOL`` relative of the flag-off step's."""
+    n = cfg.n_layers
+    for x in rs:
+        on, off = tg_kinds(x["logs"][0]), tg_kinds(x["off"]["logs"][0])
+        calls = lambda kinds, k: kinds.get(k, (0, 0))[0]
+        want = (calls(off, "all-reduce") - 2 * n, calls(off, "all-gather") + 3 * n + 1,
+                calls(off, "reduce-scatter") + 2 * n + 1)
+        have = (calls(on, "all-reduce"), calls(on, "all-gather"), calls(on, "reduce-scatter"))
+        check(have == want, f"{label} {arch} train: (all-reduce, all-gather, reduce-scatter) "
+              f"calls {have} with the flag on, {want} expected from the flag-off step's {off}")
+    gap = max(abs(x["metrics"][0][k] - x["off"]["metrics"][0][k])
+              / max(abs(x["off"]["metrics"][0][k]), 1e-30)
+              for x in rs for k in ("loss", "ce", "aux", "grad_norm"))
+    print(f"{label}: {arch} train step, the residual sequence-parallel, against "
+          f"seq_parallel_residual off: seconds a step {[round(x['s'][0], 3) for x in rs]} / "
+          f"{[round(x['off']['s'][0], 3) for x in rs]}; peak memory a rank "
+          f"{[round(x['peak'][-1] / 2 ** 30, 3) for x in rs]} / "
+          f"{[round(x['off']['peak'][-1] / 2 ** 30, 3) for x in rs]} GiB; collectives a step "
+          f"(calls, result bytes) {tg_kinds(rs[0]['logs'][0])} / "
+          f"{tg_kinds(rs[0]['off']['logs'][0])}; step 1's loss, ce, aux and grad norm within "
+          f"{gap:.3e} relative (bound {TB_TRAIN_TOL})", flush=True)
+    check(gap <= TB_TRAIN_TOL, f"{label} {arch}: step 1's metrics {gap:.3e} from the flag-off "
+          f"step's")
 
 
 def tb_ssd_cases(calls):
@@ -5797,8 +5898,9 @@ def phase_tp_blocks(dev, mesh_lib, gloo, nccl, nccl_spec, kssd, kda, kref):
     peak memory, launches) and its float32 draws held to one process on
     the card; (b) mamba2-1.3b and recurrentgemma-9b trained in float32,
     step 1's metrics held to one process's; (c) every rank's collective
-    logs against the counting mesh; then (a)-(c) over the NCCL rank(s);
-    (d) the kernels at every shape the ranks' programs gave them (recorded
+    logs against the counting mesh; (d) mamba2's sequence-parallel
+    residual held to the flag-off runs; then (a)-(c) over the NCCL
+    rank(s); (e) the kernels at every shape the ranks' programs gave them (recorded
     on meta, ``kernel_calls``) and at the rank shapes of a longer serve.
     Returns the launches of the parts, summed over the ranks."""
     t0 = time.perf_counter()
@@ -6104,7 +6206,8 @@ def run_all(dev, card, jobs, decode_shape, ssd_shape, calib_shape, mamba, qwen):
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches.get(name, 0), max_abs_err=err[name],
                             **times[name]))
-    print(f"time: the whole script in {time.perf_counter() - T0:.1f} s", flush=True)
+    print(f"time: the whole script in {time.perf_counter() - T0:.1f} s (its limit "
+          f"{TIME_LIMIT_S} s)", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -56,11 +56,16 @@ on the rank's blocks of the parameters and of the optimizer state:
   counts and the collectives include the recomputed forwards.
 
 These counts depend on the mesh, so ``counted_rank`` keeps them by arch,
-shape and mesh. The reference pins mamba2-1.3b's residual stream
-sequence-parallel in train and prefill (``seq_parallel_residual``); the
-port's program keeps it whole over "model", so its moved bytes there are
-those of the plain all-reduce. The process exits non-zero if any
-combination failed.
+shape and mesh. mamba2-1.3b's residual stream is sequence-parallel in
+train and prefill (``seq_parallel_residual``, ``meshctx.seq_parallel``):
+the rank's program all-gathers each layer's normed input along the
+sequence and reduce-scatters its ``out_proj`` (the same bytes by the ring
+rule as the all-reduce it replaces), gathers the residual whole once at
+the stack's end, and in a train step gathers each layer's input again in
+the recompute; its remat groups keep 1 / model of the residual. The
+reference's compiled program keeps its all-reduces under the same flag
+and adds all-gathers, all-to-alls and collective-permutes around them.
+The process exits non-zero if any combination failed.
 """
 from __future__ import annotations
 

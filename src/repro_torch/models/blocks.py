@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from torch import nn
 
+from repro_torch.models import tp
 from repro_torch.models.attention import (Attention, cross_attention, pack_context,
                                           self_attention)
 from repro_torch.models.layers import MLP, Norm
@@ -184,7 +185,11 @@ class RecBlock(nn.Module):
 
 class Mamba2Block(nn.Module):
     """``x + mixer(ln1(x))``; the positions are not used (the SSD mixer is
-    causal by construction). Its cache entry is the mixer's state."""
+    causal by construction). Its cache entry is the mixer's state. With
+    ``seq_parallel`` x is this rank's block of the sequence over "model"
+    (``meshctx.seq_parallel``): ``ln1`` runs on the block, its output is
+    all-gathered whole for the mixer, and the mixer's output comes back
+    reduce-scattered to the block (``tp.row_out``) for the add."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -193,14 +198,16 @@ class Mamba2Block(nn.Module):
         self.mixer = Mamba(cfg, device=device)
 
     def forward(self, x, positions=None, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None, context=None):
+                aux=None, context=None, seq_parallel=False):
         """Train mode returns x; prefill and decode return (x, state)."""
         _check_mode(mode)
         h = self.ln1(x)
         if mode == "decode":
             out, entry = decode_mamba(self.mixer, h, self.cfg, cache)
         else:
-            out, entry = apply_mamba(self.mixer, h, self.cfg)
+            if seq_parallel:
+                h = tp.seq_gather(h)
+            out, entry = apply_mamba(self.mixer, h, self.cfg, scatter_seq=seq_parallel)
         x = x + out
         return x if mode == "train" else (x, entry)
 

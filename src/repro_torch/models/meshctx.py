@@ -13,11 +13,17 @@ read only the mesh's ``shape`` and ``axis_names``, so a ``launch.mesh.Mesh``
 descriptor answers them too.
 
 The reference's ``wsc_batch`` pins the residual stream's batch dim to the
-data axes with a GSPMD layout constraint. It has no counterpart here: a
-rank holds only its own shard of the batch, by construction. A batch the
-data axes do not divide stays whole on every data rank (the reference's
-``batch_shardings``); a rank cannot tell that from its tokens' shape, so
-the caller runs such a batch inside ``whole_batch()``.
+data axes with a GSPMD layout constraint. Its batch half has no
+counterpart here: a rank holds only its own shard of the batch, by
+construction. A batch the data axes do not divide stays whole on every
+data rank (the reference's ``batch_shardings``); a rank cannot tell that
+from its tokens' shape, so the caller runs such a batch inside
+``whole_batch()``. Its sequence half, ``seq_parallel_residual``, is
+``seq_parallel``: where it holds, the model cuts the residual stream along
+the sequence over "model" between layers (``models/model.py``), a layer's
+row-parallel output is reduce-scattered along the sequence and its input
+all-gathered (Megatron-style sequence parallelism), and nothing else
+changes; elsewhere every rank of "model" holds the whole residual.
 """
 from __future__ import annotations
 
@@ -95,6 +101,31 @@ def whole_batch(whole=True):
 
 def batch_is_whole() -> bool:
     return _WHOLE_BATCH
+
+
+def seq_parallel(cfg, x, mode) -> bool:
+    """Whether the residual stream ``x`` runs cut along the sequence over
+    "model" (the reference's ``wsc_batch(x, seq_parallel=...)``): the flag
+    ``cfg.seq_parallel_residual`` set, ``mode`` train or prefill, a mesh
+    whose "model" axis has more than one rank and divides x's sequence
+    (x (B, S, d) with S > 1), and x this rank's shard of the batch (not
+    under ``whole_batch()``, where the reference's constraint is not
+    applied either). Decode, one process and a whole batch never are.
+    Where it would hold, a stack with a block type other than ``mamba2``,
+    which has no sequence-parallel program, raises."""
+    m = _MESH
+    if not cfg.seq_parallel_residual or mode not in ("train", "prefill") or m is None:
+        return False
+    if "model" not in m.axis_names or m.shape["model"] <= 1 or _WHOLE_BATCH:
+        return False
+    if not (x.dim() == 3 and x.shape[1] > 1 and x.shape[1] % m.shape["model"] == 0):
+        return False
+    other = sorted(set(cfg.block_types()) - {"mamba2"})
+    if other:
+        raise ValueError(f"{cfg.name}: seq_parallel_residual has a program for mamba2 blocks "
+                         f"only, and the stack holds {', '.join(map(repr, other))} blocks; "
+                         f"run it with seq_parallel_residual=False")
+    return True
 
 
 def global_batch(local: int, mesh=None) -> int:

@@ -22,6 +22,20 @@ kernels (a mamba2 layer's ``ssd_intra``), but records no MoE routing
 reference's ``group_body`` returns ``aux_tot``. Without grad, or with
 ``remat`` off, every layer runs once, unchanged.
 
+With ``cfg.seq_parallel_residual`` set, in train and prefill under a mesh
+whose "model" axis divides the sequence (``meshctx.seq_parallel``), the
+residual stream is sequence-parallel (Megatron-style): the embedding's
+output is cut to this rank's contiguous block of S / model positions
+(``tp.seq_block``), every layer runs on the block (so a remat group keeps
+only the block), and the block is all-gathered whole after the last
+layer, before ``ln_f`` and the head (``tp.seq_gather``). Each layer
+gathers its normed input and reduce-scatters its row-parallel output
+along the sequence, where it would all-reduce it: the same values, the
+same moved bytes by the ring rule (a train step's recompute gathers each
+layer's input once more), 1 / model of the residual kept a rank.
+Only the ``mamba2`` block has this program; a stack with another block
+type raises where the flag would apply (``meshctx.seq_parallel``).
+
 An encoder-decoder arch (``family == "encdec"``) has an encoder stack of
 ``"enc"`` layers with its own final norm, run over ``aux_embeds`` (the
 stubbed frontend's frame embeddings) in train mode, roped at positions
@@ -83,28 +97,37 @@ class Model(nn.Module):
         rows cut over "model" under a mesh (``tp.embed``)."""
         return tp.embed(self.embed, tokens)
 
-    def run_layers(self, x, lo, hi, positions, aux=None, context=None):
+    def run_layers(self, x, lo, hi, positions, aux=None, context=None, seq_parallel=False):
         """Train-mode layers ``lo..hi``, each run once (no recompute); each
         MoE layer appends its aux loss to the list ``aux`` when one is
-        given; the cross-attention layers attend to ``context``."""
+        given; the cross-attention layers attend to ``context``. With
+        ``seq_parallel`` x is this rank's block of the sequence (the
+        module's docstring)."""
         for blk in self.blocks[lo:hi]:
-            x = blk(x, positions, aux=aux, context=context)
+            x = blk(x, positions, aux=aux, context=context, **_seq_kw(seq_parallel))
         return x
 
     def train_layers(self, x, positions, aux=None, context=None):
         """Every layer in train mode; with ``cfg.remat`` and grad enabled
         each whole group of ``layer_plan`` under a checkpoint and the tail
         after them (the module's docstring), else ``run_layers``. Each
-        group with MoE layers appends its aux losses' sum to ``aux``."""
+        group with MoE layers appends its aux losses' sum to ``aux``. Where
+        ``meshctx.seq_parallel`` holds, the layers run on this rank's block
+        of the sequence of x, gathered whole at the end."""
         cfg = self.cfg
-        if not (cfg.remat and torch.is_grad_enabled()):
-            return self.run_layers(x, 0, cfg.n_layers, positions, aux=aux, context=context)
-        pattern, n_groups, _ = layer_plan(cfg)
-        p = len(pattern)
-        for g in range(n_groups):
-            x = remat_group(self.blocks[g * p:(g + 1) * p], x, positions, aux, context)
-        return self.run_layers(x, n_groups * p, cfg.n_layers, positions, aux=aux,
-                               context=context)
+        seq = meshctx.seq_parallel(cfg, x, "train")
+        x = tp.seq_block(x) if seq else x
+        lo = 0
+        if cfg.remat and torch.is_grad_enabled():
+            pattern, n_groups, _ = layer_plan(cfg)
+            p = len(pattern)
+            for g in range(n_groups):
+                x = remat_group(self.blocks[g * p:(g + 1) * p], x, positions, aux, context,
+                                seq_parallel=seq)
+            lo = n_groups * p
+        x = self.run_layers(x, lo, cfg.n_layers, positions, aux=aux, context=context,
+                            seq_parallel=seq)
+        return tp.seq_gather(x) if seq else x
 
     def context(self, aux_embeds, dtype):
         """What the cross-attention layers attend to: for an encoder-decoder
@@ -160,8 +183,9 @@ class _Group:
     aux losses, or None)``. Its second run is the checkpoint's recompute,
     which records no routing."""
 
-    def __init__(self, blocks):
+    def __init__(self, blocks, seq_parallel=False):
         self.blocks = blocks
+        self.seq_kw = _seq_kw(seq_parallel)
         self.runs = 0
 
     def __call__(self, x, positions, context):
@@ -169,20 +193,28 @@ class _Group:
         with unlogged() if self.runs else contextlib.nullcontext():
             self.runs += 1
             for blk in self.blocks:
-                x = blk(x, positions, aux=auxes, context=context)
+                x = blk(x, positions, aux=auxes, context=context, **self.seq_kw)
         return x, (sum(auxes[1:], auxes[0]) if auxes else None)
 
 
-def remat_group(blocks, x, positions, aux=None, context=None):
+def remat_group(blocks, x, positions, aux=None, context=None, seq_parallel=False):
     """Train-mode ``blocks`` under ``checkpoint(use_reentrant=False)``: only
     ``x`` is kept, the rest is recomputed in the backward (the forward
     draws no random numbers, so no RNG state is kept). The group's aux
-    sum is appended to the list ``aux`` when there is one."""
-    x, group_aux = checkpoint(_Group(blocks), x, positions, context, use_reentrant=False,
-                              preserve_rng_state=False)
+    sum is appended to the list ``aux`` when there is one. With
+    ``seq_parallel`` x, and so what is kept, is this rank's block of the
+    sequence."""
+    x, group_aux = checkpoint(_Group(blocks, seq_parallel), x, positions, context,
+                              use_reentrant=False, preserve_rng_state=False)
     if aux is not None and group_aux is not None:
         aux.append(group_aux)
     return x
+
+
+def _seq_kw(seq):
+    """A block call's keyword for a sequence-parallel residual (only the
+    mamba2 block takes it; ``meshctx.seq_parallel`` refuses the others)."""
+    return {"seq_parallel": True} if seq else {}
 
 
 def default_positions(b, s, device):
@@ -210,12 +242,15 @@ def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None
     context = None if mode == "decode" else model.context(aux_embeds, x.dtype)
     if mode == "train":
         return model.train_layers(x, positions, aux=aux, context=context), None
+    seq = meshctx.seq_parallel(cfg, x, mode)
+    x = tp.seq_block(x) if seq else x
     new_cache = []
     for i, blk in enumerate(model.blocks):
         x, entry = blk(x, positions, mode=mode, cache=None if cache is None else cache[i],
-                       idx=idx, attn_len=attn_len, aux=aux, context=context)
+                       idx=idx, attn_len=attn_len, aux=aux, context=context,
+                       **_seq_kw(seq))
         new_cache.append(entry)
-    return x, new_cache
+    return (tp.seq_gather(x) if seq else x), new_cache
 
 
 def apply_model(model, tokens, *, positions=None, aux_embeds=None, mode="train", cache=None,

@@ -17,10 +17,13 @@ each read as its block (``tp.model_block``); the gated norm's mean over
 d_inner one all-reduce of the sums of squares over "model"
 (``tp.mean_square``); ``out_proj`` row-parallel. ``ssd_intra`` runs on the
 rank's heads. The state is the rank's blocks as the cache rules cut it:
-``h`` by heads, ``conv_x`` by channels, ``conv_bc`` whole. The reference
-pins the residual sequence-parallel in train and prefill
-(``seq_parallel_residual``); the port keeps it whole on every rank of
-"model" (the row-parallel product's all-reduce), which changes no value.
+``h`` by heads, ``conv_x`` by channels, ``conv_bc`` whole. Where the
+residual is sequence-parallel (``seq_parallel_residual``,
+``meshctx.seq_parallel``) the block gathers its input along the sequence
+before the mixer (the causal conv and the scan need the whole sequence),
+and ``apply_mamba(..., scatter_seq=True)`` reduce-scatters ``out_proj``'s
+partial sums along the sequence instead of all-reducing them; the mixer in
+between, and every value, is unchanged.
 """
 from __future__ import annotations
 
@@ -174,10 +177,11 @@ def ssd_chunked(xh, dth, a_log, Bm, Cm, chunk, h0=None):
     return y, hprev
 
 
-def apply_mamba(p, x, cfg, *, state=None):
+def apply_mamba(p, x, cfg, *, state=None, scatter_seq=False):
     """Full-sequence forward (train/prefill). x: (B, L, d).
     state: optional {"conv_x","conv_bc","h"} to resume. Returns
-    (out, new_state)."""
+    (out, new_state); with ``scatter_seq`` (a sequence-parallel residual)
+    out is this rank's block of L / model positions (``tp.row_out``)."""
     pdim = cfg.ssm.head_dim
     b, l, _ = x.shape
     local = _heads_held(p, cfg)
@@ -197,7 +201,7 @@ def apply_mamba(p, x, cfg, *, state=None):
     y = y + tp.model_block(p.D, local)[None, None, :, None] * xh
     y = y.reshape(b, l, h * pdim)
     out = tp.row_out(_gated_norm(p, y, z.to(torch.float32), local=local).to(x.dtype),
-                     p.out_proj)
+                     p.out_proj, scatter_seq=scatter_seq)
     return out, {"conv_x": conv_x_state, "conv_bc": conv_bc_state, "h": hlast}
 
 

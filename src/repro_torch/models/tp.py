@@ -15,7 +15,10 @@ every function here is the plain single-process op.
 * ``cols(w)``: whether ``w``'s output dim is cut over "model" (a
   column-parallel product); ``rows(w)``: its input dim (row-parallel);
 * ``row_out``: a row-parallel product and its one all-reduce over
-  "model", in the activation's dtype;
+  "model", in the activation's dtype; or, with ``scatter_seq``, its
+  reduce-scatter along the sequence (the sequence-parallel residual);
+* ``seq_block`` and ``seq_gather``: a rank's block of the sequence over
+  "model", and the blocks all-gathered whole;
 * ``model_block``: a replicated leaf's slice for this rank's block of a
   width cut over "model" (the mamba2 mixer's per-head and per-channel
   leaves, the RG-LRU's gate biases), as a view of the whole leaf;
@@ -90,11 +93,34 @@ def rows(w) -> bool:
     return cuts(w, 0)
 
 
-def row_out(h, w):
+def row_out(h, w, scatter_seq=False):
     """``h @ w`` where ``h`` holds this rank's share of ``w``'s input dim
-    when ``w`` is row-parallel, then summed over "model"."""
+    when ``w`` is row-parallel, then summed over "model". With
+    ``scatter_seq`` (h (B, S, k), the whole sequence) the rank keeps its
+    block of the sum along S: the partial sums are reduce-scattered over
+    "model" along dim 1 (whose transpose, the backward, all-gathers the
+    cotangent), or, where ``w`` is not cut over "model", the rank takes
+    its block of the whole product (``seq_block``)."""
     y = h @ gather(w)
+    if scatter_seq:
+        return meshctx.get_mesh().reduce_scatter(y, "model", dim=1) if rows(w) else seq_block(y)
     return meshctx.get_mesh().all_reduce(y, "model") if rows(w) else y
+
+
+def seq_block(x):
+    """This rank's contiguous block of S / model positions of ``x`` (B, S,
+    ...), as a copy, so a remat group that keeps it does not keep the
+    whole ``x`` alive through a view; its backward pads the cotangent with
+    zeros (the other ranks' blocks carry the rest of the gradient)."""
+    return x[:, block_of(x.shape[1], "model", meshctx.get_mesh())].clone()
+
+
+def seq_gather(x):
+    """The ranks' blocks of the sequence ``x`` (B, S / model, ...)
+    all-gathered over "model" along dim 1, in index order: the whole
+    sequence. Its transpose, the backward, reduce-scatters the cotangent
+    along dim 1, each rank keeping its block of the sum."""
+    return meshctx.get_mesh().all_gather(x, "model", dim=1)
 
 
 def model_block(w, cut=True):

@@ -24,8 +24,13 @@ same time: their argument and output bytes are held to the reference's
 exactly at prefill and decode; their moved bytes are printed beside the
 reference's (``PERF.md``'s moved-bytes table) and held only to be
 positive, as ``tests/test_torch_sharded_train.py`` holds its train steps'.
-mamba2's residual is sequence-parallel in the reference's train and
-prefill (``seq_parallel_residual``), where the port all-reduces it whole.
+mamba2's residual is sequence-parallel in train and prefill
+(``seq_parallel_residual``) in both programs: the port reduce-scatters each
+layer's ``out_proj`` along the sequence and all-gathers the next layer's
+input (``tests/test_torch_seq_parallel.py``); the reference's compiled
+program keeps its all-reduces and adds all-gathers, all-to-alls and
+collective-permutes around them, which the case "mamba2off" (the flag
+off in both packages) shows beside it.
 """
 import dataclasses
 import json
@@ -56,6 +61,7 @@ KINDS = ("prefill", "decode")
 SHAPE = dict(seq=64, batch=4)
 # the other block types' archs: (arch, layers, overrides); prefill, decode and train
 BLOCK_CASES = {"mamba2": ("mamba2-1.3b", 2, {}),
+               "mamba2off": ("mamba2-1.3b", 2, dict(seq_parallel_residual=False)),
                "rg": ("recurrentgemma-9b", 3, {}),
                "seamless": ("seamless-m4t-large-v2", 2, {}),
                "llama": ("llama-3.2-vision-90b", 5,
@@ -215,8 +221,10 @@ def test_other_blocks_bytes_equal_the_references_memory_analysis(ref, port, case
 @pytest.mark.parametrize("case", BLOCK_IDS)
 def test_other_blocks_moved_bytes_beside_the_references(ref, port, case):
     """Reported, not held (PERF.md's moved-bytes table): GSPMD picks its
-    own collectives, and lays mamba2's residual out sequence-parallel in
-    its train and prefill steps."""
+    own collectives; at mamba2's sequence-parallel residual (train and
+    prefill) it keeps the all-reduces and re-lays the residual out around
+    them, where the port reduce-scatters and all-gathers ("mamba2off" is
+    the same arch with ``seq_parallel_residual`` off)."""
     name, kind = case.split("-")
     got = port[f"{name}_{kind}"][0]
     want = ref[f"{name}_{kind}"]["collectives"]
@@ -228,6 +236,23 @@ def test_other_blocks_moved_bytes_beside_the_references(ref, port, case):
           f"{ {k: (got.get(k, 0), got.get(k + '_count', 0)) for k in kinds} } reference "
           f"{ {k: (want.get(k, 0), want.get(k + '_count', 0)) for k in kinds} }")
     assert got["moved_bytes"] > 0 and want["moved_bytes"] > 0
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_the_references_sequence_parallel_residual_keeps_its_all_reduces(ref, port, kind):
+    """With ``seq_parallel_residual`` the reference's compiled step keeps
+    the all-reduce bytes of its flag-off program (prefill: the same; train:
+    more), reduce-scatters nothing, and moves more (its re-layouts); the
+    port's program turns each layer's all-reduce into an all-gather and a
+    reduce-scatter."""
+    on, off = ref[f"mamba2_{kind}"]["collectives"], ref[f"mamba2off_{kind}"]["collectives"]
+    print(f"reference mamba2 {kind}: moved bytes with the flag {on['moved_bytes']:.0f}, without "
+          f"{off['moved_bytes']:.0f}; all-reduce bytes {on.get('all-reduce')} / "
+          f"{off.get('all-reduce')}")
+    assert on["all-reduce"] >= off["all-reduce"]
+    assert "reduce-scatter" not in on and on["moved_bytes"] > off["moved_bytes"]
+    assert port[f"mamba2_{kind}"][0].get("reduce-scatter", 0) > \
+        port[f"mamba2off_{kind}"][0].get("reduce-scatter", 0)
 
 
 @pytest.mark.parametrize("case", CASE_IDS + BLOCK_IDS)
