@@ -252,7 +252,11 @@ their NCCL half over every visible card, and prints no result):
    cache's bytes a device, each and together against the card's 80 GB,
    and the step's flops, dot_flops and bytes_accessed, every figure
    positive and finite; every record carries rank 0's collectives and
-   memory analysis; the background's seconds;
+   memory analysis; the background's seconds; a fifth worker counts
+   qwen3-1.7b's train_4k and prefill_32k rank 0 on the 16 x 16 mesh with
+   ``seq_parallel_residual`` forced on, printed beside the flag-off
+   records: both peaks lower, the train step's by exactly its 28 kept
+   residuals x 15/16;
 15h. the byte rules against the card: at a 1 x 1 mesh every spec is
    unsharded, so the rules' bytes of qwen3-1.7b's parameters (built on
    the card by ``init_params``, as the serving entries build them) and of
@@ -293,7 +297,11 @@ their NCCL half over every visible card, and prints no result):
    (where neither path drops: the single-device decode's capacity is 4),
    held to one process with no mesh fed its tokens (logits within 5e-2 x
    max|logit|, greedy tokens equal at 99 % or more), prefill ms, decode ms
-   a token and the dropped share printed; ``train_mahppo`` at the fleet
+   a token and the dropped share printed; its float32 serve again over the
+   gloo ranks with ``seq_parallel_residual`` forced on (one reduce-scatter
+   a residual branch at the prefill; logits within 1e-5 of max|logit| of
+   the flag-off serve's, tokens and every MoE call's routing equal, 28
+   more decode_attention launches a rank, both peaks printed); ``train_mahppo`` at the fleet
    demo's settings with the fused scorer and 8 envs sharded over the four
    ranks, 1 and 2 iterations (the agents identical on every rank, the first
    iteration within 1e-5 of each leaf's largest change of a one-process
@@ -314,8 +322,9 @@ their NCCL half over every visible card, and prints no result):
    slots: exactly 868 decode_attention launches a rank), prefill ms,
    decode ms a token and peak memory a rank; the same draws in float32 at
    4 layers against one process fed its tokens (logits within 1e-4 of
-   max|logit|, every greedy token equal); then the same over the NCCL
-   rank(s); (c) ``decode_attention`` with its log-sum-exp at the rank's
+   max|logit|, every greedy token equal), and again over the gloo ranks
+   with ``seq_parallel_residual`` forced on, held to the flag-off serve as
+   in 16; then the same over the NCCL rank(s); (c) ``decode_attention`` with its log-sum-exp at the rank's
    (2, 1040, 4, 7, 128) bf16 and its int8 cache against the twin (2e-5 +
    2e-5 |plain| for the output and the log-sum-exp), timed with and
    without it beside its bound and beside the library call that also
@@ -338,7 +347,10 @@ their NCCL half over every visible card, and prints no result):
    by kind and bytes, step 1's loss and grad norm beside one process's;
    the same draws in float32 at 1 layer for 2 steps held to one process
    on the card (loss, ce, aux and grad norm within 1e-5 relative, AdamW's
-   m and v after step 1 within 1e-4 of each leaf's largest); (c) the same
+   m and v after step 1 within 1e-4 of each leaf's largest), and one step
+   again with ``seq_parallel_residual`` forced on (step 1 within 1e-5
+   relative of the flag-off step's, its collectives the flag-off step's
+   changed by ``seq_train_delta``, both peaks printed); (c) the same
    for qwen3-moe-30b-a3b (fsdp, 2 of 48 layers, capacity factor 16: nothing
    dropped; a step where a token's expert set differs from one
    process's held to 1e-3 relative, and a token routed apart only within
@@ -352,10 +364,10 @@ their NCCL half over every visible card, and prints no result):
    layers) and llama-3.2-vision-90b (one group of 4 dense and 1 xattn
    layer) at their published widths, bf16, each served through
    ``serve(mesh=...)`` over the four gloo ranks, a (4, 63) prefill with
-   drawn aux_embeds and 4 greedy decode steps (68 slots, split by length;
+   drawn aux_embeds and 3 greedy decode steps (68 slots, split by length;
    llama-vision (4, 62) and 1 step, its fsdp gathers staged through the
-   host a forward; mamba2 (4, 64), a prompt the model axis divides, so its
-   residual is sequence-parallel, ``seq_parallel_residual``):
+   host a forward; prompts the model axis divides, so a residual can run
+   sequence-parallel, ``seq_parallel_residual``, as mamba2's config sets):
    prefill ms, decode ms a token, peak memory a rank, exactly the path's
    ssd_intra and decode_attention launches a rank; the same draws in
    float32 with every cross-attention gate at 1.0 held to one process on
@@ -367,13 +379,17 @@ their NCCL half over every visible card, and prints no result):
    ssd_intra_backward launches; (c) every rank's collective logs, serving
    (bf16 and float32) and training, equal to a ``CountingMesh``'s on meta,
    where the kernel calls each rank's program makes are recorded (as many a
-   kernel as the rank launched); (d) mamba2's sequence-parallel residual:
-   its float32 serve (fed the same tokens) and train step run again on the
-   gloo ranks with ``seq_parallel_residual`` off, the flag-on logits within
-   1e-5 of max|logit| and step 1's metrics within 1e-5 relative of them,
-   every rank's prefill with one reduce-scatter a layer and its train step's
-   collectives the flag-off step's turned as the flag turns them, both
-   runs' peak memory a rank printed; then (a)-(c) over the NCCL rank(s),
+   kernel as the rank launched); (d) the sequence-parallel residual of
+   every block type: each arch's float32 serve (fed the same tokens) and
+   train step run again on the gloo ranks with ``seq_parallel_residual``
+   flipped (on for recurrentgemma, seamless and llama-vision, off for
+   mamba2), the flag-on logits within 1e-5 of max|logit| and step 1's
+   metrics within 1e-5 relative of the flag-off run's, every rank's
+   flag-on prefill with one reduce-scatter a residual branch (the
+   encoder's too), its train step's collectives the flag-off step's turned
+   as the flag turns them, the twin serves' decode_attention launches over
+   the caches their prefills built, both runs' peak memory a rank printed;
+   then (a)-(c) over the NCCL rank(s),
    whose model axis of 1 leaves the residual whole; (e)
    ``ssd_intra``, its backward and ``decode_attention`` at every shape so
    recorded (the prefills' ssd_intra at (2, 1, 64, 32, 64, 128) a (2, 2)
@@ -3668,12 +3684,35 @@ sys.exit(1 if failed else 0)
 """
 
 
+# the sequence-parallel residual forced on (``cfg.replace(seq_parallel_residual=True)``)
+# for an arch whose config leaves it off: rank 0's program on the 16 x 16
+# mesh at these shapes, counted beside the flag-off records (a fifth worker)
+DRYRUN_SEQ = ("qwen3-1.7b", ("train_4k", "prefill_32k"))
+_DRYRUN_SEQ_SCRIPT = """
+import json, sys, time
+from repro_torch.configs import get_config
+from repro_torch.configs.base import INPUT_SHAPES
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+arch = sys.argv[2]
+for shape in sys.argv[3:]:
+    cfg = get_config(arch).replace(seq_parallel_residual=True)
+    collectives, memory, seconds = dryrun.counted_rank(cfg, INPUT_SHAPES[shape],
+                                                       make_production_mesh())
+    with open(f"{sys.argv[1]}/{arch}__{shape}__pod1.json", "w") as f:
+        json.dump({"arch": arch, "shape": shape, "collectives": collectives,
+                   "memory_analysis": memory, "count_s": round(seconds, 2)}, f)
+print(f"ended at {time.time()}", flush=True)
+"""
+
+
 class DryrunJobs:
     """``python -m repro_torch.launch.dryrun --arch A --both-meshes`` for
     every arch of ``DRYRUN_WORKERS``, in one background process a worker
     (one CPU thread each at nice ``DRYRUN_NICE``, no card: everything is
     counted on meta), writing
-    the 80 records to a temporary directory; ``stop`` ends any still
+    the 80 records to a temporary directory, and ``DRYRUN_SEQ``'s flag-on
+    counts to its ``seq`` directory in one more; ``stop`` ends any still
     running and removes the directory."""
 
     def __init__(self, src):
@@ -3682,11 +3721,14 @@ class DryrunJobs:
         env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1",
                    CUDA_VISIBLE_DEVICES="")
         self.t0 = time.time()
-        self.logs = [open(self.out / f"worker{i}.log", "w") for i in range(len(DRYRUN_WORKERS))]
-        self.procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT, str(self.out),
-                                        *archs], env=env, stdout=log, stderr=subprocess.STDOUT,
+        (self.out / "seq").mkdir()
+        jobs = [(_DRYRUN_SCRIPT, str(self.out), *archs) for archs in DRYRUN_WORKERS]
+        jobs.append((_DRYRUN_SEQ_SCRIPT, str(self.out / "seq"), DRYRUN_SEQ[0], *DRYRUN_SEQ[1]))
+        self.logs = [open(self.out / f"worker{i}.log", "w") for i in range(len(jobs))]
+        self.procs = [subprocess.Popen([sys.executable, "-c", *job], env=env, stdout=log,
+                                       stderr=subprocess.STDOUT,
                                        preexec_fn=lambda: os.nice(DRYRUN_NICE))
-                      for archs, log in zip(DRYRUN_WORKERS, self.logs)]
+                      for job, log in zip(jobs, self.logs)]
 
     def wait(self):
         """(exit codes, the seconds since the start at which the last
@@ -3697,8 +3739,9 @@ class DryrunJobs:
                 if line.startswith("ended at ")]
         return rcs, max(ends, default=time.time()) - self.t0
 
-    def records(self):
-        return {path.name: json.loads(path.read_text()) for path in self.out.glob("*.json")}
+    def records(self, sub=""):
+        return {path.name: json.loads(path.read_text())
+                for path in (self.out / sub).glob("*.json")}
 
     def tail(self):
         return "\n".join(log.name + ": " + Path(log.name).read_text()[-2000:]
@@ -3724,7 +3767,9 @@ def phase_dryrun(jobs, arch_ids):
     the card's 80 GB, the step's counts and rank 0's collectives and
     memory; every figure positive and finite; every record carries
     ``collectives`` and ``memory_analysis`` (every block type has a
-    tensor-parallel program); the background's seconds."""
+    tensor-parallel program); the background's seconds. Then ``DRYRUN_SEQ``:
+    rank 0's peak, moved bytes and collectives with the sequence-parallel
+    residual forced on, beside the flag-off record's (``dryrun_seq``)."""
     from repro_torch.configs import INPUT_SHAPES
     check(set(DRYRUN_SHAPES) == set(arch_ids), "DRYRUN_SHAPES must name every arch once")
     check(set(DRYRUN_SHAPES.values()) == set(INPUT_SHAPES),
@@ -3761,8 +3806,49 @@ def phase_dryrun(jobs, arch_ids):
               f"(arguments {rec['memory_analysis']['argument_size_in_bytes']} B)", flush=True)
     print(f"dryrun: {len(recs)} records ({len(arch_ids)} archs x {len(INPUT_SHAPES)} shapes x "
           f"2 meshes), every one with collectives and memory_analysis, in {seconds:.1f} s of "
-          f"background time ({len(DRYRUN_WORKERS)} workers; waited "
+          f"background time ({len(DRYRUN_WORKERS) + 1} workers; waited "
           f"{time.perf_counter() - t0:.1f} s here)", flush=True)
+    dryrun_seq(recs, jobs.records("seq"))
+
+
+def dryrun_seq(recs, seq):
+    """``DRYRUN_SEQ``'s flag-on counts ``seq`` beside the flag-off records
+    ``recs`` of the same arch and shape on the 16 x 16 mesh: rank 0's peak
+    and moved bytes. A train step's peak falls by each layer's kept
+    residual (its remat group's input) times 1 - 1/model, exactly (the
+    rank keeps its block of the sequence); a prefill's falls too."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.layers import dtype_of
+    arch, shapes = DRYRUN_SEQ
+    mesh = make_production_mesh()
+    dp, m = mesh.shape["data"], mesh.shape["model"]
+    check(set(seq) == {f"{arch}__{s}__pod1.json" for s in shapes},
+          f"dryrun: the flag-on records {sorted(seq)}")
+    cfg = get_config(arch)
+    calls = lambda c: {k[:-6]: int(v) for k, v in c.items() if k.endswith("_count")}
+    for shape in shapes:
+        name = f"{arch}__{shape}__pod1.json"
+        on, off = seq[name], recs[name]
+        peak = {k: r["memory_analysis"]["peak_memory_in_bytes"] for k, r in (("on", on),
+                                                                            ("off", off))}
+        moved = {k: r["collectives"]["moved_bytes"] for k, r in (("on", on), ("off", off))}
+        sh = INPUT_SHAPES[shape]
+        residual = (sh.global_batch // dp * sh.seq_len * cfg.d_model
+                    * dtype_of(cfg.compute_dtype).itemsize)
+        kept = cfg.n_layers * residual * (m - 1) // m
+        print(f"dryrun: {arch} {shape} {off['mesh']} rank 0 with seq_parallel_residual forced "
+              f"on (counted in {on['count_s']} s): peak {peak['on']} B against {peak['off']} B "
+              f"off ({peak['on'] - peak['off']:+d} B"
+              + (f"; the layers' kept residuals x {m - 1}/{m}: {kept} B" if sh.kind == "train"
+                 else "") + f"), moved bytes {moved['on']:.6e} against {moved['off']:.6e} "
+              f"({100 * (moved['on'] / moved['off'] - 1):+.2f} %), collectives "
+              f"{calls(on['collectives'])} against {calls(off['collectives'])}", flush=True)
+        check(peak["on"] < peak["off"], f"dryrun {name}: the flag-on peak {peak['on']} B is "
+              f"not below the flag-off {peak['off']} B")
+        if sh.kind == "train":
+            check(peak["off"] - peak["on"] == kept, f"dryrun {name}: the train step's peak fell "
+                  f"{peak['off'] - peak['on']} B, not the kept residuals' {kept} B")
 
 
 def storage_bytes(tensors):
@@ -3964,8 +4050,11 @@ EP_SMALL_CF = 0.5                          # the small EP block drops assignment
 EP_SMALL_SHAPES = {"ep": (4, 8, 32), "ep_decode": (4, 1, 32)}
 EP_SMALL_TOL = 1e-5
 EVAL_KEYS = ("reward", "t_sum", "e_sum", "w_sum", "completed", "n_active", "done")
-# phase 16t's parts, run by phase 16's two launches of ranks
-TP_PARTS = {"gloo": ("tp_small", "tp_serve", "tp_serve32"), "nccl": ("tp_serve", "tp_serve32")}
+# phase 16t's parts, run by phase 16's two launches of ranks; the float32
+# serve's twin with the residual sequence-parallel on the gloo ranks only (the
+# NCCL mesh's model axis of 1 leaves it whole)
+TP_PARTS = {"gloo": ("tp_small", "tp_serve", "tp_serve32", "tp_serve32_seq"),
+            "nccl": ("tp_serve", "tp_serve32")}
 
 
 def nccl_mesh(world):
@@ -4063,15 +4152,24 @@ def shard_serve(mesh, dev, cfg, run):
     """``cfg`` (qwen3-moe-30b-a3b at full width, ``SHARD_MOE_LAYERS``
     layers) served by ``serve(mesh=...)`` at ``run``: prefill through
     ``apply_moe_ep``, decode through ``apply_moe_ep_decode`` and
-    ``decode_attention``."""
+    ``decode_attention``; its collective log, each MoE call's routing
+    (the experts picked and the assignments kept) and its peak memory."""
+    from repro_torch.launch.mesh import collective_log
     from repro_torch.launch.serve import serve
-    res = serve(cfg, device=dev, log=lambda *a: None, mesh=mesh, **run)
+    from repro_torch.models import moe as moe_lib
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with collective_log() as log, moe_lib.routing_log() as routes:
+        res = serve(cfg, device=dev, log=lambda *a: None, mesh=mesh, **run)
     st = res.stats[0]
     out = {k: st[k] for k in ("prefill_ms", "decode_ms_per_token", "tokens_per_s",
                               "cache_bytes", "moe_dropped_prefill", "moe_dropped_decode")}
     out.update(build_s=res.build_s, tokens=st["tokens"].cpu(),
                prefill_logits=st["prefill_logits"].float().cpu(),
-               last_logits=st["last_logits"].float().cpu())
+               last_logits=st["last_logits"].float().cpu(), log=list(log),
+               routes=[(r.top_e.cpu(), r.kept.cpu()) for r in routes.calls],
+               peak=torch.cuda.max_memory_allocated() if cuda else 0)
     del res, st
     torch.cuda.empty_cache()
     return out
@@ -4127,6 +4225,9 @@ SHARD_PARTS = {"ep_small": shard_ep_small,
                "serve": lambda mesh, dev, ctx: shard_serve(mesh, dev, ctx["cfg"], ctx["run"]),
                "serve32": lambda mesh, dev, ctx: shard_serve(mesh, dev, f32_of(ctx["cfg"]),
                                                              ctx["run"]),
+               "serve32_seq": lambda mesh, dev, ctx: shard_serve(
+                   mesh, dev, f32_of(ctx["cfg"]).replace(seq_parallel_residual=True),
+                   ctx["run"]),
                "fleet": shard_fleet, "eval": shard_eval}
 
 
@@ -4253,6 +4354,48 @@ def check_shard_serve(label, ranks, steps_lib, moe_lib, init_params, cfg, run, d
     check(share >= SHARD_TOKEN_AGREE, f"{label}: greedy tokens equal {share:.4f}")
 
 
+def check_seq_serve(label, ranks, off_part, on_part, on_cfg, peak="peak"):
+    """A float32 serve's twin over the gloo ranks (phases 16 and 16t):
+    ``on_part`` serves the draws of ``off_part`` greedily with
+    ``seq_parallel_residual`` forced on (``on_cfg``). Its logits at the
+    prefill and the last step within ``TB_LOGIT_TOL`` of max|logit| of the
+    flag-off serve's and its tokens equal; every rank's serve
+    reduce-scatters ``seq_scatters(on_cfg)`` times (its prefill: once a
+    residual branch; a decode step never), the flag-off serve never; each
+    MoE call's experts and kept assignments equal (where it routes); both
+    serves' peak memory a rank printed."""
+    by_dp = {}
+    for r in ranks:
+        by_dp.setdefault(r["coords"][0], r)
+    whole = lambda part, k: torch.cat([by_dp[i][part][k] for i in sorted(by_dp)])
+    rel = {k: rel_err(whole(on_part, k), whole(off_part, k))
+           for k in ("prefill_logits", "last_logits")}
+    tokens_equal = torch.equal(whole(on_part, "tokens"), whole(off_part, "tokens"))
+    n = seq_scatters(on_cfg)
+    scatters = lambda log: sum(k == "reduce-scatter" for k, _, _ in log)
+    got = [(scatters(r[on_part]["log"]), scatters(r[off_part]["log"])) for r in ranks]
+    routes = [(r[on_part].get("routes", []), r[off_part].get("routes", [])) for r in ranks]
+    routes_equal = all(len(a) == len(b) and all(torch.equal(x, y) for ca, cb in zip(a, b)
+                                                 for x, y in zip(ca, cb)) for a, b in routes)
+    peaks = lambda part: [round(r[part][peak] / 2 ** 30, 3) for r in ranks]
+    print(f"{label}: {on_cfg.name} ({on_cfg.n_layers} layers, float32) served again with "
+          f"seq_parallel_residual forced on ({n} reduce-scatters a rank's prefill, one a residual "
+          f"branch; {ranks[0][on_part]['decode_ms_per_token']:.3f} ms a token, "
+          f"{ranks[0][off_part]['decode_ms_per_token']:.3f} off) against the flag-off serve: "
+          f"logits within {rel['prefill_logits']:.3e} (prefill) and {rel['last_logits']:.3e} "
+          f"(last step) of max|logit| (bound {TB_LOGIT_TOL}), greedy tokens "
+          f"{'equal' if tokens_equal else 'DIFFER'}"
+          + (f", each of {len(routes[0][0])} MoE calls' routing "
+             f"{'equal' if routes_equal else 'DIFFERENT'}" if routes[0][0] else "")
+          + f"; peak memory a rank on {peaks(on_part)} GiB, off {peaks(off_part)} GiB",
+          flush=True)
+    check(all(x == (n, 0) for x in got), f"{label}: reduce-scatters a rank (flag on, off) {got}, "
+          f"expected ({n}, 0)")
+    check(max(rel.values()) <= TB_LOGIT_TOL, f"{label}: the flag-on logits {rel} of max|logit|")
+    check(tokens_equal and routes_equal, f"{label}: the flag-on serve's tokens or routing "
+          f"differ from the flag-off serve's")
+
+
 def check_shard_eval(label, ranks, want, want_rows, frames):
     """Sharded evaluation against ``n_shards=1``: the summary on every rank
     and each env's rows within 1e-6 relative (exactness printed), one
@@ -4294,14 +4437,15 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     run = SHARD_SERVE
     torch.cuda.empty_cache()
     gloo = spawn(shard_rank, 4, "gloo", SHARD_MESH,
-                 ("ep_small", "serve", "serve32", "fleet", "eval") + TP_PARTS["gloo"]
+                 ("ep_small", "serve", "serve32", "serve32_seq", "fleet", "eval")
+                 + TP_PARTS["gloo"]
                  + TG_PARTS["gloo"] + TB_PARTS,
                  dict({"cfg": cfg, "run": run, "tp_cfg": tp_cfg_, "tp_run": TP_SERVE}, **tg),
                  device=dev)
     print(f"sharded: {len(gloo)} ranks, backend {gloo[0]['backend']}, all on {gloo[0]['device']},"
           f" a {SHARD_MESH[1]} mesh over {SHARD_MESH[0]}, env the whole world", flush=True)
     for r in gloo:
-        for part in ("ep_small", "serve", "serve32", "fleet", "eval"):
+        for part in ("ep_small", "serve", "serve32", "serve32_seq", "fleet", "eval"):
             launches.update(r[part + "_launches"])
 
     for path, shape in EP_SMALL_SHAPES.items():
@@ -4318,11 +4462,13 @@ def phase_sharded(dev, spawn, steps_lib, moe_lib, mahppo, init_params, cfg, tp_c
     check(any(r["ep_small"]["ep"]["dropped"] > 0 for r in gloo),
           "sharded: the reduced EP block dropped nothing; pick a lower capacity factor")
     attn = cfg.n_layers * (run["gen"] - 1)
-    for part in ("serve", "serve32"):
+    for part in ("serve", "serve32", "serve32_seq"):
         check(all(r[part + "_launches"] == {"decode_attention": attn} for r in gloo),
               f"sharded: {part} launches {[r[part + '_launches'] for r in gloo]}, expected "
               f"decode_attention {attn} a rank")
     check_shard_serve("sharded (gloo)", gloo, steps_lib, moe_lib, init_params, cfg, run, dev)
+    check_seq_serve("sharded (gloo)", gloo, "serve32", "serve32_seq",
+                    f32_of(cfg).replace(seq_parallel_residual=True))
 
     # the fleet: one agent on every rank, the first iteration as one process
     for it in (1, 2):
@@ -4491,11 +4637,12 @@ def tp_check_cfg(cfg):
     return f32_of(cfg).replace(n_layers=min(TP_CHECK_LAYERS, cfg.n_layers))
 
 
-def shard_tp_serve(mesh, dev, ctx, check_cfg=False):
-    """``ctx["tp_cfg"]`` (or with ``check_cfg`` its ``tp_check_cfg``)
-    served through ``serve(mesh=...)`` at ``ctx["tp_run"]``, its collective
-    log kept; then one more decode step of the served cache, its peak
-    memory read from the allocator (reset just before it)."""
+def shard_tp_serve(mesh, dev, ctx, check_cfg=False, seq=False):
+    """``ctx["tp_cfg"]`` (or with ``check_cfg`` its ``tp_check_cfg``, with
+    ``seq`` too ``seq_parallel_residual`` forced on) served through
+    ``serve(mesh=...)`` at ``ctx["tp_run"]``, its collective log kept; then
+    one more decode step of the served cache, its peak memory read from the
+    allocator (reset just before it)."""
     import gc
     from repro_torch.kernels import _build
     from repro_torch.launch import steps as steps_lib
@@ -4503,6 +4650,7 @@ def shard_tp_serve(mesh, dev, ctx, check_cfg=False):
     from repro_torch.launch.serve import serve
     from repro_torch.models import meshctx
     cfg = tp_check_cfg(ctx["tp_cfg"]) if check_cfg else ctx["tp_cfg"]
+    cfg = cfg.replace(seq_parallel_residual=True) if seq else cfg
     run = ctx["tp_run"]
     cuda = dev.type == "cuda"           # the CPU runs only in a rehearsal of the phase
     memory = ((lambda: torch.cuda.reset_peak_memory_stats()), torch.cuda.memory_allocated,
@@ -4543,7 +4691,9 @@ def shard_tp_serve(mesh, dev, ctx, check_cfg=False):
 SHARD_PARTS.update(
     tp_small=shard_tp_small,
     tp_serve=lambda mesh, dev, ctx: shard_tp_serve(mesh, dev, ctx),
-    tp_serve32=lambda mesh, dev, ctx: shard_tp_serve(mesh, dev, ctx, check_cfg=True))
+    tp_serve32=lambda mesh, dev, ctx: shard_tp_serve(mesh, dev, ctx, check_cfg=True),
+    tp_serve32_seq=lambda mesh, dev, ctx: shard_tp_serve(mesh, dev, ctx, check_cfg=True,
+                                                         seq=True))
 
 
 def check_tp_small(label, ranks):
@@ -4607,12 +4757,22 @@ def tp_meta_logs(cfg, run, coords, mesh_spec, steps_lib, mesh_lib):
     return list(pre), list(dec), memory
 
 
+def tp_parts(ranks, cfg):
+    """16t's serve parts the ``ranks`` ran, each with its config: the bf16
+    serve, the float32 one and, on the gloo ranks, its twin with the
+    residual sequence-parallel."""
+    parts = [("tp_serve", cfg), ("tp_serve32", tp_check_cfg(cfg))]
+    if "tp_serve32_seq" in ranks[0]:
+        parts.append(("tp_serve32_seq", tp_check_cfg(cfg).replace(seq_parallel_residual=True)))
+    return parts
+
+
 def check_tp_counts(label, ranks, mesh_spec, steps_lib, mesh_lib, cfg, run):
     """(d) Each rank's collective log of its serves equals the counting
     mesh's on meta at its coordinates (the prefill's, then 31 decode
     steps'); its decode step's peak memory against the meta count."""
     names = mesh_spec[0]
-    for part, c in (("tp_serve32", tp_check_cfg(cfg)), ("tp_serve", cfg)):
+    for part, c in tp_parts(ranks, cfg):
         for r in ranks:
             coords = dict(zip(names, r["tp_coords"]))
             pre, dec, memory = tp_meta_logs(c, run, coords, mesh_spec, steps_lib, mesh_lib)
@@ -4641,7 +4801,7 @@ def check_tp_serve(label, ranks, steps_lib, moe_lib, init_params, dev, cfg, run)
     tokens (logits within ``TP_LOGIT_TOL`` x max|logit|, every greedy token
     equal)."""
     attn = cfg.n_layers * (run["gen"] - 1)
-    for part, c in (("tp_serve", cfg), ("tp_serve32", tp_check_cfg(cfg))):
+    for part, c in tp_parts(ranks, cfg):
         # the serve's decode steps, then the part's one more (its memory)
         want = {"decode_attention": c.n_layers * (run["gen"] - 1)}
         got = [(r[part]["serve_launches"], r[part + "_launches"]) for r in ranks]
@@ -4840,16 +5000,20 @@ def phase_tensor_parallel(dev, steps_lib, moe_lib, init_params, kda, mesh_lib, g
     for ranks, label, spec in ((gloo, "tensor parallel (gloo)", SHARD_MESH),
                                (nccl, "tensor parallel (nccl)", nccl_spec)):
         check_tp_serve(label, ranks, steps_lib, moe_lib, init_params, dev, cfg, run)
+        if "tp_serve32_seq" in ranks[0]:
+            check_seq_serve(label, ranks, "tp_serve32", "tp_serve32_seq",
+                            tp_check_cfg(cfg).replace(seq_parallel_residual=True),
+                            peak="serve_peak")
         check_tp_counts(label, ranks, spec, steps_lib, mesh_lib, cfg, run)
         for r in ranks:
-            for part in ("tp_serve", "tp_serve32") + (("tp_small",) if ranks is gloo else ()):
+            for part in TP_PARTS["gloo" if ranks is gloo else "nccl"]:
                 launches.update(r[part + "_launches"])
     phase_tp_kernel(dev, kda)
     print(f"tensor parallel: decode_attention launches summed over the ranks "
           f"{launches['decode_attention']}; the phase's checks in {time.perf_counter() - t0:.1f} s "
           f"(its ranks' parts ran in phase 16's launches: gloo "
-          f"{sum(gloo[0][p + '_s'] for p in ('tp_small', 'tp_serve', 'tp_serve32')):.1f} s, "
-          f"nccl {sum(nccl[0][p + '_s'] for p in ('tp_serve', 'tp_serve32')):.1f} s a rank)",
+          f"{sum(gloo[0][p + '_s'] for p in TP_PARTS['gloo']):.1f} s, "
+          f"nccl {sum(nccl[0][p + '_s'] for p in TP_PARTS['nccl']):.1f} s a rank)",
           flush=True)
     return {"decode_attention": launches["decode_attention"]}
 
@@ -4882,6 +5046,9 @@ TG_SMALL = (("qwen2 (biases, G 2)", "qwen2-7b", dict(n_heads=4, n_kv_heads=2, d_
 TG_SMALL_RUN = dict(batch=4, seq=16, steps=2, seed=1)
 TG_SMALL_TOL = 1e-5                        # metrics relative, moments x the leaf's largest
 TG_PARTS = {"gloo": ("tg_small", "tg_qwen2", "tg_moe"), "nccl": ("tg_qwen2", "tg_moe")}
+# the float32 step's twin with seq_parallel_residual forced on: one step, where
+# the mesh's model axis has more than one rank
+TG_SEQ = ("qwen2",)
 
 
 def tg_cfg(key):
@@ -5074,17 +5241,21 @@ def shard_train(mesh, dev, ctx, key):
     on this rank's rows (seconds, peak memory and collective log a step,
     its scatter route); then its float32 draws at ``TG_CHECK_LAYERS`` for
     ``TG_CHECK_STEPS`` steps, the moments after step 1 held here against
-    one process's (``ctx["tg_want"][key]``, on the card)."""
+    one process's (``ctx["tg_want"][key]``, on the card); for ``TG_SEQ``
+    over more than one rank of "model", one step of the float32 draws with
+    ``seq_parallel_residual`` forced on ("f32_seq")."""
     import gc
     from repro_torch.models import init_params, meshctx
     cfg = ctx["tg_cfgs"][key]
     batch = tg_batch(cfg, TG_RUN)
     seed = lambda: torch.Generator(device=dev).manual_seed(TG_RUN["seed"])
     out = {}
-    for label, c, steps in (("bf16", cfg, TG_RUN["steps"]),
-                            ("f32", tg_check_cfg(cfg), TG_CHECK_STEPS)):
+    runs = [("bf16", cfg, TG_RUN["steps"]), ("f32", tg_check_cfg(cfg), TG_CHECK_STEPS)]
+    if key in TG_SEQ and mesh.shape["model"] > 1:
+        runs.append(("f32_seq", tg_check_cfg(cfg).replace(seq_parallel_residual=True), 1))
+    for label, c, steps in runs:
         want = ctx["tg_want"][key]["moments"]
-        check_first = (None if label == "bf16" else
+        check_first = (None if label != "f32" else
                        lambda state, model: tg_moment_gaps(state, model, want, mesh))
         t0 = time.perf_counter()
         with meshctx.use_mesh(mesh):
@@ -5236,6 +5407,8 @@ def check_train(label, ranks, key, cfg, want, one_bf16, mesh_spec, mesh_lib, pro
                             f"process's")
     if max(gaps.values()) > TG_MOMENT_TOL:
         problems.append(f"{label} {key}: float32 moments {gaps}")
+    if "f32_seq" in ranks[0][part]:
+        check_tg_seq(label, ranks, key, c32, mesh_spec, mesh_lib)
     # (e) each rank's collective log against the counting mesh's, and memory
     names = mesh_spec[0]
     t0 = time.perf_counter()
@@ -5260,13 +5433,54 @@ def check_train(label, ranks, key, cfg, want, one_bf16, mesh_spec, mesh_lib, pro
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def check_tg_seq(label, ranks, key, c32, mesh_spec, mesh_lib):
+    """The float32 step's twin with ``seq_parallel_residual`` forced on
+    ("f32_seq"): step 1's loss, ce, aux and grad norm within ``TG_TOL``
+    relative of the flag-off step's; every rank's collective log the
+    counting mesh's, its calls the flag-off step's changed by
+    ``seq_train_delta``; both steps' seconds and peak memory a rank
+    printed."""
+    part = "tg_" + key
+    on_cfg = c32.replace(seq_parallel_residual=True)
+    delta = seq_train_delta(on_cfg)
+    names = mesh_spec[0]
+    calls = lambda log, k: sum(e[0] == k for e in log)
+    kinds = ("all-reduce", "all-gather", "reduce-scatter")
+    for r in ranks:
+        on, off = r[part]["f32_seq"]["logs"][0], r[part]["f32"]["logs"][0]
+        log, _ = tg_meta(on_cfg, dict(zip(names, r["tp_coords"])), mesh_spec, mesh_lib, TG_RUN)
+        check(on == log, f"{label} {key} f32, residual sequence-parallel, rank "
+              f"{r['tp_coords']}: collective log of {len(on)} calls differs from the counting "
+              f"mesh's {len(log)}")
+        want = tuple(calls(off, k) + d for k, d in zip(kinds, delta))
+        have = tuple(calls(on, k) for k in kinds)
+        check(have == want, f"{label} {key} rank {r['tp_coords']}: (all-reduce, all-gather, "
+              f"reduce-scatter) calls {have} with the residual sequence-parallel, {want} "
+              f"expected")
+    gap = max(abs(r[part]["f32_seq"]["metrics"][0][k] - r[part]["f32"]["metrics"][0][k])
+              / max(abs(r[part]["f32"]["metrics"][0][k]), 1e-30)
+              for r in ranks for k in ("loss", "ce", "aux", "grad_norm"))
+    x0 = ranks[0][part]
+    print(f"{label}: the float32 step at {c32.n_layers} layer(s) again with "
+          f"seq_parallel_residual forced on: step 1's loss, ce, aux and grad norm within "
+          f"{gap:.3e} relative of the flag-off step's (bound {TG_TOL}); seconds "
+          f"{x0['f32_seq']['s'][0]:.3f} against {x0['f32']['s'][0]:.3f}; peak memory a rank "
+          f"{[round(r[part]['f32_seq']['peak'][0] / 2 ** 30, 3) for r in ranks]} against "
+          f"{[round(r[part]['f32']['peak'][0] / 2 ** 30, 3) for r in ranks]} GiB; collectives a "
+          f"step (calls, result bytes) {tg_kinds(x0['f32_seq']['logs'][0])} against "
+          f"{tg_kinds(x0['f32']['logs'][0])}, every rank's log the counting mesh's", flush=True)
+    check(gap <= TG_TOL, f"{label} {key}: the flag-on step 1's metrics {gap:.3e} from the "
+          f"flag-off step's")
+
+
 def phase_sharded_train(dev, init_params, mesh_lib, gloo, nccl, nccl_spec, cfgs, want):
     """16g: the train step under a mesh (its ranks' parts ran in phase 16's
     two launches): (a) the small cases card against CPU; (b), (c) qwen2-7b
     and qwen3-moe-30b-a3b at their published widths over the four gloo
     ranks, then (d) over the NCCL rank(s), each beside one process's step 1
     and held in float32; (e) the logs and a step's memory against the
-    counting mesh."""
+    counting mesh; on the gloo ranks qwen2-7b's float32 step again with the
+    residual sequence-parallel (``check_tg_seq``)."""
     import gc
     t0 = time.perf_counter()
     problems = []
@@ -5296,16 +5510,14 @@ def phase_sharded_train(dev, init_params, mesh_lib, gloo, nccl, nccl_spec, cfgs,
 # xattn); (layers, encoder layers)
 TB_ARCHS = {"mamba2-1.3b": (4, None), "recurrentgemma-9b": (3, None),
             "seamless-m4t-large-v2": (2, 2), "llama-3.2-vision-90b": (5, None)}
-# a 63-token prompt and 4 greedy decode steps into 68 slots, which the model
-# axis splits by length (the reference's first rule) on every arch;
-# llama-vision takes a 62-token prompt and 1 step into 64 slots: over the
-# gloo ranks each of its forwards gathers ~4.3 GB of fsdp blocks through the
-# host (6.6 s a bf16 step); mamba2-1.3b (no attention cache) a 64-token
-# prompt, which the model axis divides, so its prefill's residual is
-# sequence-parallel (``seq_parallel_residual``)
-TB_SERVE = dict(batch=4, prompt_len=63, gen=5, requests=1, seed=0)
-TB_RUNS = {"llama-3.2-vision-90b": dict(prompt_len=62, gen=2),
-           "mamba2-1.3b": dict(prompt_len=64)}
+# a 64-token prompt and 3 greedy decode steps into 68 slots: the model axis
+# divides the prompt, so a prefill's residual can run sequence-parallel
+# (``seq_parallel_residual``), and the slots, which it splits by length (the
+# reference's first rule) on every arch; llama-vision takes a 62-token prompt
+# and 1 step into 64 slots: over the gloo ranks each of its forwards gathers
+# ~4.3 GB of fsdp blocks through the host (6.6 s a bf16 step)
+TB_SERVE = dict(batch=4, prompt_len=64, gen=4, requests=1, seed=0)
+TB_RUNS = {"llama-3.2-vision-90b": dict(prompt_len=62, gen=2)}
 TB_LOGIT_TOL = 1e-5                        # x max|logit|, float32, against one process
 TB_GATE = 1.0                              # every cross-attention gate in the float32 check
 # trained at full width, float32, AdamW: mamba2-1.3b at 2 layers (the ssd_intra
@@ -5459,20 +5671,25 @@ def shard_tb_serve(mesh, dev, ctx):
         c32 = f32_of(cfg)
         mine = tg_rows(mesh, dict({"tokens": tb_prompt(cfg, run)},
                                   **({} if aux is None else {"aux": aux})), dev)
-        # the float32 steps, and where the residual is sequence-parallel the
-        # same with it whole (the flag off), fed the first run's tokens
-        runs = [("f32", c32)] + ([("f32_off", c32.replace(seq_parallel_residual=False))]
-                                 if tb_seq_split(c32, mesh.shape["model"]) else [])
+        # the float32 steps, then their twin with the residual's layout
+        # flipped (``tb_twin``), fed the first run's tokens
+        twin = tb_twin(c32, mesh.shape["model"])
+        runs = [("f32", c32)] + ([("f32_twin", twin)] if twin is not None else [])
         tokens = None
         for key, c in runs:
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
+            before = dict(_build.LAUNCHES)
             with meshctx.use_mesh(mesh):
                 model = tb_model(c, dev, run["seed"])
                 logits, tokens, log32 = tb_steps(model, c, mine["tokens"], mine.get("aux"), run,
                                                  fed=tokens)
+            if cuda:
+                torch.cuda.synchronize()
             r[key] = (logits.cpu(), tokens.cpu(), log32,
-                      torch.cuda.max_memory_allocated() if cuda else 0)
+                      torch.cuda.max_memory_allocated() if cuda else 0,
+                      {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                       if v - before.get(k, 0)})
             del model
             gc.collect()
             if cuda:
@@ -5485,27 +5702,79 @@ def tb_train_cfg(arch):
     return f32_of(tb_cfg(arch)).replace(**TB_TRAIN[arch])
 
 
-def tb_seq_split(cfg, model_ranks):
-    """Whether ``cfg``'s residual runs sequence-parallel over ``model_ranks``
-    ranks of "model" (16b's sequences are ones the axis divides): the flag
-    set and more than one rank."""
-    return cfg.seq_parallel_residual and model_ranks > 1
+def tb_twin(cfg, model_ranks):
+    """The twin of a float32 run of ``cfg`` over ``model_ranks`` ranks of
+    "model": the same draws with ``seq_parallel_residual`` flipped (on for
+    an arch whose config leaves it off, off for mamba2-1.3b's), so every
+    arch runs its residual sequence-parallel and whole (16b's sequences are
+    ones the axis divides); None on one rank, where the flag changes
+    nothing."""
+    if model_ranks <= 1:
+        return None
+    return cfg.replace(seq_parallel_residual=not cfg.seq_parallel_residual)
+
+
+def residual_branches(types):
+    """The residual branches of a stack of these block types: a mamba2
+    block's one, a decx block's three, every other block's two."""
+    return sum(1 if bt == "mamba2" else 3 if bt == "decx" else 2 for bt in types)
+
+
+def seq_scatters(cfg):
+    """The reduce-scatters of a rank's prefill with the residual
+    sequence-parallel: one a residual branch of the decoder and the
+    encoder, and one more an MoE layer with shared experts (their output
+    scattered apart), every branch's output row-parallel, as at the
+    published widths."""
+    n = residual_branches(cfg.block_types())
+    if cfg.encoder is not None:
+        n += residual_branches(("enc",) * cfg.encoder.n_layers)
+    if cfg.moe is not None and cfg.moe.n_shared_experts:
+        n += sum(bt == "moe" for bt in cfg.block_types())
+    return n
+
+
+def seq_train_delta(cfg):
+    """(all-reduce, all-gather, reduce-scatter) calls the sequence-parallel
+    residual adds to a rank's train step of ``cfg`` (negative: takes
+    away), every branch's output row-parallel: each branch's forward and
+    backward all-reduce become a reduce-scatter and an all-gather each;
+    each stack (the decoder, the encoder) gathers its end and, in the
+    backward, reduce-scatters it; under ``cfg.remat`` a group's recompute
+    gathers each branch's input again and reruns each branch's
+    reduce-scatter but the group's last, where it reran the all-reduce
+    (counted on meta for the dense, rec, lattn, mamba2, enc, decx and
+    xattn stacks; an MoE layer's recompute also reruns its combine's
+    reduce-scatter, which this does not count)."""
+    width = len(cfg.block_pattern)
+    stacks = [(tuple(cfg.block_types()), width, cfg.n_layers // width)]
+    if cfg.encoder is not None:
+        stacks.append((("enc",) * cfg.encoder.n_layers, 1, cfg.encoder.n_layers))
+    ar = ag = rs = 0
+    for types, width, groups in stacks:
+        b = residual_branches(types)
+        per_group = [residual_branches(types[g * width:(g + 1) * width])
+                     for g in range(groups if cfg.remat else 0)]
+        ar -= 2 * b + sum(n - 1 for n in per_group)
+        ag += 2 * b + 1 + sum(per_group)
+        rs += 2 * b + 1 + sum(n - 1 for n in per_group)
+    return ar, ag, rs
 
 
 def shard_tb_train(mesh, dev, ctx):
     """Each of ``TB_TRAIN`` at full width, float32, trained
     ``TB_TRAIN_RUN["steps"]`` steps on this rank's rows of the synthetic
     token stream (``tg_train``: metrics, seconds, peak memory and collective
-    log a step); where the residual is sequence-parallel, again with the
-    flag off (under "off")."""
+    log a step); over more than one rank of "model" its twin (``tb_twin``,
+    under "twin")."""
     import gc
     from repro_torch.models import init_params, meshctx
     out = {}
     for arch in TB_TRAIN:
         cfg = tb_train_cfg(arch)
         batch = tg_batch(cfg, TB_TRAIN_RUN)
-        runs = [cfg] + ([cfg.replace(seq_parallel_residual=False)]
-                        if tb_seq_split(cfg, mesh.shape["model"]) else [])
+        twin = tb_twin(cfg, mesh.shape["model"])
+        runs = [cfg] + ([twin] if twin is not None else [])
         for c in runs:
             with meshctx.use_mesh(mesh):
                 model = init_params(c, torch.Generator(device=dev).manual_seed(
@@ -5516,7 +5785,7 @@ def shard_tb_train(mesh, dev, ctx):
             if c is cfg:
                 out[arch] = res
             else:
-                out[arch]["off"] = res
+                out[arch]["twin"] = res
             del model
             gc.collect()
             if dev.type == "cuda":
@@ -5561,12 +5830,13 @@ def tb_meta_log(cfg, run, coords, mesh_spec, mesh_lib):
 def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
     """(a)-(d) of 16b over the ranks of one launch. Returns the set of
     kernel calls (``kernel_calls``) the ranks' programs make, recorded on
-    meta, whose counts a rank are checked to be its launches."""
+    meta, whose counts a rank are checked to be its launches, and the
+    float32 twins' launches, summed over the ranks."""
     import gc
     from repro_torch.models import init_params
     names = mesh_spec[0]
     model_ranks = dict(zip(*mesh_spec)).get("model", 1)
-    seen = set()
+    seen, twin_launches = set(), collections.Counter()
     for arch in TB_ARCHS:
         cfg, run = tb_cfg(arch), tb_run(arch)
         rs = [r["tb_serve"][arch] for r in ranks]
@@ -5577,18 +5847,24 @@ def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
             same = [r["tb_serve"][arch] for r in ranks if r["coords"][0] == dpi]
             check(all(torch.equal(x["tokens"], same[0]["tokens"]) for x in same),
                   f"{label} {arch}: the model ranks of data index {dpi} differ")
-        # the collective logs, bf16 serve and float32 steps, against the counting mesh
+        # the collective logs, bf16 serve and float32 steps (and their twin),
+        # against the counting mesh
+        twin = tb_twin(f32_of(cfg), model_ranks)
         for r in ranks:
             coords = dict(zip(names, r["tp_coords"]))
-            for c, got in ((cfg, r["tb_serve"][arch]["log"]),
-                           (f32_of(cfg), r["tb_serve"][arch]["f32"][2])):
+            runs = [(cfg, r["tb_serve"][arch]["log"]),
+                    (f32_of(cfg), r["tb_serve"][arch]["f32"][2])]
+            if twin is not None:
+                runs.append((twin, r["tb_serve"][arch]["f32_twin"][2]))
+            for c, got in runs:
                 with kernel_calls() as calls:
                     log = tb_meta_log(c, run, coords, mesh_spec, mesh_lib)
-                check(got == log, f"{label} {arch} {c.param_dtype} rank {r['tp_coords']}: "
+                what = f"{c.param_dtype}{', residual sequence-parallel' * c.seq_parallel_residual}"
+                check(got == log, f"{label} {arch} {what} rank {r['tp_coords']}: "
                       f"collective log of {len(got)} calls differs from the counting mesh's "
                       f"{len(log)}")
                 n_calls = collections.Counter(x[0] for x in calls)
-                check(n_calls == want, f"{label} {arch} {c.param_dtype} rank {r['tp_coords']}: "
+                check(n_calls == want, f"{label} {arch} {what} rank {r['tp_coords']}: "
                       f"kernel calls on meta {dict(n_calls)}, launches {want}")
                 seen.update(calls)
         r0 = rs[0]
@@ -5629,8 +5905,9 @@ def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
               f"equal {agree} of {tokens.numel()}", flush=True)
         check(max(rel) <= TB_LOGIT_TOL, f"{label} {arch}: float32 logits {rel} of max|logit|")
         check(agree == tokens.numel(), f"{label} {arch}: greedy tokens differ from one process's")
-        if tb_seq_split(cfg, model_ranks):
-            check_tb_seq_serve(label, ranks, arch, cfg, model_ranks, logits)
+        if twin is not None:
+            twin_launches.update(check_tb_seq_serve(label, ranks, arch, cfg, model_ranks, logits,
+                                                    want))
     # training
     for arch in TB_TRAIN:
         cfg = tb_train_cfg(arch)
@@ -5673,77 +5950,106 @@ def check_tb(label, ranks, mesh_spec, mesh_lib, dev):
               f"{[round(m['loss'], 6) for m in x0['metrics']]}", flush=True)
         check(gap <= TB_TRAIN_TOL, f"{label} {arch}: step 1's metrics {gap:.3e} from one "
               f"process's")
-        if tb_seq_split(cfg, model_ranks):
+        twin = tb_twin(cfg, model_ranks)
+        if twin is not None:
+            for r in ranks:
+                log, _ = tg_meta(twin, dict(zip(names, r["tp_coords"])), mesh_spec, mesh_lib,
+                                 TB_TRAIN_RUN)
+                check(r["tb_train"][arch]["twin"]["logs"][0] == log, f"{label} {arch} train "
+                      f"rank {r['tp_coords']}, its twin: collective log differs from the "
+                      f"counting mesh's")
             check_tb_seq_train(label, rs, arch, cfg)
     n_train = {"ssd_intra": 0, "ssd_intra_backward": 0}
     for arch in TB_TRAIN:
         cfg = tb_train_cfg(arch)
-        runs = 2 if tb_seq_split(cfg, model_ranks) else 1     # with the flag on and off
+        runs = 2 if tb_twin(cfg, model_ranks) is not None else 1     # the run and its twin
         n = sum(bt == "mamba2" for bt in cfg.block_types()) * TB_TRAIN_RUN["steps"] * runs
         n_train = {"ssd_intra": n_train["ssd_intra"] + 2 * n,   # the forward and the recompute
                    "ssd_intra_backward": n_train["ssd_intra_backward"] + n}
     n_train = {k: v for k, v in n_train.items() if v}
     got = [r["tb_train_launches"] for r in ranks]
     check(all(x == n_train for x in got), f"{label}: train launches {got}, expected {n_train}")
-    return seen
+    return seen, twin_launches
 
 
-def check_tb_seq_serve(label, ranks, arch, cfg, model_ranks, logits):
-    """16b's sequence-parallel residual at serve: every rank's prefill, bf16
-    and float32, reduce-scatters ``out_proj`` once a layer (the flag-off
-    run never), and the float32 ``logits`` (gathered over the data ranks)
-    equal the flag-off run's within ``TB_LOGIT_TOL`` of max|logit|."""
+def check_tb_seq_serve(label, ranks, arch, cfg, model_ranks, logits, want):
+    """16b's sequence-parallel residual at serve: the float32 run and its
+    twin (``tb_twin``: the flag flipped), fed the same tokens. Every rank's
+    prefill with the flag on (the bf16 serve's too where the config sets
+    it) reduce-scatters ``seq_scatters(cfg)`` times, once a residual branch,
+    the runs with it off never; the twin's logits (``logits``: the float32
+    run's, gathered over the data ranks) agree within ``TB_LOGIT_TOL`` of
+    max|logit|; the twin launched ``want`` (its decode steps'
+    decode_attention over the caches the sequence-parallel prefill built,
+    where the twin's flag is on). Returns the twin's launches, summed over
+    the ranks."""
+    on = cfg.seq_parallel_residual
+    n = seq_scatters(cfg)
     scatters = lambda log: sum(k == "reduce-scatter" for k, _, _ in log)
     got = [(scatters(r["tb_serve"][arch]["log"]), scatters(r["tb_serve"][arch]["f32"][2]),
-            scatters(r["tb_serve"][arch]["f32_off"][2])) for r in ranks]
-    check(all(x == (cfg.n_layers, cfg.n_layers, 0) for x in got),
-          f"{label} {arch}: reduce-scatters a rank (bf16, float32, float32 flag off) {got}, "
-          f"expected ({cfg.n_layers}, {cfg.n_layers}, 0)")
+            scatters(r["tb_serve"][arch]["f32_twin"][2])) for r in ranks]
+    expect = (n, n, 0) if on else (0, 0, n)
+    check(all(x == expect for x in got),
+          f"{label} {arch}: reduce-scatters a rank (bf16, float32, its twin) {got}, expected "
+          f"{expect}")
+    twin_launches = [r["tb_serve"][arch]["f32_twin"][4] for r in ranks]
+    check(all(x == want for x in twin_launches), f"{label} {arch}: the twin's launches "
+          f"{twin_launches}, expected {want} a rank")
     by_dp = {}
     for r in ranks:
-        by_dp.setdefault(r["coords"][0], r["tb_serve"][arch]["f32_off"])
-    off = torch.cat([by_dp[i][0] for i in sorted(by_dp)], dim=1)
-    rel = [rel_err(a, b) for a, b in zip(logits, off)]
+        by_dp.setdefault(r["coords"][0], r["tb_serve"][arch]["f32_twin"])
+    other = torch.cat([by_dp[i][0] for i in sorted(by_dp)], dim=1)
+    rel = [rel_err(a, b) for a, b in zip(other, logits)]
     peaks = lambda key: [round(r["tb_serve"][arch][key][3] / 2 ** 30, 3) for r in ranks]
+    peak_on, peak_off = (peaks("f32"), peaks("f32_twin")) if on else (peaks("f32_twin"),
+                                                                       peaks("f32"))
     print(f"{label}: {arch} float32 serve, the residual sequence-parallel over "
-          f"{model_ranks} model ranks ({cfg.n_layers} reduce-scatters a "
-          f"rank's prefill) against the same draws with seq_parallel_residual off, fed the same "
-          f"tokens: logits of the prefill and each decode step within "
-          f"{[f'{x:.3e}' for x in rel]} of max|logit| (bound {TB_LOGIT_TOL}); peak memory a "
-          f"rank on {peaks('f32')} GiB, off {peaks('f32_off')} GiB", flush=True)
+          f"{model_ranks} model ranks ({n} reduce-scatters a rank's prefill, one a residual "
+          f"branch) against the same draws with it whole (seq_parallel_residual "
+          f"{'off' if on else 'on'} in the twin), fed the same tokens: logits of the prefill and "
+          f"each decode step within {[f'{x:.3e}' for x in rel]} of max|logit| (bound "
+          f"{TB_LOGIT_TOL}); the twin's launches a rank {twin_launches[0]}; peak memory a rank "
+          f"on {peak_on} GiB, off {peak_off} GiB", flush=True)
     check(max(rel) <= TB_LOGIT_TOL, f"{label} {arch}: float32 logits {rel} of max|logit| from "
-          f"the flag-off run's")
+          f"the twin's")
+    total = collections.Counter()
+    for x in twin_launches:
+        total.update(x)
+    return total
 
 
 def check_tb_seq_train(label, rs, arch, cfg):
-    """16b's sequence-parallel residual in a train step: each rank's log
-    is the flag-off step's with each layer's two ``out_proj`` all-reduces
-    (forward and backward) turned into reduce-scatters and all-gathers, an
-    all-gather of each layer's input again in the recompute, and the
-    stack end's all-gather and its reduce-scatter; step 1's loss, ce, aux
-    and grad norm within ``TB_TRAIN_TOL`` relative of the flag-off step's."""
-    n = cfg.n_layers
+    """16b's sequence-parallel residual in a train step: each rank's step
+    and its twin's (``tb_twin``), the flag on against off: the collective
+    calls differ by ``seq_train_delta`` (each branch's forward and backward
+    all-reduces turned into reduce-scatters and all-gathers, the recompute's
+    gathers, the stack ends' gathers and their reduce-scatters); step 1's
+    loss, ce, aux and grad norm within ``TB_TRAIN_TOL`` relative."""
+    first = not cfg.seq_parallel_residual      # the twin runs with the flag on
+    on_of = lambda x: x["twin"] if first else x
+    off_of = lambda x: x if first else x["twin"]
+    delta = seq_train_delta(cfg.replace(seq_parallel_residual=True))
     for x in rs:
-        on, off = tg_kinds(x["logs"][0]), tg_kinds(x["off"]["logs"][0])
+        on, off = tg_kinds(on_of(x)["logs"][0]), tg_kinds(off_of(x)["logs"][0])
         calls = lambda kinds, k: kinds.get(k, (0, 0))[0]
-        want = (calls(off, "all-reduce") - 2 * n, calls(off, "all-gather") + 3 * n + 1,
-                calls(off, "reduce-scatter") + 2 * n + 1)
+        want = tuple(calls(off, k) + d for k, d in zip(("all-reduce", "all-gather",
+                                                         "reduce-scatter"), delta))
         have = (calls(on, "all-reduce"), calls(on, "all-gather"), calls(on, "reduce-scatter"))
         check(have == want, f"{label} {arch} train: (all-reduce, all-gather, reduce-scatter) "
               f"calls {have} with the flag on, {want} expected from the flag-off step's {off}")
-    gap = max(abs(x["metrics"][0][k] - x["off"]["metrics"][0][k])
-              / max(abs(x["off"]["metrics"][0][k]), 1e-30)
+    gap = max(abs(on_of(x)["metrics"][0][k] - off_of(x)["metrics"][0][k])
+              / max(abs(off_of(x)["metrics"][0][k]), 1e-30)
               for x in rs for k in ("loss", "ce", "aux", "grad_norm"))
     print(f"{label}: {arch} train step, the residual sequence-parallel, against "
-          f"seq_parallel_residual off: seconds a step {[round(x['s'][0], 3) for x in rs]} / "
-          f"{[round(x['off']['s'][0], 3) for x in rs]}; peak memory a rank "
-          f"{[round(x['peak'][-1] / 2 ** 30, 3) for x in rs]} / "
-          f"{[round(x['off']['peak'][-1] / 2 ** 30, 3) for x in rs]} GiB; collectives a step "
-          f"(calls, result bytes) {tg_kinds(rs[0]['logs'][0])} / "
-          f"{tg_kinds(rs[0]['off']['logs'][0])}; step 1's loss, ce, aux and grad norm within "
+          f"it whole (seq_parallel_residual off): seconds a step "
+          f"{[round(on_of(x)['s'][0], 3) for x in rs]} / "
+          f"{[round(off_of(x)['s'][0], 3) for x in rs]}; peak memory a rank "
+          f"{[round(on_of(x)['peak'][-1] / 2 ** 30, 3) for x in rs]} / "
+          f"{[round(off_of(x)['peak'][-1] / 2 ** 30, 3) for x in rs]} GiB; collectives a step "
+          f"(calls, result bytes) {tg_kinds(on_of(rs[0])['logs'][0])} / "
+          f"{tg_kinds(off_of(rs[0])['logs'][0])}; step 1's loss, ce, aux and grad norm within "
           f"{gap:.3e} relative (bound {TB_TRAIN_TOL})", flush=True)
-    check(gap <= TB_TRAIN_TOL, f"{label} {arch}: step 1's metrics {gap:.3e} from the flag-off "
-          f"step's")
+    check(gap <= TB_TRAIN_TOL, f"{label} {arch}: step 1's metrics {gap:.3e} from the twin's")
 
 
 def tb_ssd_cases(calls):
@@ -5898,16 +6204,21 @@ def phase_tp_blocks(dev, mesh_lib, gloo, nccl, nccl_spec, kssd, kda, kref):
     peak memory, launches) and its float32 draws held to one process on
     the card; (b) mamba2-1.3b and recurrentgemma-9b trained in float32,
     step 1's metrics held to one process's; (c) every rank's collective
-    logs against the counting mesh; (d) mamba2's sequence-parallel
-    residual held to the flag-off runs; then (a)-(c) over the NCCL
-    rank(s); (e) the kernels at every shape the ranks' programs gave them (recorded
-    on meta, ``kernel_calls``) and at the rank shapes of a longer serve.
-    Returns the launches of the parts, summed over the ranks."""
+    logs against the counting mesh; (d) every arch's float32 serve and
+    train step again with ``seq_parallel_residual`` flipped (``tb_twin``:
+    sequence-parallel for the archs whose config leaves it off, whole for
+    mamba2-1.3b), the two held to each other; then (a)-(c) over the NCCL
+    rank(s); (e) the kernels at every shape the ranks' programs gave them
+    (recorded on meta, ``kernel_calls``) and at the rank shapes of a longer
+    serve. Returns the launches of the parts (the twins' serves included),
+    summed over the ranks."""
     t0 = time.perf_counter()
     launches, calls = collections.Counter(), set()
     for ranks, label, spec in ((gloo, "tp blocks (gloo)", SHARD_MESH),
                                (nccl, "tp blocks (nccl)", nccl_spec)):
-        calls |= check_tb(label, ranks, spec, mesh_lib, dev)
+        seen, twins = check_tb(label, ranks, spec, mesh_lib, dev)
+        calls |= seen
+        launches.update(twins)
         for r in ranks:
             launches.update(r["tb_train_launches"])
             for x in r["tb_serve"].values():

@@ -28,7 +28,10 @@ Under a mesh (``meshctx``) self-attention is the program one rank runs
 (``self_attention``'s docstring): ``wq``, ``wk``, ``wv`` column-parallel,
 ``wo`` row-parallel, and the KV cache held as ``cache_pspecs`` cuts it, its
 length over "model" (merged through the kernel's log-sum-exp at decode,
-``merge_lse``) or, where the length does not divide, its kv heads.
+``merge_lse``) or, where the length does not divide, its kv heads. Under
+a sequence-parallel residual (``meshctx.seq_parallel``) the block hands
+in its normed input gathered whole along the sequence, and ``wo``'s
+partial sums are reduce-scattered along it (``scatter_seq``).
 
 Cross-attention (the VLM's image layers, the encoder-decoder's decoder)
 is the plain ``attention`` in every mode, as the reference's is its plain
@@ -214,18 +217,20 @@ def _heads(p, x, cfg, xc=None, *, query=True, kv=True):
     return heads.get("q"), heads.get("k"), heads.get("v"), local
 
 
-def _out_proj(o, wo, local):
+def _out_proj(o, wo, local, scatter_seq=False):
     """o (B, S, heads held x D) through ``wo``: where ``wo``'s rows are
     cut over "model", the rank's rows (its own heads' columns of o) times
-    its block, summed over "model"."""
+    its block, summed over "model"; else every head's columns times the
+    whole ``wo``. With ``scatter_seq`` (o of the whole sequence under a
+    sequence-parallel residual) the rank keeps its block of S / model
+    positions of the product (``tp.row_out``)."""
     mesh = meshctx.get_mesh()
     if tp.rows(wo):
         if not local:
             o = o[..., tp.block_of(o.shape[-1], "model", mesh)]
-        return tp.row_out(o, wo)
-    if local:
+    elif local:
         o = mesh.all_gather(o, "model", dim=-1)
-    return o @ tp.gather(wo)
+    return tp.row_out(o, wo, scatter_seq)
 
 
 def merge_lse(o, lse, mesh):
@@ -334,7 +339,7 @@ def _decode(p, cfg, q, k, v, local, cache, positions, idx, window):
 
 
 def self_attention(p, x, cfg, positions, *, causal=True, window=0, cache=None, idx=None,
-                   attn_len=0, prefill=False):
+                   attn_len=0, prefill=False, scatter_seq=False):
     """Self-attention for train and prefill (``cache`` None; with
     ``prefill`` the layer's cache entry of ``attn_len`` slots is packed by
     ``pack_cache``) or decode: x is one token (B, 1, d) at position ``idx``
@@ -355,7 +360,11 @@ def self_attention(p, x, cfg, positions, *, causal=True, window=0, cache=None, i
     ``ops.decode_attention`` over its slots for all the query heads with
     the log-sum-exp, and ``merge_lse`` merges the ranks; with the kv heads
     over "model" each rank attends with its own heads and nothing is
-    merged."""
+    merged. With ``scatter_seq`` (train and prefill under a
+    sequence-parallel residual: x and ``positions`` the whole sequence,
+    gathered by the block) the projections, RoPE, the attention and the
+    cache entry are as without it, and the output is the rank's block of
+    S / model positions (``_out_proj``)."""
     q, k, v, local = _heads(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -369,10 +378,10 @@ def self_attention(p, x, cfg, positions, *, causal=True, window=0, cache=None, i
         held = local
     else:
         out, held, entry = _decode(p, cfg, q, k, v, local, cache, positions, idx, window)
-    return _out_proj(out.reshape(b, s, -1), p.wo, held), entry
+    return _out_proj(out.reshape(b, s, -1), p.wo, held, scatter_seq), entry
 
 
-def cross_attention(p, x, cfg, *, kv=None, context=None):
+def cross_attention(p, x, cfg, *, kv=None, context=None, scatter_seq=False):
     """Cross-attention of x (B, S, d) over ``context`` (B, Sc, d), projected
     here, or over its precomputed ``kv`` = (k, v), each (B, Sc, Hkv, D).
     No RoPE; every query sees every context position. Gated by
@@ -386,7 +395,10 @@ def cross_attention(p, x, cfg, *, kv=None, context=None):
     with its length over "model" every rank attends with every query head
     over its run of the context and the runs are merged by their
     log-sum-exps (``merge_lse``); with its kv heads over "model" the rank
-    attends with its own heads."""
+    attends with its own heads. With ``scatter_seq`` (x the whole
+    sequence under a sequence-parallel residual) the output is the rank's
+    block of S / model positions (``_out_proj``), gated there: the gate is
+    elementwise."""
     if kv is None:
         if context is None:
             raise ValueError("cross-attention needs its context: pass aux_embeds, the "
@@ -396,7 +408,7 @@ def cross_attention(p, x, cfg, *, kv=None, context=None):
     else:
         k, v = kv
         out, held = _cross_decode(p, x, cfg, k, v)
-    out = _out_proj(out.reshape(x.shape[0], x.shape[1], -1), p.wo, held)
+    out = _out_proj(out.reshape(x.shape[0], x.shape[1], -1), p.wo, held, scatter_seq)
     if p.gate is not None:
         out = torch.tanh(p.gate.to(out.dtype)) * out
     return out, (k, v)

@@ -13,6 +13,16 @@ load-balance loss (the others add nothing), and ``context``, the (B, Sc,
 d) sequence the cross-attention blocks attend to in train and prefill
 mode (the others ignore it); at decode those read the context's K/V from
 their cache entry.
+
+Every block takes ``seq_parallel``, set in train and prefill where the
+residual stream is sequence-parallel (``meshctx.seq_parallel``): x is
+then this rank's block of S / model positions, and each residual branch
+runs its norm on the block, all-gathers the normed output whole along the
+sequence (``tp.seq_gather``), runs its sublayer unchanged on the whole
+sequence with the rank's heads or columns, and gets back the rank's block
+of the sublayer's output (its row-parallel product reduce-scattered along
+the sequence, ``scatter_seq``) for the add. Positions, the context and
+the cache entry stay those of the whole sequence.
 """
 from __future__ import annotations
 
@@ -34,6 +44,12 @@ def _check_mode(mode):
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
+def _whole(h, seq_parallel):
+    """``h``, gathered whole along the sequence where it is this rank's
+    block of it (``seq_parallel``)."""
+    return tp.seq_gather(h) if seq_parallel else h
+
+
 class DenseBlock(nn.Module):
     """``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``; with ``window`` > 0
     (the ``"lattn"`` block) the attention is local: a key at position p
@@ -51,39 +67,42 @@ class DenseBlock(nn.Module):
         self.ln2 = Norm(cfg, device=device)
         self.mlp = MLP(cfg, device=device)
 
-    def ffn(self, h, aux):
-        return self.mlp(h)
+    def ffn(self, x, aux, seq_parallel=False):
+        """The last residual branch, ``mlp(ln2(x))``."""
+        return self.mlp(_whole(self.ln2(x), seq_parallel), scatter_seq=seq_parallel)
 
     def forward(self, x, positions, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None, context=None):
+                aux=None, context=None, seq_parallel=False):
         """Train mode returns x; prefill and decode return (x, cache entry).
         Decode writes the token's position into the entry's ``pos`` at slot
         ``idx % L`` before the attention, and its k/v in place."""
         _check_mode(mode)
-        x, entry = self.attend(x, positions, mode, cache, idx, attn_len)
-        x = x + self.ffn(self.ln2(x), aux)
+        x, entry = self.attend(x, positions, mode, cache, idx, attn_len, seq_parallel)
+        x = x + self.ffn(x, aux, seq_parallel)
         return x if mode == "train" else (x, entry)
 
-    def attend(self, x, positions, mode, cache, idx, attn_len):
+    def attend(self, x, positions, mode, cache, idx, attn_len, seq_parallel=False):
         """The first residual half: (x + attn(ln1(x)), cache entry). Decode
         writes the token's position, k and v into the entry at slot ``idx %
         L``, in place; under a mesh it is the rank's program."""
-        out, entry = self_attention(self.attn, self.ln1(x), self.cfg, positions,
-                                    causal=self.causal, window=self.window,
+        out, entry = self_attention(self.attn, _whole(self.ln1(x), seq_parallel), self.cfg,
+                                    positions, causal=self.causal, window=self.window,
                                     cache=cache if mode == "decode" else None, idx=idx,
-                                    attn_len=attn_len, prefill=mode == "prefill" and self.causal)
+                                    attn_len=attn_len, prefill=mode == "prefill" and self.causal,
+                                    scatter_seq=seq_parallel)
         return x + out, entry
 
 
-def attend_context(attn, h, cfg, mode, cache, context):
+def attend_context(attn, h, cfg, mode, cache, context, scatter_seq=False):
     """Cross-attention of ``h`` over ``context`` (train and prefill) or over
     the context's K/V in the layer's cache entry (decode). Returns (out,
     {"ck", "cv"} for the layer's entry, under a mesh the rank's blocks
-    (``pack_context``); None in train mode)."""
+    (``pack_context``); None in train mode); with ``scatter_seq`` out is
+    the rank's block of the sequence."""
     if mode == "decode":
         out, _ = cross_attention(attn, h, cfg, kv=(cache["ck"], cache["cv"]))
         return out, {"ck": cache["ck"], "cv": cache["cv"]}
-    out, (ck, cv) = cross_attention(attn, h, cfg, context=context)
+    out, (ck, cv) = cross_attention(attn, h, cfg, context=context, scatter_seq=scatter_seq)
     return out, (None if mode == "train" else pack_context(ck, cv, cfg))
 
 
@@ -100,12 +119,13 @@ class DecXBlock(DenseBlock):
         self.xattn = Attention(cfg, device=device)
 
     def forward(self, x, positions, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None, context=None):
+                aux=None, context=None, seq_parallel=False):
         _check_mode(mode)
-        x, entry = self.attend(x, positions, mode, cache, idx, attn_len)
-        out, ctx_kv = attend_context(self.xattn, self.lnx(x), self.cfg, mode, cache, context)
+        x, entry = self.attend(x, positions, mode, cache, idx, attn_len, seq_parallel)
+        out, ctx_kv = attend_context(self.xattn, _whole(self.lnx(x), seq_parallel), self.cfg,
+                                     mode, cache, context, seq_parallel)
         x = x + out
-        x = x + self.ffn(self.ln2(x), aux)
+        x = x + self.ffn(x, aux, seq_parallel)
         return x if mode == "train" else (x, dict(entry, **ctx_kv))
 
 
@@ -124,11 +144,12 @@ class XAttnBlock(nn.Module):
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions=None, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None, context=None):
+                aux=None, context=None, seq_parallel=False):
         _check_mode(mode)
-        out, entry = attend_context(self.xattn, self.ln1(x), self.cfg, mode, cache, context)
+        out, entry = attend_context(self.xattn, _whole(self.ln1(x), seq_parallel), self.cfg,
+                                    mode, cache, context, seq_parallel)
         x = x + out
-        x = x + self.mlp(self.ln2(x))
+        x = x + self.mlp(_whole(self.ln2(x), seq_parallel), scatter_seq=seq_parallel)
         return x if mode == "train" else (x, entry)
 
 
@@ -149,8 +170,12 @@ class MoEBlock(DenseBlock):
         self.ln2 = Norm(cfg, device=device)
         self.moe = MoE(cfg, device=device)
 
-    def ffn(self, h, aux):
-        out, a = apply_moe(self.moe, h, self.cfg)
+    def ffn(self, x, aux, seq_parallel=False):
+        """The last residual branch, ``moe(ln2(x))``; its aux loss goes to
+        ``aux``. Under a sequence-parallel residual the MoE routes the
+        gathered, whole sequence."""
+        out, a = apply_moe(self.moe, _whole(self.ln2(x), seq_parallel), self.cfg,
+                           scatter_seq=seq_parallel)
         if aux is not None:
             aux.append(a)
         return out
@@ -170,26 +195,23 @@ class RecBlock(nn.Module):
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions=None, *, mode="train", cache=None, idx=None, attn_len=0,
-                aux=None, context=None):
+                aux=None, context=None, seq_parallel=False):
         """Train mode returns x; prefill and decode return (x, state)."""
         _check_mode(mode)
         h = self.ln1(x)
         if mode == "decode":
             out, entry = decode_rglru(self.mixer, h, self.cfg, cache)
         else:
-            out, entry = apply_rglru(self.mixer, h, self.cfg)
+            h = _whole(h, seq_parallel)     # the block's norm is not kept past the gather
+            out, entry = apply_rglru(self.mixer, h, self.cfg, scatter_seq=seq_parallel)
         x = x + out
-        x = x + self.mlp(self.ln2(x))
+        x = x + self.mlp(_whole(self.ln2(x), seq_parallel), scatter_seq=seq_parallel)
         return x if mode == "train" else (x, entry)
 
 
 class Mamba2Block(nn.Module):
     """``x + mixer(ln1(x))``; the positions are not used (the SSD mixer is
-    causal by construction). Its cache entry is the mixer's state. With
-    ``seq_parallel`` x is this rank's block of the sequence over "model"
-    (``meshctx.seq_parallel``): ``ln1`` runs on the block, its output is
-    all-gathered whole for the mixer, and the mixer's output comes back
-    reduce-scattered to the block (``tp.row_out``) for the add."""
+    causal by construction). Its cache entry is the mixer's state."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -205,8 +227,7 @@ class Mamba2Block(nn.Module):
         if mode == "decode":
             out, entry = decode_mamba(self.mixer, h, self.cfg, cache)
         else:
-            if seq_parallel:
-                h = tp.seq_gather(h)
+            h = _whole(h, seq_parallel)     # the block's norm is not kept past the gather
             out, entry = apply_mamba(self.mixer, h, self.cfg, scatter_seq=seq_parallel)
         x = x + out
         return x if mode == "train" else (x, entry)

@@ -85,10 +85,11 @@ class MLP(nn.Module):
                    if cfg.act == "swiglu" else None)
         self.wo = nn.Parameter(torch.empty(f, d, dtype=dt, device=device))
 
-    def forward(self, x):
+    def forward(self, x, scatter_seq=False):
         """Under a mesh ``wi`` / ``wg`` are column-parallel and ``wo``
-        row-parallel (``tp.mlp``)."""
-        return tp.mlp(x, self.wi, self.wg, self.wo, self.act)
+        row-parallel (``tp.mlp``); with ``scatter_seq`` the output is the
+        rank's block of the sequence."""
+        return tp.mlp(x, self.wi, self.wg, self.wo, self.act, scatter_seq)
 
 
 def swiglu(x, wi, wg, wo):

@@ -20,10 +20,11 @@ data rank (the reference's ``batch_shardings``); a rank cannot tell that
 from its tokens' shape, so the caller runs such a batch inside
 ``whole_batch()``. Its sequence half, ``seq_parallel_residual``, is
 ``seq_parallel``: where it holds, the model cuts the residual stream along
-the sequence over "model" between layers (``models/model.py``), a layer's
-row-parallel output is reduce-scattered along the sequence and its input
-all-gathered (Megatron-style sequence parallelism), and nothing else
-changes; elsewhere every rank of "model" holds the whole residual.
+the sequence over "model" between layers (``models/model.py``), and each
+residual branch of every block type all-gathers its normed input and
+reduce-scatters its row-parallel output along the sequence
+(``models/blocks.py``; Megatron-style sequence parallelism); nothing else
+changes. Elsewhere every rank of "model" holds the whole residual.
 """
 from __future__ import annotations
 
@@ -111,21 +112,14 @@ def seq_parallel(cfg, x, mode) -> bool:
     (x (B, S, d) with S > 1), and x this rank's shard of the batch (not
     under ``whole_batch()``, where the reference's constraint is not
     applied either). Decode, one process and a whole batch never are.
-    Where it would hold, a stack with a block type other than ``mamba2``,
-    which has no sequence-parallel program, raises."""
+    Every block type has the sequence-parallel program
+    (``models/blocks.py``)."""
     m = _MESH
     if not cfg.seq_parallel_residual or mode not in ("train", "prefill") or m is None:
         return False
     if "model" not in m.axis_names or m.shape["model"] <= 1 or _WHOLE_BATCH:
         return False
-    if not (x.dim() == 3 and x.shape[1] > 1 and x.shape[1] % m.shape["model"] == 0):
-        return False
-    other = sorted(set(cfg.block_types()) - {"mamba2"})
-    if other:
-        raise ValueError(f"{cfg.name}: seq_parallel_residual has a program for mamba2 blocks "
-                         f"only, and the stack holds {', '.join(map(repr, other))} blocks; "
-                         f"run it with seq_parallel_residual=False")
-    return True
+    return x.dim() == 3 and x.shape[1] > 1 and x.shape[1] % m.shape["model"] == 0
 
 
 def global_batch(local: int, mesh=None) -> int:

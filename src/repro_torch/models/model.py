@@ -32,9 +32,11 @@ layer, before ``ln_f`` and the head (``tp.seq_gather``). Each layer
 gathers its normed input and reduce-scatters its row-parallel output
 along the sequence, where it would all-reduce it: the same values, the
 same moved bytes by the ring rule (a train step's recompute gathers each
-layer's input once more), 1 / model of the residual kept a rank.
-Only the ``mamba2`` block has this program; a stack with another block
-type raises where the flag would apply (``meshctx.seq_parallel``).
+layer's input once more), 1 / model of the residual kept a rank. Every
+block type has this program (``models/blocks.py``). The encoder stack of
+an encoder-decoder arch runs in train mode, as the reference's does, so
+under the flag its residual is sequence-parallel in train and in prefill
+alike (``Encoder.forward``), gathered whole before its ``ln_f``.
 
 An encoder-decoder arch (``family == "encdec"``) has an encoder stack of
 ``"enc"`` layers with its own final norm, run over ``aux_embeds`` (the
@@ -104,7 +106,7 @@ class Model(nn.Module):
         ``seq_parallel`` x is this rank's block of the sequence (the
         module's docstring)."""
         for blk in self.blocks[lo:hi]:
-            x = blk(x, positions, aux=aux, context=context, **_seq_kw(seq_parallel))
+            x = blk(x, positions, aux=aux, context=context, seq_parallel=seq_parallel)
         return x
 
     def train_layers(self, x, positions, aux=None, context=None):
@@ -162,6 +164,7 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
+        self.cfg = cfg
         self.remat = cfg.remat
         self.blocks = nn.ModuleList(make_block(cfg, "enc", device=device)
                                     for _ in range(cfg.encoder.n_layers))
@@ -170,12 +173,18 @@ class Encoder(nn.Module):
     def forward(self, x):
         """With ``cfg.remat`` and grad enabled each layer is a group of its
         own under a checkpoint, as the reference runs the encoder as a
-        stack of pattern ("enc",)."""
+        stack of pattern ("enc",). Where ``meshctx.seq_parallel`` holds in
+        train mode (the reference's encoder mode, whatever the decoder's)
+        the layers run on this rank's block of the frames, gathered whole
+        before ``ln_f``."""
         positions = default_positions(x.shape[0], x.shape[1], x.device)
         remat = self.remat and torch.is_grad_enabled()
+        seq = meshctx.seq_parallel(self.cfg, x, "train")
+        x = tp.seq_block(x) if seq else x
         for blk in self.blocks:
-            x = remat_group([blk], x, positions) if remat else blk(x, positions)
-        return self.ln_f(x)
+            x = (remat_group([blk], x, positions, seq_parallel=seq) if remat
+                 else blk(x, positions, seq_parallel=seq))
+        return self.ln_f(tp.seq_gather(x) if seq else x)
 
 
 class _Group:
@@ -185,7 +194,7 @@ class _Group:
 
     def __init__(self, blocks, seq_parallel=False):
         self.blocks = blocks
-        self.seq_kw = _seq_kw(seq_parallel)
+        self.seq_parallel = seq_parallel
         self.runs = 0
 
     def __call__(self, x, positions, context):
@@ -193,7 +202,8 @@ class _Group:
         with unlogged() if self.runs else contextlib.nullcontext():
             self.runs += 1
             for blk in self.blocks:
-                x = blk(x, positions, aux=auxes, context=context, **self.seq_kw)
+                x = blk(x, positions, aux=auxes, context=context,
+                        seq_parallel=self.seq_parallel)
         return x, (sum(auxes[1:], auxes[0]) if auxes else None)
 
 
@@ -209,12 +219,6 @@ def remat_group(blocks, x, positions, aux=None, context=None, seq_parallel=False
     if aux is not None and group_aux is not None:
         aux.append(group_aux)
     return x
-
-
-def _seq_kw(seq):
-    """A block call's keyword for a sequence-parallel residual (only the
-    mamba2 block takes it; ``meshctx.seq_parallel`` refuses the others)."""
-    return {"seq_parallel": True} if seq else {}
 
 
 def default_positions(b, s, device):
@@ -248,7 +252,7 @@ def _run_stack(model, tokens, *, positions, mode, cache, idx, attn_len, aux=None
     for i, blk in enumerate(model.blocks):
         x, entry = blk(x, positions, mode=mode, cache=None if cache is None else cache[i],
                        idx=idx, attn_len=attn_len, aux=aux, context=context,
-                       **_seq_kw(seq))
+                       seq_parallel=seq)
         new_cache.append(entry)
     return (tp.seq_gather(x) if seq else x), new_cache
 

@@ -31,6 +31,15 @@ router and the shared experts follow the rules too (``tp``): the router
 gathered over "data" with ``fsdp``, the shared experts' ``wi`` / ``wg``
 column-parallel and ``wo`` row-parallel.
 
+Under a sequence-parallel residual (``meshctx.seq_parallel``) the block
+hands ``apply_moe`` its normed input gathered whole along the sequence,
+so the path, the routing, the capacity, the dropped share and the aux
+loss are those of the whole sequence, and with ``scatter_seq`` the
+combine's sum over "model" (and the shared experts' row-parallel
+product) is reduce-scattered along the sequence where it was
+all-reduced; where nothing is summed over "model" the rank takes its
+block of the output.
+
 The dispatch makes no host sync: an assignment this rank does not keep
 is written to an extra slot ``cap`` of an extra expert ``e_loc`` of the
 buffer, which no expert reads (torch refuses an out-of-bounds index where
@@ -223,11 +232,13 @@ def moe_path(cfg, mesh, batch, seq):
     return "ep" if batch % dp == 0 else "global"
 
 
-def apply_moe(moe, x, cfg):
+def apply_moe(moe, x, cfg, scatter_seq=False):
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux loss f32 scalar).
     Without a mesh the reference's ``_apply_moe_global`` over the B S
     tokens of the call. Under a mesh x is the rank's shard of the batch,
-    and the path is ``moe_path``'s for the global batch B x dp."""
+    and the path is ``moe_path``'s for the global batch B x dp; with
+    ``scatter_seq`` (x the whole sequence under a sequence-parallel
+    residual) out is the rank's block (B, S / model, d)."""
     mesh = meshctx.get_mesh()
     whole = moe.shard is None
     if mesh is None:
@@ -240,16 +251,17 @@ def apply_moe(moe, x, cfg):
     dp = meshctx.dp_axes(mesh)
     path = moe_path(cfg, mesh, meshctx.global_batch(x.shape[0], mesh), x.shape[1])
     if path == "ep_decode":
-        return apply_moe_ep_decode(moe, x, cfg, mesh)
+        return apply_moe_ep_decode(moe, x, cfg, mesh, scatter_seq)
     if path == "ep":
-        return apply_moe_ep(moe, x, cfg, mesh)
+        return apply_moe_ep(moe, x, cfg, mesh, scatter_seq)
     # every data rank's tokens through the global dispatch, as GSPMD runs the
     # reference's; this rank keeps its own rows
+    run = (lambda xs: _apply_single(moe, xs, cfg, scatter_seq) if whole
+           else _apply_global_ep(moe, xs, cfg, mesh, scatter_seq))
     if meshctx.batch_is_whole():
-        return _apply_single(moe, x, cfg) if whole else _apply_global_ep(moe, x, cfg, mesh)
+        return run(x)
     b = x.shape[0]
-    xs = mesh.all_gather(x, dp)
-    out, aux = _apply_single(moe, xs, cfg) if whole else _apply_global_ep(moe, xs, cfg, mesh)
+    out, aux = run(mesh.all_gather(x, dp))
     i = mesh.index(dp)
     return out[i * b:(i + 1) * b], aux
 
@@ -291,16 +303,36 @@ def _swiglu_experts(wi, wg, wo):
     return lambda buf: torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi), wo)
 
 
-def _shared(moe, x, m):
-    """The shared experts' SwiGLU of x (..., d), or 0 without them."""
-    return tp.mlp(x, moe.shared_wi, moe.shared_wg, moe.shared_wo) if m.n_shared_experts else 0
+def _shared(moe, x, m, scatter_seq=False):
+    """The shared experts' SwiGLU of x (..., d), or 0 without them; with
+    ``scatter_seq`` (x (B, S, d)) the rank's block along S."""
+    if not m.n_shared_experts:
+        return 0
+    return tp.mlp(x, moe.shared_wi, moe.shared_wg, moe.shared_wo, scatter_seq=scatter_seq)
+
+
+def _finish(moe, x, comb, m, mesh=None, scatter_seq=False):
+    """The combine ``comb`` (T, d) f32 of x's (B, S, d) tokens in x's
+    dtype, summed over "model" under ``mesh`` (each rank combined its own
+    experts), plus the shared experts of x: (B, S, d). With
+    ``scatter_seq`` the rank's block of S / model positions: the sum is
+    reduce-scattered along S, or without ``mesh`` the block is taken."""
+    b, s, d = x.shape
+    if not scatter_seq:
+        out = comb.to(x.dtype)
+        if mesh is not None:
+            out = mesh.all_reduce(out, "model")
+        return (out + _shared(moe, x.reshape(b * s, d), m)).reshape(b, s, d)
+    out = comb.to(x.dtype).reshape(b, s, d)
+    out = tp.seq_block(out) if mesh is None else mesh.reduce_scatter(out, "model", dim=1)
+    return out + _shared(moe, x, m, scatter_seq=True)
 
 
 def _probs(moe, xf):
     return torch.softmax(xf.to(torch.float32) @ tp.gather(moe.router), dim=-1)
 
 
-def _apply_single(moe, x, cfg):
+def _apply_single(moe, x, cfg, scatter_seq=False):
     """The reference's ``_apply_moe_global`` over the B S tokens of x."""
     m = cfg.moe
     b, s, d = x.shape
@@ -310,11 +342,10 @@ def _apply_single(moe, x, cfg):
     r = route(probs, m.top_k, capacity(t, m))
     _log(r)
     out = _combine(xf, r, 0, m.n_experts, _swiglu_experts(moe.wi, moe.wg, moe.wo))
-    out = out.to(x.dtype) + _shared(moe, xf, m)
-    return out.reshape(b, s, d), _aux(r, probs, m, t)
+    return _finish(moe, x, out, m, scatter_seq=scatter_seq), _aux(r, probs, m, t)
 
 
-def _apply_global_ep(moe, x, cfg, mesh):
+def _apply_global_ep(moe, x, cfg, mesh, scatter_seq=False):
     """The reference's ``_apply_moe_global`` over all the tokens of x, its
     experts sharded as ``expert_shard`` holds them: every rank routes all
     the tokens at the global capacity, runs its E / model experts (with
@@ -333,11 +364,10 @@ def _apply_global_ep(moe, x, cfg, mesh):
     r = route(probs, m.top_k, capacity(t, m))
     _log(r)
     out = _combine(xf, r, mesh.index("model") * e_loc, e_loc, _swiglu_experts(wi, wg, wo))
-    out = mesh.all_reduce(out.to(x.dtype), "model") + _shared(moe, xf, m)
-    return out.reshape(b, s, d), _aux(r, probs, m, t)
+    return _finish(moe, x, out, m, mesh, scatter_seq), _aux(r, probs, m, t)
 
 
-def apply_moe_ep(moe, x, cfg, mesh):
+def apply_moe_ep(moe, x, cfg, mesh, scatter_seq=False):
     """The reference's ``apply_moe_ep`` as one rank runs it. x: the rank's
     (b, S, d) tokens, routed locally at capacity ``max(4, ceil(b S k / E
     cf))``; with ``fsdp`` the expert shards are all-gathered over "data"
@@ -359,20 +389,22 @@ def apply_moe_ep(moe, x, cfg, mesh):
     r = route(probs, m.top_k, cap)
     _log(r)
     out = _combine(xf, r, mesh.index("model") * e_loc, e_loc, _swiglu_experts(wi, wg, wo))
-    out = mesh.all_reduce(out.to(x.dtype), "model") + _shared(moe, xf, m)
+    out = _finish(moe, x, out, m, mesh, scatter_seq)
     dp = meshctx.dp_axes(mesh)
     aux = mesh.all_reduce(_aux(r, probs, m, t), dp) / meshctx.dp_size(mesh)
-    return out.reshape(b, s, d), aux
+    return out, aux
 
 
-def apply_moe_ep_decode(moe, x, cfg, mesh):
+def apply_moe_ep_decode(moe, x, cfg, mesh, scatter_seq=False):
     """The reference's ``apply_moe_ep_decode`` as one rank runs it: the
     expert leaves stay sharded (E over "model", d over "data"); every data
     rank's tokens are gathered and routed at capacity ``max(4, ceil(T k /
     E cf))`` over all T of them; h and g are contracted over the rank's
     d-slice and summed over "data", y is gathered over "data" along d,
     combined, summed over "model", and the rank keeps its own tokens. The
-    aux loss (over all tokens) is not averaged."""
+    aux loss (over all tokens) is not averaged. A prefill or train step of
+    at most ``DECODE_TOKENS`` tokens takes this path too; there, with
+    ``scatter_seq``, the combine is reduce-scattered along S."""
     m = cfg.moe
     b, s, d = x.shape
     dp = meshctx.dp_axes(mesh)
@@ -393,7 +425,10 @@ def apply_moe_ep_decode(moe, x, cfg, mesh):
         g = mesh.all_reduce(torch.bmm(part, moe.wg), "data")
         return mesh.all_gather(torch.bmm(F.silu(g) * h, moe.wo), "data", dim=2)
 
-    out = _combine(xf, r, mesh.index("model") * e_loc, e_loc, experts)
-    out = mesh.all_reduce(out.to(x.dtype), "model").reshape(-1, s, d)
+    out = _combine(xf, r, mesh.index("model") * e_loc, e_loc, experts).to(x.dtype)
+    if scatter_seq:
+        out = mesh.reduce_scatter(out.reshape(-1, s, d), "model", dim=1)
+    else:
+        out = mesh.all_reduce(out, "model").reshape(-1, s, d)
     i = mesh.index(dp)
-    return out[i * b:(i + 1) * b] + _shared(moe, x, m), _aux(r, probs, m, t)
+    return out[i * b:(i + 1) * b] + _shared(moe, x, m, scatter_seq), _aux(r, probs, m, t)

@@ -23,7 +23,10 @@ rank computes its columns of ``a`` and ``b``; ``ba``, ``bi`` and ``lam``
 replicated, each read as its block (``tp.model_block``); the scan and the
 decode update elementwise over d_rnn, so a rank runs its columns; ``out``
 row-parallel. The state is the rank's columns (``conv`` and ``h`` cut on
-d_rnn by the cache rules).
+d_rnn by the cache rules). Under a sequence-parallel residual
+(``meshctx.seq_parallel``) the block hands in its normed input gathered
+whole along the sequence (the conv and the scan need all of it), and
+``out``'s partial sums are reduce-scattered along it (``scatter_seq``).
 """
 from __future__ import annotations
 
@@ -105,8 +108,11 @@ def linear_scan(a, b):
     return b
 
 
-def apply_rglru(p, x, cfg, *, state=None):
-    """x: (B, L, d). Returns (out, new state {"conv", "h"})."""
+def apply_rglru(p, x, cfg, *, state=None, scatter_seq=False):
+    """x: (B, L, d). Returns (out, new state {"conv", "h"}); with
+    ``scatter_seq`` (x the whole sequence under a sequence-parallel
+    residual) out is the rank's block of L / model positions
+    (``tp.row_out``), the state still that of the whole sequence."""
     local = tp.cols(p.wx)
     xb = x @ tp.gather(p.wx)
     gate = x @ tp.gather(p.wgate)
@@ -116,7 +122,7 @@ def apply_rglru(p, x, cfg, *, state=None):
         # fold h0 into the first step: b_0 += a_0 * h0
         b = torch.cat([b[:, :1] + a[:, :1] * state["h"][:, None], b[:, 1:]], dim=1)
     h = linear_scan(a, b)
-    out = tp.row_out(h.to(x.dtype) * F.gelu(gate, approximate="tanh"), p.out)
+    out = tp.row_out(h.to(x.dtype) * F.gelu(gate, approximate="tanh"), p.out, scatter_seq)
     return out, {"conv": conv_state, "h": h[:, -1].to(torch.float32)}
 
 

@@ -18,14 +18,16 @@ every function here is the plain single-process op.
   "model", in the activation's dtype; or, with ``scatter_seq``, its
   reduce-scatter along the sequence (the sequence-parallel residual);
 * ``seq_block`` and ``seq_gather``: a rank's block of the sequence over
-  "model", and the blocks all-gathered whole;
+  "model", and the blocks all-gathered whole (the sequence-parallel
+  residual of every block type, ``models/blocks.py``);
 * ``model_block``: a replicated leaf's slice for this rank's block of a
   width cut over "model" (the mamba2 mixer's per-head and per-channel
   leaves, the RG-LRU's gate biases), as a view of the whole leaf;
 * ``mean_square``: a norm's mean of squares over a width cut over
   "model" (the sums of squares all-reduced, divided by the whole width);
 * ``mlp``: SwiGLU or GELU with ``wi`` / ``wg`` column-parallel and ``wo``
-  row-parallel;
+  row-parallel (``row_out``, so with ``scatter_seq`` its output is the
+  rank's block of the sequence);
 * ``embed`` and ``head``: the vocab-parallel lookup (a rank looks up the
   tokens in its rows, zeroes the others and all-reduces) and the LM head
   (each rank its vocab columns, all-gathered over "model"). These two
@@ -148,14 +150,16 @@ def mean_square(xf, cut=False):
     return total / (xf.shape[-1] * model_size(mesh))
 
 
-def mlp(x, wi, wg, wo, act="swiglu"):
+def mlp(x, wi, wg, wo, act="swiglu", scatter_seq=False):
     """``(silu(x wg) * (x wi)) wo`` (SwiGLU) or ``gelu(x wi) wo`` (tanh
-    form), wi / wg column-parallel and wo row-parallel."""
+    form), wi / wg column-parallel and wo row-parallel; with
+    ``scatter_seq`` (x (B, S, d), the whole sequence) the rank's block of
+    the output along S (``row_out``)."""
     if act == "swiglu":
         h = F.silu(x @ gather(wg)) * (x @ gather(wi))
     else:
         h = F.gelu(x @ gather(wi), approximate="tanh")
-    return row_out(h, wo)
+    return row_out(h, wo, scatter_seq)
 
 
 def embed(w, tokens):

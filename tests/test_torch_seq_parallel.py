@@ -24,8 +24,8 @@ each layer's ``out_proj`` all-reduce turned into an all-gather of the
 normed input and a reduce-scatter of the output, and one all-gather at
 the stack's end; the edges' and the decode's logs equal to the flag-off
 program's exactly. On meta: a train step's peak falls by at least half of
-the layers' kept residuals' 1 - 1/model, and another block type under
-the flag raises.
+the layers' kept residuals' 1 - 1/model. The other block types' program
+is held in ``tests/test_torch_seq_parallel_blocks.py``.
 """
 import collections
 
@@ -365,16 +365,3 @@ def test_a_mixer_the_model_axis_does_not_cut_takes_its_block_of_out_proj():
     assert logits.shape == (b, cfg.vocab_size)
     assert list(log) == [("all-gather", b * s * cfg.d_model * 4, 3)] * (LAYERS + 1)
 
-
-def test_another_block_type_under_the_flag_raises():
-    """No block but mamba2 has a sequence-parallel program: qwen3-1.7b (dense
-    blocks) with the flag forced on, on a model axis of 2, refuses to run."""
-    cfg = cfg_of(True, arch="qwen3-1.7b")
-    tokens = torch.empty((2, 8), dtype=torch.long, device="meta")
-    with meshctx.use_mesh(counting({})):
-        model = Model(cfg, device="meta")
-        with torch.no_grad(), pytest.raises(ValueError, match="'dense'"):
-            make_prefill_step(cfg, 8)(model, tokens)
-        train_step, opt_init = make_train_step(cfg)
-        with pytest.raises(ValueError, match="'dense'"):
-            train_step(model, opt_init(model), {"tokens": tokens, "labels": tokens})
